@@ -1,0 +1,380 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (openglue_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on a mismatch (the script then exits non-zero):
+
+1. card: requires CUDA; prints the card's name and power limit;
+2. build: compiles every CUDA source of the port (one nvcc each, in parallel);
+3. kernels: each kernel at the serving shapes, held against its plain PyTorch
+   version on the card, with its time, the plain version's time and its bound;
+4. slice: the serving path of the flagship config (the ``superglue:`` section
+   of configs/config_cached_sp_magicleap.yaml: D=256, 9 stages, 4 heads,
+   bf16 chain, 20 Sinkhorn iterations, use_pallas) with seeded random weights,
+   serving single-pair requests, a B=16 batch at N=1024 and a B=4 batch at
+   N=2048 through ``SuperGlue.forward`` + ``decode_from_output``. It checks
+   the kernel launch counts and holds every request against the same model
+   run through the kernels' plain versions; a small f32 input is also held
+   against the independent composed path (use_pallas=False).
+
+The line before the last is the card's ``nvidia-smi`` name and power limit,
+the line before that the JSON ``kernels`` record, and the last line the JSON
+device record. f32 matmuls run in full f32 (TF32 off) on every plain path.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+# the superglue: section of configs/config_cached_sp_magicleap.yaml (a CPU
+# test holds this copy to the YAML)
+SUPERGLUE_SECTION = {
+    "laf_to_sideinfo_method": "none",
+    "positional_encoding": {"hidden_layers_sizes": [32, 64, 128]},
+    "attention_gnn": {
+        "num_stages": 9, "num_heads": 4, "attention": "softmax", "use_offset": False,
+    },
+    "dustbin_score_init": 1.0,
+    "otp": {"num_iters": 20, "reg": 1.0},
+    "residual": True,
+    "use_pallas": True,
+    "chain_dtype": "bfloat16",
+}
+DESCRIPTOR_DIM = 256  # SuperPoint descriptors
+SIDE_INFO_DIM = 0  # laf_to_sideinfo_method: none -> side info is the response only
+
+PEAK_BF16_FLOPS = 989e12  # H100 SXM dense tensor-core rate
+PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+DECODE_AGREEMENT = 0.99
+LOG_P_NATS = 0.05
+MATCH_THRESHOLD = 0.2  # the flagship config's inference.match_threshold
+SERVE_REPEATS = 5  # a request's latency is the median of this many runs
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(flops: float, flop_rate: float, nbytes: float):
+    t_ops, t_bytes = flops / flop_rate, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check(cond: bool, message: str) -> None:
+    if not cond:
+        raise AssertionError(message)
+
+
+def layer_phase(glk, dtype, gen, batch=16, n=1024, dim=256, heads=4):
+    """K1 at the serving shape with ragged key masks: kernel vs plain."""
+    dev = torch.device("cuda")
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    d2 = 2 * dim
+    w = glk.PropagationWeights(
+        r(dim, dim, scale=dim**-0.5).to(dtype), r(dim), r(dim, dim, scale=dim**-0.5).to(dtype), r(dim),
+        r(dim, dim, scale=dim**-0.5).to(dtype), r(dim), r(dim, dim, scale=dim**-0.5).to(dtype), r(dim),
+        r(d2, d2, scale=d2**-0.5).to(dtype), r(d2), 1.0 + 0.1 * r(d2), 0.1 * r(d2),
+        r(dim, d2, scale=d2**-0.5).to(dtype), r(dim),
+    )
+    x_q, x_kv = r(batch, n, dim).to(dtype), r(batch, n, dim).to(dtype)
+    counts = torch.randint(n // 4, n + 1, (batch,), generator=gen, device=dev)
+    mask = torch.arange(n, device=dev)[None] < counts[:, None]
+    out = glk.fused_attention_propagation(x_q, x_kv, mask, w, heads)
+    ref = glk.layer_plain(x_q, x_kv, mask, w, heads)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    # f32: summation order only; bf16: two ulps of the largest output (rounding
+    # flips from the online softmax and the accumulation order)
+    tol = 1e-3 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    check(err <= tol, f"K1 {dtype}: max error {err} above {tol}")
+    ms = cuda_ms(lambda: glk.fused_attention_propagation(x_q, x_kv, mask, w, heads), 20)
+    plain_ms = cuda_ms(lambda: glk.layer_plain(x_q, x_kv, mask, w, heads), 5, warmup=1)
+    elt = x_q.element_size()
+    flops = batch * (20 * n * dim * dim + 4 * n * n * dim)
+    nbytes = 3 * batch * n * dim * elt + (4 * dim * dim + 6 * dim * dim) * elt + batch * n
+    rate = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    bms, by = bound_ms(flops, rate, nbytes)
+    print(f"K1 gnn_layer {str(dtype)[6:]} B={batch} N=M={n} D={dim} H={heads}: max_abs_err={err:.3e} "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def sinkhorn_phase(sk, batch, n, gen, iters=20):
+    """K2 on a padded, masked OT matrix at a serving shape: kernel vs plain."""
+    dev = torch.device("cuda")
+    scores = torch.randn(batch, n, n, generator=gen, device=dev) * 4
+    mask0 = torch.rand(batch, n, generator=gen, device=dev) > 0.1
+    mask1 = torch.rand(batch, n, generator=gen, device=dev) > 0.1
+    rows, cols = n + 1, n + 1
+    cp = sk._round_up(cols, sk.COL_ALIGN)
+    k_dtype = sk.k_storage_dtype(rows, cols)
+    dust = torch.tensor(1.0, device=dev)
+    M_pad = sk.build_padded_otp_matrix(scores, dust, 1.0, mask0, mask1, rows, cp)
+    la, lb, _ = sk.otp_marginals(batch, n, n, mask0, mask1, dev)
+    la, lb = sk.padded_marginals(la, lb, rows, cp)
+    u = sk.sinkhorn_scale(M_pad, la, lb, iters, k_dtype)
+    ref = sk.sinkhorn_scale_plain(M_pad, la, lb, iters, k_dtype)
+    torch.cuda.synchronize()
+    live = la > -1e8  # masked rows sit near -1e9, where one f32 ulp is 64
+    err = (u - ref).abs()[live].max().item()
+    check(err <= 1e-3, f"K2 B={batch} N={n}: max error {err} on live rows")
+    ms = cuda_ms(lambda: sk.sinkhorn_scale(M_pad, la, lb, iters, k_dtype), 10)
+    plain_ms = cuda_ms(lambda: sk.sinkhorn_scale_plain(M_pad, la, lb, iters, k_dtype), 5, warmup=1)
+    flops = batch * rows * cp * (4 * (iters - 1) + 2)
+    nbytes = batch * (rows * cp * 4 + 2 * rows * 4 + cp * 4)
+    bms, by = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
+    print(f"K2 sinkhorn K={str(k_dtype)[6:]} B={batch} N={n}: max_abs_err={err:.3e} "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, k_dtype=k_dtype)
+
+
+@contextlib.contextmanager
+def plain_versions(glk, sk):
+    """Route the model's kernel calls to the kernels' plain versions, on the
+    card, for the reference run of the same model."""
+    saved = glk.fused_attention_propagation, sk.sinkhorn_scale
+    glk.fused_attention_propagation = glk.layer_plain
+    sk.sinkhorn_scale = sk.sinkhorn_scale_plain
+    try:
+        yield
+    finally:
+        glk.fused_attention_propagation, sk.sinkhorn_scale = saved
+
+
+def make_request(SyntheticHomographyPairs, gen, batch, n, counts0, counts1):
+    """Synthetic pairs padded as a bucketed server pads them: keypoints beyond
+    each image's valid count are zeros with mask False."""
+    pairs = SyntheticHomographyPairs(num_keypoints=n, descriptor_dim=DESCRIPTOR_DIM).sample(gen, batch)
+    dev = pairs.side0.keypoints.device
+    for side, counts in ((pairs.side0, counts0), (pairs.side1, counts1)):
+        valid = torch.arange(n, device=dev)[None] < torch.as_tensor(counts, device=dev)[:, None]
+        side.mask = valid
+        for name in ("keypoints", "descriptors", "side_info"):
+            setattr(side, name, getattr(side, name) * valid[..., None])
+    return pairs
+
+
+def serve(model, decode_from_output, inputs):
+    out = model(**inputs)
+    decoded = decode_from_output(out, MATCH_THRESHOLD, inputs["mask0"], inputs["mask1"])
+    return out, decoded
+
+
+def compare(decode_from_output, out, ref, inputs, name):
+    """The served result against the plain path's: log_P on valid entries
+    (gated at 0.05 nats) and the decode, the mutual-nearest-neighbour matches
+    the server returns, at the config's threshold and at threshold 0 (gated
+    at 99% agreement). At random weights no score clears the 0.2 threshold
+    and the assignment is nearly flat (top-two margins of ~0.015 nats), so
+    threshold 0 is where the decode has content; the row-argmax agreement
+    and the median margin are reported beside it."""
+    rows = torch.cat([inputs["mask0"], torch.ones_like(inputs["mask0"][:, :1])], 1)
+    cols = torch.cat([inputs["mask1"], torch.ones_like(inputs["mask1"][:, :1])], 1)
+    valid = rows[:, :, None] & cols[:, None, :]
+    scores = out["scores"]
+    check(bool(torch.isfinite(scores[valid]).all()), f"{name}: non-finite log_P")
+    nats = (scores - ref["scores"]).abs()[valid].max().item()
+    check(nats <= LOG_P_NATS, f"{name}: log_P differs by {nats} nats from the plain path")
+    m0, m1 = inputs["mask0"], inputs["mask1"]
+    stats = {}
+    for thr in (MATCH_THRESHOLD, 0.0):
+        a = decode_from_output(out, thr, m0, m1)["matches0"]
+        b = decode_from_output(ref, thr, m0, m1)["matches0"]
+        stats[f"matches@{thr}"] = agree = (a == b)[m0].float().mean().item()
+        check(agree >= DECODE_AGREEMENT, f"{name}: decode agreement {agree} at threshold {thr}")
+    stats["row_argmax"] = (out["decode_indices0"] == ref["decode_indices0"])[m0].float().mean().item()
+    inner = ref["scores"][:, :-1, :-1].masked_fill(~m1[:, None, :], float("-inf"))
+    top2 = inner.topk(2, dim=2).values
+    stats["median_top2_margin"] = (top2[..., 0] - top2[..., 1])[m0].median().item()
+    return nats, stats
+
+
+def device_profile(fn, top: int = 5):
+    """Device time of the kernels ``fn`` runs (torch.profiler), in ms, and the
+    ``top`` kernels by device time as (ms, name); (None, []) when the profiler
+    sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for event in prof.key_averages():
+        ms = getattr(event, "self_device_time_total", 0.0) / 1e3
+        if str(getattr(event, "device_type", "")).endswith("CUDA") and ms > 0:
+            name = event.key.replace("void ", "").replace("(anonymous namespace)::", "")
+            rows.append((ms, name.split("(")[0]))
+    rows.sort(reverse=True)
+    total = sum(ms for ms, _ in rows)
+    return (total if total > 0 else None), rows[:top]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card is available", file=sys.stderr)
+        return 1
+    repo = Path(__file__).resolve().parent
+    if not (repo / "openglue_tpu_torch" / "ops" / "csrc").is_dir():
+        print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(repo))
+    from openglue_tpu_torch.cli.common import superglue_config_from
+    from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
+    from openglue_tpu_torch.models.matching import decode_from_output
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops import kernels
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.train.step import superglue_inputs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(f"card: {card} | torch {torch.__version__} CUDA {torch.version.cuda}", flush=True)
+
+    t0 = time.perf_counter()
+    build = kernels.build_all()
+    print(f"build: {json.dumps({k: round(v, 2) for k, v in build.items()})} "
+          f"({time.perf_counter() - t0:.1f} s wall, parallel nvcc)", flush=True)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # the flagship serving config at full width, with seeded random weights
+    cfg = superglue_config_from({"superglue": SUPERGLUE_SECTION}, DESCRIPTOR_DIM, SIDE_INFO_DIM)
+    model = SuperGlue(cfg, device="cuda", generator=torch.Generator().manual_seed(0)).eval()
+    f32_section = dict(SUPERGLUE_SECTION, chain_dtype=None)
+    f32_model = SuperGlue(superglue_config_from({"superglue": f32_section}, DESCRIPTOR_DIM, SIDE_INFO_DIM),
+                          device="cuda").eval()
+    composed = SuperGlue(superglue_config_from({"superglue": dict(f32_section, use_pallas=False)},
+                                               DESCRIPTOR_DIM, SIDE_INFO_DIM), device="cuda").eval()
+    f32_model.load_state_dict(model.state_dict())
+    composed.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        k1 = {dt: layer_phase(glk, dt, gen) for dt in (torch.bfloat16, torch.float32)}
+        k2 = {shape: sinkhorn_phase(sk, *shape, gen) for shape in ((16, 1024), (1, 1024), (4, 2048))}
+
+        # ---- slice: serve requests through SuperGlue.forward + decode
+        layers = 2 * cfg.num_stages * 2  # self + cross per stage, both images
+        singles = [(1024, 1024), (1024, 700), (700, 513), (513, 300)]
+        requests = [(f"B=1 N=1024 valid={c0}/{c1}", make_request(
+            SyntheticHomographyPairs, gen, 1, 1024, [c0], [c1])) for c0, c1 in singles]
+        counts = lambda b, n: torch.randint(n // 2, n + 1, (b,), generator=gen, device="cuda").tolist()
+        requests.append(("B=16 N=1024", make_request(
+            SyntheticHomographyPairs, gen, 16, 1024, counts(16, 1024), counts(16, 1024))))
+        requests.append(("B=4 N=2048", make_request(
+            SyntheticHomographyPairs, gen, 4, 2048, counts(4, 2048), counts(4, 2048))))
+        requests = [(name, superglue_inputs(pairs)) for name, pairs in requests]
+        for _, inputs in requests:  # warm the allocator and the folded weights
+            serve(model, decode_from_output, inputs)
+        torch.cuda.synchronize()
+
+        glk.counter.reset()
+        sk.counter.reset()
+        results = []
+        for name, inputs in requests:
+            before = glk.counter.count, sk.counter.count
+            out, decoded = serve(model, decode_from_output, inputs)
+            delta = glk.counter.count - before[0], sk.counter.count - before[1]
+            check(delta == (layers, 1), f"{name}: launches {delta}, expected ({layers}, 1)")
+            times = []
+            for _ in range(SERVE_REPEATS):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                serve(model, decode_from_output, inputs)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - start)
+            results.append((name, inputs, out, decoded, statistics.median(times), delta))
+        launches = {"layer": glk.counter.count, "sinkhorn": sk.counter.count}
+
+        with plain_versions(glk, sk):
+            refs = [serve(model, decode_from_output, inputs)[0] for _, inputs, *_ in results]
+        for (name, inputs, out, decoded, latency, delta), ref in zip(results, refs):
+            nats, stats = compare(decode_from_output, out, ref, inputs, name)
+            batch = inputs["kpts0"].shape[0]
+            n_matches = int((decoded["matches0"] >= 0).sum())
+            busy, kernels_by_time = device_profile(
+                lambda: serve(model, decode_from_output, inputs))
+            idle = "not measured" if busy is None else f"{1 - busy / (latency * 1e3):.3f}"
+            print(f"serve {name}: {latency * 1e3:.3f} ms (median of {SERVE_REPEATS}), "
+                  f"{batch / latency:.2f} pairs/s, "
+                  f"device busy {busy} ms, idle share {idle}, "
+                  f"launches layer={delta[0]} sinkhorn={delta[1]}, vs plain path: "
+                  f"{nats:.3e} nats, decode {json.dumps(stats)}, matches {n_matches} "
+                  f"[{card}]", flush=True)
+            print(f"  device time by kernel, {name}: "
+                  + "; ".join(f"{kname} {ms:.3f} ms" for ms, kname in kernels_by_time), flush=True)
+
+        # ---- a small f32 input against the independent composed path
+        inputs = superglue_inputs(make_request(SyntheticHomographyPairs, gen, 2, 256, [256, 180], [200, 256]))
+        out, ref = f32_model(**inputs), composed(**inputs)
+        rows = torch.cat([inputs["mask0"], torch.ones_like(inputs["mask0"][:, :1])], 1)
+        cols = torch.cat([inputs["mask1"], torch.ones_like(inputs["mask1"][:, :1])], 1)
+        valid = rows[:, :, None] & cols[:, None, :]
+        f32_err = (out["scores"] - ref["scores"]).abs()[valid].max().item()
+        check(f32_err <= 5e-4, f"f32 kernel path vs composed path: {f32_err}")
+        check(torch.equal(out["decode_indices0"][inputs["mask0"]], ref["decode_indices0"][inputs["mask0"]]),
+              "f32 kernel path vs composed path: decode differs")
+        print(f"f32 B=2 N=256: kernel path vs composed path max |log_P| diff {f32_err:.3e}, decode identical",
+              flush=True)
+
+    n1024 = sum(d[1] for name, *_, d in results if "N=1024" in name)
+    n2048 = sum(d[1] for name, *_, d in results if "N=2048" in name)
+    layer = "openglue_tpu_torch/ops/csrc/gnn_layer.cu"
+    sinkhorn = "openglue_tpu_torch/ops/csrc/sinkhorn.cu"
+    record = {"kernels": [
+        dict(name="gnn_layer_softmax (bf16, B=16 N=M=1024 D=256 H=4)", route="cuda", source=layer,
+             replaces="openglue_tpu/ops/pallas/gnn_layer_kernel.py:117", launches=launches["layer"],
+             **k1[torch.bfloat16], library_ms=None,
+             f32=dict(k1[torch.float32], library_ms=None)),
+        dict(name="sinkhorn_scale (f32 K, B=16 N=1024)", route="cuda", source=sinkhorn,
+             replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:128", launches=n1024,
+             **{k: v for k, v in k2[(16, 1024)].items() if k != "k_dtype"}, library_ms=None,
+             single_pair=dict({k: v for k, v in k2[(1, 1024)].items() if k != "k_dtype"},
+                              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:56")),
+        dict(name="sinkhorn_scale (bf16 K, B=4 N=2048)", route="cuda", source=sinkhorn,
+             replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315", launches=n2048,
+             **{k: v for k, v in k2[(4, 2048)].items() if k != "k_dtype"}, library_ms=None),
+    ]}
+    for entry in record["kernels"]:
+        check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")
+    print(json.dumps(record), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,68 @@
+"""Carry JAX-package matcher weights into the port.
+
+``superglue_state_dict_from_jax`` takes the JAX variable tree as nested dicts
+of numpy arrays (``{"params": ..., "batch_stats": ...}``) and returns the
+port's ``state_dict``, named after the reference torch keys. Dense kernels
+``[in, out]`` become 1x1-conv weights ``[out, in, 1]``; BatchNorm
+scale/bias/mean/var become weight/bias/running_mean/running_var.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from openglue_tpu_torch.models.superglue import SuperGlueConfig
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def _dense(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None:
+    sd[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T[:, :, None])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def _bn(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any], s: Mapping[str, Any]) -> None:
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+    sd[f"{name}.running_mean"] = _t(s["mean"])
+    sd[f"{name}.running_var"] = _t(s["var"])
+
+
+def _ffn(sd, prefix: str, params: Mapping[str, Any], stats: Mapping[str, Any], num_hidden: int):
+    for i in range(num_hidden):
+        _dense(sd, f"{prefix}.{3 * i}", params[f"dense_{i}"])
+        _bn(sd, f"{prefix}.{3 * i + 2}", params[f"bn_{i}"], stats[f"bn_{i}"])
+    _dense(sd, f"{prefix}.{3 * num_hidden}", params[f"dense_{num_hidden}"])
+
+
+def superglue_state_dict_from_jax(
+    variables: Mapping[str, Any], config: SuperGlueConfig
+) -> Dict[str, torch.Tensor]:
+    """The port's SuperGlue state dict from JAX SuperGlue variables."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    _ffn(
+        sd, "positional_encoding.encoder", params["positional_encoding"]["encoder"],
+        stats["positional_encoding"]["encoder"], len(config.pe_hidden_layers_sizes),
+    )
+    for stage in range(config.num_stages):
+        for offset, kind in ((0, "self"), (1, "cross")):
+            prefix = f"attention_gnn.layers.{2 * stage + offset}.module"
+            layer = params["attention_gnn"][f"{kind}_{stage}"]
+            for jax_name, torch_name in (
+                ("q_proj", "in_proj_q"), ("k_proj", "in_proj_k"),
+                ("v_proj", "in_proj_v"), ("out_proj", "out_proj"),
+            ):
+                _dense(sd, f"{prefix}.mha.{torch_name}", layer["mha"][jax_name])
+            _ffn(sd, f"{prefix}.fc", layer["ffn"],
+                 stats["attention_gnn"][f"{kind}_{stage}"]["ffn"], num_hidden=1)
+    _dense(sd, "linear_proj", params["linear_proj"])
+    if config.residual:
+        sd["mix_coefs"] = _t(np.asarray(params["mix_coefs"])[:, None])
+    sd["dustbin_score"] = _t(params["dustbin_score"])
+    return sd

@@ -1,0 +1,103 @@
+"""Synthetic homography-warp pair generator (port of
+``openglue_tpu/data/synthetic.py``, ``SyntheticHomographyPairs``).
+
+Keypoints in image0, a random 4-corner homography, the warped keypoints in
+image1 (with jitter) plus distractors, and descriptors that are noisy copies
+across the pair. Tensors are made on the generator's device from a
+``torch.Generator``; the numbers differ from the JAX generator's for the same
+seed, and the two agree only in distribution.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from openglue_tpu_torch.core.types import KeypointSet, PairBatch
+
+
+def _uniform(gen: torch.Generator, shape, low, high) -> torch.Tensor:
+    u = torch.rand(shape, generator=gen, device=gen.device)
+    return low + (high - low) * u
+
+
+def solve_homography(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """DLT for 4 point pairs with h9 = 1. src/dst [B, 4, 2] -> [B, 3, 3]."""
+    x, y = src[..., 0], src[..., 1]
+    u, v = dst[..., 0], dst[..., 1]
+    zeros, ones = torch.zeros_like(x), torch.ones_like(x)
+    rows_u = torch.stack([x, y, ones, zeros, zeros, zeros, -u * x, -u * y], dim=-1)
+    rows_v = torch.stack([zeros, zeros, zeros, x, y, ones, -v * x, -v * y], dim=-1)
+    A = torch.cat([rows_u, rows_v], dim=1)
+    b = torch.cat([u, v], dim=1)[..., None]
+    h = torch.linalg.solve(A, b)[..., 0]
+    return torch.cat([h, torch.ones_like(h[:, :1])], dim=1).reshape(-1, 3, 3)
+
+
+def random_homography(
+    gen: torch.Generator, batch: int, image_size: Tuple[int, int] = (960, 720),
+    max_corner_offset: float = 100.0,
+) -> torch.Tensor:
+    """[B, 3, 3] homographies from random offsets of the four image corners."""
+    w, h = image_size
+    src = torch.tensor([[0.0, 0.0], [w, 0.0], [w, h], [0.0, h]], device=gen.device)
+    offsets = _uniform(gen, (batch, 4, 2), -max_corner_offset, max_corner_offset)
+    return solve_homography(src.expand(batch, 4, 2), src[None] + offsets)
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticHomographyPairs:
+    """Generator of PairBatch samples related by random homographies."""
+
+    num_keypoints: int = 512
+    descriptor_dim: int = 256
+    image_size: Tuple[int, int] = (960, 720)
+    covisible_fraction: float = 0.7
+    jitter: float = 1.0
+    descriptor_noise: float = 0.1
+    max_corner_offset: float = 100.0
+    side_info_dim: int = 1
+
+    def sample(self, gen: torch.Generator, batch: int) -> PairBatch:
+        w, h = self.image_size
+        n, d = self.num_keypoints, self.descriptor_dim
+        device = gen.device
+        H = random_homography(gen, batch, self.image_size, self.max_corner_offset)
+        hi = torch.tensor([w - 1.0, h - 1.0], device=device)
+
+        kpts0 = _uniform(gen, (batch, n, 2), 0.0, 1.0) * hi
+        ones = torch.ones(batch, n, 1, device=device)
+        warped = torch.einsum("bij,bnj->bni", H, torch.cat([kpts0, ones], -1))
+        warped = warped[..., :2] / (warped[..., 2:3] + 1e-8)
+        warped = warped + self.jitter * torch.randn(batch, n, 2, generator=gen, device=device)
+        distractors = _uniform(gen, (batch, n, 2), 0.0, 1.0) * hi
+
+        num_covisible = int(self.covisible_fraction * n)
+        covis = (torch.arange(n, device=device) < num_covisible)[None, :, None]
+        in_bounds = (
+            (warped[..., 0] >= 0) & (warped[..., 0] <= w - 1)
+            & (warped[..., 1] >= 0) & (warped[..., 1] <= h - 1)
+        )[..., None]
+        matched = covis & in_bounds
+        kpts1 = torch.where(matched, warped, distractors)
+
+        shared = torch.randn(batch, n, d, generator=gen, device=device)
+        desc0 = shared + self.descriptor_noise * torch.randn(batch, n, d, generator=gen, device=device)
+        noise1 = self.descriptor_noise * torch.randn(batch, n, d, generator=gen, device=device)
+        desc1 = torch.where(matched, shared + noise1, torch.roll(shared, 1, dims=1) + noise1)
+        desc0 = desc0 / torch.linalg.norm(desc0, dim=-1, keepdim=True)
+        desc1 = desc1 / torch.linalg.norm(desc1, dim=-1, keepdim=True)
+
+        def side_info():
+            resp = torch.rand(batch, n, 1, generator=gen, device=device)
+            return torch.cat([resp, torch.zeros(batch, n, self.side_info_dim - 1, device=device)], -1)
+
+        mask = torch.ones(batch, n, dtype=torch.bool, device=device)
+        image_size = torch.tensor([float(w), float(h)], device=device).expand(batch, 2)
+        return PairBatch(
+            side0=KeypointSet(kpts0, desc0, side_info(), mask, image_size),
+            side1=KeypointSet(kpts1, desc1, side_info(), mask.clone(), image_size),
+            homography=H,
+        )

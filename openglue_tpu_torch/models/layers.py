@@ -1,0 +1,112 @@
+"""Building-block layers (port of ``openglue_tpu/models/layers.py``).
+
+Everything works on channels-last ``[B, N, C]``. A 1x1 convolution over the
+keypoint axis is a per-keypoint dense layer; ``Conv1x1`` keeps the reference's
+``Conv1d`` weight layout ``[out, in, 1]`` and default init so state dicts
+carry over by name.
+
+Compute type: a layer built with ``dtype=None`` computes in the promotion of
+its input's and its parameters' types (a bf16 input meets f32 weights in
+f32), as flax does for the JAX package. torch does not promote a matmul by
+itself, so the cast is explicit.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+
+def _compute_dtype(x: torch.Tensor, param: torch.Tensor, dtype: Optional[torch.dtype]):
+    return dtype if dtype is not None else torch.promote_types(x.dtype, param.dtype)
+
+
+class Conv1x1(nn.Module):
+    """Dense layer over the last axis with a ``[out, in, 1]`` weight and the
+    torch ``Conv1d`` default init, U(-1/sqrt(in), 1/sqrt(in)) for weight and
+    bias (kaiming_uniform with a=sqrt(5) reduces to it)."""
+
+    def __init__(self, in_features: int, out_features: int, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, 1))
+        self.bias = nn.Parameter(torch.empty(out_features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        bound = 1.0 / math.sqrt(self.weight.shape[1])
+        with torch.no_grad():
+            nn.init.uniform_(self.weight, -bound, bound, generator=generator)
+            nn.init.uniform_(self.bias, -bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = _compute_dtype(x, self.weight, self.dtype)
+        return torch.matmul(x.to(dt), self.weight[:, :, 0].to(dt).t()) + self.bias.to(dt)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over every axis but the last, with torch ``BatchNorm1d``
+    semantics (biased batch variance to normalize, unbiased variance into the
+    running stats, momentum 0.1) and an optional ``[...]`` validity mask that
+    keeps padded keypoints out of the statistics. The output type is
+    ``dtype`` or, when None, the input's type."""
+
+    def __init__(
+        self,
+        num_features: int,
+        momentum: float = 0.1,
+        eps: float = 1e-5,
+        dtype: Optional[torch.dtype] = None,
+    ):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x32 = x.float()
+        if self.training:
+            flat = x32.reshape(-1, x32.shape[-1])
+            if mask is None:
+                count = torch.tensor(float(flat.shape[0]), device=x.device)
+                mean = flat.mean(dim=0)
+                var = ((flat - mean) ** 2).mean(dim=0)
+            else:
+                m = mask.reshape(-1, 1).float()
+                count = torch.clamp(m.sum(), min=1.0)
+                mean = (flat * m).sum(dim=0) / count
+                var = (((flat - mean) ** 2) * m).sum(dim=0) / count
+            with torch.no_grad():
+                unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.weight + self.bias
+        return y.to(self.dtype or x.dtype)
+
+
+class FeedForwardNet(nn.Sequential):
+    """[1x1 conv -> ReLU -> BatchNorm] x k -> 1x1 conv. ``sizes`` lists the
+    input size, the hidden sizes and the output size. Submodule indices are
+    the reference's ``nn.Sequential`` ones (conv 3i, ReLU 3i+1, BN 3i+2, final
+    conv 3k), so state-dict keys carry over."""
+
+    def __init__(self, sizes: Sequence[int], dtype: Optional[torch.dtype] = None):
+        layers = []
+        for fan_in, size in zip(sizes[:-2], sizes[1:-1]):
+            layers += [Conv1x1(fan_in, size, dtype), nn.ReLU(), MaskedBatchNorm(size, dtype=dtype)]
+        layers.append(Conv1x1(sizes[-2], sizes[-1], dtype))
+        super().__init__(*layers)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for layer in self:
+            x = layer(x, mask) if isinstance(layer, MaskedBatchNorm) else layer(x)
+        return x

@@ -1,0 +1,95 @@
+"""Match decoding from the log-assignment matrix (port of
+``openglue_tpu/models/matching.py``): mutual nearest neighbours + threshold,
+returned as fixed-size index tensors with -1 for no match."""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+
+def assignment_stats(
+    scores: torch.Tensor,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+):
+    """Row argmax [B, N], column argmax [B, M] and row max [B, N] of the inner
+    log-assignment matrix, masked entries at -inf; ties take the first index."""
+    inner = scores[:, :-1, :-1]
+    neg_inf = inner.new_tensor(float("-inf"))
+    if mask1 is not None:
+        inner = torch.where(mask1[:, None, :], inner, neg_inf)
+    if mask0 is not None:
+        inner = torch.where(mask0[:, :, None], inner, neg_inf)
+    max0 = inner.amax(dim=2)
+    indices0 = inner.argmax(dim=2)
+    indices1 = inner.argmax(dim=1)
+    return indices0, indices1, max0
+
+
+def decode_matches_from_stats(
+    indices0: torch.Tensor,
+    indices1: torch.Tensor,
+    max0: torch.Tensor,
+    match_threshold: float = 0.2,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Mutual-NN + threshold decode from ``assignment_stats`` outputs."""
+    n, m = indices0.shape[1], indices1.shape[1]
+    arange0 = torch.arange(n, device=indices0.device)[None, :]
+    arange1 = torch.arange(m, device=indices1.device)[None, :]
+    mutual0 = arange0 == torch.gather(indices1, 1, indices0)
+    mutual1 = arange1 == torch.gather(indices0, 1, indices1)
+
+    zero = max0.new_tensor(0.0)
+    mscores0 = torch.where(mutual0, torch.exp(max0), zero)
+    mscores1 = torch.where(mutual1, torch.gather(mscores0, 1, indices1), zero)
+
+    valid0 = mutual0 & (mscores0 > match_threshold)
+    valid1 = mutual1 & torch.gather(valid0, 1, indices1)
+    if mask0 is not None:
+        valid0 = valid0 & mask0
+        mscores0 = torch.where(mask0, mscores0, zero)
+    if mask1 is not None:
+        valid1 = valid1 & mask1
+        mscores1 = torch.where(mask1, mscores1, zero)
+
+    minus_one = indices0.new_tensor(-1)
+    return {
+        "matches0": torch.where(valid0, indices0, minus_one),
+        "matches1": torch.where(valid1, indices1, minus_one),
+        "matching_scores0": mscores0,
+        "matching_scores1": mscores1,
+    }
+
+
+def decode_matches(
+    scores: torch.Tensor,
+    match_threshold: float = 0.2,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Decode from log-assignment scores [B, N+1, M+1]: matches0 [B, N],
+    matches1 [B, M] (index or -1) and their confidences."""
+    indices0, indices1, max0 = assignment_stats(scores, mask0=mask0, mask1=mask1)
+    return decode_matches_from_stats(
+        indices0, indices1, max0, match_threshold=match_threshold, mask0=mask0, mask1=mask1
+    )
+
+
+def decode_from_output(
+    out: Dict[str, torch.Tensor],
+    match_threshold: float = 0.2,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Decode from a SuperGlue output dict, from the decode stats when the
+    model emitted them (``decode_stats``), else from the full matrix."""
+    if "decode_indices0" in out:
+        return decode_matches_from_stats(
+            out["decode_indices0"], out["decode_indices1"], out["decode_max0"],
+            match_threshold=match_threshold, mask0=mask0, mask1=mask1,
+        )
+    return decode_matches(out["scores"], match_threshold=match_threshold, mask0=mask0, mask1=mask1)

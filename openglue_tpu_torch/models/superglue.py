@@ -1,0 +1,192 @@
+"""The SuperGlue matcher head (port of ``openglue_tpu/models/superglue.py``).
+
+Normalize keypoints to [-1, 1] -> MLP positional encoding added to the local
+descriptors -> attentional GNN (optionally carried in ``chain_dtype``) ->
+linear projection (+ the residual mix with a learned per-channel sigmoid
+gate) -> scaled dot-product scores -> dustbin-augmented Sinkhorn ->
+log-assignment scores ``[B, N+1, M+1]``.
+
+``use_pallas`` keeps its JAX meaning: False runs the composed torch path,
+True runs the CUDA kernels (the eval GNN layer and the scale-domain Sinkhorn);
+on CPU tensors the kernels' plain versions run instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Optional, Sequence
+
+import torch
+from torch import nn
+
+from openglue_tpu_torch.models.gnn import AttentionGNN
+from openglue_tpu_torch.models.layers import Conv1x1
+from openglue_tpu_torch.models.matching import assignment_stats
+from openglue_tpu_torch.models.positional_encoding import MLPPositionalEncoding
+from openglue_tpu_torch.ops import sinkhorn as sinkhorn_ops
+from openglue_tpu_torch.ops.kernels import sinkhorn_kernel
+
+
+def as_torch_dtype(value: Any) -> Optional[torch.dtype]:
+    """None, a torch dtype or its name ("bfloat16") -> torch dtype or None."""
+    if value is None or isinstance(value, torch.dtype):
+        return value
+    dtype = getattr(torch, str(value), None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"unknown dtype {value!r}")
+    return dtype
+
+
+@dataclasses.dataclass(frozen=True)
+class SuperGlueConfig:
+    """Static configuration (the JAX package's schema, reference
+    config/config.yaml:42-55)."""
+
+    descriptor_dim: int = 256
+    pe_hidden_layers_sizes: Sequence[int] = (32, 64, 128)
+    pe_encoder_name: str = "FeedForwardNet"
+    side_info_size: int = 1
+    num_stages: int = 9
+    num_heads: int = 4
+    attention: str = "softmax"
+    use_offset: bool = False
+    dustbin_score_init: float = 1.0
+    otp_num_iters: int = 20
+    otp_reg: float = 1.0
+    residual: bool = True
+    no_descriptors: bool = False
+    dtype: Any = None  # computation type; None = the promoted input type (f32)
+    chain_dtype: Any = None  # type of the GNN residual chain; None = promoted (f32)
+    use_pallas: bool = False
+    remat: bool = False
+    ring_axis: Any = None
+    quantize: Optional[str] = None
+    decode_stats: bool = False
+
+    @classmethod
+    def from_dict(cls, cfg: Mapping[str, Any]) -> "SuperGlueConfig":
+        pe = cfg.get("positional_encoding", {})
+        gnn = cfg.get("attention_gnn", {})
+        otp = cfg.get("otp", {})
+        return cls(
+            descriptor_dim=cfg["descriptor_dim"],
+            pe_hidden_layers_sizes=tuple(pe.get("hidden_layers_sizes", ()) or ()),
+            pe_encoder_name=pe.get("encoder_name", "FeedForwardNet"),
+            side_info_size=pe.get("side_info_size", 1),
+            num_stages=gnn.get("num_stages", 9),
+            num_heads=gnn.get("num_heads", 4),
+            attention=gnn.get("attention", "softmax"),
+            use_offset=gnn.get("use_offset", False),
+            dustbin_score_init=cfg.get("dustbin_score_init", 1.0),
+            otp_num_iters=otp.get("num_iters", 20),
+            otp_reg=otp.get("reg", 1.0),
+            residual=cfg.get("residual", False),
+            no_descriptors=cfg.get("no_descriptors", False),
+            dtype=cfg.get("dtype"),
+            chain_dtype=cfg.get("chain_dtype"),
+            use_pallas=cfg.get("use_pallas", False),
+            remat=cfg.get("remat", False),
+            ring_axis=cfg.get("ring_axis"),
+            quantize=cfg.get("quantize"),
+            decode_stats=cfg.get("decode_stats", False),
+        )
+
+
+def normalize_keypoints(kpts: torch.Tensor, image_size: torch.Tensor) -> torch.Tensor:
+    """Pixel coordinates [B, N, 2] -> [-1, 1]; image_size [2] or [B, 2] as
+    (width, height)."""
+    wh = torch.as_tensor(image_size, dtype=kpts.dtype, device=kpts.device)
+    wh = wh[None, None, :] if wh.dim() == 1 else wh[:, None, :]
+    return 2.0 * kpts / (wh - 1.0) - 1.0
+
+
+class SuperGlue(nn.Module):
+    """The matcher. Parameter names follow the reference torch state dict."""
+
+    def __init__(
+        self,
+        config: SuperGlueConfig,
+        device: Any = "cuda",
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        unsupported = {
+            "attention": config.attention != "softmax",
+            "pe_encoder_name": config.pe_encoder_name != "FeedForwardNet",
+            "quantize": config.quantize is not None,
+            "ring_axis": config.ring_axis is not None,
+            "remat": bool(config.remat),
+        }
+        bad = [name for name, is_bad in unsupported.items() if is_bad]
+        if bad:
+            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        self.config = config
+        dim = config.descriptor_dim
+        dtype = as_torch_dtype(config.dtype)
+        self.chain_dtype = as_torch_dtype(config.chain_dtype)
+        self.positional_encoding = MLPPositionalEncoding(
+            dim, config.pe_hidden_layers_sizes, config.side_info_size, dtype=dtype
+        )
+        self.attention_gnn = AttentionGNN(
+            config.num_stages, dim, config.num_heads, config.use_offset, dtype,
+            config.use_pallas,
+        )
+        self.linear_proj = Conv1x1(dim, dim, dtype)
+        if config.residual:
+            self.mix_coefs = nn.Parameter(torch.zeros(dim, 1))
+        self.dustbin_score = nn.Parameter(torch.tensor(float(config.dustbin_score_init)))
+        for module in self.modules():
+            if isinstance(module, Conv1x1):
+                module.reset_parameters(generator)
+        self.to(device)
+
+    def forward(
+        self,
+        kpts0: torch.Tensor,
+        kpts1: torch.Tensor,
+        desc0: torch.Tensor,
+        desc1: torch.Tensor,
+        side_info0: torch.Tensor,
+        side_info1: torch.Tensor,
+        image_size0: torch.Tensor,
+        image_size1: torch.Tensor,
+        mask0: Optional[torch.Tensor] = None,
+        mask1: Optional[torch.Tensor] = None,
+    ) -> Dict[str, torch.Tensor]:
+        cfg = self.config
+        kpts0 = normalize_keypoints(kpts0, image_size0)
+        kpts1 = normalize_keypoints(kpts1, image_size1)
+        pe0 = self.positional_encoding(kpts0, side_info0, mask0)
+        pe1 = self.positional_encoding(kpts1, side_info1, mask1)
+        if cfg.no_descriptors:
+            x0, x1 = pe0, pe1
+        else:
+            x0, x1 = desc0 + pe0, desc1 + pe1
+        if self.chain_dtype is not None:
+            x0, x1 = x0.to(self.chain_dtype), x1.to(self.chain_dtype)
+        gdesc0, gdesc1 = self.attention_gnn(x0.contiguous(), x1.contiguous(), mask0, mask1)
+
+        # dtype None: a bf16 chain meets f32 weights in f32 (Conv1x1 promotes)
+        gdesc0, gdesc1 = self.linear_proj(gdesc0), self.linear_proj(gdesc1)
+        if cfg.residual:
+            alpha = torch.sigmoid(self.mix_coefs[:, 0])
+            gdesc0 = alpha * gdesc0 + (1.0 - alpha) * desc0
+            gdesc1 = alpha * gdesc1 + (1.0 - alpha) * desc1
+
+        S = torch.einsum("bnd,bmd->bnm", gdesc0, gdesc1) * cfg.descriptor_dim**-0.5
+        ot = sinkhorn_kernel if cfg.use_pallas else sinkhorn_ops
+        log_P = ot.log_optimal_transport(
+            S.float(), self.dustbin_score, num_iters=cfg.otp_num_iters, reg=cfg.otp_reg,
+            mask0=mask0, mask1=mask1,
+        )
+        out = {
+            "context_descriptors0": gdesc0,
+            "context_descriptors1": gdesc1,
+            "scores": log_P,
+        }
+        if cfg.decode_stats:
+            idx0, idx1, max0 = assignment_stats(log_P, mask0=mask0, mask1=mask1)
+            out["decode_indices0"] = idx0
+            out["decode_indices1"] = idx1
+            out["decode_max0"] = max0
+        return out

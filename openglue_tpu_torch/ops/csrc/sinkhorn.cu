@@ -1,0 +1,288 @@
+// Scale-domain Sinkhorn forward for Hopper (sm_90a).
+//
+// Replaces three Pallas TPU kernels of openglue_tpu/ops/pallas/sinkhorn_kernel.py:
+// _sinkhorn_kernel_pair (two elements per grid step), _sinkhorn_kernel (one
+// element) and _blocked_scale_kernel (bf16 K streamed from HBM). They run one
+// recursion; here it is one kernel templated on K's storage type.
+//
+// Per batch element, on M [R, C] f32 (dustbin-augmented, masked/padded at -1e9):
+//   rmax_i = max_j M_ij;  K = exp(M - rmax) stored once as KT (f32 or bf16)
+//   v = 1;  T-1 times:  u_i = a_i / max((K v)_i, 1e-30)
+//                       v_j = b_j / max((K^T u)_j, 1e-30)
+//   out_i = log_a_i - rmax_i - log(max((K v)_i, 1e-30))
+// with a = exp(log_a), b = exp(log_b). Arithmetic is f32; bf16 is storage only.
+//
+// What bounds it on the H100: every iteration reads all of K once (4.2 MB
+// f32 per element at N=1024, 8.4 MB bf16 at N=2048), so it is a
+// bandwidth-bound streaming recursion with a grid-wide dependency between
+// iterations (each v needs every row's u).
+//
+// Design: the TPU kernels ran the grid in order and paired elements to hide
+// matvec latency; neither carries over. Here a cluster of 8 CTAs owns one
+// batch element and loops over all iterations: each CTA takes every 8th
+// stripe of rows, and the one dependency between iterations (every v needs
+// the column sums of all rows) is met through distributed shared memory and
+// one cluster barrier per iteration. K stays in L2 where it fits. B elements
+// fill 8*B of the 132 SMs (128 at the serving batch of 16, 8 for a single
+// pair); a single pair's latency is bounded by 8 SMs' load rate.
+// Each iteration is ONE pass over K: a warp takes two rows at a time, holds
+// its slices in registers, reduces y = K_i . v across the warp, forms u_i and
+// accumulates u_i K_i into per-lane column sums in registers; the warps'
+// sums meet in shared memory, the CTAs' sums in the cluster.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cooperative_groups.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kCluster = 8;  // CTAs per batch element
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr float kTiny = 1e-30f;
+
+template <typename KT> struct Store;
+template <> struct Store<float> {
+  static constexpr int kVec = 4;  // elements per 16-byte vector
+  __device__ static void unpack(const uint4& raw, float* out) {
+    out[0] = __uint_as_float(raw.x); out[1] = __uint_as_float(raw.y);
+    out[2] = __uint_as_float(raw.z); out[3] = __uint_as_float(raw.w);
+  }
+  __device__ static void pack_store(float* dst, const float* in) {
+    *reinterpret_cast<float4*>(dst) = make_float4(in[0], in[1], in[2], in[3]);
+  }
+};
+template <> struct Store<__nv_bfloat16> {
+  static constexpr int kVec = 8;
+  __device__ static void unpack(const uint4& raw, float* out) {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 f = __bfloat1622float2(p[i]);
+      out[2 * i] = f.x; out[2 * i + 1] = f.y;
+    }
+  }
+  __device__ static void pack_store(__nv_bfloat16* dst, const float* in) {
+    uint4 raw;
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+    *reinterpret_cast<uint4*>(dst) = raw;
+  }
+};
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// Load one row's slice into registers (NC chunks of one 16-byte vector per
+// lane; chunk c covers columns [c*32*V, (c+1)*32*V)); a missing row loads 0.
+template <typename KT, int NC>
+__device__ __forceinline__ void load_row(const KT* row, bool present, int C, int lane,
+                                         uint4 (&k)[NC]) {
+  constexpr int V = Store<KT>::kVec;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int col = (c * 32 + lane) * V;
+    k[c] = present && col < C ? *reinterpret_cast<const uint4*>(row + col) : make_uint4(0, 0, 0, 0);
+  }
+}
+
+// This lane's part of the dot of a row slice with v (not yet warp-reduced).
+template <typename KT, int NC>
+__device__ __forceinline__ float lane_dot(const uint4 (&k)[NC], const float* v, int C, int lane) {
+  constexpr int V = Store<KT>::kVec;
+  float y = 0.f;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const int col = (c * 32 + lane) * V;
+    if (col < C) {
+      float kv[V];
+      Store<KT>::unpack(k[c], kv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) y = fmaf(kv[e], v[col + e], y);
+    }
+  }
+  return y;
+}
+
+template <typename KT, int NC>
+__device__ __forceinline__ void accumulate(const uint4 (&k)[NC], float uh,
+                                           float (&r)[NC][Store<KT>::kVec]) {
+  constexpr int V = Store<KT>::kVec;
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    float kv[V];
+    Store<KT>::unpack(k[c], kv);
+#pragma unroll
+    for (int e = 0; e < V; ++e) r[c][e] = fmaf(uh, kv[e], r[c][e]);
+  }
+}
+
+template <typename KT, int NC>
+__global__ void __launch_bounds__(kThreads)
+sinkhorn_scale_kernel(const float* __restrict__ M, const float* __restrict__ log_a,
+                      const float* __restrict__ log_b, KT* __restrict__ K,
+                      float* __restrict__ u_out, int R, int C, int num_iters) {
+  constexpr int V = Store<KT>::kVec;
+  extern __shared__ float smem[];
+  float* v_hat = smem;               // [C]
+  float* partial = smem + C;         // [kWarps][C]
+  float* cta_sum = smem + (1 + kWarps) * C;  // [2][C], double-buffered by iteration
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int b = blockIdx.x / kCluster;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t off = static_cast<size_t>(b) * R * C;
+  M += off; K += off; log_a += static_cast<size_t>(b) * R;
+  log_b += static_cast<size_t>(b) * C; u_out += static_cast<size_t>(b) * R;
+  // this CTA's rows: rank*kWarps + warp + s*kCluster*kWarps, s = 0, 1, ...
+  const int first = rank * kWarps + warp;
+  constexpr int kStride = kCluster * kWarps;
+
+  // rmax and K = exp(M - rmax); rmax parks in u_out until the end
+  for (int i = first; i < R; i += kStride) {
+    const float* mrow = M + static_cast<size_t>(i) * C;
+    float mx = -INFINITY;
+    for (int j = lane * 4; j < C; j += 128) {
+      float4 x = *reinterpret_cast<const float4*>(mrow + j);
+      mx = fmaxf(mx, fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w)));
+    }
+    mx = warp_max(mx);
+    if (lane == 0) u_out[i] = mx;
+    KT* krow = K + static_cast<size_t>(i) * C;
+    for (int j = lane * V; j < C; j += 32 * V) {
+      float e[V];
+#pragma unroll
+      for (int q = 0; q < V; ++q) e[q] = expf(mrow[j + q] - mx);
+      Store<KT>::pack_store(krow + j, e);
+    }
+  }
+  for (int j = threadIdx.x; j < C; j += kThreads) v_hat[j] = 1.f;
+  __syncthreads();
+
+  uint4 k0[NC], k1[NC];
+  for (int it = 0; it < num_iters - 1; ++it) {
+    float r[NC][V];
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int e = 0; e < V; ++e) r[c][e] = 0.f;
+
+    // two rows per step, so each lane has two rows' loads in flight
+    for (int i = first; i < R; i += 2 * kStride) {
+      const int i1 = i + kStride;
+      load_row<KT, NC>(K + static_cast<size_t>(i) * C, true, C, lane, k0);
+      load_row<KT, NC>(K + static_cast<size_t>(i1) * C, i1 < R, C, lane, k1);
+      const float y0 = warp_sum(lane_dot<KT, NC>(k0, v_hat, C, lane));
+      const float y1 = warp_sum(lane_dot<KT, NC>(k1, v_hat, C, lane));
+      accumulate<KT, NC>(k0, expf(log_a[i]) / fmaxf(y0, kTiny), r);
+      if (i1 < R) accumulate<KT, NC>(k1, expf(log_a[i1]) / fmaxf(y1, kTiny), r);
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = (c * 32 + lane) * V;
+      if (col < C) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) partial[warp * C + col + e] = r[c][e];
+      }
+    }
+    __syncthreads();
+    float* mine = cta_sum + (it & 1) * C;
+    for (int j = threadIdx.x; j < C; j += kThreads) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) s += partial[w * C + j];
+      mine[j] = s;
+    }
+    // every CTA's column sums of this iteration are complete after this
+    // barrier; the buffer is rewritten two iterations later, after the next
+    // barrier, which no CTA passes before all have read it
+    cluster.sync();
+    for (int j = threadIdx.x; j < C; j += kThreads) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < kCluster; ++q) s += cluster.map_shared_rank(mine, q)[j];
+      v_hat[j] = expf(log_b[j]) / fmaxf(s, kTiny);
+    }
+    __syncthreads();
+  }
+
+  for (int i = first; i < R; i += kStride) {
+    load_row<KT, NC>(K + static_cast<size_t>(i) * C, true, C, lane, k0);
+    const float y = warp_sum(lane_dot<KT, NC>(k0, v_hat, C, lane));
+    if (lane == 0) u_out[i] = log_a[i] - u_out[i] - logf(fmaxf(y, kTiny));
+  }
+  cluster.sync();  // no CTA leaves while another may still read its shared memory
+}
+
+template <typename KT, int NC>
+cudaError_t launch(const float* M, const float* la, const float* lb, void* K, float* u,
+                   int B, int R, int C, int num_iters, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(3 + kWarps) * C * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(sinkhorn_scale_kernel<KT, NC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(B * kCluster);
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, sinkhorn_scale_kernel<KT, NC>, M, la, lb,
+                           static_cast<KT*>(K), u, R, C, num_iters);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <typename KT, int NC = 1>
+cudaError_t dispatch(int nc, const float* M, const float* la, const float* lb, void* K,
+                     float* u, int B, int R, int C, int num_iters, cudaStream_t stream) {
+  if constexpr (NC > 16) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (nc == NC) return launch<KT, NC>(M, la, lb, K, u, B, R, C, num_iters, stream);
+    return dispatch<KT, NC + 1>(nc, M, la, lb, K, u, B, R, C, num_iters, stream);
+  }
+}
+
+}  // namespace
+
+// k_is_bf16: K's storage type. M [B, R, C] f32 with C a multiple of 8;
+// log_a [B, R], log_b [B, C] f32; K [B, R, C] scratch; u [B, R] f32 out.
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int og_sinkhorn_scale(int k_is_bf16, const void* M, const void* log_a,
+                                 const void* log_b, void* K, void* u, int B, int R, int C,
+                                 int num_iters, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(M);
+  const float* la = static_cast<const float*>(log_a);
+  const float* lb = static_cast<const float*>(log_b);
+  float* uo = static_cast<float*>(u);
+  if (B == 0 || R == 0) return cudaSuccess;
+  if (k_is_bf16) {
+    const int nc = (C + 32 * 8 - 1) / (32 * 8);
+    return dispatch<__nv_bfloat16>(nc, m, la, lb, K, uo, B, R, C, num_iters, s);
+  }
+  const int nc = (C + 32 * 4 - 1) / (32 * 4);
+  if (nc > 12) return cudaErrorInvalidValue;
+  return dispatch<float>(nc, m, la, lb, K, uo, B, R, C, num_iters, s);
+}
