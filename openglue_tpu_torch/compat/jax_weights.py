@@ -5,11 +5,13 @@ of numpy arrays (``{"params": ..., "batch_stats": ...}``) and returns the
 port's ``state_dict``, named after the reference torch keys. Dense kernels
 ``[in, out]`` become 1x1-conv weights ``[out, in, 1]``; BatchNorm
 scale/bias/mean/var become weight/bias/running_mean/running_var.
+``superglue_grads_from_jax`` maps a gradient tree of the JAX parameters onto
+the port's parameter names with the same transposes.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -26,29 +28,37 @@ def _dense(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any]) -> None
     sd[f"{name}.bias"] = _t(p["bias"])
 
 
-def _bn(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any], s: Mapping[str, Any]) -> None:
+def _bn(sd: Dict[str, torch.Tensor], name: str, p: Mapping[str, Any], s: Optional[Mapping[str, Any]]) -> None:
     sd[f"{name}.weight"] = _t(p["scale"])
     sd[f"{name}.bias"] = _t(p["bias"])
-    sd[f"{name}.running_mean"] = _t(s["mean"])
-    sd[f"{name}.running_var"] = _t(s["var"])
+    if s is not None:
+        sd[f"{name}.running_mean"] = _t(s["mean"])
+        sd[f"{name}.running_var"] = _t(s["var"])
 
 
-def _ffn(sd, prefix: str, params: Mapping[str, Any], stats: Mapping[str, Any], num_hidden: int):
+def _ffn(sd, prefix: str, params: Mapping[str, Any], stats: Optional[Mapping[str, Any]], num_hidden: int):
     for i in range(num_hidden):
         _dense(sd, f"{prefix}.{3 * i}", params[f"dense_{i}"])
-        _bn(sd, f"{prefix}.{3 * i + 2}", params[f"bn_{i}"], stats[f"bn_{i}"])
+        _bn(sd, f"{prefix}.{3 * i + 2}", params[f"bn_{i}"], None if stats is None else stats[f"bn_{i}"])
     _dense(sd, f"{prefix}.{3 * num_hidden}", params[f"dense_{num_hidden}"])
 
 
-def superglue_state_dict_from_jax(
-    variables: Mapping[str, Any], config: SuperGlueConfig
+def _convert(
+    params: Mapping[str, Any], stats: Optional[Mapping[str, Any]], config: SuperGlueConfig
 ) -> Dict[str, torch.Tensor]:
-    """The port's SuperGlue state dict from JAX SuperGlue variables."""
-    params, stats = variables["params"], variables["batch_stats"]
+    """Port names and layouts for a parameter tree; the BatchNorm running
+    statistics too when ``stats`` is given."""
+
+    def sub(*keys):
+        node = stats
+        for key in keys:
+            node = None if node is None else node[key]
+        return node
+
     sd: Dict[str, torch.Tensor] = {}
     _ffn(
         sd, "positional_encoding.encoder", params["positional_encoding"]["encoder"],
-        stats["positional_encoding"]["encoder"], len(config.pe_hidden_layers_sizes),
+        sub("positional_encoding", "encoder"), len(config.pe_hidden_layers_sizes),
     )
     for stage in range(config.num_stages):
         for offset, kind in ((0, "self"), (1, "cross")):
@@ -60,9 +70,25 @@ def superglue_state_dict_from_jax(
             ):
                 _dense(sd, f"{prefix}.mha.{torch_name}", layer["mha"][jax_name])
             _ffn(sd, f"{prefix}.fc", layer["ffn"],
-                 stats["attention_gnn"][f"{kind}_{stage}"]["ffn"], num_hidden=1)
+                 sub("attention_gnn", f"{kind}_{stage}", "ffn"), num_hidden=1)
     _dense(sd, "linear_proj", params["linear_proj"])
     if config.residual:
         sd["mix_coefs"] = _t(np.asarray(params["mix_coefs"])[:, None])
     sd["dustbin_score"] = _t(params["dustbin_score"])
     return sd
+
+
+def superglue_state_dict_from_jax(
+    variables: Mapping[str, Any], config: SuperGlueConfig
+) -> Dict[str, torch.Tensor]:
+    """The port's SuperGlue state dict from JAX SuperGlue variables."""
+    return _convert(variables["params"], variables["batch_stats"], config)
+
+
+def superglue_grads_from_jax(
+    grads: Mapping[str, Any], config: SuperGlueConfig
+) -> Dict[str, torch.Tensor]:
+    """A JAX gradient tree of the SuperGlue parameters (``jax.grad`` with
+    respect to ``variables["params"]``) under the port's parameter names and
+    layouts, comparable with ``{name: p.grad}``."""
+    return _convert(grads, None, config)

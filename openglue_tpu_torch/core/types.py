@@ -29,10 +29,45 @@ class KeypointSet:
 
 
 @dataclasses.dataclass
+class Transformation:
+    """The ground-truth geometric relation between the two images of a pair:
+    a homography (``kind="perspective"``, ``H`` [B, 3, 3] mapping image0
+    pixels to image1) or a 3D reprojection (``kind="3d_reprojection"``:
+    intrinsics ``K0``, ``K1`` [B, 3, 3], relative pose ``R`` [B, 3, 3] and
+    ``T`` [B, 3] from camera 0 to camera 1, depths ``depth0``, ``depth1``
+    either per keypoint [B, N] or dense maps [B, H, W])."""
+
+    kind: str
+    H: Optional[torch.Tensor] = None
+    K0: Optional[torch.Tensor] = None
+    K1: Optional[torch.Tensor] = None
+    R: Optional[torch.Tensor] = None
+    T: Optional[torch.Tensor] = None
+    depth0: Optional[torch.Tensor] = None
+    depth1: Optional[torch.Tensor] = None
+
+    def inverse(self) -> "Transformation":
+        """The relation from image1 to image0."""
+        if self.kind == "perspective":
+            return Transformation(kind="perspective", H=torch.linalg.inv(self.H))
+        if self.kind == "3d_reprojection":
+            R_t = self.R.transpose(-1, -2)
+            return Transformation(
+                kind="3d_reprojection",
+                K0=self.K1,
+                K1=self.K0,
+                R=R_t,
+                T=-(R_t * self.T[..., None, :]).sum(dim=-1),
+                depth0=self.depth1,
+                depth1=self.depth0,
+            )
+        raise ValueError(f"Unknown transformation kind {self.kind!r}")
+
+
+@dataclasses.dataclass
 class PairBatch:
-    """A batch of image pairs; ``homography`` [B, 3, 3] maps image0 pixels to
-    image1 where the pairs are synthetic homography warps."""
+    """A batch of image pairs, with the ground-truth relation where known."""
 
     side0: KeypointSet
     side1: KeypointSet
-    homography: Optional[torch.Tensor] = None
+    transformation: Optional[Transformation] = None

@@ -1,11 +1,13 @@
-"""Synthetic homography-warp pair generator (port of
-``openglue_tpu/data/synthetic.py``, ``SyntheticHomographyPairs``).
+"""Synthetic pair generators (port of ``openglue_tpu/data/synthetic.py``).
 
-Keypoints in image0, a random 4-corner homography, the warped keypoints in
-image1 (with jitter) plus distractors, and descriptors that are noisy copies
-across the pair. Tensors are made on the generator's device from a
-``torch.Generator``; the numbers differ from the JAX generator's for the same
-seed, and the two agree only in distribution.
+``SyntheticHomographyPairs``: keypoints in image0, a random 4-corner
+homography, the warped keypoints in image1 (with jitter) plus distractors,
+and descriptors that are noisy copies across the pair.
+``SyntheticReprojectionPairs``: two views of random 3D points with depth and
+a random relative pose (the cached-MegaDepth batch shape), for the 3D GT
+path. Tensors are made on the generator's device from a ``torch.Generator``;
+the numbers differ from the JAX generators' for the same seed, and the two
+agree only in distribution.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Tuple
 
 import torch
 
-from openglue_tpu_torch.core.types import KeypointSet, PairBatch
+from openglue_tpu_torch.core.types import KeypointSet, PairBatch, Transformation
 
 
 def _uniform(gen: torch.Generator, shape, low, high) -> torch.Tensor:
@@ -99,5 +101,104 @@ class SyntheticHomographyPairs:
         return PairBatch(
             side0=KeypointSet(kpts0, desc0, side_info(), mask, image_size),
             side1=KeypointSet(kpts1, desc1, side_info(), mask.clone(), image_size),
-            homography=H,
+            transformation=Transformation(kind="perspective", H=H),
+        )
+
+
+def _rotation(angles: torch.Tensor) -> torch.Tensor:
+    """Rz @ Ry @ Rx from [B, 3] angles (radians) -> [B, 3, 3]."""
+    c, s = torch.cos(angles), torch.sin(angles)
+    one, zero = torch.ones_like(c[:, 0]), torch.zeros_like(c[:, 0])
+
+    def mat(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    Rx = mat([[one, zero, zero], [zero, c[:, 0], -s[:, 0]], [zero, s[:, 0], c[:, 0]]])
+    Ry = mat([[c[:, 1], zero, s[:, 1]], [zero, one, zero], [-s[:, 1], zero, c[:, 1]]])
+    Rz = mat([[c[:, 2], -s[:, 2], zero], [s[:, 2], c[:, 2], zero], [zero, zero, one]])
+    return Rz @ Ry @ Rx
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticReprojectionPairs:
+    """Two-view 3D pairs with per-keypoint depth and a relative pose.
+
+    3D points are sampled in a box in front of camera 0; camera 1 differs by a
+    random small rotation and translation. Keypoints are the two projections
+    (image1's with pixel jitter); a ``covisible_fraction`` prefix
+    corresponds, the rest of image1 is distractors. Descriptors are noisy
+    shares as in SyntheticHomographyPairs."""
+
+    num_keypoints: int = 512
+    descriptor_dim: int = 256
+    image_size: Tuple[int, int] = (960, 720)
+    focal: float = 800.0
+    covisible_fraction: float = 0.7
+    jitter: float = 1.0
+    descriptor_noise: float = 0.1
+    max_rotation: float = 0.2  # radians
+    max_translation: float = 0.5
+    depth_range: Tuple[float, float] = (4.0, 10.0)
+    side_info_dim: int = 1
+
+    def intrinsics(self, device) -> torch.Tensor:
+        w, h = self.image_size
+        return torch.tensor(
+            [[self.focal, 0.0, w / 2], [0.0, self.focal, h / 2], [0.0, 0.0, 1.0]], device=device
+        )
+
+    def sample(self, gen: torch.Generator, batch: int) -> PairBatch:
+        w, h = self.image_size
+        n, d = self.num_keypoints, self.descriptor_dim
+        device = gen.device
+        K = self.intrinsics(device)
+        zmin, zmax = self.depth_range
+        depth = _uniform(gen, (batch, n, 1), zmin, zmax)
+        uv = _uniform(gen, (batch, n, 2), 0.0, 1.0) * torch.tensor([w - 1.0, h - 1.0], device=device)
+        ones = torch.ones(batch, n, 1, device=device)
+        rays = torch.einsum("ij,bnj->bni", torch.linalg.inv(K), torch.cat([uv, ones], -1))
+        points = rays * depth  # camera-0 coordinates
+
+        R = _rotation(_uniform(gen, (batch, 3), -self.max_rotation, self.max_rotation))
+        T = _uniform(gen, (batch, 3), -self.max_translation, self.max_translation)
+        points1 = torch.einsum("bij,bnj->bni", R, points) + T[:, None, :]
+        proj1 = torch.einsum("ij,bnj->bni", K, points1)
+        kpts1_true = proj1[..., :2] / (proj1[..., 2:3] + 1e-8)
+        depth1_true = points1[..., 2]
+        kpts1_true = kpts1_true + self.jitter * torch.randn(batch, n, 2, generator=gen, device=device)
+
+        num_covisible = int(self.covisible_fraction * n)
+        covis = (torch.arange(n, device=device) < num_covisible)[None, :]
+        in_bounds = (
+            (kpts1_true[..., 0] >= 0) & (kpts1_true[..., 0] <= w - 1)
+            & (kpts1_true[..., 1] >= 0) & (kpts1_true[..., 1] <= h - 1)
+            & (depth1_true > 0.1)
+        )
+        matched = covis & in_bounds
+        kpts1 = torch.where(matched[..., None], kpts1_true, torch.roll(uv, 3, dims=1))
+        # a distractor's observed depth: a plausible positive value (its true
+        # correspondence is elsewhere, so the GT labels it by the thresholds)
+        depth1 = torch.where(matched, depth1_true, torch.roll(depth[..., 0], 3, dims=1))
+
+        shared = torch.randn(batch, n, d, generator=gen, device=device)
+        desc0 = shared + self.descriptor_noise * torch.randn(batch, n, d, generator=gen, device=device)
+        noise1 = self.descriptor_noise * torch.randn(batch, n, d, generator=gen, device=device)
+        desc1 = torch.where(matched[..., None], shared + noise1, torch.roll(shared, 3, dims=1) + noise1)
+        desc0 = desc0 / torch.linalg.norm(desc0, dim=-1, keepdim=True)
+        desc1 = desc1 / torch.linalg.norm(desc1, dim=-1, keepdim=True)
+
+        def side_info():
+            resp = torch.rand(batch, n, 1, generator=gen, device=device)
+            return torch.cat([resp, torch.zeros(batch, n, self.side_info_dim - 1, device=device)], -1)
+
+        mask = torch.ones(batch, n, dtype=torch.bool, device=device)
+        image_size = torch.tensor([float(w), float(h)], device=device).expand(batch, 2)
+        K_b = K.expand(batch, 3, 3)
+        return PairBatch(
+            side0=KeypointSet(uv, desc0, side_info(), mask, image_size),
+            side1=KeypointSet(kpts1, desc1, side_info(), mask.clone(), image_size),
+            transformation=Transformation(
+                kind="3d_reprojection", K0=K_b, K1=K_b, R=R, T=T,
+                depth0=depth[..., 0], depth1=depth1,
+            ),
         )

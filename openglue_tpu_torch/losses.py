@@ -1,0 +1,107 @@
+"""Matching losses (port of ``openglue_tpu/losses.py``).
+
+NLL on the log-assignment matrix with per-image mean weighting, and the
+optional metric-learning loss (hardest-negative triplet for matched pairs,
+margin hinge for unmatched keypoints). Within each batch element the
+per-keypoint terms are averaged; the per-image sums add as
+``matched + 0.5 * (unmatched0 + unmatched1)`` and are divided by the batch
+size. An element with no keypoint in a category contributes zero.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from openglue_tpu_torch.geometry.transforms import pairwise_cosine_dist
+
+_BIG = 1e9
+
+
+def _per_image_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Masked per-element mean [B, N] -> [B], zero where the mask is empty."""
+    mask_f = mask.to(values.dtype)
+    count = mask_f.sum(dim=1)
+    total = (values * mask_f).sum(dim=1)
+    return torch.where(count > 0, total / torch.clamp(count, min=1.0), torch.zeros_like(total))
+
+
+def matching_nll_loss(
+    gt_matches0: torch.Tensor, gt_matches1: torch.Tensor, scores: torch.Tensor
+) -> torch.Tensor:
+    """Negative log-likelihood of the GT assignment: gt_matches0 [B, N],
+    gt_matches1 [B, M], scores [B, N+1, M+1] log-assignment."""
+    batch, n_aug, m_aug = scores.shape
+    n, m = n_aug - 1, m_aug - 1
+    matched0 = gt_matches0 >= 0
+    gt_cols = gt_matches0.clamp(0, m - 1).long()
+    matched_ll = torch.gather(scores[:, :n, :m], 2, gt_cols[:, :, None])[..., 0]
+    matched_loss = _per_image_mean(-matched_ll, matched0)
+    unmatched0_loss = _per_image_mean(-scores[:, :n, m], gt_matches0 == -1)
+    unmatched1_loss = _per_image_mean(-scores[:, n, :m], gt_matches1 == -1)
+    total = matched_loss + 0.5 * (unmatched0_loss + unmatched1_loss)
+    return total.sum() / batch
+
+
+def metric_learning_loss(
+    gt_matches0: torch.Tensor,
+    gt_matches1: torch.Tensor,
+    gdesc0: torch.Tensor,
+    gdesc1: torch.Tensor,
+    margin: float,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Triplet + margin losses on the cosine distances of the context
+    descriptors [B, N, D] / [B, M, D]; the hardest negatives are mined on the
+    detached distance matrix with the positives and invalid pairs at 1e9."""
+    batch, n = gt_matches0.shape
+    m = gt_matches1.shape[1]
+    device = gdesc0.device
+    dist = pairwise_cosine_dist(gdesc0, gdesc1)  # [B, N, M]
+    if mask0 is None:
+        mask0 = torch.ones(batch, n, dtype=torch.bool, device=device)
+    if mask1 is None:
+        mask1 = torch.ones(batch, m, dtype=torch.bool, device=device)
+    pair_valid = mask0[:, :, None] & mask1[:, None, :]
+
+    matched0 = gt_matches0 >= 0
+    gt_cols = gt_matches0.clamp(0, m - 1).long()
+    pos_mask = matched0[:, :, None] & (gt_cols[:, :, None] == torch.arange(m, device=device)[None, None, :])
+    dist_det = torch.where(pos_mask | ~pair_valid, _BIG, dist.detach())
+    nn_col = dist_det.argmin(dim=2)  # [B, N] hardest kpt1 per kpt0
+    nn_row = dist_det.argmin(dim=1)  # [B, M] hardest kpt0 per kpt1
+
+    dist_ap = torch.gather(dist, 2, gt_cols[:, :, None])[..., 0]
+    dist_an0 = torch.gather(dist, 2, nn_col[:, :, None])[..., 0]
+    i_neg = torch.gather(nn_row, 1, gt_cols)  # dist[b, nn_row[b, gt_j], gt_j]
+    dist_an1 = dist[torch.arange(batch, device=device)[:, None], i_neg, gt_cols]
+    loss0 = torch.clamp(dist_ap - dist_an0 + margin, min=0.0)
+    loss1 = torch.clamp(dist_ap - dist_an1 + margin, min=0.0)
+    triplet = _per_image_mean(loss0 + loss1, matched0)
+
+    dist_for_min = torch.where(pair_valid, dist, _BIG)
+    margin0 = _per_image_mean(torch.clamp(margin - dist_for_min.amin(dim=2), min=0.0), gt_matches0 == -1)
+    margin1 = _per_image_mean(torch.clamp(margin - dist_for_min.amin(dim=1), min=0.0), gt_matches1 == -1)
+    return (triplet + margin0 + margin1).sum() / batch
+
+
+def criterion(
+    y_true: Dict[str, torch.Tensor],
+    y_pred: Dict[str, torch.Tensor],
+    margin: Optional[float] = None,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """{"loss": NLL, "metric_loss": metric loss or 0 when margin is None}."""
+    nll = matching_nll_loss(y_true["gt_matches0"], y_true["gt_matches1"], y_pred["scores"])
+    if margin is None:
+        metric = torch.zeros((), dtype=nll.dtype, device=nll.device)
+    else:
+        metric = metric_learning_loss(
+            y_true["gt_matches0"], y_true["gt_matches1"],
+            y_pred["context_descriptors0"], y_pred["context_descriptors1"],
+            margin, mask0=mask0, mask1=mask1,
+        )
+    return {"loss": nll, "metric_loss": metric}

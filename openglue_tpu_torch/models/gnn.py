@@ -9,8 +9,10 @@
 * ``use_offset`` concatenates ``[desc - msg, msg]``.
 
 In eval mode with ``use_pallas`` a layer runs as the fused layer kernel
-(``ops/kernels/gnn_layer_kernel.py``) with its BatchNorm folded; otherwise it
-runs the composed modules below.
+(``ops/kernels/gnn_layer_kernel.py``) with its BatchNorm folded. In training
+mode with ``use_pallas`` the attention half runs as the fused message kernels
+(forward and backward) and the concat, the FFN and its train-mode BatchNorm
+stay in torch autograd. Otherwise a layer runs the composed modules below.
 """
 
 from __future__ import annotations
@@ -104,7 +106,17 @@ class AttentionalPropagation(nn.Module):
             return glk.fused_attention_propagation(
                 desc_q, desc_kv, kv_mask, weights, self.num_heads, self.use_offset
             )
-        message = self.mha(desc_q, desc_kv, kv_mask)
+        if self.use_pallas:
+            # the attention half computes in the layer's type or the chain's
+            # (bf16 with a bf16 chain, where the composed path promotes to f32)
+            compute_dtype = self.dtype or desc_q.dtype
+            message = glk.fused_attention_message(
+                desc_q.to(compute_dtype), desc_kv.to(compute_dtype), kv_mask,
+                glk.extract_message_weights(dict(self.named_parameters())),
+                self.num_heads, compute_dtype,
+            )
+        else:
+            message = self.mha(desc_q, desc_kv, kv_mask)
         dt = torch.promote_types(desc_q.dtype, message.dtype)
         desc_c, message = desc_q.to(dt), message.to(dt)
         first = desc_c - message if self.use_offset else desc_c

@@ -7,8 +7,13 @@ gate) -> scaled dot-product scores -> dustbin-augmented Sinkhorn ->
 log-assignment scores ``[B, N+1, M+1]``.
 
 ``use_pallas`` keeps its JAX meaning: False runs the composed torch path,
-True runs the CUDA kernels (the eval GNN layer and the scale-domain Sinkhorn);
-on CPU tensors the kernels' plain versions run instead.
+True runs the CUDA kernels: in eval mode the GNN layer kernel and the
+scale-domain Sinkhorn; in training mode (``model.train()``) the attention
+half of every layer through the message kernels and the Sinkhorn through its
+forward and adjoint kernels, under autograd. On CPU tensors the kernels'
+plain versions run instead. In training mode every ``MaskedBatchNorm``
+normalizes with the batch statistics of the valid keypoints and updates its
+running statistics, as the JAX package's ``mutable=["batch_stats"]`` does.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@ Each ``ops/csrc/<name>.cu`` exposes a plain C interface. At the first CUDA
 use, every source is compiled with ``nvcc`` for ``sm_90a`` into its own
 shared library (all sources at once, one ``nvcc`` process each) under
 ``build/kernels/`` beside the package, and bound with ``ctypes``. A library
-is named after its source's content hash, so an edited source rebuilds and
-an unchanged one is reused.
+is named after the content hash of its source and of every header under
+``ops/csrc/`` that the source includes (directly or through another header),
+so an edited source or header rebuilds and an unchanged one is reused.
 
 Every wrapper module keeps a ``LaunchCounter`` that it advances where it
 launches its kernel and nowhere else. A wrapper runs its plain PyTorch version
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("gnn_layer", "sinkhorn")
+SOURCES = ("gnn_layer", "sinkhorn", "sinkhorn_adjoint", "message_forward", "message_backward")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -65,8 +67,29 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list:
+    """``<name>.cu`` and every header under ``ops/csrc/`` it includes,
+    transitively, in a fixed order."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found:
+            continue
+        found.append(path)
+        for include in _INCLUDE.findall(path.read_bytes()):
+            header = (path.parent / include.decode()).resolve()
+            if header.is_file() and CSRC in header.parents:
+                todo.append(header)
+    return found
+
+
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -81,7 +104,7 @@ def build_all() -> Dict[str, float]:
         nvcc = _nvcc()
         procs = {}
         for name in SOURCES:
-            target = _library_path(name)
+            target = library_path(name)
             if target.exists():
                 build_seconds[name] = 0.0
                 continue
@@ -102,19 +125,19 @@ def build_all() -> Dict[str, float]:
         if failures:
             raise RuntimeError("nvcc failed\n" + "\n".join(failures))
         for name in SOURCES:
-            _libs[name] = ctypes.CDLL(str(_library_path(name)))
+            _libs[name] = ctypes.CDLL(str(library_path(name)))
         return dict(build_seconds)
 
 
-def entry_point(library: str, name: str, argtypes) -> ctypes._CFuncPtr:
-    """C function ``name`` of ``ops/csrc/<library>.cu`` returning an int
-    status, with its argument types declared (builds on first use)."""
+def entry_point(library: str, name: str, argtypes, restype=ctypes.c_int) -> ctypes._CFuncPtr:
+    """C function ``name`` of ``ops/csrc/<library>.cu`` (by default returning
+    an int status), with its argument types declared (builds on first use)."""
     fn = _entries.get((library, name))
     if fn is None:
         if library not in _libs:
             build_all()
         fn = getattr(_libs[library], name)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         fn.argtypes = argtypes
         _entries[(library, name)] = fn
     return fn

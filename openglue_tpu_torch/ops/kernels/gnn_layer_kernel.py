@@ -16,6 +16,15 @@ a per-channel affine. The plain version keeps the kernel's rounding points:
 * out = (x_q in f32 + update) cast to x_q's type.
 
 Forward only: the wrapper raises when a gradient is required.
+
+The training path runs the attention half alone, with a gradient
+(``fused_attention_message``, port of the JAX function of that name :1189):
+the forward kernel ``ops/csrc/message_forward.cu`` (replacing
+``_message_kernel`` :557) returns msg, attn and the per-row LSE, and the
+backward kernel ``ops/csrc/message_backward.cu`` (replacing
+``_message_bwd_kernel`` :627) returns the gradients of x_q, x_kv and the
+eight weights from them. The FFN and its train-mode BatchNorm stay in torch
+autograd.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from openglue_tpu_torch.ops import kernels
 NEG_INF = -1e9
 
 counter = kernels.LaunchCounter()
+message_counter = kernels.LaunchCounter()
+message_bwd_counter = kernels.LaunchCounter()
 
 
 class PropagationWeights(NamedTuple):
@@ -191,3 +202,315 @@ def fused_attention_propagation(
     kernels.check(status, "og_gnn_layer")
     counter.add()
     return out
+
+
+# ----------------------------------------------------------- attention half
+
+
+class MessageWeights(NamedTuple):
+    """The attention half of a layer: q/k/v/out projections in torch layout
+    ``[out, in]`` with ``[out]`` biases, kept in the parameter type (f32) so
+    that their gradients come back in f32; the kernels cast them to the
+    compute type."""
+
+    wq: torch.Tensor
+    bq: torch.Tensor
+    wk: torch.Tensor
+    bk: torch.Tensor
+    wv: torch.Tensor
+    bv: torch.Tensor
+    wo: torch.Tensor
+    bo: torch.Tensor
+
+
+def extract_message_weights(params: Mapping[str, torch.Tensor]) -> MessageWeights:
+    """MessageWeights from one layer's parameters (``mha.in_proj_{q,k,v}``,
+    ``mha.out_proj``; 1x1-conv weights ``[out, in, 1]``) as views, so that a
+    gradient reaches the parameters."""
+
+    def dense(name):
+        w = params[f"mha.{name}.weight"]
+        return (w[..., 0] if w.dim() == 3 else w), params[f"mha.{name}.bias"]
+
+    return MessageWeights(
+        *dense("in_proj_q"), *dense("in_proj_k"), *dense("in_proj_v"), *dense("out_proj")
+    )
+
+
+def _mask_add(kv_mask: Optional[torch.Tensor], batch: int, m: int, device) -> torch.Tensor:
+    if kv_mask is None:
+        return torch.zeros(batch, m, dtype=torch.float32, device=device)
+    return (1.0 - kv_mask.float()) * NEG_INF
+
+
+def message_forward_plain(
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    w: MessageWeights,
+    num_heads: int,
+    compute_dtype: torch.dtype,
+):
+    """The plain version of the forward kernel: x_q [B, N, D], x_kv [B, M, D]
+    -> (msg [B, N, D], attn [B, N, D], both in the compute type; lse
+    [B, H, N] f32). Rounding points of ``_attention_half_body``: q, k, v cast
+    after the bias; logits, exp and the denominator in f32; P cast for P.V,
+    the division after it; attn and msg cast."""
+    dtype = compute_dtype
+    batch, n, dim = x_q.shape
+    m = x_kv.shape[1]
+    dh = dim // num_heads
+    xq_c, xkv_c = x_q.to(dtype), x_kv.to(dtype)
+    q = _dense_f32(xq_c, w.wq.to(dtype), w.bq.float()).to(dtype)
+    k = _dense_f32(xkv_c, w.wk.to(dtype), w.bk.float()).to(dtype)
+    v = _dense_f32(xkv_c, w.wv.to(dtype), w.bv.float()).to(dtype)
+
+    def split(t, length):  # [B, L, D] -> [B, H, L, dh]
+        return t.reshape(batch, length, num_heads, dh).transpose(1, 2)
+
+    logits = torch.matmul(split(q, n).float(), split(k, m).float().transpose(-1, -2))
+    logits = logits * dh**-0.5 + _mask_add(kv_mask, batch, m, x_q.device)[:, None, None, :]
+    row_max = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - row_max)
+    denom = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(dtype).float(), split(v, m).float()) / denom
+    attn = o.transpose(1, 2).reshape(batch, n, dim).to(dtype)
+    msg = _dense_f32(attn, w.wo.to(dtype), w.bo.float()).to(dtype)
+    lse = (row_max + torch.log(denom))[..., 0]
+    return msg, attn, lse
+
+
+def message_backward_plain(
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    w: MessageWeights,
+    g: torch.Tensor,
+    attn: torch.Tensor,
+    lse: torch.Tensor,
+    num_heads: int,
+    compute_dtype: torch.dtype,
+):
+    """The plain version of the backward kernel: the cotangent g of msg and
+    the forward's attn and lse -> (dx_q in x_q's type, dx_kv in x_kv's type,
+    MessageWeights of f32 gradients in torch layout). Rounding points of
+    ``_message_bwd_kernel``: g cast for dattn = g Wo and dWo = attn^T g, dbo
+    from f32 g; P rebuilt in f32 from lse and cast for dV; dP and
+    dS = P o (dP - rowsum(dP o P)) in f32, dS cast for dQ and dK; dQ, dK, dV
+    cast for dx and dW; the bias gradients from the f32 sums."""
+    dtype = compute_dtype
+    batch, n, dim = x_q.shape
+    m = x_kv.shape[1]
+    dh = dim // num_heads
+    scale = dh**-0.5
+    xq_c, xkv_c = x_q.to(dtype), x_kv.to(dtype)
+    wq, wk, wv, wo = (t.to(dtype).float() for t in (w.wq, w.wk, w.wv, w.wo))
+    q = (torch.matmul(xq_c.float(), wq.t()) + w.bq.float()).to(dtype)
+    k = (torch.matmul(xkv_c.float(), wk.t()) + w.bk.float()).to(dtype)
+    v = (torch.matmul(xkv_c.float(), wv.t()) + w.bv.float()).to(dtype)
+
+    def split(t, length):  # [B, L, D] -> [B, H, L, dh]
+        return t.reshape(batch, length, num_heads, dh).transpose(1, 2)
+
+    def merge(t, length):  # [B, H, L, dh] -> [B, L, D]
+        return t.transpose(1, 2).reshape(batch, length, dim)
+
+    def wgrad(d, x):  # sum over rows of d^T x: torch layout [out, in]
+        return torch.einsum("bno,bni->oi", d.float(), x.float())
+
+    gc = g.to(dtype)
+    dattn = torch.matmul(gc.float(), wo)
+    dbo = g.float().sum(dim=(0, 1))
+    dwo = wgrad(gc, attn.to(dtype))
+
+    qh, kh, vh = split(q, n).float(), split(k, m).float(), split(v, m).float()
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    logits = logits + _mask_add(kv_mask, batch, m, x_q.device)[:, None, None, :]
+    p = torch.exp(logits - lse[..., None])
+    dah = split(dattn, n).to(dtype).float()
+    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), dah)
+    dp = torch.matmul(dah, vh.transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(dtype).float()
+    dq = merge(torch.matmul(ds, kh) * scale, n)
+    dk = merge(torch.matmul(ds.transpose(-1, -2), qh) * scale, m)
+    dv = merge(dv, m)
+
+    dqc, dkc, dvc = dq.to(dtype).float(), dk.to(dtype).float(), dv.to(dtype).float()
+    dxq = torch.matmul(dqc, wq).to(x_q.dtype)
+    dxkv = (torch.matmul(dkc, wk) + torch.matmul(dvc, wv)).to(x_kv.dtype)
+    grads = MessageWeights(
+        wgrad(dqc, xq_c), dq.sum(dim=(0, 1)), wgrad(dkc, xkv_c), dk.sum(dim=(0, 1)),
+        wgrad(dvc, xkv_c), dv.sum(dim=(0, 1)), dwo, dbo,
+    )
+    return dxq, dxkv, grads
+
+
+def _check_message_inputs(x_q, x_kv, kv_mask, w: MessageWeights, num_heads, dtype):
+    batch, n, dim = x_q.shape
+    m = x_kv.shape[1]
+    device = x_q.device
+    kernels.require(x_q.is_cuda and x_kv.device == device, "x_q and x_kv must share a CUDA device")
+    kernels.require(dtype in (torch.float32, torch.bfloat16), f"compute type {dtype}")
+    kernels.require(
+        x_q.dtype == x_kv.dtype == dtype,
+        f"the kernel takes x in its compute type {dtype}, got {x_q.dtype}/{x_kv.dtype}",
+    )
+    kernels.require(x_kv.shape[0] == batch and x_kv.shape[2] == dim, "x_kv shape")
+    kernels.require(dim == 64 * num_heads, "the kernel takes heads of width 64")
+    kernels.require(n >= 1 and m >= 1, "empty query or key set")
+    for t in w:
+        kernels.require(t.device == device, "weights must be on the inputs' device")
+    for t in (w.wq, w.wk, w.wv, w.wo):
+        kernels.require(t.shape == (dim, dim), f"weight shape {tuple(t.shape)}")
+    for t in (w.bq, w.bk, w.bv, w.bo):
+        kernels.require(t.shape == (dim,) and t.dtype == torch.float32, "biases: f32 [D]")
+    if kv_mask is not None:
+        kernels.require(kv_mask.shape == (batch, m) and kv_mask.dtype == torch.bool, "kv_mask")
+        kernels.require(kv_mask.device == device, "kv_mask device")
+
+
+def _mask_ptr(kv_mask):
+    if kv_mask is None:
+        return None, None
+    mask = kv_mask.contiguous().view(torch.uint8)
+    return mask, mask.data_ptr()
+
+
+def message_forward(
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    w: MessageWeights,
+    num_heads: int,
+    compute_dtype: torch.dtype,
+):
+    """(msg, attn, lse) of the attention half: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
+    if x_q.device.type == "cpu":
+        return message_forward_plain(x_q, x_kv, kv_mask, w, num_heads, compute_dtype)
+    dtype = compute_dtype
+    _check_message_inputs(x_q, x_kv, kv_mask, w, num_heads, dtype)
+    batch, n, dim = x_q.shape
+    m = x_kv.shape[1]
+    device = x_q.device
+    x_q, x_kv = x_q.contiguous(), x_kv.contiguous()
+    mats = [t.detach().to(dtype).contiguous() for t in (w.wq, w.wk, w.wv, w.wo)]
+    vecs = [t.detach().contiguous() for t in (w.bq, w.bk, w.bv, w.bo)]
+    is_bf16 = int(dtype == torch.bfloat16)
+    size = kernels.entry_point(
+        "message_forward", "og_message_forward_workspace", [ctypes.c_int] * 5, ctypes.c_size_t
+    )(is_bf16, batch, n, m, dim)
+    workspace = torch.empty(size, dtype=torch.uint8, device=device)
+    msg = torch.empty(batch, n, dim, dtype=dtype, device=device)
+    attn = torch.empty(batch, n, dim, dtype=dtype, device=device)
+    lse = torch.empty(batch, num_heads, n, dtype=torch.float32, device=device)
+    mask, mask_ptr = _mask_ptr(kv_mask)
+    fn = kernels.entry_point(
+        "message_forward", "og_message_forward",
+        [ctypes.c_int] * 6 + [_VOID_P] * 3 + [ctypes.POINTER(_VOID_P)] * 2 + [_VOID_P] * 5,
+    )
+    status = fn(
+        is_bf16, batch, n, m, dim, num_heads, x_q.data_ptr(), x_kv.data_ptr(), mask_ptr,
+        (_VOID_P * 4)(*(t.data_ptr() for t in mats)), (_VOID_P * 4)(*(t.data_ptr() for t in vecs)),
+        workspace.data_ptr(), msg.data_ptr(), attn.data_ptr(), lse.data_ptr(),
+        kernels.stream_handle(device),
+    )
+    kernels.check(status, "og_message_forward")
+    message_counter.add()
+    return msg, attn, lse
+
+
+def message_backward(
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    w: MessageWeights,
+    g: torch.Tensor,
+    attn: torch.Tensor,
+    lse: torch.Tensor,
+    num_heads: int,
+    compute_dtype: torch.dtype,
+):
+    """(dx_q, dx_kv, weight gradients) of the attention half: the CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if x_q.device.type == "cpu":
+        return message_backward_plain(x_q, x_kv, kv_mask, w, g, attn, lse, num_heads, compute_dtype)
+    dtype = compute_dtype
+    _check_message_inputs(x_q, x_kv, kv_mask, w, num_heads, dtype)
+    batch, n, dim = x_q.shape
+    m = x_kv.shape[1]
+    device = x_q.device
+    kernels.require(g.shape == attn.shape == x_q.shape, "g and attn must be [B, N, D]")
+    kernels.require(attn.dtype == dtype and lse.dtype == torch.float32, "attn/lse types")
+    kernels.require(lse.shape == (batch, num_heads, n), "lse must be [B, H, N]")
+    x_q, x_kv = x_q.contiguous(), x_kv.contiguous()
+    g, attn, lse = g.to(dtype).contiguous(), attn.contiguous(), lse.contiguous()
+    mats = [t.detach().to(dtype).contiguous() for t in (w.wq, w.wk, w.wv, w.wo)]
+    vecs = [t.detach().contiguous() for t in (w.bq, w.bk, w.bv)]
+    dxq = torch.empty(batch, n, dim, dtype=dtype, device=device)
+    dxkv = torch.empty(batch, m, dim, dtype=dtype, device=device)
+    dws = [torch.empty(dim, dim, dtype=torch.float32, device=device) for _ in range(4)]
+    dbs = [torch.empty(dim, dtype=torch.float32, device=device) for _ in range(4)]
+    outputs = [dxq, dxkv, *dws, *dbs]
+    is_bf16 = int(dtype == torch.bfloat16)
+    size = kernels.entry_point(
+        "message_backward", "og_message_backward_workspace", [ctypes.c_int] * 6, ctypes.c_size_t
+    )(is_bf16, batch, n, m, dim, num_heads)
+    workspace = torch.empty(size, dtype=torch.uint8, device=device)
+    mask, mask_ptr = _mask_ptr(kv_mask)
+    fn = kernels.entry_point(
+        "message_backward", "og_message_backward",
+        [ctypes.c_int] * 6 + [_VOID_P] * 6 + [ctypes.POINTER(_VOID_P)] * 3 + [_VOID_P] * 2,
+    )
+    status = fn(
+        is_bf16, batch, n, m, dim, num_heads, x_q.data_ptr(), x_kv.data_ptr(), mask_ptr,
+        g.data_ptr(), attn.data_ptr(), lse.data_ptr(),
+        (_VOID_P * 4)(*(t.data_ptr() for t in mats)), (_VOID_P * 3)(*(t.data_ptr() for t in vecs)),
+        (_VOID_P * 10)(*(t.data_ptr() for t in outputs)),
+        workspace.data_ptr(), kernels.stream_handle(device),
+    )
+    kernels.check(status, "og_message_backward")
+    message_bwd_counter.add()
+    grads = MessageWeights(dws[0], dbs[0], dws[1], dbs[1], dws[2], dbs[2], dws[3], dbs[3])
+    return dxq, dxkv, grads
+
+
+class _FusedAttentionMessage(torch.autograd.Function):
+    """msg = attention half of a layer; the forward saves x_q, x_kv, the mask,
+    attn and lse, and the backward runs the backward kernel. For self
+    attention x_q and x_kv are one tensor: both gradients are returned and
+    autograd adds them."""
+
+    @staticmethod
+    def forward(ctx, x_q, x_kv, kv_mask, num_heads, compute_dtype, *weights):
+        w = MessageWeights(*weights)
+        msg, attn, lse = message_forward(x_q, x_kv, kv_mask, w, num_heads, compute_dtype)
+        ctx.save_for_backward(x_q, x_kv, kv_mask, attn, lse, *weights)
+        ctx.num_heads, ctx.compute_dtype = num_heads, compute_dtype
+        return msg
+
+    @staticmethod
+    def backward(ctx, g):
+        x_q, x_kv, kv_mask, attn, lse, *weights = ctx.saved_tensors
+        dxq, dxkv, dw = message_backward(
+            x_q, x_kv, kv_mask, MessageWeights(*weights), g, attn, lse, ctx.num_heads,
+            ctx.compute_dtype,
+        )
+        return (dxq, dxkv, None, None, None, *dw)
+
+
+def fused_attention_message(
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    weights: MessageWeights,
+    num_heads: int,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The attention half of a train-mode layer, differentiable in x_q, x_kv
+    and the eight weights: x_q [B, N, D], x_kv [B, M, D] (in the compute
+    type), kv_mask [B, M] bool or None -> msg [B, N, D] in the compute type
+    (default: x_q's type). The kernels for CUDA tensors, the plain versions
+    for CPU tensors."""
+    dtype = compute_dtype or x_q.dtype
+    return _FusedAttentionMessage.apply(x_q, x_kv, kv_mask, num_heads, dtype, *weights)

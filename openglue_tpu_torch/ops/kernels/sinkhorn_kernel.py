@@ -14,6 +14,14 @@ with a = exp(log_a), b = exp(log_b), each iteration one pass over K. The
 padded cost matrix, the marginals, the final column-stabilized
 half-iteration and the log_P assembly stay in torch, as they stay in XLA in
 the JAX package.
+
+The backward is the port of ``_sinkhorn_vjp_kernel_path`` (:670). A second
+kernel (``ops/csrc/sinkhorn_adjoint.cu``, replacing
+``_sinkhorn_adjoint_factors_kernel`` :548) replays the T iterations and runs
+the adjoint recursion, emitting rank-2T factors P ``[B, 2T, R]`` and Q
+``[B, 2T, C]``; the torch glue around it zeroes the cotangent on masked
+entries and forms ``dM = g - exp(M - rmax) o (P^T Q)``. Masked entries get
+no gradient.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ COL_ALIGN = 8  # column pitch of M_pad and K: 16-byte aligned rows in f32 and bf
 _VMEM_BUDGET_BYTES = 13 * 1024 * 1024
 
 counter = kernels.LaunchCounter()
+adjoint_counter = kernels.LaunchCounter()
 
 
 def _round_up(x: int, m: int) -> int:
@@ -192,18 +201,7 @@ def final_half_iteration(
     return x + v
 
 
-def log_optimal_transport(
-    scores: torch.Tensor,
-    dustbin_score: torch.Tensor,
-    num_iters: int = 20,
-    reg: float = 1.0,
-    mask0: Optional[torch.Tensor] = None,
-    mask1: Optional[torch.Tensor] = None,
-    k_dtype: Optional[torch.dtype] = None,
-) -> torch.Tensor:
-    """Dustbin-augmented OT through the scale-domain kernel: scores [B, m, n]
-    -> log-assignment [B, m+1, n+1]. ``k_dtype`` None applies the storage rule
-    (``k_storage_dtype``)."""
+def _log_ot_forward(scores, dustbin_score, num_iters, reg, mask0, mask1, k_dtype):
     batch, m, n = scores.shape
     rows, cols = m + 1, n + 1
     rp, cp = rows, _round_up(cols, COL_ALIGN)
@@ -215,3 +213,191 @@ def log_optimal_transport(
     u = sinkhorn_scale(M_pad, la, lb, num_iters, k_dtype)
     log_P = final_half_iteration(M_pad, u, lb, rows, cols)
     return (log_P - norm[:, None, None]).to(scores.dtype)
+
+
+def sinkhorn_adjoint_plain(
+    M_pad: torch.Tensor, la: torch.Tensor, lb: torch.Tensor, rmax: torch.Tensor,
+    g_rowsum: torch.Tensor, g_colsum: torch.Tensor, num_iters: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the adjoint kernel: M_pad [B, R, C], la, rmax,
+    g_rowsum [B, R], lb, g_colsum [B, C] (f32) -> P [B, 2T, R], Q [B, 2T, C].
+
+    Forward replay (v_0 = 1): y_t = max(K v_{t-1}, tiny), u_t = a / y_t,
+    r_t = max(K^T u_t, tiny), v_t = b / r_t with K = exp(M - rmax). Reverse,
+    t = T-1..0 from gv = g_colsum: P[t] = u_t, Q[t] = gv / r_t,
+    gu = [t = T-1] g_rowsum - u_t o K (gv / r_t), P[T+t] = gu / y_t,
+    Q[T+t] = v_{t-1} (1 at t = 0), gv = -v_{t-1} o K^T (gu / y_t)."""
+    T = num_iters
+    K = torch.exp(M_pad - rmax[:, :, None])
+    a, b = torch.exp(la), torch.exp(lb)
+
+    def rows_dot(vec):  # K vec, [B, R]
+        return torch.bmm(K, vec[:, :, None])[:, :, 0]
+
+    def cols_dot(vec):  # K^T vec, [B, C]
+        return torch.bmm(vec[:, None, :], K)[:, 0, :]
+
+    us, ys, rs, vs = [], [], [], []
+    v_hat = torch.ones_like(lb)
+    for _ in range(T):
+        y = torch.clamp(rows_dot(v_hat), min=TINY)
+        u_hat = a / y
+        r = torch.clamp(cols_dot(u_hat), min=TINY)
+        v_hat = b / r
+        us.append(u_hat)
+        ys.append(y)
+        rs.append(r)
+        vs.append(v_hat)
+
+    batch, rows, cols = M_pad.shape
+    P = torch.empty(batch, 2 * T, rows, dtype=torch.float32, device=M_pad.device)
+    Q = torch.empty(batch, 2 * T, cols, dtype=torch.float32, device=M_pad.device)
+    gv = g_colsum
+    for t_rev in range(T):
+        slot = T - 1 - t_rev
+        w = gv / rs[slot]
+        direct = g_rowsum if t_rev == 0 else torch.zeros_like(g_rowsum)
+        gu = direct - us[slot] * rows_dot(w)
+        v_prev = vs[slot - 1] if slot > 0 else torch.ones_like(gv)
+        s = gu / ys[slot]
+        P[:, slot], Q[:, slot] = us[slot], w
+        P[:, T + slot], Q[:, T + slot] = s, v_prev
+        gv = -v_prev * cols_dot(s)
+    return P, Q
+
+
+ADJOINT_MAX_COLS = 1536  # registers hold a row of f32 K per warp, as in K2's f32 path
+
+
+def sinkhorn_adjoint(
+    M_pad: torch.Tensor, la: torch.Tensor, lb: torch.Tensor, rmax: torch.Tensor,
+    g_rowsum: torch.Tensor, g_colsum: torch.Tensor, num_iters: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rank-2T adjoint factors (P, Q): the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if M_pad.device.type == "cpu":
+        return sinkhorn_adjoint_plain(M_pad, la, lb, rmax, g_rowsum, g_colsum, num_iters)
+    batch, rows, cols = M_pad.shape
+    device = M_pad.device
+    vectors = (la, rmax, g_rowsum, lb, g_colsum)
+    kernels.require(M_pad.is_cuda, f"unsupported device {device}")
+    kernels.require(
+        all(t.dtype == torch.float32 and t.is_contiguous() and t.device == device
+            for t in (M_pad, *vectors)),
+        "M_pad, la, lb, rmax and the cotangent sums must be contiguous f32 on one device",
+    )
+    kernels.require(
+        la.shape == rmax.shape == g_rowsum.shape == (batch, rows)
+        and lb.shape == g_colsum.shape == (batch, cols),
+        "vector shapes",
+    )
+    kernels.require(cols % COL_ALIGN == 0, f"column count must be a multiple of {COL_ALIGN}")
+    kernels.require(
+        cols <= ADJOINT_MAX_COLS,
+        f"the Sinkhorn adjoint kernel holds at most {ADJOINT_MAX_COLS} columns, got {cols}",
+    )
+    kernels.require(num_iters >= 1, "num_iters must be >= 1")
+    T = num_iters
+    K = torch.empty(batch, rows, cols, dtype=torch.float32, device=device)
+    hist = torch.empty(batch, T, 2 * rows + 2 * cols, dtype=torch.float32, device=device)
+    P = torch.empty(batch, 2 * T, rows, dtype=torch.float32, device=device)
+    Q = torch.empty(batch, 2 * T, cols, dtype=torch.float32, device=device)
+    fn = kernels.entry_point(
+        "sinkhorn_adjoint", "og_sinkhorn_adjoint",
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    )
+    status = fn(
+        M_pad.data_ptr(), la.data_ptr(), lb.data_ptr(), rmax.data_ptr(), g_rowsum.data_ptr(),
+        g_colsum.data_ptr(), K.data_ptr(), hist.data_ptr(), P.data_ptr(), Q.data_ptr(),
+        batch, rows, cols, T, kernels.stream_handle(device),
+    )
+    kernels.check(status, "og_sinkhorn_adjoint")
+    adjoint_counter.add()
+    return P, Q
+
+
+def valid_pairs(batch, m, n, mask0, mask1, device) -> torch.Tensor:
+    """[B, m+1, n+1] bool: entries whose row and column are valid (dustbins
+    always are)."""
+    ones = torch.ones(batch, 1, dtype=torch.bool, device=device)
+    if mask0 is None:
+        mask0 = torch.ones(batch, m, dtype=torch.bool, device=device)
+    if mask1 is None:
+        mask1 = torch.ones(batch, n, dtype=torch.bool, device=device)
+    valid_row = torch.cat([mask0, ones], dim=1)
+    valid_col = torch.cat([mask1, ones], dim=1)
+    return valid_row[:, :, None] & valid_col[:, None, :]
+
+
+def log_optimal_transport_vjp(
+    scores: torch.Tensor,
+    dustbin_score: torch.Tensor,
+    g: torch.Tensor,
+    num_iters: int,
+    reg: float,
+    mask0: Optional[torch.Tensor],
+    mask1: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d scores, d dustbin) from the cotangent g [B, m+1, n+1] of log_P: the
+    port of ``_sinkhorn_vjp_kernel_path``. Cotangents on masked entries are
+    zeroed first: every loss reads only valid entries, and the gradient
+    through the -1e9 logits would otherwise be garbage-magnitude."""
+    batch, m, n = scores.shape
+    rows, cols = m + 1, n + 1
+    rp, cp = rows, _round_up(cols, COL_ALIGN)
+    device = scores.device
+    M_pad = build_padded_otp_matrix(scores, dustbin_score, reg, mask0, mask1, rp, cp)
+    log_a, log_b, _ = otp_marginals(batch, m, n, mask0, mask1, device)
+    la, lb = padded_marginals(log_a, log_b, rp, cp)
+    pair_valid = valid_pairs(batch, m, n, mask0, mask1, device)
+    g_pad = torch.zeros(batch, rp, cp, dtype=torch.float32, device=device)
+    g_pad[:, :rows, :cols] = torch.where(pair_valid, g.float(), 0.0)
+
+    # the per-row max stabilizes the split exponentials of the factors; the
+    # row and column sums are the only pieces of g the kernel needs
+    rmax = M_pad.amax(dim=2)
+    g_rowsum = g_pad.sum(dim=2)
+    g_colsum = g_pad.sum(dim=1)
+    P, Q = sinkhorn_adjoint(M_pad, la, lb, rmax, g_rowsum, g_colsum, num_iters)
+    dm = g_pad - torch.exp(M_pad - rmax[:, :, None]) * torch.bmm(P.transpose(1, 2), Q)
+
+    dS_aug = torch.where(pair_valid, dm[:, :rows, :cols] / reg, 0.0)
+    dscores = dS_aug[:, :m, :n].to(scores.dtype)
+    ddustbin = (dS_aug[:, m, :].sum() + dS_aug[:, :m, n].sum()).to(dustbin_score.dtype)
+    return dscores, ddustbin
+
+
+class _LogOptimalTransport(torch.autograd.Function):
+    """Forward through the scale-domain kernel, backward through the adjoint
+    kernel; the gradient flows to the scores and the dustbin score."""
+
+    @staticmethod
+    def forward(ctx, scores, dustbin_score, num_iters, reg, mask0, mask1, k_dtype):
+        ctx.save_for_backward(scores, dustbin_score, mask0, mask1)
+        ctx.num_iters, ctx.reg = num_iters, reg
+        return _log_ot_forward(scores, dustbin_score, num_iters, reg, mask0, mask1, k_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        scores, dustbin_score, mask0, mask1 = ctx.saved_tensors
+        dscores, ddustbin = log_optimal_transport_vjp(
+            scores, dustbin_score, g, ctx.num_iters, ctx.reg, mask0, mask1
+        )
+        return dscores, ddustbin, None, None, None, None, None
+
+
+def log_optimal_transport(
+    scores: torch.Tensor,
+    dustbin_score: torch.Tensor,
+    num_iters: int = 20,
+    reg: float = 1.0,
+    mask0: Optional[torch.Tensor] = None,
+    mask1: Optional[torch.Tensor] = None,
+    k_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Dustbin-augmented OT through the scale-domain kernel: scores [B, m, n]
+    -> log-assignment [B, m+1, n+1], differentiable in the scores and the
+    dustbin score. ``k_dtype`` None applies the storage rule
+    (``k_storage_dtype``)."""
+    dustbin_score = torch.as_tensor(dustbin_score, dtype=torch.float32, device=scores.device)
+    return _LogOptimalTransport.apply(scores, dustbin_score, num_iters, reg, mask0, mask1, k_dtype)

@@ -1,11 +1,34 @@
-"""Training-step helpers (port of ``openglue_tpu/train/step.py``; only the
-input mapping so far: the training step itself comes with a later slice)."""
+"""Train and eval steps (port of ``openglue_tpu/train/step.py``).
+
+One step: GT match generation from the pair's geometry -> SuperGlue forward
+in training mode -> weighted NLL (+ metric) loss -> backward -> clipped Adam
+update. The BatchNorm running statistics update during the forward.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
 
 from openglue_tpu_torch.core.types import PairBatch
+from openglue_tpu_torch.geometry.gt_matches import generate_gt_matches
+from openglue_tpu_torch.losses import criterion
+from openglue_tpu_torch.models.matching import decode_from_output
+from openglue_tpu_torch.train.state import TrainState, global_norm
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss and supervision settings (the reference config's ``train`` keys)."""
+
+    positive_threshold: float = 2.0
+    negative_threshold: float = 7.0
+    nll_weight: float = 1.0
+    metric_weight: float = 0.0
+    margin: Optional[float] = None
+    gt_parity_mode: bool = False
 
 
 def superglue_inputs(batch: PairBatch) -> Dict[str, Any]:
@@ -23,3 +46,54 @@ def superglue_inputs(batch: PairBatch) -> Dict[str, Any]:
         mask0=s0.mask,
         mask1=s1.mask,
     )
+
+
+def make_train_step(loss_config: LossConfig) -> Callable[[TrainState, PairBatch], Dict[str, torch.Tensor]]:
+    """(state, batch) -> metrics: ``total_loss``, ``nll_loss``,
+    ``metric_loss`` and ``grad_norm`` (of the unclipped gradients), as 0-dim
+    tensors on the model's device. Updates ``state`` in place."""
+
+    def train_step(state: TrainState, batch: PairBatch) -> Dict[str, torch.Tensor]:
+        s0, s1 = batch.side0, batch.side1
+        with torch.no_grad():
+            gt = generate_gt_matches(
+                s0.keypoints, s1.keypoints, batch.transformation,
+                positive_threshold=loss_config.positive_threshold,
+                negative_threshold=loss_config.negative_threshold,
+                mask0=s0.mask, mask1=s1.mask, parity_mode=loss_config.gt_parity_mode,
+            )
+        model = state.model.train()
+        out = model(**superglue_inputs(batch))
+        losses = criterion(gt, out, margin=loss_config.margin, mask0=s0.mask, mask1=s1.mask)
+        total = (loss_config.nll_weight * losses["loss"]
+                 + loss_config.metric_weight * losses["metric_loss"])
+        state.optimizer.zero_grad()
+        total.backward()
+        grads = [p.grad for p in state.optimizer.params if p.grad is not None]
+        grad_norm = global_norm(grads)
+        state.optimizer.step(grad_norm)
+        state.step += 1
+        return {
+            "total_loss": total.detach(),
+            "nll_loss": losses["loss"].detach(),
+            "metric_loss": losses["metric_loss"].detach(),
+            "grad_norm": grad_norm,
+        }
+
+    return train_step
+
+
+def make_eval_step(match_threshold: float = 0.2) -> Callable[[TrainState, PairBatch], Dict[str, torch.Tensor]]:
+    """(state, batch) -> the decoded matches and the scores, in eval mode."""
+
+    def eval_step(state: TrainState, batch: PairBatch) -> Dict[str, torch.Tensor]:
+        model = state.model.eval()
+        with torch.no_grad():
+            out = model(**superglue_inputs(batch))
+            matches = decode_from_output(
+                out, match_threshold=match_threshold, mask0=batch.side0.mask, mask1=batch.side1.mask
+            )
+        matches["scores"] = out["scores"]
+        return matches
+
+    return eval_step

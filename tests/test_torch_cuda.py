@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions on a card.
+"""The port's CUDA kernels (the eval layer, the Sinkhorn forward and adjoint,
+the message forward and backward) against their plain PyTorch versions on a
+card.
 
 This file imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -85,3 +87,157 @@ def test_kernels_raise_instead_of_falling_back():
     la, lb = torch.zeros(1, 9, device=dev), torch.zeros(1, 12, device=dev)
     with pytest.raises(ValueError):
         sk.sinkhorn_scale(M_pad, la, lb, 3, torch.float32)
+
+
+def _message_case(dev, dtype, batch=2, n=300, m=257, dim=256, counts=(200, 0), seed=2):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    w = glk.MessageWeights(*[r(dim, dim, scale=dim**-0.5) if i % 2 == 0 else r(dim) for i in range(8)])
+    x_q, x_kv = r(batch, n, dim).to(dtype), r(batch, m, dim).to(dtype)
+    mask = torch.arange(m, device=dev)[None] < torch.tensor(counts, device=dev)[:, None]
+    g = r(batch, n, dim).to(dtype)
+    return x_q, x_kv, mask, w, g
+
+
+def _close(got, ref, dtype, what, scale=None, f32_tol=1e-5):
+    """f32: summation order only, ``f32_tol`` of the largest entry; bf16:
+    single rounding flips carried by the products, 2^-6 of the largest
+    entry."""
+    ref, got = ref.float(), got.float()
+    scale = max(ref.abs().max().item(), scale or 0.0)
+    atol = (f32_tol if dtype == torch.float32 else 2.0**-6) * scale + 1e-6
+    torch.testing.assert_close(got, ref, atol=atol, rtol=0, msg=lambda m: f"{what}: {m}")
+
+
+# f32 gradients, kernel against the plain version on the card: summation
+# order only, 1e-5 of the largest entry
+GRAD_F32_TOL = 1e-5
+# f32 gradients, the card against the plain version on the CPU, whose
+# matmuls sum in another order: an H100 measured 1.12e-5 of the largest dWq
+# entry (the sums over rows cancel through dS = P o (dP - rowsum(dP o P)));
+# the bar is about 4x that
+CPU_F32_TOL = 5e-5
+
+
+def _close_weight_grads(got, ref, dtype, f32_tol=GRAD_F32_TOL):
+    """Weight and bias gradients in MessageWeights order. A bias gradient sums
+    the same rows as its weight's, and dbk is zero up to cancellation (the
+    softmax ignores a shift of the logits), so a bias is held at its
+    weight's scale."""
+    for i, name in enumerate(glk.MessageWeights._fields):
+        assert got[i].dtype == torch.float32
+        pair = ref[i - 1].abs().max().item() if i % 2 else None
+        _close(got[i], ref[i], dtype, name, scale=pair, f32_tol=f32_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [128, 256])
+def test_message_kernels_match_plain(dtype, dim):
+    dev = _cuda()
+    x_q, x_kv, mask, w, g = _message_case(dev, dtype, dim=dim)
+    heads = dim // 64
+    before = glk.message_counter.count, glk.message_bwd_counter.count
+    out = glk.message_forward(x_q, x_kv, mask, w, heads, dtype)
+    ref = glk.message_forward_plain(x_q, x_kv, mask, w, heads, dtype)
+    grads = glk.message_backward(x_q, x_kv, mask, w, g, out[1], out[2], heads, dtype)
+    ref_grads = glk.message_backward_plain(x_q, x_kv, mask, w, g, ref[1], ref[2], heads, dtype)
+    torch.cuda.synchronize()
+    assert (glk.message_counter.count, glk.message_bwd_counter.count) == (before[0] + 1, before[1] + 1)
+    for name, a, b in zip(("msg", "attn", "lse"), out, ref):
+        _close(a, b, dtype, name)
+    for name, a, b in zip(("dx_q", "dx_kv"), grads[:2], ref_grads[:2]):
+        assert a.dtype == dtype
+        _close(a, b, dtype, name, f32_tol=GRAD_F32_TOL)
+    _close_weight_grads(grads[2], ref_grads[2], dtype)
+
+
+@pytest.mark.cuda
+def test_message_kernels_are_deterministic():
+    dev = _cuda()
+    x_q, x_kv, mask, w, g = _message_case(dev, torch.bfloat16, counts=(257, 120))
+    out = glk.message_forward(x_q, x_kv, mask, w, 4, torch.bfloat16)
+    first = glk.message_backward(x_q, x_kv, mask, w, g, out[1], out[2], 4, torch.bfloat16)
+    again = glk.message_backward(x_q, x_kv, mask, w, g, out[1], out[2], 4, torch.bfloat16)
+    for a, b in zip([*first[:2], *first[2]], [*again[:2], *again[2]]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fused_attention_message_autograd_on_card():
+    """Self attention through the autograd Function: both input gradients are
+    returned and added."""
+    dev = _cuda()
+    x, _, mask, w, _ = _message_case(dev, torch.float32, n=130, m=130, dim=128, counts=(130, 90))
+    params = [t.clone().requires_grad_() for t in w]
+    xs = x.clone().requires_grad_()
+    glk.fused_attention_message(xs, xs, mask, glk.MessageWeights(*params), 2).square().sum().backward()
+    xc, pc = x.cpu().requires_grad_(), [t.detach().cpu().requires_grad_() for t in w]
+    glk.fused_attention_message(xc, xc, mask.cpu(), glk.MessageWeights(*pc), 2).square().sum().backward()
+    _close(xs.grad.cpu(), xc.grad, torch.float32, "dx", f32_tol=CPU_F32_TOL)
+    _close_weight_grads([p.grad.cpu() for p in params], [p.grad for p in pc], torch.float32, CPU_F32_TOL)
+
+
+@pytest.mark.cuda
+def test_sinkhorn_adjoint_kernel_matches_plain():
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    batch, m, n, iters = 3, 300, 277, 20
+    scores = torch.randn(batch, m, n, generator=gen, device=dev) * 3
+    mask0 = torch.rand(batch, m, generator=gen, device=dev) > 0.2
+    mask1 = torch.rand(batch, n, generator=gen, device=dev) > 0.2
+    rows, cp = m + 1, sk._round_up(n + 1, sk.COL_ALIGN)
+    M_pad = sk.build_padded_otp_matrix(scores, torch.tensor(1.0, device=dev), 1.0, mask0, mask1, rows, cp)
+    la, lb, _ = sk.otp_marginals(batch, m, n, mask0, mask1, dev)
+    la, lb = sk.padded_marginals(la, lb, rows, cp)
+    g_pad = torch.zeros(batch, rows, cp, device=dev)
+    g_pad[:, :, : n + 1] = torch.randn(batch, rows, n + 1, generator=gen, device=dev) * sk.valid_pairs(
+        batch, m, n, mask0, mask1, dev)
+    rmax = M_pad.amax(dim=2)
+    args = (M_pad, la, lb, rmax, g_pad.sum(2), g_pad.sum(1), iters)
+    before = sk.adjoint_counter.count
+    P, Q = sk.sinkhorn_adjoint(*args)
+    assert sk.adjoint_counter.count == before + 1
+    P_ref, Q_ref = sk.sinkhorn_adjoint_plain(*args)
+    torch.cuda.synchronize()
+    # the same f32 recursion; matvec summation order differs. Compare the
+    # factors' product on the live entries, which is what the gradient uses
+    live = sk.valid_pairs(batch, m, n, mask0, mask1, dev)
+    prod = torch.bmm(P.transpose(1, 2), Q)[:, :, : n + 1]
+    prod_ref = torch.bmm(P_ref.transpose(1, 2), Q_ref)[:, :, : n + 1]
+    scale = prod_ref[live].abs().max().item()
+    torch.testing.assert_close(prod[live], prod_ref[live], atol=1e-4 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_sinkhorn_gradient_through_kernels_matches_plain():
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    scores = (torch.randn(2, 200, 180, generator=gen, device=dev) * 2).requires_grad_()
+    dust = torch.tensor(0.7, device=dev, requires_grad=True)
+    mask0 = torch.arange(200, device=dev)[None] < torch.tensor([200, 150], device=dev)[:, None]
+    mask1 = torch.arange(180, device=dev)[None] < torch.tensor([100, 180], device=dev)[:, None]
+    valid = sk.valid_pairs(2, 200, 180, mask0, mask1, dev)
+    before = sk.counter.count, sk.adjoint_counter.count
+    out = sk.log_optimal_transport(scores, dust, 20, mask0=mask0, mask1=mask1)
+    torch.where(valid, out, 0.0).square().sum().backward()
+    assert (sk.counter.count, sk.adjoint_counter.count) == (before[0] + 1, before[1] + 1)
+    dref, ddref = sk.log_optimal_transport_vjp(
+        scores.detach().cpu(), dust.detach().cpu(), torch.where(valid, 2 * out, 0.0).detach().cpu(),
+        20, 1.0, mask0.cpu(), mask1.cpu())
+    scale = dref.abs().max().item()
+    torch.testing.assert_close(scores.grad.cpu(), dref, atol=1e-4 * scale, rtol=0)
+    torch.testing.assert_close(dust.grad.cpu(), ddref, atol=1e-4 * abs(ddref.item()), rtol=0)
+
+
+@pytest.mark.cuda
+def test_adjoint_kernel_raises_beyond_its_column_limit():
+    dev = _cuda()
+    rows, cols = 9, sk.ADJOINT_MAX_COLS + 8
+    M_pad = torch.zeros(1, rows, cols, device=dev)
+    vec_r, vec_c = torch.zeros(1, rows, device=dev), torch.zeros(1, cols, device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        sk.sinkhorn_adjoint(M_pad, vec_r, vec_c, vec_r, vec_r, vec_c, 3)

@@ -1,0 +1,38 @@
+"""The cache key of the kernel build (ops/kernels/__init__.py): a library is
+named after its source and every header it includes, so that an edited
+header rebuilds every library that uses it and no other."""
+
+import shutil
+
+from openglue_tpu_torch.ops import kernels
+
+LAYER_SOURCES = {"gnn_layer", "message_forward", "message_backward"}
+SINKHORN_SOURCES = {"sinkhorn", "sinkhorn_adjoint"}
+
+
+def test_every_source_has_its_headers():
+    names = {name: {p.name for p in kernels.source_files(name)} for name in kernels.SOURCES}
+    assert set(kernels.SOURCES) == LAYER_SOURCES | SINKHORN_SOURCES
+    assert names["gnn_layer"] == {"gnn_layer.cu", "attention.cuh", "gemm.cuh", "mma.cuh"}
+    assert names["message_backward"] == {"message_backward.cu", "gemm.cuh", "mma.cuh"}
+    assert names["sinkhorn_adjoint"] == {"sinkhorn_adjoint.cu", "sinkhorn_rows.cuh"}
+
+
+def _names(csrc, monkeypatch):
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    return {name: kernels.library_path(name).name for name in kernels.SOURCES}
+
+
+def test_editing_a_header_renames_exactly_its_libraries(tmp_path, monkeypatch):
+    csrc = (tmp_path / "csrc").resolve()
+    shutil.copytree(kernels.CSRC, csrc)
+    first = _names(csrc, monkeypatch)
+    assert _names(csrc, monkeypatch) == first  # unchanged sources keep their libraries
+
+    (csrc / "mma.cuh").write_text((csrc / "mma.cuh").read_text() + "\n// edited\n")
+    second = _names(csrc, monkeypatch)
+    assert {n for n in first if first[n] != second[n]} == LAYER_SOURCES  # through gemm/attention
+
+    (csrc / "sinkhorn_rows.cuh").write_text((csrc / "sinkhorn_rows.cuh").read_text() + "\n")
+    third = _names(csrc, monkeypatch)
+    assert {n for n in first if second[n] != third[n]} == SINKHORN_SOURCES

@@ -184,7 +184,7 @@ def test_synthetic_pairs_follow_their_homography():
     )
     inputs = superglue_inputs(batch)
     assert inputs["desc0"].shape == (3, 64, 32) and inputs["mask0"].all()
-    H = batch.homography
+    H = batch.transformation.H
     pts = torch.cat([batch.side0.keypoints, torch.ones(3, 64, 1)], -1) @ H.transpose(1, 2)
     warped = pts[..., :2] / pts[..., 2:]
     close = (warped - batch.side1.keypoints).norm(dim=-1) < 1e-2
@@ -207,6 +207,10 @@ def test_chip_smoke_config_is_the_yaml_section():
     cfg = superglue_config_from({"superglue": section}, descriptor_dim=256, side_info_dim=0)
     assert (cfg.num_stages, cfg.num_heads, cfg.otp_num_iters, cfg.side_info_size) == (9, 4, 20, 1)
     assert cfg.use_pallas and cfg.decode_stats and cfg.chain_dtype == "bfloat16"
+    with open(REPO / "configs" / "config_cached_sp_magicleap.yaml") as f:
+        full = yaml.safe_load(f)
+    assert smoke.TRAIN_SECTION == full["train"]
+    assert (smoke.BATCH_SIZE, smoke.MAX_KEYPOINTS) == (full["data"]["batch_size"], full["data"]["max_keypoints"])
 
 
 def _imports(path):
@@ -228,17 +232,26 @@ def test_port_sources_import_no_jax():
 
 def test_port_runs_without_jax_in_the_process():
     code = """
-import sys, torch
-from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
+import importlib, pathlib, sys, torch
+import openglue_tpu_torch
+root = pathlib.Path(openglue_tpu_torch.__file__).parent
+for path in sorted(root.rglob("*.py")):  # every module of the port
+    parts = path.relative_to(root.parent).with_suffix("").parts
+    importlib.import_module(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs, SyntheticReprojectionPairs
 from openglue_tpu_torch.models.matching import decode_from_output
 from openglue_tpu_torch.models.superglue import SuperGlue, SuperGlueConfig
-from openglue_tpu_torch.train.step import superglue_inputs
+from openglue_tpu_torch.train.state import create_train_state
+from openglue_tpu_torch.train.step import LossConfig, make_train_step, superglue_inputs
 batch = SyntheticHomographyPairs(num_keypoints=40, descriptor_dim=64).sample(torch.Generator().manual_seed(0), 2)
 cfg = SuperGlueConfig(descriptor_dim=64, pe_hidden_layers_sizes=(32,), num_stages=1, use_pallas=True, decode_stats=True)
 model = SuperGlue(cfg, device="cpu").eval()
 with torch.no_grad():
     out = model(**superglue_inputs(batch))
 decode_from_output(out, 0.2)
+pairs = SyntheticReprojectionPairs(num_keypoints=40, descriptor_dim=64).sample(torch.Generator().manual_seed(1), 2)
+metrics = make_train_step(LossConfig())(create_train_state(model), pairs)
+assert torch.isfinite(metrics["total_loss"])
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "openglue_tpu")]
 assert not bad, bad
 print("ok")
