@@ -11,7 +11,9 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    plain PyTorch version on the card, with its time, the plain version's time
    and its bound: the eval layer (K1) and the Sinkhorn forward (K2) at the
    serving shapes; the Sinkhorn adjoint (K3) and the message forward and
-   backward (K4, K5; bf16 and f32) at the training shape B=12, N=1024;
+   backward (K4, K5; bf16 and f32) at the training shape B=12, N=1024; the
+   feature-kind layer (K6: linear, FAVOR-relu, FAVOR-softmax; bf16 and f32)
+   and the int8 layer (K7: its four modes) at B=16, N=1024;
 4. serving: the flagship config (the ``superglue:`` section of
    configs/config_cached_sp_magicleap.yaml: D=256, 9 stages, 4 heads, bf16
    chain, 20 Sinkhorn iterations, use_pallas) with seeded random weights,
@@ -20,6 +22,12 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    the kernel launch counts and holds every request against the same model
    run through the kernels' plain versions; a small f32 input is also held
    against the independent composed path (use_pallas=False);
+   Then the matcher's other serving configurations at the same width and
+   depth: attention linear (B=16 N=1024 and B=4 N=2048), favor_relu and
+   favor_softmax (B=16 N=1024), each held against its plain path at the
+   softmax phases' bars; quantize int8_static_attn (calibrated on its first
+   request) and int8 at B=16 and B=1, N=1024, each held against the int8
+   plain path and against the bf16 kernel path, the readings printed;
 5. training: ``make_train_step`` of the same model with the optimizer and
    loss of the config's ``train:`` section, on synthetic homography pairs at
    the config's batch (B=12, N=1024, valid counts in [512, 1024]): one step
@@ -74,6 +82,7 @@ SIDE_INFO_DIM = 0  # laf_to_sideinfo_method: none -> side info is the response o
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 DECODE_AGREEMENT = 0.99
 LOG_P_NATS = 0.05
@@ -116,21 +125,8 @@ def check(cond: bool, message: str) -> None:
 
 def layer_phase(glk, dtype, gen, batch=16, n=1024, dim=256, heads=4):
     """K1 at the serving shape with ragged key masks: kernel vs plain."""
-    dev = torch.device("cuda")
-
-    def r(*shape, scale=1.0):
-        return torch.randn(*shape, generator=gen, device=dev) * scale
-
-    d2 = 2 * dim
-    w = glk.PropagationWeights(
-        r(dim, dim, scale=dim**-0.5).to(dtype), r(dim), r(dim, dim, scale=dim**-0.5).to(dtype), r(dim),
-        r(dim, dim, scale=dim**-0.5).to(dtype), r(dim), r(dim, dim, scale=dim**-0.5).to(dtype), r(dim),
-        r(d2, d2, scale=d2**-0.5).to(dtype), r(d2), 1.0 + 0.1 * r(d2), 0.1 * r(d2),
-        r(dim, d2, scale=d2**-0.5).to(dtype), r(dim),
-    )
-    x_q, x_kv = r(batch, n, dim).to(dtype), r(batch, n, dim).to(dtype)
-    counts = torch.randint(n // 4, n + 1, (batch,), generator=gen, device=dev)
-    mask = torch.arange(n, device=dev)[None] < counts[:, None]
+    w = layer_weights(glk, dtype, gen, dim)
+    x_q, x_kv, mask = layer_inputs(dtype, gen, batch, n, dim)
     out = glk.fused_attention_propagation(x_q, x_kv, mask, w, heads)
     ref = glk.layer_plain(x_q, x_kv, mask, w, heads)
     torch.cuda.synchronize()
@@ -149,6 +145,115 @@ def layer_phase(glk, dtype, gen, batch=16, n=1024, dim=256, heads=4):
     print(f"K1 gnn_layer {str(dtype)[6:]} B={batch} N=M={n} D={dim} H={heads}: max_abs_err={err:.3e} "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def layer_weights(glk, dtype, gen, dim=256):
+    dev = torch.device("cuda")
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    d2 = 2 * dim
+    return glk.PropagationWeights(
+        r(dim, dim, scale=dim**-0.5).to(dtype), r(dim), r(dim, dim, scale=dim**-0.5).to(dtype), r(dim),
+        r(dim, dim, scale=dim**-0.5).to(dtype), r(dim), r(dim, dim, scale=dim**-0.5).to(dtype), r(dim),
+        r(d2, d2, scale=d2**-0.5).to(dtype), r(d2), 1.0 + 0.1 * r(d2), 0.1 * r(d2),
+        r(dim, d2, scale=d2**-0.5).to(dtype), r(dim),
+    )
+
+
+def layer_inputs(dtype, gen, batch, n, dim):
+    """x_q, x_kv and a ragged key mask (valid counts in [N/4, N])."""
+    dev = torch.device("cuda")
+    x_q = torch.randn(batch, n, dim, generator=gen, device=dev).to(dtype)
+    x_kv = torch.randn(batch, n, dim, generator=gen, device=dev).to(dtype)
+    counts = torch.randint(n // 4, n + 1, (batch,), generator=gen, device=dev)
+    return x_q, x_kv, torch.arange(n, device=dev)[None] < counts[:, None]
+
+
+def feature_layer_phase(glk, sample_projection, kind, dtype, gen, batch=16, n=1024, dim=256, heads=4):
+    """K6 at the serving shape with ragged key masks: kernel vs plain."""
+    w = layer_weights(glk, dtype, gen, dim)
+    x_q, x_kv, mask = layer_inputs(dtype, gen, batch, n, dim)
+    dh = dim // heads
+    feats = dh if kind == "linear" else 2 * dh
+    proj = None if kind == "linear" else sample_projection(gen, feats, dh)
+    run = lambda: glk.fused_attention_propagation(x_q, x_kv, mask, w, heads, False, kind, proj)
+    plain = lambda: glk.layer_plain(x_q, x_kv, mask, w, heads, False, kind, proj)
+    out, again, ref = run(), run(), plain()
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f"K6 {kind} {dtype}: two runs differ")
+    err = (out.float() - ref.float()).abs().max().item()
+    # f32: summation order only; bf16: two ulps of the largest output
+    # (rounding flips of q, v, the features and the aggregate's operands)
+    tol = 1e-3 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    check(err <= tol, f"K6 {kind} {dtype}: max error {err} above {tol}")
+    ms = cuda_ms(run, 20)
+    plain_ms = cuda_ms(plain, 5, warmup=1)
+    elt = x_q.element_size()
+    # the work the function needs: the six dense products; per head the FAVOR
+    # projection of queries and keys, the aggregate kf^T v and the key sum, all
+    # on operands of the compute type; and qf . KV with the normalizer, whose
+    # KV operand is f32 by definition
+    favor = 0 if kind == "linear" else 4 * n * dh * feats
+    t_ops = batch * (20 * n * dim * dim + heads * (favor + 2 * n * feats * dh + n * feats))
+    f32_ops = batch * heads * (2 * n * feats * dh + 2 * n * feats)
+    rate = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    nbytes = 3 * batch * n * dim * elt + 10 * dim * dim * elt + batch * n + (feats * dh * 4 if proj is not None else 0)
+    t_op, t_bytes = t_ops / rate + f32_ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    bms, by = max(t_op, t_bytes) * 1e3, ("operations" if t_op >= t_bytes else "bytes")
+    print(f"K6 gnn_layer_features {kind} F={feats} {str(dtype)[6:]} B={batch} N=M={n} D={dim} H={heads}: "
+          f"max_abs_err={err:.3e} (bar {tol:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}), two runs equal", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+INT8_MODES = {"int8": (False, False), "int8_static": (True, False), "int8_attn": (False, True),
+              "int8_static_attn": (True, True)}
+# relative-norm bars of K7 against its plain version: with bf16 attention the
+# JAX package's bar between its int8 kernel and its oracle (rounding flips of P
+# flip int8 roundings downstream); with int8 attention every product is exact
+# and only the f32 summation order of the softmax denominator differs
+INT8_REL_NORM = {False: 0.015, True: 1e-3}
+
+
+def int8_layer_phase(glk, gli8, mode, gen, batch=16, n=1024, dim=256, heads=4):
+    """K7 at the serving shape (bf16 x, ragged key masks): kernel vs plain. The
+    integer products and their dequantization are exact; the attention's
+    summation order (and, in bf16, its rounding of P) flips single int8
+    roundings downstream, so the bar is on the relative norm, and the largest
+    single difference is reported."""
+    static, quant_attention = INT8_MODES[mode]
+    qw = gli8.quantize_propagation_weights(layer_weights(glk, torch.float32, gen, dim))
+    x_q, x_kv, mask = layer_inputs(torch.bfloat16, gen, batch, n, dim)
+    scales = None
+    if static:
+        absmax = gli8.reference_activation_absmax(x_q, x_kv, mask, qw, heads, quant_attention=quant_attention)
+        scales = absmax * (1.1 / 127.0) + 1e-12
+    kw = dict(act_scales=scales, quant_attention=quant_attention)
+    run = lambda: gli8.fused_attention_propagation_int8(x_q, x_kv, mask, qw, heads, **kw)
+    plain = lambda: gli8.layer_int8_plain(x_q, x_kv, mask, qw, heads, **kw)
+    out, again, ref = run(), run(), plain()
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), f"K7 {mode}: two runs differ")
+    diff = (out.float() - ref.float()).abs()
+    err = diff.max().item()
+    rel = (diff.norm() / ref.float().norm()).item()
+    exact = (diff == 0).float().mean().item()
+    bar = INT8_REL_NORM[quant_attention]
+    check(rel <= bar, f"K7 {mode}: relative norm {rel} above {bar}")
+    ms = cuda_ms(run, 20)
+    plain_ms = cuda_ms(plain, 3, warmup=1)
+    # the six dense products are s8; the attention's two are bf16, or s8 too
+    dense, attn = batch * 20 * n * dim * dim, batch * 4 * n * n * dim
+    t_op = dense / PEAK_INT8_OPS + attn / (PEAK_INT8_OPS if quant_attention else PEAK_BF16_FLOPS)
+    nbytes = 3 * batch * n * dim * 2 + 10 * dim * dim + batch * n
+    t_bytes = nbytes / PEAK_BYTES
+    bms, by = max(t_op, t_bytes) * 1e3, ("operations" if t_op >= t_bytes else "bytes")
+    print(f"K7 gnn_layer_int8 {mode} bf16-x B={batch} N=M={n} D={dim} H={heads}: max_abs_err={err:.3e}, "
+          f"relative norm {rel:.3e} (bar {bar}), entries equal {exact:.4f}; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), two runs equal", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, rel_norm_err=rel)
 
 
 def sinkhorn_phase(sk, batch, n, gen, iters=20):
@@ -299,7 +404,7 @@ def message_phase(glk, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, dim=256, h
 
 
 @contextlib.contextmanager
-def plain_versions(glk, sk):
+def plain_versions(glk, sk, gli8=None):
     """Route the model's kernel calls to the kernels' plain versions, on the
     card, for the reference run of the same model."""
     names = [(glk, "fused_attention_propagation", glk.layer_plain),
@@ -307,6 +412,8 @@ def plain_versions(glk, sk):
              (glk, "message_backward", glk.message_backward_plain),
              (sk, "sinkhorn_scale", sk.sinkhorn_scale_plain),
              (sk, "sinkhorn_adjoint", sk.sinkhorn_adjoint_plain)]
+    if gli8 is not None:
+        names.append((gli8, "fused_attention_propagation_int8", gli8.layer_int8_plain))
     saved = [getattr(module, name) for module, name, _ in names]
     for module, name, plain in names:
         setattr(module, name, plain)
@@ -386,6 +493,117 @@ def compare(decode_from_output, out, ref, inputs, name):
     top2 = inner.topk(2, dim=2).values
     stats["median_top2_margin"] = (top2[..., 0] - top2[..., 1])[m0].median().item()
     return nats, stats
+
+
+def decode_readings(decode_from_output, out, ref, inputs):
+    """How far ``out`` is from ``ref``: log_P on valid entries (max and mean
+    |diff| in nats), the decode at threshold 0 and the row argmax."""
+    m0, m1 = inputs["mask0"], inputs["mask1"]
+    rows = torch.cat([m0, torch.ones_like(m0[:, :1])], 1)
+    cols = torch.cat([m1, torch.ones_like(m1[:, :1])], 1)
+    valid = rows[:, :, None] & cols[:, None, :]
+    check(bool(torch.isfinite(out["scores"][valid]).all()), "non-finite log_P")
+    diff = (out["scores"] - ref["scores"]).abs()[valid]
+    a = decode_from_output(out, 0.0, m0, m1)["matches0"]
+    b = decode_from_output(ref, 0.0, m0, m1)["matches0"]
+    return {
+        "nats_max": diff.max().item(), "nats_mean": diff.mean().item(),
+        "matches@0": (a == b)[m0].float().mean().item(),
+        "row_argmax": (out["decode_indices0"] == ref["decode_indices0"])[m0].float().mean().item(),
+    }
+
+
+# int8 serving at random weights (a nearly flat assignment), against the int8
+# plain path and against the bf16 kernel path. Bars set from the first readings
+# on an H100 (700 W): row argmax 0.977-0.993, decode at threshold 0
+# 0.9975-1.0, log_P within 4.4e-4 nats, for both modes and both references
+INT8_ROW_ARGMAX = 0.95
+
+
+def other_configs_phase(gen, card, base_model, mods, requests):
+    """The matcher's other serving configurations at the flagship's width and
+    depth: the three feature kinds through K6 and two int8 modes through K7.
+    Returns the launches of the counted runs by configuration."""
+    from openglue_tpu_torch.cli.common import superglue_config_from
+    from openglue_tpu_torch.models.superglue import SuperGlue
+
+    glk, gli8, sk, decode_from_output = mods
+    counters = {"K1": glk.counter, "K6": glk.feature_counter, "K7": gli8.counter, "K2": sk.counter}
+
+    def build(**changes):
+        section = dict(SUPERGLUE_SECTION)
+        section["attention_gnn"] = dict(section["attention_gnn"], attention=changes.pop("attention", "softmax"))
+        section.update(changes)
+        cfg = superglue_config_from({"superglue": section}, DESCRIPTOR_DIM, SIDE_INFO_DIM)
+        return cfg, SuperGlue(cfg, device="cuda", generator=torch.Generator().manual_seed(0)).eval()
+
+    def counted(model, inputs, name, kernel):
+        """Warm, then one run with the counts from 0, then the latency."""
+        serve(model, decode_from_output, inputs)
+        torch.cuda.synchronize()
+        for counter in counters.values():
+            counter.reset()
+        out, decoded = serve(model, decode_from_output, inputs)
+        delta = {k: c.count for k, c in counters.items()}
+        layers = 2 * model.config.num_stages * 2
+        expected = {"K1": 0, "K6": 0, "K7": 0, "K2": 1, kernel: layers}
+        check(delta == expected, f"{name}: launches {delta}, expected {expected}")
+        times = []
+        for _ in range(SERVE_REPEATS):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            serve(model, decode_from_output, inputs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+        return out, decoded, statistics.median(times), delta[kernel]
+
+    def report(name, model, inputs, latency, decoded, launches, kernel, notes):
+        batch = inputs["kpts0"].shape[0]
+        busy, kernels_by_time = device_profile(lambda: serve(model, decode_from_output, inputs))
+        idle = "not measured" if busy is None else f"{1 - busy / (latency * 1e3):.3f}"
+        print(f"serve {name}: {latency * 1e3:.3f} ms (median of {SERVE_REPEATS}), {batch / latency:.2f} pairs/s, "
+              f"device busy {busy} ms, idle share {idle}, launches {kernel}={launches} sinkhorn=1, {notes}, "
+              f"matches {int((decoded['matches0'] >= 0).sum())} [{card}]", flush=True)
+        print(f"  device time by kernel, {name}: "
+              + "; ".join(f"{kname} {ms:.3f} ms" for ms, kname, _ in kernels_by_time), flush=True)
+
+    launches = {}
+    big, wide, single = requests["B=16 N=1024"], requests["B=4 N=2048"], requests["B=1 N=1024 valid=1024/700"]
+    for kind, cases in (("linear", (("B=16 N=1024", big), ("B=4 N=2048", wide))),
+                        ("favor_relu", (("B=16 N=1024", big),)), ("favor_softmax", (("B=16 N=1024", big),))):
+        _, model = build(attention=kind)
+        launches[kind] = 0
+        for shape, inputs in cases:
+            name = f"attention={kind} {shape}"
+            out, decoded, latency, count = counted(model, inputs, name, "K6")
+            launches[kind] += count
+            with plain_versions(glk, sk):
+                ref = serve(model, decode_from_output, inputs)[0]
+            nats, stats = compare(decode_from_output, out, ref, inputs, name)
+            report(name, model, inputs, latency, decoded, count, "K6", f"vs plain path: {nats:.3e} nats, decode {json.dumps(stats)}")
+
+    for mode in ("int8_static_attn", "int8"):
+        _, model = build(quantize=mode)
+        model.load_state_dict(base_model.state_dict(), strict=False)
+        if mode.startswith("int8_static"):
+            model.calibrate(**big)  # the first request calibrates
+        launches[mode] = 0
+        for shape, inputs in (("B=16 N=1024", big), ("B=1 N=1024", single)):
+            name = f"quantize={mode} {shape}"
+            out, decoded, latency, count = counted(model, inputs, name, "K7")
+            launches[mode] += count
+            with plain_versions(glk, sk, gli8):
+                vs_plain = decode_readings(decode_from_output, out, serve(model, decode_from_output, inputs)[0], inputs)
+            vs_bf16 = decode_readings(decode_from_output, out, serve(base_model, decode_from_output, inputs)[0], inputs)
+            for against, got in (("int8 plain path", vs_plain), ("bf16 kernel path", vs_bf16)):
+                check(got["nats_max"] <= LOG_P_NATS and got["matches@0"] >= DECODE_AGREEMENT
+                      and got["row_argmax"] >= INT8_ROW_ARGMAX,
+                      f"{name} vs the {against}: {got} outside the bars ({LOG_P_NATS} nats, decode "
+                      f"{DECODE_AGREEMENT}, row argmax {INT8_ROW_ARGMAX})")
+            report(name, model, inputs, latency, decoded, count, "K7",
+                   f"vs int8 plain path {json.dumps(vs_plain)}, vs bf16 kernel path {json.dumps(vs_bf16)} "
+                   f"(bars {LOG_P_NATS} nats, decode {DECODE_AGREEMENT}, row argmax {INT8_ROW_ARGMAX})")
+    return launches
 
 
 def device_profile(fn, top: int = 5):
@@ -513,6 +731,8 @@ def main() -> int:
     from openglue_tpu_torch.models.matching import decode_from_output
     from openglue_tpu_torch.models.superglue import SuperGlue
     from openglue_tpu_torch.ops import kernels
+    from openglue_tpu_torch.ops.attention import sample_orthogonal_random_matrix
+    from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
     from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
     from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
     from openglue_tpu_torch.train.step import superglue_inputs
@@ -544,6 +764,9 @@ def main() -> int:
         k2 = {shape: sinkhorn_phase(sk, *shape, gen) for shape in ((16, 1024), (1, 1024), (4, 2048))}
         k3 = adjoint_phase(sk, gen)
         k45 = {dt: message_phase(glk, dt, gen) for dt in (torch.bfloat16, torch.float32)}
+        k6 = {(kind, dt): feature_layer_phase(glk, sample_orthogonal_random_matrix, kind, dt, gen)
+              for kind in glk.FEATURE_KINDS for dt in (torch.bfloat16, torch.float32)}
+        k7 = {mode: int8_layer_phase(glk, gli8, mode, gen) for mode in INT8_MODES}
 
         # ---- slice: serve requests through SuperGlue.forward + decode
         layers = 2 * cfg.num_stages * 2  # self + cross per stage, both images
@@ -609,6 +832,9 @@ def main() -> int:
         print(f"f32 B=2 N=256: kernel path vs composed path max |log_P| diff {f32_err:.3e}, decode identical",
               flush=True)
 
+        # ---- the other serving configurations (K6, K7)
+        other = other_configs_phase(gen, card, model, (glk, gli8, sk, decode_from_output), dict(requests))
+
     train = train_phase(gen, card)
 
     n1024 = sum(d[1] for name, *_, d in results if "N=1024" in name)
@@ -640,6 +866,18 @@ def main() -> int:
              source=csrc + "message_backward.cu", replaces=pallas + "gnn_layer_kernel.py:627",
              launches=train["K5"], **k45[torch.bfloat16]["K5"], library_ms=None,
              f32=dict(k45[torch.float32]["K5"], library_ms=None)),
+        *[dict(name=f"gnn_layer_features {kind} (bf16, B=16 N=M=1024 D=256 H=4)", route="cuda",
+               source=csrc + "gnn_layer_features.cu", replaces=pallas + "gnn_layer_kernel.py:117",
+               launches=other[kind], **k6[(kind, torch.bfloat16)], library_ms=None,
+               f32=dict(k6[(kind, torch.float32)], library_ms=None)) for kind in glk.FEATURE_KINDS],
+        dict(name="gnn_layer_int8 int8 (bf16 x, B=16 N=M=1024 D=256 H=4)", route="cuda",
+             source=csrc + "gnn_layer_int8.cu", replaces=pallas + "gnn_layer_int8.py:129",
+             launches=other["int8"], **k7["int8"], library_ms=None,
+             int8_static=dict(k7["int8_static"], library_ms=None),
+             int8_attn=dict(k7["int8_attn"], library_ms=None)),
+        dict(name="gnn_layer_int8 int8_static_attn (bf16 x, B=16 N=M=1024 D=256 H=4)", route="cuda",
+             source=csrc + "gnn_layer_int8.cu", replaces=pallas + "gnn_layer_int8.py:129",
+             launches=other["int8_static_attn"], **k7["int8_static_attn"], library_ms=None),
     ]}
     for entry in record["kernels"]:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")

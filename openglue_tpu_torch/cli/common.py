@@ -1,12 +1,13 @@
 """Shared CLI plumbing (port of ``openglue_tpu/cli/common.py``:
-``superglue_config_from``, ``loss_config_from`` and the optimizer the cached
-trainer builds from the ``train`` section). It takes plain dicts, so no YAML
+``superglue_config_from``, ``loss_config_from``, the FAVOR redraw interval of
+``loop_config_from`` and the optimizer the cached trainer builds from the
+``train`` section). It takes plain dicts, so no YAML
 reader is needed."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Iterable, Mapping
+from typing import Any, Iterable, Mapping, Optional
 
 import torch
 
@@ -37,6 +38,16 @@ def loss_config_from(config: Mapping[str, Any]) -> LossConfig:
         metric_weight=float(train.get("metric_weight", 0.0)),
         margin=train.get("margin"),
     )
+
+
+def favor_redraw_interval(config: Mapping[str, Any]) -> Optional[int]:
+    """How often, in steps, the trainer redraws the FAVOR projections
+    (``train.step.redraw_favor_projections``): the ``redraw_interval`` of the
+    ``superglue.attention_gnn`` section for a FAVOR kind, else None."""
+    gnn = config.get("superglue", {}).get("attention_gnn", {}) or {}
+    if str(gnn.get("attention", "")).startswith("favor"):
+        return gnn.get("redraw_interval")
+    return None
 
 
 def optimizer_from(config: Mapping[str, Any], params: Iterable[torch.Tensor]) -> ClippedAdam:

@@ -1,10 +1,13 @@
 """Carry JAX-package matcher weights into the port.
 
 ``superglue_state_dict_from_jax`` takes the JAX variable tree as nested dicts
-of numpy arrays (``{"params": ..., "batch_stats": ...}``) and returns the
-port's ``state_dict``, named after the reference torch keys. Dense kernels
-``[in, out]`` become 1x1-conv weights ``[out, in, 1]``; BatchNorm
-scale/bias/mean/var become weight/bias/running_mean/running_var.
+of numpy arrays (``{"params": ..., "batch_stats": ...}`` and, where the model
+has them, the ``favor_projections`` and ``int8_calib`` collections) and
+returns the port's ``state_dict``, named after the reference torch keys. Dense
+kernels ``[in, out]`` become 1x1-conv weights ``[out, in, 1]``; BatchNorm
+scale/bias/mean/var become weight/bias/running_mean/running_var; a layer's
+FAVOR projection becomes its ``mha.projection`` buffer and its calibration
+vector its ``act_absmax`` buffer.
 ``superglue_grads_from_jax`` maps a gradient tree of the JAX parameters onto
 the port's parameter names with the same transposes.
 """
@@ -56,10 +59,15 @@ def _convert(
         return node
 
     sd: Dict[str, torch.Tensor] = {}
-    _ffn(
-        sd, "positional_encoding.encoder", params["positional_encoding"]["encoder"],
-        sub("positional_encoding", "encoder"), len(config.pe_hidden_layers_sizes),
-    )
+    encoder = params["positional_encoding"]["encoder"]
+    if config.pe_encoder_name == "FeedForwardNetSiren":
+        for name, p in encoder.items():
+            _dense(sd, f"positional_encoding.encoder.{name}", p)
+    else:
+        _ffn(
+            sd, "positional_encoding.encoder", encoder,
+            sub("positional_encoding", "encoder"), len(config.pe_hidden_layers_sizes),
+        )
     for stage in range(config.num_stages):
         for offset, kind in ((0, "self"), (1, "cross")):
             prefix = f"attention_gnn.layers.{2 * stage + offset}.module"
@@ -82,7 +90,18 @@ def superglue_state_dict_from_jax(
     variables: Mapping[str, Any], config: SuperGlueConfig
 ) -> Dict[str, torch.Tensor]:
     """The port's SuperGlue state dict from JAX SuperGlue variables."""
-    return _convert(variables["params"], variables["batch_stats"], config)
+    sd = _convert(variables["params"], variables["batch_stats"], config)
+    for stage in range(config.num_stages):
+        for offset, kind in ((0, "self"), (1, "cross")):
+            prefix = f"attention_gnn.layers.{2 * stage + offset}.module"
+            name = f"{kind}_{stage}"
+            favor = variables.get("favor_projections", {}).get("attention_gnn", {})
+            if name in favor:
+                sd[f"{prefix}.mha.projection"] = _t(favor[name]["mha"]["projection"])
+            calib = variables.get("int8_calib", {}).get("attention_gnn", {})
+            if name in calib:
+                sd[f"{prefix}.act_absmax"] = _t(calib[name]["act_absmax"])
+    return sd
 
 
 def superglue_grads_from_jax(

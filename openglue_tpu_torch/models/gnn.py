@@ -1,5 +1,6 @@
 """Attentional GNN over the two keypoint graphs (port of
-``openglue_tpu/models/gnn.py``, softmax attention).
+``openglue_tpu/models/gnn.py``): softmax, linear (ELU+1), FAVOR-relu and
+FAVOR-softmax attention, and the int8-quantized serving layer.
 
 ``num_stages`` x (self layer, cross layer); each layer is the residual update
 ``desc + FFN(concat[desc, MHA(desc, source)])``. As in the reference:
@@ -8,11 +9,22 @@
 * cross attention is sequential: image1 attends to the already-updated desc0;
 * ``use_offset`` concatenates ``[desc - msg, msg]``.
 
-In eval mode with ``use_pallas`` a layer runs as the fused layer kernel
-(``ops/kernels/gnn_layer_kernel.py``) with its BatchNorm folded. In training
-mode with ``use_pallas`` the attention half runs as the fused message kernels
-(forward and backward) and the concat, the FFN and its train-mode BatchNorm
-stay in torch autograd. Otherwise a layer runs the composed modules below.
+In eval mode with ``use_pallas`` a layer runs as one fused layer kernel with
+its BatchNorm folded: the softmax kernel, the feature-kind kernel for the
+three O(N) kinds (``ops/kernels/gnn_layer_kernel.py``), or, with ``quantize``
+and softmax attention, the int8 kernel (``ops/kernels/gnn_layer_int8.py``).
+There is no shape gate: with ``use_pallas`` in eval mode the kernel runs. In
+training mode with ``use_pallas`` and softmax attention the attention half
+runs as the fused message kernels (forward and backward) and the concat, the
+FFN and its train-mode BatchNorm stay in torch autograd. Otherwise a layer
+runs the composed modules below, under autograd for every kind.
+
+The FAVOR kinds hold their orthogonal random projection ``[F, dh]`` as a
+non-trainable buffer of the ``mha`` module (``mha.projection``), drawn from
+the model's generator and redrawn by ``train.step.redraw_favor_projections``.
+The ``int8_static*`` modes hold a per-layer buffer ``act_absmax`` (the running
+max of each activation site over the calibration passes) and refuse to serve
+before a calibration pass has filled it.
 """
 
 from __future__ import annotations
@@ -24,19 +36,42 @@ from torch import nn
 
 from openglue_tpu_torch.models.layers import Conv1x1, FeedForwardNet
 from openglue_tpu_torch.ops import attention as attn_ops
+from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
 from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+
+ATTENTION_KINDS = ("softmax", "linear", "favor_relu", "favor_softmax")
+QUANTIZE_MODES = ("int8", "int8_static", "int8_attn", "int8_static_attn")
 
 
 class MultiheadAttention(nn.Module):
-    """Multi-head softmax attention; channel c belongs to head c // head_dim."""
+    """Multi-head attention with a pluggable score mechanism; channel c belongs
+    to head c // head_dim. ``favor_num_features`` defaults to 2 * head_dim."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dtype: Optional[torch.dtype] = None):
+    def __init__(
+        self,
+        embed_dim: int,
+        num_heads: int,
+        dtype: Optional[torch.dtype] = None,
+        attention: str = "softmax",
+        favor_num_features: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
         super().__init__()
+        if attention not in ATTENTION_KINDS:
+            raise ValueError(
+                f"Attention type {attention!r} is not supported; choose from {ATTENTION_KINDS}"
+            )
         self.num_heads = num_heads
+        self.attention = attention
         self.in_proj_q = Conv1x1(embed_dim, embed_dim, dtype)
         self.in_proj_k = Conv1x1(embed_dim, embed_dim, dtype)
         self.in_proj_v = Conv1x1(embed_dim, embed_dim, dtype)
         self.out_proj = Conv1x1(embed_dim, embed_dim, dtype)
+        if attention in ("favor_relu", "favor_softmax"):
+            head_dim = embed_dim // num_heads
+            self.register_buffer("projection", attn_ops.sample_orthogonal_random_matrix(
+                generator, favor_num_features or 2 * head_dim, head_dim, device="cpu"
+            ))
 
     def forward(
         self, query: torch.Tensor, source: torch.Tensor, kv_mask: Optional[torch.Tensor] = None
@@ -51,7 +86,19 @@ class MultiheadAttention(nn.Module):
         q = split(self.in_proj_q(query), n)
         k = split(self.in_proj_k(source), m)
         v = split(self.in_proj_v(source), m)
-        out, _ = attn_ops.softmax_attention(q, k, v, kv_mask)
+        if self.attention == "softmax":
+            out, _ = attn_ops.softmax_attention(q, k, v, kv_mask)
+        elif self.attention == "linear":
+            out, _ = attn_ops.linear_attention_elu(q, k, v, kv_mask)
+        else:
+            proj = self.projection.to(q.dtype)
+            if self.attention == "favor_relu":
+                q_feat = attn_ops.favor_features_relu(q, proj)
+                k_feat = attn_ops.favor_features_relu(k, proj)
+            else:
+                q_feat = attn_ops.favor_features_softmax(q, proj, is_query=True)
+                k_feat = attn_ops.favor_features_softmax(k, proj, is_query=False, kv_mask=kv_mask)
+            out, _ = attn_ops.linear_attention(q_feat, k_feat, v, kv_mask)
         return self.out_proj(out.transpose(1, 2).reshape(batch, n, dim))
 
 
@@ -65,22 +112,53 @@ class AttentionalPropagation(nn.Module):
         use_offset: bool = False,
         dtype: Optional[torch.dtype] = None,
         use_pallas: bool = False,
+        attention: str = "softmax",
+        favor_num_features: Optional[int] = None,
+        quantize: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        if quantize is not None and quantize not in QUANTIZE_MODES:
+            raise ValueError(f"quantize {quantize!r} is not supported; choose from {QUANTIZE_MODES}")
         self.num_heads = num_heads
         self.use_offset = use_offset
         self.dtype = dtype
         self.use_pallas = use_pallas
-        self.mha = MultiheadAttention(embed_dim, num_heads, dtype)
+        self.attention = attention
+        # the int8 layer exists for the fused softmax path only; elsewhere the
+        # setting is inert (SuperGlue warns about it)
+        self.quantize = quantize if use_pallas and attention == "softmax" else None
+        self.calibrating = False
+        self.mha = MultiheadAttention(
+            embed_dim, num_heads, dtype, attention, favor_num_features, generator
+        )
         self.fc = FeedForwardNet((2 * embed_dim, 2 * embed_dim, embed_dim), dtype)
-        self._folded: Optional[glk.PropagationWeights] = None
+        if self.static_quantize:
+            self.register_buffer("act_absmax", torch.zeros(self.num_sites))
+        self._folded = None
         self._folded_key = None
+        self._act_scales = None
+        self._act_scales_key = None
 
-    def folded_weights(self, compute_dtype: torch.dtype) -> glk.PropagationWeights:
-        """The kernel's weights with the eval BatchNorm folded, rebuilt only
-        when the compute type or a parameter or buffer changed."""
+    @property
+    def static_quantize(self) -> bool:
+        return self.quantize is not None and self.quantize.startswith("int8_static")
+
+    @property
+    def quant_attention(self) -> bool:
+        return self.quantize is not None and self.quantize.endswith("_attn")
+
+    @property
+    def num_sites(self) -> int:
+        return gli8.ATTENTION_SITES if self.quant_attention else gli8.SITES
+
+    def folded_weights(self, compute_dtype: torch.dtype):
+        """The kernel's weights with the eval BatchNorm folded
+        (``PropagationWeights``; with ``quantize`` the int8
+        ``QuantPropagationWeights`` made from the f32 fold), rebuilt only when
+        the compute type or a parameter or a BatchNorm statistic changed."""
         tensors = dict(self.named_parameters())
-        tensors.update(self.named_buffers())
+        tensors.update((k, v) for k, v in self.named_buffers() if k.startswith("fc."))
         # an in-place update bumps a tensor's version; inference tensors
         # (made under torch.inference_mode) have none and cannot be updated
         # outside it
@@ -90,9 +168,56 @@ class AttentionalPropagation(nn.Module):
         key = (compute_dtype, stamp)
         if key != self._folded_key:
             with torch.no_grad():
-                self._folded = glk.fold_propagation_weights(tensors, compute_dtype)
+                if self.quantize is not None:
+                    self._folded = gli8.quantize_propagation_weights(
+                        glk.fold_propagation_weights(tensors, torch.float32)
+                    )
+                else:
+                    self._folded = glk.fold_propagation_weights(tensors, compute_dtype)
             self._folded_key = key
         return self._folded
+
+    def _static_scales(self) -> torch.Tensor:
+        """The serving scales from the calibrated absmax, checked and rebuilt
+        only when the buffer changed (the check reads the card)."""
+        t = self.act_absmax
+        key = (t.data_ptr(), 0 if t.is_inference() else t._version)
+        if key != self._act_scales_key:
+            if not bool((t > 0).any()):
+                raise RuntimeError(
+                    f"quantize={self.quantize!r} is uncalibrated: run a calibration "
+                    "pass on representative inputs first (SuperGlue.calibrate)"
+                )
+            # 10% headroom absorbs mild drift between calibration and
+            # serving; values beyond it saturate
+            self._act_scales = t * (1.1 / 127.0) + 1e-12
+            self._act_scales_key = key
+        return self._act_scales
+
+    def _int8_layer(self, desc_q, desc_kv, kv_mask):
+        weights = self.folded_weights(torch.float32)
+        act_scales = None
+        if self.static_quantize:
+            if self.act_absmax.shape[0] != self.num_sites:
+                raise ValueError(
+                    f"act_absmax has {self.act_absmax.shape[0]} sites but "
+                    f"quantize={self.quantize!r} needs {self.num_sites}: re-run calibration "
+                    "under this quantize mode."
+                )
+            if self.calibrating:
+                # record, and serve this pass through the dynamic path
+                absmax = gli8.reference_activation_absmax(
+                    desc_q, desc_kv, kv_mask, weights, self.num_heads, self.use_offset,
+                    quant_attention=self.quant_attention,
+                )
+                self.act_absmax.copy_(torch.maximum(self.act_absmax, absmax))
+                self._act_scales_key = None
+            else:
+                act_scales = self._static_scales()
+        return gli8.fused_attention_propagation_int8(
+            desc_q, desc_kv, kv_mask, weights, self.num_heads, self.use_offset,
+            act_scales=act_scales, quant_attention=self.quant_attention,
+        )
 
     def forward(
         self,
@@ -102,11 +227,14 @@ class AttentionalPropagation(nn.Module):
         kv_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         if self.use_pallas and not self.training:
+            if self.quantize is not None:
+                return self._int8_layer(desc_q, desc_kv, kv_mask)
             weights = self.folded_weights(self.dtype or desc_q.dtype)
             return glk.fused_attention_propagation(
-                desc_q, desc_kv, kv_mask, weights, self.num_heads, self.use_offset
+                desc_q, desc_kv, kv_mask, weights, self.num_heads, self.use_offset,
+                self.attention, getattr(self.mha, "projection", None),
             )
-        if self.use_pallas:
+        if self.use_pallas and self.attention == "softmax":
             # the attention half computes in the layer's type or the chain's
             # (bf16 with a bf16 chain, where the composed path promotes to f32)
             compute_dtype = self.dtype or desc_q.dtype
@@ -145,10 +273,17 @@ class AttentionGNN(nn.Module):
         use_offset: bool = False,
         dtype: Optional[torch.dtype] = None,
         use_pallas: bool = False,
+        attention: str = "softmax",
+        favor_num_features: Optional[int] = None,
+        quantize: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.layers = nn.ModuleList(
-            _Layer(AttentionalPropagation(embed_dim, num_heads, use_offset, dtype, use_pallas))
+            _Layer(AttentionalPropagation(
+                embed_dim, num_heads, use_offset, dtype, use_pallas, attention,
+                favor_num_features, quantize, generator,
+            ))
             for _ in range(2 * num_stages)
         )
 

@@ -110,3 +110,36 @@ class FeedForwardNet(nn.Sequential):
         for layer in self:
             x = layer(x, mask) if isinstance(layer, MaskedBatchNorm) else layer(x)
         return x
+
+
+class FeedForwardNetSiren(nn.Module):
+    """[dense -> sin(30 x)] x k -> dense with the SIREN init: every weight
+    U(+-sqrt(6 / in) / 30) except the first layer's U(+-1 / in); biases zero
+    (the JAX package's choice). It has no BatchNorm, so ``mask`` is unused.
+    The layers are named ``dense_{i}``."""
+
+    def __init__(self, sizes: Sequence[int], dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_layers = len(sizes) - 1
+        for i, (fan_in, size) in enumerate(zip(sizes[:-1], sizes[1:])):
+            self.add_module(f"dense_{i}", Conv1x1(fan_in, size, dtype))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            for i in range(self.num_layers):
+                dense = getattr(self, f"dense_{i}")
+                fan_in = dense.weight.shape[1]
+                bound = 1.0 / fan_in if i == 0 else math.sqrt(6.0 / fan_in) / 30.0
+                nn.init.uniform_(dense.weight, -bound, bound, generator=generator)
+                nn.init.zeros_(dense.bias)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for i in range(self.num_layers - 1):
+            x = torch.sin(30.0 * getattr(self, f"dense_{i}")(x))
+        return getattr(self, f"dense_{self.num_layers - 1}")(x)
+
+
+ENCODERS = {
+    "FeedForwardNet": FeedForwardNet,
+    "FeedForwardNetSiren": FeedForwardNetSiren,
+}

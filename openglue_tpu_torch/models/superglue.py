@@ -7,10 +7,14 @@ gate) -> scaled dot-product scores -> dustbin-augmented Sinkhorn ->
 log-assignment scores ``[B, N+1, M+1]``.
 
 ``use_pallas`` keeps its JAX meaning: False runs the composed torch path,
-True runs the CUDA kernels: in eval mode the GNN layer kernel and the
-scale-domain Sinkhorn; in training mode (``model.train()``) the attention
-half of every layer through the message kernels and the Sinkhorn through its
-forward and adjoint kernels, under autograd. On CPU tensors the kernels'
+True runs the CUDA kernels: in eval mode the GNN layer kernel of the
+configured attention kind (or, with ``quantize`` and softmax attention, the
+int8 layer kernel) and the scale-domain Sinkhorn; in training mode
+(``model.train()``) the attention half of every softmax layer through the
+message kernels and the Sinkhorn through its forward and adjoint kernels,
+under autograd. ``quantize`` without ``use_pallas`` or with another attention
+kind cannot run: the model warns and serves the unquantized path. The
+``int8_static*`` modes serve only after ``calibrate``. On CPU tensors the kernels'
 plain versions run instead. In training mode every ``MaskedBatchNorm``
 normalizes with the batch statistics of the valid keypoints and updates its
 running statistics, as the JAX package's ``mutable=["batch_stats"]`` does.
@@ -19,6 +23,7 @@ running statistics, as the JAX package's ``mutable=["batch_stats"]`` does.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any, Dict, Mapping, Optional, Sequence
 
 import torch
@@ -55,6 +60,7 @@ class SuperGlueConfig:
     num_heads: int = 4
     attention: str = "softmax"
     use_offset: bool = False
+    favor_num_features: Optional[int] = None  # FAVOR kinds; None = 2 * head_dim
     dustbin_score_init: float = 1.0
     otp_num_iters: int = 20
     otp_reg: float = 1.0
@@ -82,6 +88,7 @@ class SuperGlueConfig:
             num_heads=gnn.get("num_heads", 4),
             attention=gnn.get("attention", "softmax"),
             use_offset=gnn.get("use_offset", False),
+            favor_num_features=gnn.get("favor_num_features"),
             dustbin_score_init=cfg.get("dustbin_score_init", 1.0),
             otp_num_iters=otp.get("num_iters", 20),
             otp_reg=otp.get("reg", 1.0),
@@ -116,9 +123,6 @@ class SuperGlue(nn.Module):
     ):
         super().__init__()
         unsupported = {
-            "attention": config.attention != "softmax",
-            "pe_encoder_name": config.pe_encoder_name != "FeedForwardNet",
-            "quantize": config.quantize is not None,
             "ring_axis": config.ring_axis is not None,
             "remat": bool(config.remat),
         }
@@ -130,11 +134,13 @@ class SuperGlue(nn.Module):
         dtype = as_torch_dtype(config.dtype)
         self.chain_dtype = as_torch_dtype(config.chain_dtype)
         self.positional_encoding = MLPPositionalEncoding(
-            dim, config.pe_hidden_layers_sizes, config.side_info_size, dtype=dtype
+            dim, config.pe_hidden_layers_sizes, config.side_info_size, config.pe_encoder_name,
+            dtype=dtype,
         )
         self.attention_gnn = AttentionGNN(
             config.num_stages, dim, config.num_heads, config.use_offset, dtype,
-            config.use_pallas,
+            config.use_pallas, config.attention, config.favor_num_features, config.quantize,
+            generator,
         )
         self.linear_proj = Conv1x1(dim, dim, dtype)
         if config.residual:
@@ -143,7 +149,29 @@ class SuperGlue(nn.Module):
         for module in self.modules():
             if isinstance(module, Conv1x1):
                 module.reset_parameters(generator)
+        self.positional_encoding.reset_parameters(generator)
         self.to(device)
+
+    def calibrate(self, **inputs) -> Dict[str, torch.Tensor]:
+        """One calibration pass of the ``int8_static*`` modes: an eval forward
+        that serves through the dynamic int8 path while every layer records
+        the running max of its activation sites into its ``act_absmax``
+        buffer. Call it on representative inputs, once or several times,
+        before serving. Returns the pass's output."""
+        layers = [layer.module for layer in self.attention_gnn.layers]
+        if not any(layer.static_quantize for layer in layers):
+            raise ValueError(f"quantize={self.config.quantize!r} has nothing to calibrate")
+        was_training = self.training
+        self.eval()
+        for layer in layers:
+            layer.calibrating = True
+        try:
+            with torch.no_grad():
+                return self(**inputs)
+        finally:
+            for layer in layers:
+                layer.calibrating = False
+            self.train(was_training)
 
     def forward(
         self,
@@ -159,6 +187,18 @@ class SuperGlue(nn.Module):
         mask1: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
         cfg = self.config
+        if cfg.quantize is not None:
+            reasons = []
+            if not cfg.use_pallas:
+                reasons.append("use_pallas=False")
+            if cfg.attention != "softmax":
+                reasons.append(f"attention={cfg.attention!r} (softmax only)")
+            if reasons:
+                warnings.warn(
+                    f"quantize={cfg.quantize!r} requested but the int8 serving path cannot "
+                    f"run ({', '.join(reasons)}); serving the bf16/f32 path instead.",
+                    stacklevel=2,
+                )
         kpts0 = normalize_keypoints(kpts0, image_size0)
         kpts1 = normalize_keypoints(kpts1, image_size1)
         pe0 = self.positional_encoding(kpts0, side_info0, mask0)

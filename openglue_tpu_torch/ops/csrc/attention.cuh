@@ -1,8 +1,8 @@
 // Flash-style masked softmax attention forward, shared by the layer and
 // message kernels. q [B, N, ldq], k/v [B, M, ldkv] (k and v may be column
 // blocks of one buffer), head h in columns [h*64, h*64+64); mask [B, M] (1
-// valid, 0 masked) or null; out [B, N, D] in the compute type; lse [B, H, N]
-// f32 (max + log(sum exp)) or null. The row max and sum run online in f32;
+// valid, 0 masked) or null; out [B, N, D] in the compute type (the bf16 kernel
+// can also write f32); lse [B, H, N] f32 (max + log(sum exp)) or null. The row max and sum run online in f32;
 // the division comes after P.V.
 
 #pragma once
@@ -15,10 +15,11 @@ constexpr int kAq = 64, kAk = 64, kAttnThreads = 128;
 
 // bf16: 4 warps, 16 query rows each; S, P and O stay in mma registers; K/V
 // tiles double-buffered with cp.async
+template <typename O>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-               bf16* __restrict__ out, float* __restrict__ lse, int N, int M, int D, int ldq,
+               O* __restrict__ out, float* __restrict__ lse, int N, int M, int D, int ldq,
                int ldkv) {
   constexpr int kPad = 8;
   __shared__ __align__(16) bf16 Qs[kAq][kDh + kPad];
@@ -134,7 +135,7 @@ attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 1);
     row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 2);
   }
-  bf16* ob = out + static_cast<size_t>(b) * N * D + h * kDh;
+  O* ob = out + static_cast<size_t>(b) * N * D + h * kDh;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = n0 + warp * 16 + g + 8 * hh;
@@ -223,12 +224,12 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <typename T>
-cudaError_t attention(const T* q, const T* k, const T* v, const uint8_t* mask, T* out, float* lse,
+template <typename T, typename O = T>
+cudaError_t attention(const T* q, const T* k, const T* v, const uint8_t* mask, O* out, float* lse,
                       int B, int N, int M, int D, int H, int ldq, int ldkv, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     const dim3 grid((N + kAq - 1) / kAq, H, B);
-    attention_bf16<<<grid, kAttnThreads, 0, stream>>>(q, k, v, mask, out, lse, N, M, D, ldq, ldkv);
+    attention_bf16<O><<<grid, kAttnThreads, 0, stream>>>(q, k, v, mask, out, lse, N, M, D, ldq, ldkv);
   } else {
     const dim3 grid((N + kFq - 1) / kFq, H, B);
     attention_f32<<<grid, kFq, 0, stream>>>(q, k, v, mask, out, lse, N, M, D, ldq, ldkv);

@@ -11,7 +11,8 @@
 
 namespace {
 
-enum Epilogue { kBias = 0, kConcat = 1, kReluAffine = 2, kResidual = 3 };
+// kBiasF32 writes f32 whatever T is: out is then a float buffer and ldo counts floats
+enum Epilogue { kBias = 0, kConcat = 1, kReluAffine = 2, kResidual = 3, kBiasF32 = 4 };
 
 template <typename T>
 struct GemmArgs {
@@ -57,6 +58,8 @@ __device__ __forceinline__ void epilogue2(const GemmArgs<T>& p, int r, int c, fl
   T* o = p.out + static_cast<size_t>(r) * p.ldo + c;
   if constexpr (EPI == kBias) {
     store2(o, y0, y1);
+  } else if constexpr (EPI == kBiasF32) {
+    store2(reinterpret_cast<float*>(p.out) + static_cast<size_t>(r) * p.ldo + c, y0, y1);
   } else if constexpr (EPI == kConcat) {
     const float m0 = round_to<T>(y0), m1 = round_to<T>(y1);
     const float2 x = load2(p.x + static_cast<size_t>(r) * p.ldx + c);
@@ -64,7 +67,10 @@ __device__ __forceinline__ void epilogue2(const GemmArgs<T>& p, int r, int c, fl
     if (p.use_offset) store2(o, x.x - m0, x.y - m1);
     else store2(o, x.x, x.y);
   } else if constexpr (EPI == kReluAffine) {
-    store2(o, fmaxf(y0, 0.f) * p.scale[c] + p.shift[c], fmaxf(y1, 0.f) * p.scale[c + 1] + p.shift[c + 1]);
+    // a ReLU that keeps NaN (fmaxf would drop it): a feature-kind element with
+    // no valid key is NaN through the whole layer
+    const float r0 = y0 < 0.f ? 0.f : y0, r1 = y1 < 0.f ? 0.f : y1;
+    store2(o, r0 * p.scale[c] + p.shift[c], r1 * p.scale[c + 1] + p.shift[c + 1]);
   } else {
     const float2 x = load2(p.x + static_cast<size_t>(r) * p.ldx + c);
     store2(o, x.x + y0, x.y + y1);

@@ -1,16 +1,27 @@
-"""One eval-mode attentional-propagation layer (softmax attention): the kernel
-wrapper (``ops/csrc/gnn_layer.cu``), its plain version and the weight fold.
+"""One eval-mode attentional-propagation layer, for every attention kind: the
+kernel wrappers (``ops/csrc/gnn_layer.cu`` for softmax attention,
+``ops/csrc/gnn_layer_features.cu`` for the O(N) kinds ``linear``,
+``favor_relu`` and ``favor_softmax``), their plain version and the weight
+fold.
 
-Port of ``openglue_tpu/ops/pallas/gnn_layer_kernel.py`` (softmax kind of
-``_layer_kernel`` via ``fused_attention_propagation``). The layer is
+Port of ``openglue_tpu/ops/pallas/gnn_layer_kernel.py`` (``_layer_kernel`` via
+``fused_attention_propagation``). The layer is
 ``x_q + FFN([x_q, MHA(x_q, x_kv)])`` with the FFN's eval BatchNorm folded into
 a per-channel affine. The plain version keeps the kernel's rounding points:
 
-* q, k and v are cast to the compute type after the bias;
-* logits = (q . k) in f32, then * dh^-0.5, then + the additive mask
+* q and v are cast to the compute type after the bias; so is k for softmax
+  attention, while the feature kinds keep k in f32 into the feature map;
+* softmax: logits = (q . k) in f32, then * dh^-0.5, then + the additive mask
   ``(1 - mask) * -1e9`` (finite: a fully masked key set averages uniformly);
-* exp in f32, the denominator summed from f32 p, P cast to the compute type
+  exp in f32, the denominator summed from f32 p, P cast to the compute type
   for P.V, the division after P.V;
+* feature kinds: the feature map in f32 (the FAVOR projection with operands
+  in the compute type); masked key rows multiplied by 0; the aggregate
+  ``kf^T . v`` with kf cast to the compute type and kept in f32, the
+  normalizer from the f32 kf; ``o = qf(compute type) . KV`` against the f32
+  aggregate, ``norm = sum qf * ksum`` in f32, ``o / norm``. A fully masked key
+  set leaves aggregate and normalizer 0, so its rows are NaN (0 / 0), as in
+  the JAX kernel;
 * attn, then msg, cast to the compute type;
 * h1 = ReLU in f32, then the BN affine, then a cast;
 * out = (x_q in f32 + update) cast to x_q's type.
@@ -37,8 +48,14 @@ import torch
 from openglue_tpu_torch.ops import kernels
 
 NEG_INF = -1e9
+ELU_EPS = 1e-6
+FAVOR_EPS = 1e-8
+FEATURE_KINDS = ("linear", "favor_relu", "favor_softmax")
+ATTENTION_KINDS = ("softmax",) + FEATURE_KINDS
+MAX_FEATURES = 256  # the widest feature map the feature kernel takes
 
 counter = kernels.LaunchCounter()
+feature_counter = kernels.LaunchCounter()
 message_counter = kernels.LaunchCounter()
 message_bwd_counter = kernels.LaunchCounter()
 
@@ -97,6 +114,29 @@ def _dense_f32(x: torch.Tensor, kern: torch.Tensor, bias: torch.Tensor) -> torch
     return torch.matmul(x.float(), kern.float().t()) + bias
 
 
+def _mask_add(kv_mask: Optional[torch.Tensor], batch: int, m: int, device) -> torch.Tensor:
+    if kv_mask is None:
+        return torch.zeros(batch, m, dtype=torch.float32, device=device)
+    return (1.0 - kv_mask.float()) * NEG_INF
+
+
+def _features(xh, kind, projection, dtype, is_query, mask_add=None):
+    """The per-head feature map [B, H, L, dh] f32 -> [B, H, L, F] f32."""
+    if kind == "linear":
+        return torch.where(xh > 0, xh + 1.0, torch.exp(torch.clamp(xh, max=0.0))) + ELU_EPS
+    dh = xh.shape[-1]
+    data_norm = dh**-0.25
+    ph = torch.matmul((xh * data_norm).to(dtype).float(), projection.to(dtype).float().t())
+    if kind == "favor_relu":
+        return torch.relu(ph) + FAVOR_EPS
+    diag = 0.5 * torch.square(xh * data_norm).sum(dim=-1, keepdim=True)
+    if is_query:
+        stab = ph.amax(dim=-1, keepdim=True)
+    else:  # one max per (element, head) over valid keys x features
+        stab = (ph + mask_add[:, None, :, None]).amax(dim=(-1, -2), keepdim=True)
+    return projection.shape[0] ** -0.5 * (torch.exp(ph - diag - stab) + FAVOR_EPS)
+
+
 def layer_plain(
     x_q: torch.Tensor,
     x_kv: torch.Tensor,
@@ -104,9 +144,12 @@ def layer_plain(
     w: PropagationWeights,
     num_heads: int,
     use_offset: bool = False,
+    attention_kind: str = "softmax",
+    projection: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The plain version of the kernel: x_q [B, N, D], x_kv [B, M, D],
-    kv_mask [B, M] bool or None -> [B, N, D] in x_q's type."""
+    """The plain version of the kernels: x_q [B, N, D], x_kv [B, M, D],
+    kv_mask [B, M] bool or None, projection [F, dh] f32 for the FAVOR kinds
+    -> [B, N, D] in x_q's type."""
     dtype = w.wq.dtype
     batch, n, dim = x_q.shape
     m = x_kv.shape[1]
@@ -114,21 +157,28 @@ def layer_plain(
     xq_c = x_q.to(dtype)
     xkv_c = x_kv.to(dtype)
     q = _dense_f32(xq_c, w.wq, w.bq).to(dtype)
-    k = _dense_f32(xkv_c, w.wk, w.bk).to(dtype)
+    k = _dense_f32(xkv_c, w.wk, w.bk)
     v = _dense_f32(xkv_c, w.wv, w.bv).to(dtype)
 
     def split(t, length):  # [B, L, D] -> [B, H, L, dh]
         return t.reshape(batch, length, num_heads, dh).transpose(1, 2)
 
-    if kv_mask is None:
-        mask_add = torch.zeros(batch, m, dtype=torch.float32, device=x_q.device)
+    mask_add = _mask_add(kv_mask, batch, m, x_q.device)
+    if attention_kind == "softmax":
+        logits = torch.matmul(split(q, n).float(), split(k.to(dtype), m).float().transpose(-1, -2))
+        logits = logits * dh**-0.5 + mask_add[:, None, None, :]
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        denom = p.sum(dim=-1, keepdim=True)
+        o = torch.matmul(p.to(dtype).float(), split(v, m).float()) / denom
     else:
-        mask_add = (1.0 - kv_mask.float()) * NEG_INF
-    logits = torch.matmul(split(q, n).float(), split(k, m).float().transpose(-1, -2))
-    logits = logits * dh**-0.5 + mask_add[:, None, None, :]
-    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    denom = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(dtype).float(), split(v, m).float()) / denom
+        valid = torch.ones(batch, m, device=x_q.device) if kv_mask is None else kv_mask.float()
+        kf = _features(split(k, m), attention_kind, projection, dtype, False, mask_add)
+        kf = kf * valid[:, None, :, None]
+        kv_agg = torch.matmul(kf.to(dtype).float().transpose(-1, -2), split(v, m).float())
+        key_sum = kf.sum(dim=2)
+        qf = _features(split(q, n).float(), attention_kind, projection, dtype, True)
+        o = torch.matmul(qf.to(dtype).float(), kv_agg)
+        o = o / (qf * key_sum[:, :, None, :]).sum(dim=-1, keepdim=True)
     attn = o.transpose(1, 2).reshape(batch, n, dim).to(dtype)
 
     msg = _dense_f32(attn, w.wo, w.bo).to(dtype)
@@ -149,11 +199,22 @@ def fused_attention_propagation(
     w: PropagationWeights,
     num_heads: int,
     use_offset: bool = False,
+    attention_kind: str = "softmax",
+    projection: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One eval layer: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors. x_q [B, N, D], x_kv [B, M, D], kv_mask [B, M] bool or None."""
+    """One eval layer: a CUDA kernel for CUDA tensors (the softmax kernel or
+    the feature-kind kernel), the plain version for CPU tensors. x_q
+    [B, N, D], x_kv [B, M, D], kv_mask [B, M] bool or None; ``projection``
+    [F, dh] f32 is the FAVOR kinds' orthogonal random matrix, a constant.
+    With a feature kind, an element whose keys are all masked comes out NaN
+    (see the module docstring)."""
+    if attention_kind not in ATTENTION_KINDS:
+        raise ValueError(f"unsupported attention_kind {attention_kind!r}")
+    favor = attention_kind in ("favor_relu", "favor_softmax")
+    if favor and projection is None:
+        raise ValueError(f"{attention_kind} needs the FAVOR projection matrix")
     if x_q.device.type == "cpu":
-        return layer_plain(x_q, x_kv, kv_mask, w, num_heads, use_offset)
+        return layer_plain(x_q, x_kv, kv_mask, w, num_heads, use_offset, attention_kind, projection)
     batch, n, dim = x_q.shape
     m = x_kv.shape[1]
     dtype = w.wq.dtype
@@ -185,22 +246,56 @@ def fused_attention_propagation(
             not any(t.requires_grad for t in (x_q, x_kv, *mats, *vecs)),
             "the layer kernel is forward only (run under torch.no_grad())",
         )
-    workspace = torch.empty(batch * (6 * n + 2 * m) * dim, dtype=dtype, device=device)
     out = torch.empty(batch, n, dim, dtype=dtype, device=device)
     mask = None if kv_mask is None else kv_mask.contiguous().view(torch.uint8)
+    mask_ptr = None if mask is None else mask.data_ptr()
+    mat_ptrs = (_VOID_P * 6)(*(t.data_ptr() for t in mats))
+    vec_ptrs = (_VOID_P * 8)(*(t.data_ptr() for t in vecs))
+    is_bf16 = int(dtype == torch.bfloat16)
+    if attention_kind == "softmax":
+        workspace = torch.empty(batch * (6 * n + 2 * m) * dim, dtype=dtype, device=device)
+        fn = kernels.entry_point(
+            "gnn_layer", "og_gnn_layer",
+            [ctypes.c_int] * 7 + [_VOID_P] * 3 + [ctypes.POINTER(_VOID_P)] * 2 + [_VOID_P] * 3,
+        )
+        status = fn(
+            is_bf16, batch, n, m, dim, num_heads, int(use_offset),
+            x_q.data_ptr(), x_kv.data_ptr(), mask_ptr, mat_ptrs, vec_ptrs,
+            workspace.data_ptr(), out.data_ptr(), kernels.stream_handle(device),
+        )
+        kernels.check(status, "og_gnn_layer")
+        counter.add()
+        return out
+    num_features = 64
+    proj = None
+    if favor:
+        kernels.require(
+            projection.dim() == 2 and projection.shape[1] == 64 and projection.device == device,
+            "projection must be [F, 64] on the inputs' device",
+        )
+        num_features = projection.shape[0]
+        kernels.require(
+            num_features % 16 == 0 and 16 <= num_features <= MAX_FEATURES,
+            f"the kernel takes a multiple of 16 features up to {MAX_FEATURES}, got {num_features}",
+        )
+        proj = projection.detach().float().contiguous()
+    shape_args = (is_bf16, batch, n, m, dim, num_heads, num_features)
+    size = kernels.entry_point(
+        "gnn_layer_features", "og_gnn_layer_features_workspace", [ctypes.c_int] * 7, ctypes.c_size_t
+    )(*shape_args)
+    workspace = torch.empty(size, dtype=torch.uint8, device=device)
     fn = kernels.entry_point(
-        "gnn_layer", "og_gnn_layer",
-        [ctypes.c_int] * 7 + [_VOID_P] * 3 + [ctypes.POINTER(_VOID_P)] * 2 + [_VOID_P] * 3,
+        "gnn_layer_features", "og_gnn_layer_features",
+        [ctypes.c_int] * 9 + [_VOID_P] * 3 + [ctypes.POINTER(_VOID_P)] * 2 + [_VOID_P] * 4,
     )
     status = fn(
-        int(dtype == torch.bfloat16), batch, n, m, dim, num_heads, int(use_offset),
-        x_q.data_ptr(), x_kv.data_ptr(), None if mask is None else mask.data_ptr(),
-        (_VOID_P * 6)(*(t.data_ptr() for t in mats)),
-        (_VOID_P * 8)(*(t.data_ptr() for t in vecs)),
+        *shape_args, FEATURE_KINDS.index(attention_kind), int(use_offset),
+        x_q.data_ptr(), x_kv.data_ptr(), mask_ptr, mat_ptrs, vec_ptrs,
+        None if proj is None else proj.data_ptr(),
         workspace.data_ptr(), out.data_ptr(), kernels.stream_handle(device),
     )
-    kernels.check(status, "og_gnn_layer")
-    counter.add()
+    kernels.check(status, "og_gnn_layer_features")
+    feature_counter.add()
     return out
 
 
@@ -235,12 +330,6 @@ def extract_message_weights(params: Mapping[str, torch.Tensor]) -> MessageWeight
     return MessageWeights(
         *dense("in_proj_q"), *dense("in_proj_k"), *dense("in_proj_v"), *dense("out_proj")
     )
-
-
-def _mask_add(kv_mask: Optional[torch.Tensor], batch: int, m: int, device) -> torch.Tensor:
-    if kv_mask is None:
-        return torch.zeros(batch, m, dtype=torch.float32, device=device)
-    return (1.0 - kv_mask.float()) * NEG_INF
 
 
 def message_forward_plain(

@@ -16,6 +16,7 @@ from openglue_tpu_torch.core.types import PairBatch
 from openglue_tpu_torch.geometry.gt_matches import generate_gt_matches
 from openglue_tpu_torch.losses import criterion
 from openglue_tpu_torch.models.matching import decode_from_output
+from openglue_tpu_torch.ops.attention import sample_orthogonal_random_matrix
 from openglue_tpu_torch.train.state import TrainState, global_norm
 
 
@@ -97,3 +98,17 @@ def make_eval_step(match_threshold: float = 0.2) -> Callable[[TrainState, PairBa
         return matches
 
     return eval_step
+
+
+def redraw_favor_projections(state: TrainState, generator: Optional[torch.Generator] = None) -> TrainState:
+    """Resample every FAVOR orthogonal projection buffer of the model in
+    place (the Performer redraw, every ``favor_redraw_interval`` steps); a
+    model of another attention kind is left as it is. Ranks that seed their
+    generators alike draw alike."""
+    with torch.no_grad():
+        for name, buf in state.model.named_buffers():
+            if name.endswith("mha.projection"):
+                buf.copy_(sample_orthogonal_random_matrix(
+                    generator, buf.shape[0], buf.shape[1], dtype=buf.dtype, device=buf.device
+                ))
+    return state

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (the eval layer, the Sinkhorn forward and adjoint,
-the message forward and backward) against their plain PyTorch versions on a
-card.
+"""The port's CUDA kernels (the eval layer for softmax, for the feature kinds
+and in int8, the Sinkhorn forward and adjoint, the message forward and
+backward) against their plain PyTorch versions on a card.
 
 This file imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -12,6 +12,8 @@ Without a card every test skips (the decision is made inside each test).
 import pytest
 import torch
 
+from openglue_tpu_torch.ops.attention import sample_orthogonal_random_matrix
+from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
 from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
 from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
 
@@ -24,13 +26,10 @@ def _cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("use_offset", [False, True])
-def test_layer_kernel_matches_plain(dtype, use_offset):
-    dev = _cuda()
-    gen = torch.Generator(device=dev).manual_seed(1)
-    dim, d2 = 256, 512
+def _layer_case(dev, dtype, counts=(200, 0), dim=256, seed=1):
+    """Weights, x_q [2, 300, D], x_kv [2, 257, D] and a key mask of ``counts``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d2 = 2 * dim
 
     def r(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -43,7 +42,16 @@ def test_layer_kernel_matches_plain(dtype, use_offset):
     )
     x_q = r(2, 300, dim).to(dtype)
     x_kv = r(2, 257, dim).to(dtype)
-    mask = torch.arange(257, device=dev)[None] < torch.tensor([200, 0], device=dev)[:, None]
+    mask = torch.arange(257, device=dev)[None] < torch.tensor(counts, device=dev)[:, None]
+    return w, x_q, x_kv, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_offset", [False, True])
+def test_layer_kernel_matches_plain(dtype, use_offset):
+    dev = _cuda()
+    w, x_q, x_kv, mask = _layer_case(dev, dtype)
     before = glk.counter.count
     with torch.no_grad():
         out = glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, use_offset)
@@ -54,6 +62,122 @@ def test_layer_kernel_matches_plain(dtype, use_offset):
     # (rounding flips from the online softmax and the accumulation order)
     atol = 1e-4 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+def _projection(dev, kind, num_features=128):
+    if kind == "linear":
+        return None
+    return sample_orthogonal_random_matrix(torch.Generator().manual_seed(7), num_features, 64, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,num_features,use_offset", [
+    ("linear", 64, False), ("favor_relu", 128, True), ("favor_softmax", 128, False),
+    ("favor_softmax", 48, True), ("favor_softmax", 16, False), ("favor_relu", 256, False),
+])
+def test_feature_layer_kernel_matches_plain(dtype, kind, num_features, use_offset):
+    dev = _cuda()
+    w, x_q, x_kv, mask = _layer_case(dev, dtype, counts=(200, 257))
+    proj = _projection(dev, kind, num_features)
+    before = glk.feature_counter.count, glk.counter.count
+    with torch.no_grad():
+        out = glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, use_offset, kind, proj)
+        again = glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, use_offset, kind, proj)
+        ref = glk.layer_plain(x_q, x_kv, mask, w, 4, use_offset, kind, proj)
+    torch.cuda.synchronize()
+    assert (glk.feature_counter.count, glk.counter.count) == (before[0] + 2, before[1])
+    assert torch.equal(out, again)  # a fixed summation order: equal bits on two runs
+    # f32: summation order only; bf16: two ulps of the largest output
+    # (rounding flips of q, v, the features and the aggregate's operands)
+    atol = 1e-4 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["linear", "favor_relu", "favor_softmax"])
+def test_feature_layer_kernel_fully_masked_element_is_nan(kind):
+    dev = _cuda()
+    w, x_q, x_kv, mask = _layer_case(dev, torch.float32, counts=(257, 0))
+    with torch.no_grad():
+        out = glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, False, kind, _projection(dev, kind))
+    assert torch.isfinite(out[0]).all() and torch.isnan(out[1]).all()
+
+
+@pytest.mark.cuda
+def test_new_layer_kernels_take_no_mask_and_two_heads():
+    """kv_mask=None, D=128 (two heads), one batch element, short unaligned sets."""
+    dev = _cuda()
+    w, x_q, x_kv, _ = _layer_case(dev, torch.float32, dim=128)
+    x_q, x_kv = x_q[:1, :70].contiguous(), x_kv[:1, :33].contiguous()
+    for kind in ("linear", "favor_softmax"):
+        proj = _projection(dev, kind, 64)
+        with torch.no_grad():
+            out = glk.fused_attention_propagation(x_q, x_kv, None, w, 2, False, kind, proj)
+            ref = glk.layer_plain(x_q, x_kv, None, w, 2, False, kind, proj)
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    qw = gli8.quantize_propagation_weights(w)
+    for quant_attention in (False, True):
+        with torch.no_grad():
+            out = gli8.fused_attention_propagation_int8(x_q, x_kv, None, qw, 2, quant_attention=quant_attention)
+            ref = gli8.layer_int8_plain(x_q, x_kv, None, qw, 2, quant_attention=quant_attention)
+        rel = ((out - ref).norm() / ref.norm()).item()
+        assert rel < (1e-3 if quant_attention else 0.015), rel
+
+
+MODES = {"int8": (False, False), "int8_static": (True, False), "int8_attn": (False, True),
+         "int8_static_attn": (True, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("use_offset", [False, True])
+def test_int8_layer_kernel_matches_plain(x_dtype, mode, use_offset):
+    dev = _cuda()
+    static, quant_attention = MODES[mode]
+    w, x_q, x_kv, mask = _layer_case(dev, torch.float32, counts=(200, 0))
+    x_q, x_kv = x_q.to(x_dtype), x_kv.to(x_dtype)
+    qw = gli8.quantize_propagation_weights(w)
+    scales = None
+    if static:
+        absmax = gli8.reference_activation_absmax(x_q, x_kv, mask, qw, 4, use_offset, quant_attention)
+        scales = absmax * (1.1 / 127.0) + 1e-12
+    kwargs = dict(act_scales=scales, quant_attention=quant_attention)
+    before = gli8.counter.count
+    with torch.no_grad():
+        out = gli8.fused_attention_propagation_int8(x_q, x_kv, mask, qw, 4, use_offset, **kwargs)
+        again = gli8.fused_attention_propagation_int8(x_q, x_kv, mask, qw, 4, use_offset, **kwargs)
+        ref = gli8.layer_int8_plain(x_q, x_kv, mask, qw, 4, use_offset, **kwargs)
+    torch.cuda.synchronize()
+    assert gli8.counter.count == before + 2 and out.dtype == x_dtype
+    assert torch.equal(out, again)
+    # the integer products and their dequantization are exact; what differs is
+    # the attention's f32 summation order (and bf16 rounding flips of P),
+    # which flips single int8 roundings downstream: compared in norm, with
+    # the JAX package's bar between its kernel and its oracle as the ceiling.
+    # With int8 attention only the softmax denominator's summation order is
+    # left, and most entries have equal bits (an H100 read 96.7% at the least;
+    # one flipped int8 value changes its whole row downstream)
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel < (1e-3 if quant_attention else 0.015), rel
+    if quant_attention:
+        assert (out == ref).float().mean().item() > 0.9
+    # most entries see no flip at all
+    close = (out.float() - ref.float()).abs() <= 2.0**-7 * ref.float().abs().max()
+    assert close.float().mean().item() > 0.99
+
+
+@pytest.mark.cuda
+def test_int8_layer_kernel_refuses_what_it_does_not_take():
+    dev = _cuda()
+    w, x_q, x_kv, mask = _layer_case(dev, torch.float32)
+    qw = gli8.quantize_propagation_weights(w)
+    with pytest.raises(ValueError, match="bf16 or int8"):
+        gli8.fused_attention_propagation_int8(x_q, x_kv, mask, qw, 4, attn_dtype=torch.float32)
+    with pytest.raises(ValueError, match="8 calibrated activation sites"):
+        gli8.fused_attention_propagation_int8(
+            x_q, x_kv, mask, qw, 4, act_scales=torch.full((5,), 0.05, device=dev), quant_attention=True)
 
 
 @pytest.mark.cuda

@@ -6,7 +6,9 @@ import shutil
 
 from openglue_tpu_torch.ops import kernels
 
-LAYER_SOURCES = {"gnn_layer", "message_forward", "message_backward"}
+LAYER_SOURCES = {
+    "gnn_layer", "message_forward", "message_backward", "gnn_layer_features", "gnn_layer_int8",
+}
 SINKHORN_SOURCES = {"sinkhorn", "sinkhorn_adjoint"}
 
 
@@ -15,6 +17,8 @@ def test_every_source_has_its_headers():
     assert set(kernels.SOURCES) == LAYER_SOURCES | SINKHORN_SOURCES
     assert names["gnn_layer"] == {"gnn_layer.cu", "attention.cuh", "gemm.cuh", "mma.cuh"}
     assert names["message_backward"] == {"message_backward.cu", "gemm.cuh", "mma.cuh"}
+    assert names["gnn_layer_features"] == {"gnn_layer_features.cu", "gemm.cuh", "mma.cuh"}
+    assert names["gnn_layer_int8"] == {"gnn_layer_int8.cu", "attention.cuh", "mma.cuh"}
     assert names["sinkhorn_adjoint"] == {"sinkhorn_adjoint.cu", "sinkhorn_rows.cuh"}
 
 

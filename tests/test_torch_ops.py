@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from openglue_tpu.ops import attention as jax_attention
@@ -81,3 +82,95 @@ def test_softmax_attention_matches_jax(with_mask):
     # one f32 softmax over <= 37 keys: a few ulps
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6)
     np.testing.assert_allclose(attn.numpy(), np.asarray(ref_attn), atol=2e-6)
+
+
+def _qkv(rng, n=50, m=37, dh=16):
+    q = rng.standard_normal((2, 4, n, dh)).astype(np.float32)
+    k = rng.standard_normal((2, 4, m, dh)).astype(np.float32)
+    v = rng.standard_normal((2, 4, m, dh)).astype(np.float32)
+    return q, k, v
+
+
+def _maybe(x, convert):
+    return None if x is None else convert(x)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_softmax_attention_with_lse_matches_jax(with_mask):
+    rng = np.random.default_rng(3)
+    q, k, v = _qkv(rng)
+    mask = _masks(rng, 2, 37, [30, 12]) if with_mask else None
+    ref, ref_lse = jax_attention.softmax_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), _maybe(mask, jnp.asarray))
+    out, lse = attention.softmax_attention_with_lse(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), _maybe(mask, torch.from_numpy))
+    # f32 sums over <= 37 keys
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=2e-5)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("name", ["linear_attention", "linear_attention_elu"])
+def test_linear_attention_matches_jax(name, with_mask):
+    rng = np.random.default_rng(4)
+    q, k, v = _qkv(rng)
+    if name == "linear_attention":  # takes positive feature maps
+        q, k = np.abs(q) + 0.1, np.abs(k) + 0.1
+    mask = _masks(rng, 2, 37, [30, 12]) if with_mask else None
+    ref, none_ref = getattr(jax_attention, name)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), _maybe(mask, jnp.asarray))
+    out, none_out = getattr(attention, name)(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), _maybe(mask, torch.from_numpy))
+    assert none_ref is None and none_out is None
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
+
+
+@pytest.mark.parametrize("per_head", [False, True])
+def test_favor_features_relu_matches_jax(per_head):
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 4, 50, 16)).astype(np.float32)
+    proj = rng.standard_normal((4, 24, 16) if per_head else (24, 16)).astype(np.float32)
+    ref = jax_attention.favor_features_relu(jnp.asarray(x), jnp.asarray(proj))
+    out = attention.favor_features_relu(torch.from_numpy(x), torch.from_numpy(proj))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
+    assert (out > 0).all()
+
+
+@pytest.mark.parametrize("is_query,with_mask", [(True, False), (False, False), (False, True)])
+def test_favor_features_softmax_matches_jax(is_query, with_mask):
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 4, 37, 16)).astype(np.float32)
+    proj = rng.standard_normal((24, 16)).astype(np.float32)
+    mask = _masks(rng, 2, 37, [30, 12]) if with_mask else None
+    ref = jax_attention.favor_features_softmax(
+        jnp.asarray(x), jnp.asarray(proj), is_query, _maybe(mask, jnp.asarray))
+    out = attention.favor_features_softmax(
+        torch.from_numpy(x), torch.from_numpy(proj), is_query, _maybe(mask, torch.from_numpy))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5)
+    if with_mask:  # the key max is taken over valid keypoints only
+        valid = out.numpy()[np.broadcast_to(mask[:, None, :, None], out.shape)]
+        assert valid.max() <= 24**-0.5 * (1 + 1e-8) * (1 + 1e-6)
+
+
+@pytest.mark.parametrize("rows,cols", [(32, 16), (40, 16), (16, 16), (10, 16)])
+def test_orthogonal_random_matrix_properties(rows, cols):
+    """The draw cannot equal JAX's (another generator), so it is held to what
+    defines it: rows orthogonal within each block of ``cols`` rows, row norms
+    chi distributed with ``cols`` degrees of freedom, and a seed fixes it."""
+    gen = torch.Generator().manual_seed(0)
+    w = attention.sample_orthogonal_random_matrix(gen, rows, cols)
+    assert w.shape == (rows, cols) and w.dtype == torch.float32
+    for start in range(0, rows, cols):
+        block = w[start:start + cols]
+        unit = block / block.norm(dim=1, keepdim=True)
+        gram = unit @ unit.t()
+        np.testing.assert_allclose(gram.numpy(), np.eye(len(block)), atol=1e-5)
+    norms = w.norm(dim=1)
+    assert norms.std() > 0.1  # not normalized: the Gaussian rows' own norms
+    assert abs(norms.square().mean().item() - cols) < 0.5 * cols
+    again = attention.sample_orthogonal_random_matrix(torch.Generator().manual_seed(0), rows, cols)
+    assert torch.equal(w, again)
+    other = attention.sample_orthogonal_random_matrix(torch.Generator().manual_seed(1), rows, cols)
+    assert not torch.equal(w, other)
+    ref = jax_attention.sample_orthogonal_random_matrix(jax.random.key(0), rows, cols)
+    assert ref.shape == w.shape

@@ -144,6 +144,36 @@ def test_bf16_chain_forward_matches_jax(variables, inputs, use_pallas):
     assert agree >= 0.99
 
 
+def test_siren_encoder_forward_matches_jax(inputs):
+    kwargs = dict(SMALL, pe_encoder_name="FeedForwardNetSiren")
+    jmodel = JaxSuperGlue(JaxConfig(**kwargs))
+    jinputs = {k: jnp.asarray(v) for k, v in inputs.items()}
+    variables = jax.tree_util.tree_map(np.asarray, dict(jmodel.init(jax.random.key(2), **jinputs)))
+    assert "positional_encoding" not in variables["batch_stats"]  # no BatchNorm in the Siren encoder
+    ref = jmodel.apply(variables, **jinputs)
+    cfg = SuperGlueConfig(**kwargs)
+    model = SuperGlue(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    # the port's own init: every weight within the SIREN bounds, zero biases
+    first, last = model.positional_encoding.encoder.dense_0, model.positional_encoding.encoder.dense_2
+    assert first.weight.abs().max() <= 1 / 3 and last.weight.abs().max() <= np.sqrt(6 / 64) / 30
+    assert first.weight.std() > 0.1 and not first.bias.any() and not last.bias.any()
+    model.load_state_dict(superglue_state_dict_from_jax(variables, cfg))
+    model.eval()
+    with torch.no_grad():
+        out = model(**{k: torch.from_numpy(np.array(v)) for k, v in inputs.items()})
+    # sin(30 x) amplifies an f32 rounding of x by 30; the forward bar holds
+    np.testing.assert_allclose(out["scores"].numpy(), np.asarray(ref["scores"]), atol=5e-4)
+    np.testing.assert_array_equal(out["decode_indices0"].numpy(), np.asarray(ref["decode_indices0"]))
+    with pytest.raises(NameError, match="was not found among positional encoders"):
+        SuperGlue(SuperGlueConfig(**dict(SMALL, pe_encoder_name="Fourier")), device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [("ring_axis", "kp"), ("remat", True)])
+def test_unported_switches_are_refused(field, value):
+    with pytest.raises(NotImplementedError, match=field):
+        SuperGlue(SuperGlueConfig(**SMALL, **{field: value}), device="cpu")
+
+
 def test_weights_round_trip_exactly(variables):
     cfg = SuperGlueConfig(**SMALL)
     model = SuperGlue(cfg, device="cpu")

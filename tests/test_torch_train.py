@@ -3,8 +3,9 @@ attentional-propagation layer in training mode (with the masked BatchNorm's
 batch statistics), the optimizer against optax, and one whole
 ``make_train_step`` from identical weights and an identical batch, with the
 kernel path (use_pallas, the JAX side through its Pallas kernels in
-interpret mode under forced dispatch) and the composed path. Also: the port
-alone overfits a small batch."""
+interpret mode under forced dispatch) and the composed path, and with linear
+attention (the composed path under autograd in both packages). Also: the port
+alone overfits a small batch, and the FAVOR redraw."""
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +34,10 @@ from openglue_tpu_torch.models.gnn import AttentionalPropagation
 from openglue_tpu_torch.models.superglue import SuperGlue, SuperGlueConfig
 from openglue_tpu_torch.ops.kernels import gnn_layer_kernel, sinkhorn_kernel
 from openglue_tpu_torch.train import state as port_state
-from openglue_tpu_torch.train.step import LossConfig, make_eval_step, make_train_step
+from openglue_tpu_torch.cli.common import favor_redraw_interval
+from openglue_tpu_torch.train.step import (
+    LossConfig, make_eval_step, make_train_step, redraw_favor_projections,
+)
 
 SMALL = dict(
     descriptor_dim=64, pe_hidden_layers_sizes=(32,), num_stages=2, num_heads=4,
@@ -190,8 +194,20 @@ def _port_batch(sides, H):
 
 @pytest.mark.parametrize("use_pallas", [True, False])
 def test_train_step_matches_jax(use_pallas):
+    _check_train_step(use_pallas, "softmax")
+
+
+def test_train_step_linear_attention_matches_jax():
+    """attention="linear" with use_pallas: both packages train it through the
+    composed path and their framework's autodiff; the Sinkhorn runs through
+    its kernels' plain versions."""
+    _check_train_step(True, "linear")
+
+
+def _check_train_step(use_pallas, attention):
     sides, H = _step_batch()
     jbatch = _jax_batch(sides, H)
+    SMALL = dict(globals()["SMALL"], attention=attention)
     model = JaxSuperGlue(JaxConfig(**SMALL, use_pallas=use_pallas))
     variables = model.init(jax.random.key(1), **jax_superglue_inputs(jbatch))
     state = jax_create_train_state(model.apply, variables, learning_rate=1e-3)
@@ -256,3 +272,33 @@ def test_train_step_reduces_loss(use_pallas):
     out = make_eval_step(match_threshold=0.2)(state, batch)
     assert out["matches0"].shape == (2, 64) and out["scores"].shape == (2, 65, 65)
     assert (out["matches0"] >= 0).sum() > 0 and not model.training
+
+
+@pytest.mark.parametrize("attention", ["favor_relu", "favor_softmax", "linear"])
+def test_redraw_favor_projections_changes_the_projections_only(attention):
+    cfg = SuperGlueConfig(**SMALL, attention=attention, favor_num_features=24)
+    model = SuperGlue(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    state = port_state.create_train_state(model, learning_rate=1e-3)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    projections = [k for k in before if k.endswith("mha.projection")]
+    assert len(projections) == (0 if attention == "linear" else 2 * SMALL["num_stages"])
+    assert all(before[k].shape == (24, 16) for k in projections)
+    assert not any(p.requires_grad for p in (model.get_buffer(k) for k in projections))
+    assert redraw_favor_projections(state, torch.Generator().manual_seed(7)) is state
+    after = model.state_dict()
+    for name, value in before.items():
+        assert torch.equal(after[name], value) == (name not in projections), name
+    # ranks that seed alike draw alike
+    twin = SuperGlue(cfg, device="cpu", generator=torch.Generator().manual_seed(3))
+    redraw_favor_projections(port_state.create_train_state(twin), torch.Generator().manual_seed(7))
+    for name in projections:
+        assert torch.equal(twin.state_dict()[name], after[name])
+
+
+def test_favor_redraw_interval_from_config():
+    gnn = {"attention": "favor_softmax", "redraw_interval": 500}
+    assert favor_redraw_interval({"superglue": {"attention_gnn": gnn}}) == 500
+    assert favor_redraw_interval({"superglue": {"attention_gnn": dict(gnn, attention="linear")}}) is None
+    assert favor_redraw_interval({}) is None
+    cfg = SuperGlueConfig.from_dict({"descriptor_dim": 64, "attention_gnn": dict(gnn, favor_num_features=48)})
+    assert (cfg.attention, cfg.favor_num_features) == ("favor_softmax", 48)
