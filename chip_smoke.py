@@ -13,7 +13,12 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    serving shapes; the Sinkhorn adjoint (K3) and the message forward and
    backward (K4, K5; bf16 and f32) at the training shape B=12, N=1024; the
    feature-kind layer (K6: linear, FAVOR-relu, FAVOR-softmax; bf16 and f32)
-   and the int8 layer (K7: its four modes) at B=16, N=1024;
+   and the int8 layer (K7: its four modes) at B=16, N=1024; the train-mode
+   layer half (K8; bf16 and f32, with and without use_offset) and the
+   attention forward and backward on heads (K9, K10; bf16 and f32, a ragged
+   mask with one fully masked element, two runs of K10 compared bit for bit)
+   at B=12, N=1024, K9 and K10 also at B=4, N=2048, with the time of
+   ``scaled_dot_product_attention`` on the same inputs beside them;
 4. serving: the flagship config (the ``superglue:`` section of
    configs/config_cached_sp_magicleap.yaml: D=256, 9 stages, 4 heads, bf16
    chain, 20 Sinkhorn iterations, use_pallas) with seeded random weights,
@@ -33,7 +38,12 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    the config's batch (B=12, N=1024, valid counts in [512, 1024]): one step
    held against the same step through the plain versions, 2 warm-up and 5
    timed steps with the launch counts checked per step, a profile, and a
-   small f32 step held against the composed path.
+   small f32 step held against the composed path. Then the same step on the
+   model's two other training routes, ``train_route="composed"`` (K9, K10)
+   and ``"half"`` (K8, K5): one step held against the plain versions, timed
+   steps with the launch counts checked, a profile, and a small f32 step held
+   against the ``"message"`` route; and one ``"message"`` step with
+   ``remat=True`` held against the step without it, with both peak memories.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the line before that the JSON ``kernels`` record, and the last line the JSON
@@ -89,6 +99,7 @@ LOG_P_NATS = 0.05
 MATCH_THRESHOLD = 0.2  # the flagship config's inference.match_threshold
 SERVE_REPEATS = 5  # a request's latency is the median of this many runs
 TRAIN_WARMUP, TRAIN_TIMED = 2, 5  # training steps before and under the clock
+ROUTE_WARMUP, ROUTE_TIMED = 1, 3  # the same on the two other training routes
 
 
 def card_line() -> str:
@@ -403,8 +414,134 @@ def message_phase(glk, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, dim=256, h
     return res
 
 
+def half_phase(glk, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, dim=256, heads=4):
+    """K8 at the training shape with ragged key masks, with and without
+    use_offset: kernel vs plain on z, attn and the LSE."""
+    dev = torch.device("cuda")
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    w = glk.MessageWeights(*[r(dim, dim, scale=dim**-0.5) if i % 2 == 0 else r(dim) for i in range(8)])
+    w1, b1 = r(2 * dim, 2 * dim, scale=(2 * dim) ** -0.5), r(2 * dim)
+    x_q, x_kv = r(batch, n, dim).to(dtype), r(batch, n, dim).to(dtype)
+    counts = torch.randint(n // 2, n + 1, (batch,), generator=gen, device=dev)
+    mask = torch.arange(n, device=dev)[None] < counts[:, None]
+    name = str(dtype)[6:]
+    # f32: summation order only; bf16: single rounding flips of q, k, v, P and
+    # msg carried through the products (K4's bars)
+    rel_tol = 1e-5 if dtype == torch.float32 else 2.0**-6
+    errs = {}
+    for use_offset in (False, True):
+        out = glk.train_half_forward(x_q, x_kv, mask, w, w1, b1, heads, use_offset, dtype)
+        ref = glk.train_half_plain(x_q, x_kv, mask, w, w1, b1, heads, use_offset, dtype)
+        torch.cuda.synchronize()
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(out[:2], ref[:2]))
+        tol = rel_tol * max(b.float().abs().max().item() for b in ref[:2])
+        lse_err = (out[2] - ref[2]).abs().max().item()
+        lse_tol = 1e-5 * ref[2].abs().max().item() if dtype == torch.float32 else 2e-2
+        check(err <= tol and lse_err <= lse_tol,
+              f"K8 {name} use_offset={use_offset}: z/attn error {err} (tol {tol}), lse {lse_err} (tol {lse_tol})")
+        errs[use_offset] = err
+    run = lambda: glk.train_half_forward(x_q, x_kv, mask, w, w1, b1, heads, False, dtype)
+    ms = cuda_ms(run, 10)
+    plain_ms = cuda_ms(lambda: glk.train_half_plain(x_q, x_kv, mask, w, w1, b1, heads, False, dtype), 3, warmup=1)
+    elt = x_q.element_size()
+    # 4 N x D x D products (q, k, v, out), one N x 2D x 2D, per head 2 N x M x dh;
+    # x_q, x_kv and the mask in, z, attn and the LSE out, ten weights in f32
+    flops = batch * (16 * n * dim * dim + 4 * n * n * dim)
+    act = batch * n * dim * elt
+    nbytes = 2 * act + 3 * act + batch * heads * n * 4 + batch * n + (8 * dim * dim + 6 * dim) * 4
+    bms, by = bound_ms(flops, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS, nbytes)
+    print(f"K8 train_half {name} B={batch} N=M={n} D={dim} H={heads}: max_abs_err={errs[False]:.3e} "
+          f"(use_offset {errs[True]:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})",
+          flush=True)
+    return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4):
+    """K9 and K10 on the heads of [B, N, H*64] projections (the views the
+    multi-head attention makes), valid key counts in [N/2, N] and one element
+    with every key masked: kernel vs plain, two runs of K10 bit for bit, and
+    the time of one ``scaled_dot_product_attention`` call on the same inputs
+    (forward; forward and backward minus forward), which the port never uses."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    dim = heads * 64
+
+    def r():
+        x = torch.randn(batch, n, dim, generator=gen, device=dev).to(dtype)
+        return x.view(batch, n, heads, 64).transpose(1, 2)
+
+    q, k, v, g = r(), r(), r(), r()
+    counts = torch.randint(n // 2, n + 1, (batch,), generator=gen, device=dev)
+    counts[batch // 2] = 0  # one fully masked element
+    mask = torch.arange(n, device=dev)[None] < counts[:, None]
+    live = counts > 0
+    name = str(dtype)[6:]
+    fwd = lambda: ak.attention_forward(q, k, v, mask)
+    (out, lse), (ref, ref_lse) = fwd(), ak.attention_forward_plain(q, k, v, mask)
+    bwd = lambda: ak.attention_backward(q, k, v, mask, g, out, lse)
+    grads, again, ref_grads = bwd(), bwd(), ak.attention_backward_plain(q, k, v, mask, g)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(grads, again)), f"K10 {name}: two runs differ")
+    # f32: summation order only; bf16: the online softmax rounds P against the
+    # running max, one or two ulps (2^-8 relative) of the largest output
+    f_err = (out.float() - ref.float()).abs().max().item()
+    f_tol = (1e-5 if dtype == torch.float32 else 2.0**-7) * ref.float().abs().max().item()
+    # the LSE where a key is valid (with none it sits at -1e9, one f32 ulp is 64)
+    lse_err = (lse - ref_lse)[live].abs().max().item()
+    check(f_err <= f_tol and lse_err <= 1e-4, f"K9 {name}: out error {f_err} (tol {f_tol}), lse {lse_err}")
+    # gradients against their largest entry: f32 summation order and the row
+    # sums taken from g . out; bf16 rounding flips of P and dS (K5's bars)
+    rel = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+           for a, b in zip(grads, ref_grads)]
+    b_tol = 1e-4 if dtype == torch.float32 else 2.0**-6
+    check(max(rel) <= b_tol, f"K10 {name}: relative errors {rel} above {b_tol}")
+    b_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(grads, ref_grads))
+
+    # the library call on the same inputs (a fully masked row is NaN there)
+    lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    attn_mask = mask[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=attn_mask)
+
+    def sdpa_both():
+        lq.grad = lk.grad = lv.grad = None
+        sdpa().backward(g)
+
+    with torch.enable_grad():
+        lib_fwd = cuda_ms(sdpa, 10)
+        lib_bwd = cuda_ms(sdpa_both, 10) - lib_fwd
+
+    elt = q.element_size()
+    rate = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    act, stat = batch * n * dim * elt, batch * heads * n * 4
+    # forward: S and P V per head; q, k, v and the mask in, out and the LSE out.
+    # backward: S, dP, dV, dQ, dK per head; q, k, v, g, out, the LSE and the
+    # mask in, dq, dk, dv out
+    cases = (("K9", "attention_forward", fwd, lambda: ak.attention_forward_plain(q, k, v, mask),
+              batch * 4 * n * n * dim, 4 * act + stat + batch * n, f_err, lib_fwd),
+             ("K10", "attention_backward", bwd, lambda: ak.attention_backward_plain(q, k, v, mask, g),
+              batch * 10 * n * n * dim, 8 * act + stat + batch * n, b_err, lib_bwd))
+    res = {}
+    for kname, what, fn, plain, flops, nbytes, err, lib in cases:
+        ms = cuda_ms(fn, 10)
+        plain_ms = cuda_ms(plain, 3, warmup=1)
+        bms, by = bound_ms(flops, rate, nbytes)
+        res[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib)
+        print(f"{kname} {what} {name} B={batch} H={heads} N=M={n} dh=64: max_abs_err={err:.3e} kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library (scaled_dot_product_attention) "
+              f"{lib:.4f} ms", flush=True)
+    res["K9"]["lse_max_abs_err"] = lse_err
+    res["K10"]["max_rel_err"] = max(rel)
+    print(f"  K9 {name} lse_max_abs_err={lse_err:.3e} on live elements; K10 {name} relative errors (dq, dk, dv): "
+          + ", ".join(f"{x:.2e}" for x in rel) + "; two runs equal", flush=True)
+    return res
+
+
 @contextlib.contextmanager
-def plain_versions(glk, sk, gli8=None):
+def plain_versions(glk, sk, gli8=None, ak=None):
     """Route the model's kernel calls to the kernels' plain versions, on the
     card, for the reference run of the same model."""
     names = [(glk, "fused_attention_propagation", glk.layer_plain),
@@ -414,6 +551,10 @@ def plain_versions(glk, sk, gli8=None):
              (sk, "sinkhorn_adjoint", sk.sinkhorn_adjoint_plain)]
     if gli8 is not None:
         names.append((gli8, "fused_attention_propagation_int8", gli8.layer_int8_plain))
+    if ak is not None:
+        names += [(ak, "attention_forward", ak.attention_forward_plain),
+                  (ak, "attention_backward", ak.attention_backward_plain),
+                  (glk, "train_half_forward", glk.train_half_plain)]
     saved = [getattr(module, name) for module, name, _ in names]
     for module, name, plain in names:
         setattr(module, name, plain)
@@ -717,6 +858,143 @@ def train_phase(gen, card, device="cuda"):
     return launches
 
 
+def routes_phase(gen, card, device="cuda"):
+    """The flagship training step on the model's two other routes and with
+    remat: ``composed`` (K9 + K10 around the composed modules), ``half`` (K8
+    forward, a torch prologue and K5 backward) and ``message`` with every layer
+    checkpointed. Returns the launches of the counted runs by route."""
+    from openglue_tpu_torch.cli.common import loss_config_from, optimizer_from, superglue_config_from
+    from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import attention_kernel as ak
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.train.state import create_train_state
+    from openglue_tpu_torch.train.step import make_train_step
+
+    config = {"superglue": SUPERGLUE_SECTION, "train": TRAIN_SECTION}
+    step = make_train_step(loss_config_from(config))
+
+    def fresh(section, route):
+        cfg = superglue_config_from({"superglue": section}, DESCRIPTOR_DIM, SIDE_INFO_DIM)
+        model = SuperGlue(cfg, device=device, generator=torch.Generator().manual_seed(1), train_route=route)
+        return create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
+
+    def twin(state, route=None, **changes):
+        """The same weights in a model of another route or configuration."""
+        model = SuperGlue(dataclasses.replace(state.model.config, **changes), device=device,
+                          train_route=route or state.model.train_route)
+        model.load_state_dict(state.model.state_dict())
+        return create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
+
+    def peak_of(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, torch.cuda.max_memory_allocated() / 2**30
+
+    n = MAX_KEYPOINTS
+    counts = lambda: torch.randint(n // 2, n + 1, (BATCH_SIZE,), generator=gen, device=device).tolist()
+    batch = make_request(SyntheticHomographyPairs, gen, BATCH_SIZE, n, counts(), counts())
+    small = make_request(SyntheticHomographyPairs, gen, 2, 256, [256, 180], [200, 256])
+    counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter, "K4": glk.message_counter,
+                "K5": glk.message_bwd_counter, "K8": glk.half_counter, "K9": ak.counter,
+                "K10": ak.backward_counter}
+    layers = 2 * SUPERGLUE_SECTION["attention_gnn"]["num_stages"] * 2  # self + cross per stage, both images
+    per_step = {"composed": {"K9": layers, "K10": layers}, "half": {"K8": layers, "K5": layers}}
+    launches = {}
+    for route, kernels_of_route in per_step.items():
+        state = fresh(SUPERGLUE_SECTION, route)
+        plain = twin(state)
+        first = step(state, batch)
+        with plain_versions(glk, sk, ak=ak):
+            ref = step(plain, batch)
+        torch.cuda.synchronize()
+        # the bars of the message route's step against its plain step
+        compare_steps(state.model, plain.model, first, ref,
+                      f"train step route={route} B={BATCH_SIZE} N={n} kernels vs plain",
+                      loss_tol=1e-3, norm_tol=0.01, cos_min=0.999, stats_tol=1e-3)
+        del plain
+
+        expected = {name: 0 for name in counters}
+        expected.update(K2=1, K3=1, **kernels_of_route)
+        for counter in counters.values():
+            counter.reset()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(ROUTE_WARMUP + ROUTE_TIMED):
+            before = {k: c.count for k, c in counters.items()}
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            delta = {k: c.count - before[k] for k, c in counters.items()}
+            check(delta == expected, f"route={route} step {i}: launches {delta}, expected {expected}")
+            check(all(torch.isfinite(v).item() for v in metrics.values()), f"route={route} step {i}: {metrics}")
+            losses.append(metrics["total_loss"].item())
+            if i >= ROUTE_WARMUP:
+                times.append(elapsed)
+        launches[route] = {k: c.count for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy, kernels_by_time = device_profile(lambda: step(state, batch), top=8)
+        median = statistics.median(times)
+        idle = "not measured" if busy is None else f"{1 - busy / (median * 1e3):.3f}"
+        print(f"train route={route} B={BATCH_SIZE} N={n}: step {median * 1e3:.3f} ms (median of {ROUTE_TIMED}; all "
+              f"{', '.join(f'{t * 1e3:.3f}' for t in times)}), {BATCH_SIZE / median:.2f} pairs/s, peak memory "
+              f"{peak:.2f} GiB, device busy {busy} ms, idle share {idle}, loss {first['total_loss'].item():.4f} -> "
+              f"{losses[-1]:.4f}, launches per step "
+              f"{json.dumps({k: v for k, v in expected.items() if v})} [{card}]", flush=True)
+        print(f"  device time by kernel, train step route={route}: "
+              + "; ".join(f"{kname} {ms:.3f} ms ({calls} calls)" for ms, kname, calls in kernels_by_time),
+              flush=True)
+        del state
+
+        # a small f32 step against the message route
+        route_f32 = fresh(dict(SUPERGLUE_SECTION, chain_dtype=None), route)
+        message_f32 = twin(route_f32, route="message")
+        compare_steps(route_f32.model, message_f32.model, step(route_f32, small), step(message_f32, small),
+                      f"f32 train step B=2 N=256 route={route} vs route=message",
+                      loss_tol=1e-5, norm_tol=1e-4, cos_min=0.99999, stats_tol=1e-5)
+        del route_f32, message_f32
+
+    # remat on the message route: the same step, its activations rebuilt
+    state = fresh(SUPERGLUE_SECTION, "message")
+    remat = twin(state, remat=True)
+    for counter in counters.values():
+        counter.reset()
+    m_plain, peak_plain = peak_of(lambda: step(state, batch))
+    plain_counts = {k: c.count for k, c in counters.items()}
+    for counter in counters.values():
+        counter.reset()
+    m_remat, peak_remat = peak_of(lambda: step(remat, batch))
+    launches["remat"] = {k: c.count for k, c in counters.items()}
+    expected = {name: 0 for name in counters}
+    expected.update(K2=1, K3=1, K4=layers, K5=layers)
+    check(plain_counts == expected, f"message step: launches {plain_counts}, expected {expected}")
+    expected["K4"] = 2 * layers  # each layer's forward runs again in the backward pass
+    check(launches["remat"] == expected, f"remat step: launches {launches['remat']}, expected {expected}")
+    # the rebuilt forward repeats the first one's arithmetic in the same order
+    compare_steps(remat.model, state.model, m_remat, m_plain, f"train step remat vs not, B={BATCH_SIZE} N={n}",
+                  loss_tol=1e-5, norm_tol=1e-5, cos_min=0.99999, stats_tol=1e-6)
+    times = {}
+    for name, st in (("without", state), ("with", remat)):
+        runs = []
+        for _ in range(ROUTE_TIMED):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            step(st, batch)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - start)
+        times[name] = statistics.median(runs)
+    print(f"train remat B={BATCH_SIZE} N={n} route=message: peak memory {peak_remat:.2f} GiB with remat, "
+          f"{peak_plain:.2f} GiB without; step {times['with'] * 1e3:.3f} ms with, {times['without'] * 1e3:.3f} ms "
+          f"without (median of {ROUTE_TIMED}); launches per remat step "
+          f"{json.dumps({k: v for k, v in expected.items() if v})} [{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -732,6 +1010,7 @@ def main() -> int:
     from openglue_tpu_torch.models.superglue import SuperGlue
     from openglue_tpu_torch.ops import kernels
     from openglue_tpu_torch.ops.attention import sample_orthogonal_random_matrix
+    from openglue_tpu_torch.ops.kernels import attention_kernel as ak
     from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
     from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
     from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
@@ -835,7 +1114,15 @@ def main() -> int:
         # ---- the other serving configurations (K6, K7)
         other = other_configs_phase(gen, card, model, (glk, gli8, sk, decode_from_output), dict(requests))
 
+    # the kernels of the other training routes (the library call beside K9 and
+    # K10 differentiates, which inference mode forbids)
+    with torch.no_grad():
+        k8 = {dt: half_phase(glk, dt, gen) for dt in (torch.bfloat16, torch.float32)}
+        k910 = {(dt, n): attention_phase(ak, dt, gen, batch, n) for batch, n in ((BATCH_SIZE, 1024), (4, 2048))
+                for dt in (torch.bfloat16, torch.float32)}
+
     train = train_phase(gen, card)
+    routes = routes_phase(gen, card)
 
     n1024 = sum(d[1] for name, *_, d in results if "N=1024" in name)
     n2048 = sum(d[1] for name, *_, d in results if "N=2048" in name)
@@ -878,6 +1165,15 @@ def main() -> int:
         dict(name="gnn_layer_int8 int8_static_attn (bf16 x, B=16 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "gnn_layer_int8.cu", replaces=pallas + "gnn_layer_int8.py:129",
              launches=other["int8_static_attn"], **k7["int8_static_attn"], library_ms=None),
+        dict(name="train_half (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda", source=csrc + "train_half.cu",
+             replaces=pallas + "gnn_layer_kernel.py:587", launches=routes["half"]["K8"],
+             **k8[torch.bfloat16], library_ms=None, f32=dict(k8[torch.float32], library_ms=None)),
+        # the composed route's projections are f32, so its launches are
+        *[dict(name=f"{what} (f32, B=12 H=4 N=M=1024 dh=64)", route="cuda", source=csrc + what + ".cu",
+               replaces=pallas + f"attention_kernel.py:{line}", launches=routes["composed"][kname],
+               **k910[(torch.float32, 1024)][kname], bf16=k910[(torch.bfloat16, 1024)][kname],
+               n2048_f32=k910[(torch.float32, 2048)][kname], n2048_bf16=k910[(torch.bfloat16, 2048)][kname])
+          for kname, what, line in (("K9", "attention", 38), ("K10", "attention_backward", 251))],
     ]}
     for entry in record["kernels"]:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")

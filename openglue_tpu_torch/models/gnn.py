@@ -14,10 +14,26 @@ its BatchNorm folded: the softmax kernel, the feature-kind kernel for the
 three O(N) kinds (``ops/kernels/gnn_layer_kernel.py``), or, with ``quantize``
 and softmax attention, the int8 kernel (``ops/kernels/gnn_layer_int8.py``).
 There is no shape gate: with ``use_pallas`` in eval mode the kernel runs. In
-training mode with ``use_pallas`` and softmax attention the attention half
-runs as the fused message kernels (forward and backward) and the concat, the
-FFN and its train-mode BatchNorm stay in torch autograd. Otherwise a layer
-runs the composed modules below, under autograd for every kind.
+training mode with ``use_pallas`` and softmax attention a layer takes one of
+three routes, the JAX package's, chosen there by environment variables and
+here by the constructor argument ``train_route``:
+
+* ``"message"`` (the default): the attention half runs as the fused message
+  kernels (forward and backward); the concat, the FFN and its train-mode
+  BatchNorm stay in torch autograd;
+* ``"half"`` (JAX: ``OPENGLUE_TRAIN_HALF``): the attention half and the FFN's
+  first dense + ReLU run as the train-half kernel, whose backward ends in the
+  message backward kernel; the BatchNorm and the second dense stay in torch;
+* ``"composed"`` (JAX: ``OPENGLUE_NO_FUSED_MESSAGE``): the composed modules
+  below, whose multi-head attention runs the standalone attention kernels
+  (forward and backward) on its projected heads.
+
+``train_route`` has no effect in eval mode, without ``use_pallas`` or with
+another attention kind: there a training layer runs the composed modules
+below, under autograd for every kind. ``remat`` runs each layer under
+``torch.utils.checkpoint`` in training: its activations are rebuilt in the
+backward pass instead of kept, on every route, and the BatchNorm running
+statistics still move once per step.
 
 The FAVOR kinds hold their orthogonal random projection ``[F, dh]`` as a
 non-trainable buffer of the ``mha`` module (``mha.projection``), drawn from
@@ -29,23 +45,29 @@ before a calibration pass has filled it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from openglue_tpu_torch.models.layers import Conv1x1, FeedForwardNet
+from openglue_tpu_torch.models.layers import Conv1x1, FeedForwardNet, frozen_running_statistics
 from openglue_tpu_torch.ops import attention as attn_ops
+from openglue_tpu_torch.ops.kernels import attention_kernel
 from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
 from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
 
 ATTENTION_KINDS = ("softmax", "linear", "favor_relu", "favor_softmax")
+TRAIN_ROUTES = ("message", "half", "composed")
 QUANTIZE_MODES = ("int8", "int8_static", "int8_attn", "int8_static_attn")
 
 
 class MultiheadAttention(nn.Module):
     """Multi-head attention with a pluggable score mechanism; channel c belongs
-    to head c // head_dim. ``favor_num_features`` defaults to 2 * head_dim."""
+    to head c // head_dim. ``favor_num_features`` defaults to 2 * head_dim.
+    With ``use_pallas`` softmax attention runs the attention kernels (forward
+    and, under autograd, backward), in training and in eval."""
 
     def __init__(
         self,
@@ -55,6 +77,7 @@ class MultiheadAttention(nn.Module):
         attention: str = "softmax",
         favor_num_features: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
+        use_pallas: bool = False,
     ):
         super().__init__()
         if attention not in ATTENTION_KINDS:
@@ -63,6 +86,7 @@ class MultiheadAttention(nn.Module):
             )
         self.num_heads = num_heads
         self.attention = attention
+        self.use_pallas = use_pallas
         self.in_proj_q = Conv1x1(embed_dim, embed_dim, dtype)
         self.in_proj_k = Conv1x1(embed_dim, embed_dim, dtype)
         self.in_proj_v = Conv1x1(embed_dim, embed_dim, dtype)
@@ -86,7 +110,9 @@ class MultiheadAttention(nn.Module):
         q = split(self.in_proj_q(query), n)
         k = split(self.in_proj_k(source), m)
         v = split(self.in_proj_v(source), m)
-        if self.attention == "softmax":
+        if self.attention == "softmax" and self.use_pallas:
+            out = attention_kernel.masked_softmax_attention(q, k, v, kv_mask)
+        elif self.attention == "softmax":
             out, _ = attn_ops.softmax_attention(q, k, v, kv_mask)
         elif self.attention == "linear":
             out, _ = attn_ops.linear_attention_elu(q, k, v, kv_mask)
@@ -116,10 +142,14 @@ class AttentionalPropagation(nn.Module):
         favor_num_features: Optional[int] = None,
         quantize: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
+        train_route: str = "message",
     ):
         super().__init__()
         if quantize is not None and quantize not in QUANTIZE_MODES:
             raise ValueError(f"quantize {quantize!r} is not supported; choose from {QUANTIZE_MODES}")
+        if train_route not in TRAIN_ROUTES:
+            raise ValueError(f"train_route {train_route!r} is not supported; choose from {TRAIN_ROUTES}")
+        self.train_route = train_route
         self.num_heads = num_heads
         self.use_offset = use_offset
         self.dtype = dtype
@@ -130,7 +160,7 @@ class AttentionalPropagation(nn.Module):
         self.quantize = quantize if use_pallas and attention == "softmax" else None
         self.calibrating = False
         self.mha = MultiheadAttention(
-            embed_dim, num_heads, dtype, attention, favor_num_features, generator
+            embed_dim, num_heads, dtype, attention, favor_num_features, generator, use_pallas
         )
         self.fc = FeedForwardNet((2 * embed_dim, 2 * embed_dim, embed_dim), dtype)
         if self.static_quantize:
@@ -234,14 +264,24 @@ class AttentionalPropagation(nn.Module):
                 desc_q, desc_kv, kv_mask, weights, self.num_heads, self.use_offset,
                 self.attention, getattr(self.mha, "projection", None),
             )
-        if self.use_pallas and self.attention == "softmax":
+        route = self.train_route if self.use_pallas and self.attention == "softmax" else "composed"
+        if route != "composed":
             # the attention half computes in the layer's type or the chain's
             # (bf16 with a bf16 chain, where the composed path promotes to f32)
             compute_dtype = self.dtype or desc_q.dtype
+            x_q, x_kv = desc_q.to(compute_dtype), desc_kv.to(compute_dtype)
+            weights = glk.extract_message_weights(dict(self.named_parameters()))
+        if route == "half":
+            # the kernel consumes fc.0; the train-mode BatchNorm and the second
+            # dense finish the layer here
+            z = glk.fused_train_layer_half(
+                x_q, x_kv, kv_mask, weights, self.fc[0].weight[..., 0], self.fc[0].bias,
+                self.num_heads, self.use_offset, compute_dtype,
+            )
+            return desc_q + self.fc(z, q_mask, skip_to_hidden=True)
+        if route == "message":
             message = glk.fused_attention_message(
-                desc_q.to(compute_dtype), desc_kv.to(compute_dtype), kv_mask,
-                glk.extract_message_weights(dict(self.named_parameters())),
-                self.num_heads, compute_dtype,
+                x_q, x_kv, kv_mask, weights, self.num_heads, compute_dtype
             )
         else:
             message = self.mha(desc_q, desc_kv, kv_mask)
@@ -277,14 +317,29 @@ class AttentionGNN(nn.Module):
         favor_num_features: Optional[int] = None,
         quantize: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
+        remat: bool = False,
+        train_route: str = "message",
     ):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             _Layer(AttentionalPropagation(
                 embed_dim, num_heads, use_offset, dtype, use_pallas, attention,
-                favor_num_features, quantize, generator,
+                favor_num_features, quantize, generator, train_route,
             ))
             for _ in range(2 * num_stages)
+        )
+
+    def _run(self, layer, *args):
+        """One layer call; with ``remat`` in training, under a checkpoint: the
+        layer's activations are dropped after the forward and rebuilt by a
+        second forward in the backward pass, which leaves the BatchNorm
+        running statistics alone."""
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return layer(*args)
+        return checkpoint(
+            layer, *args, use_reentrant=False, preserve_rng_state=False,
+            context_fn=lambda: (contextlib.nullcontext(), frozen_running_statistics(layer)),
         )
 
     def forward(
@@ -296,10 +351,10 @@ class AttentionGNN(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         for i in range(0, len(self.layers), 2):
             self_layer = self.layers[i].module
-            desc0 = self_layer(desc0, desc0, mask0, mask0)
-            desc1 = self_layer(desc1, desc1, mask1, mask1)
+            desc0 = self._run(self_layer, desc0, desc0, mask0, mask0)
+            desc1 = self._run(self_layer, desc1, desc1, mask1, mask1)
             # sequential cross attention: image1 sees the updated desc0
             cross_layer = self.layers[i + 1].module
-            desc0 = cross_layer(desc0, desc1, mask0, mask1)
-            desc1 = cross_layer(desc1, desc0, mask1, mask0)
+            desc0 = self._run(cross_layer, desc0, desc1, mask0, mask1)
+            desc1 = self._run(cross_layer, desc1, desc0, mask1, mask0)
         return desc0, desc1

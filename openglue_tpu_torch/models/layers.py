@@ -13,6 +13,7 @@ itself, so the cast is explicit.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Sequence
 
@@ -51,7 +52,10 @@ class MaskedBatchNorm(nn.Module):
     semantics (biased batch variance to normalize, unbiased variance into the
     running stats, momentum 0.1) and an optional ``[...]`` validity mask that
     keeps padded keypoints out of the statistics. The output type is
-    ``dtype`` or, when None, the input's type."""
+    ``dtype`` or, when None, the input's type. While ``update_running`` is
+    False a training-mode call leaves the running statistics alone: a forward
+    that is run again to rebuild activations (``frozen_running_statistics``)
+    must count once."""
 
     def __init__(
         self,
@@ -64,6 +68,7 @@ class MaskedBatchNorm(nn.Module):
         self.momentum = momentum
         self.eps = eps
         self.dtype = dtype
+        self.update_running = True
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -82,15 +87,31 @@ class MaskedBatchNorm(nn.Module):
                 count = torch.clamp(m.sum(), min=1.0)
                 mean = (flat * m).sum(dim=0) / count
                 var = (((flat - mean) ** 2) * m).sum(dim=0) / count
-            with torch.no_grad():
-                unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
-                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+            if self.update_running:
+                with torch.no_grad():
+                    unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+                    self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                    self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight + self.bias
         return y.to(self.dtype or x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_running_statistics(module: nn.Module):
+    """Within the context, the ``MaskedBatchNorm`` layers under ``module``
+    normalize as before but do not update their running statistics."""
+    norms = [m for m in module.modules() if isinstance(m, MaskedBatchNorm)]
+    saved = [m.update_running for m in norms]
+    for m in norms:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(norms, saved):
+            m.update_running = flag
 
 
 class FeedForwardNet(nn.Sequential):
@@ -106,8 +127,14 @@ class FeedForwardNet(nn.Sequential):
         layers.append(Conv1x1(sizes[-2], sizes[-1], dtype))
         super().__init__(*layers)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        for layer in self:
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, skip_to_hidden: bool = False
+    ) -> torch.Tensor:
+        """``skip_to_hidden``: ``x`` is already the first hidden layer's
+        activation after the ReLU (computed by a fused kernel that consumed the
+        first conv's parameters, ``ops.kernels.gnn_layer_kernel.
+        fused_train_layer_half``): start at the first BatchNorm."""
+        for layer in list(self)[2 if skip_to_hidden else 0:]:
             x = layer(x, mask) if isinstance(layer, MaskedBatchNorm) else layer(x)
         return x
 

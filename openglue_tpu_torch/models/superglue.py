@@ -12,7 +12,12 @@ configured attention kind (or, with ``quantize`` and softmax attention, the
 int8 layer kernel) and the scale-domain Sinkhorn; in training mode
 (``model.train()``) the attention half of every softmax layer through the
 message kernels and the Sinkhorn through its forward and adjoint kernels,
-under autograd. ``quantize`` without ``use_pallas`` or with another attention
+under autograd. ``train_route`` (a constructor argument, not a config key)
+picks one of the JAX package's three training routes of a softmax layer:
+``"message"`` (the default), ``"half"`` (the train-half kernel, whose backward
+ends in the message backward kernel) or ``"composed"`` (the composed modules
+with the standalone attention kernels); ``remat`` checkpoints every GNN layer
+in training, on each route. ``quantize`` without ``use_pallas`` or with another attention
 kind cannot run: the model warns and serves the unquantized path. The
 ``int8_static*`` modes serve only after ``calibrate``. On CPU tensors the kernels'
 plain versions run instead. In training mode every ``MaskedBatchNorm``
@@ -120,16 +125,13 @@ class SuperGlue(nn.Module):
         config: SuperGlueConfig,
         device: Any = "cuda",
         generator: Optional[torch.Generator] = None,
+        train_route: str = "message",
     ):
         super().__init__()
-        unsupported = {
-            "ring_axis": config.ring_axis is not None,
-            "remat": bool(config.remat),
-        }
-        bad = [name for name, is_bad in unsupported.items() if is_bad]
-        if bad:
-            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        if config.ring_axis is not None:
+            raise NotImplementedError("not ported yet: ring_axis")
         self.config = config
+        self.train_route = train_route
         dim = config.descriptor_dim
         dtype = as_torch_dtype(config.dtype)
         self.chain_dtype = as_torch_dtype(config.chain_dtype)
@@ -140,7 +142,7 @@ class SuperGlue(nn.Module):
         self.attention_gnn = AttentionGNN(
             config.num_stages, dim, config.num_heads, config.use_offset, dtype,
             config.use_pallas, config.attention, config.favor_num_features, config.quantize,
-            generator,
+            generator, bool(config.remat), train_route,
         )
         self.linear_proj = Conv1x1(dim, dim, dtype)
         if config.residual:

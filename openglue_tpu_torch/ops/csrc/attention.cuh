@@ -1,9 +1,11 @@
-// Flash-style masked softmax attention forward, shared by the layer and
-// message kernels. q [B, N, ldq], k/v [B, M, ldkv] (k and v may be column
-// blocks of one buffer), head h in columns [h*64, h*64+64); mask [B, M] (1
-// valid, 0 masked) or null; out [B, N, D] in the compute type (the bf16 kernel
-// can also write f32); lse [B, H, N] f32 (max + log(sum exp)) or null. The row max and sum run online in f32;
-// the division comes after P.V.
+// Flash-style masked softmax attention forward, shared by the layer, message
+// and standalone attention kernels. q and out are [B, H, N, 64] views, k and v
+// [B, H, M, 64] views, each given by its HeadLayout (for the layer kernels:
+// q [B, N, ldq], k/v [B, M, ldkv] with head h in columns [h*64, h*64+64), k
+// and v column blocks of one buffer, out [B, N, D]); mask [B, M] (1 valid, 0
+// masked) or null; out in the compute type (the bf16 kernel can also write
+// f32); lse [B, H, N] f32 (max + log(sum exp)) or null. The row max and sum
+// run online in f32; the division comes after P.V.
 
 #pragma once
 
@@ -19,8 +21,8 @@ template <typename O>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-               O* __restrict__ out, float* __restrict__ lse, int N, int M, int D, int ldq,
-               int ldkv) {
+               O* __restrict__ out, float* __restrict__ lse, int N, int M, HeadLayout lq,
+               HeadLayout lk, HeadLayout lv, HeadLayout lo) {
   constexpr int kPad = 8;
   __shared__ __align__(16) bf16 Qs[kAq][kDh + kPad];
   __shared__ __align__(16) bf16 Ks[2][kAk][kDh + kPad];
@@ -28,17 +30,17 @@ attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __shared__ float madd[2][kAk];
   const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * kAq;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const bf16* qb = q + static_cast<size_t>(b) * N * ldq + h * kDh;
-  const bf16* kb = k + static_cast<size_t>(b) * M * ldkv + h * kDh;
-  const bf16* vb = v + static_cast<size_t>(b) * M * ldkv + h * kDh;
+  const bf16* qb = q + b * lq.batch + h * lq.head;
+  const bf16* kb = k + b * lk.batch + h * lk.head;
+  const bf16* vb = v + b * lv.batch + h * lv.head;
 
   auto load_kv = [&](int stage, int k0) {
     for (int i = tid; i < kAk * kDh / 8; i += kAttnThreads) {
       const int r = i / 8, c = (i % 8) * 8;
       const bool ok = k0 + r < M;
-      const size_t row = static_cast<size_t>(ok ? k0 + r : 0) * ldkv + c;
-      cp_async16(&Ks[stage][r][c], kb + row, ok);
-      cp_async16(&Vs[stage][r][c], vb + row, ok);
+      const long long row = ok ? k0 + r : 0;
+      cp_async16(&Ks[stage][r][c], kb + row * lk.row + c, ok);
+      cp_async16(&Vs[stage][r][c], vb + row * lv.row + c, ok);
     }
     if (tid < kAk) madd[stage][tid] = mask_add(mask, b, M, k0 + tid);
     cp_async_commit();
@@ -47,7 +49,7 @@ attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int i = tid; i < kAq * kDh / 8; i += kAttnThreads) {
     const int r = i / 8, c = (i % 8) * 8;
     const bool ok = n0 + r < N;
-    cp_async16(&Qs[r][c], qb + static_cast<size_t>(ok ? n0 + r : 0) * ldq + c, ok);
+    cp_async16(&Qs[r][c], qb + (ok ? n0 + r : 0) * lq.row + c, ok);
   }
   load_kv(0, 0);  // commits Q's copies with the first tile's
   cp_async_wait<0>();
@@ -135,14 +137,14 @@ attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 1);
     row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 2);
   }
-  O* ob = out + static_cast<size_t>(b) * N * D + h * kDh;
+  O* ob = out + b * lo.batch + h * lo.head;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = n0 + warp * 16 + g + 8 * hh;
     if (r < N) {
 #pragma unroll
       for (int nd = 0; nd < 8; ++nd)
-        store2(ob + static_cast<size_t>(r) * D + nd * 8 + 2 * t, o[nd][2 * hh] / row_sum[hh],
+        store2(ob + r * lo.row + nd * 8 + 2 * t, o[nd][2 * hh] / row_sum[hh],
                o[nd][2 * hh + 1] / row_sum[hh]);
       if (lse != nullptr && t == 0)
         lse[(static_cast<size_t>(b) * gridDim.y + h) * N + r] = row_max[hh] + logf(row_sum[hh]);
@@ -156,18 +158,18 @@ constexpr int kFq = 64, kFk = 32;
 __global__ void __launch_bounds__(kFq)
 attention_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const uint8_t* __restrict__ mask,
-              float* __restrict__ out, float* __restrict__ lse, int N, int M, int D, int ldq,
-              int ldkv) {
+              float* __restrict__ out, float* __restrict__ lse, int N, int M, HeadLayout lq,
+              HeadLayout lk, HeadLayout lv, HeadLayout lo) {
   __shared__ __align__(16) float Ks[kFk][kDh];
   __shared__ __align__(16) float Vs[kFk][kDh];
   __shared__ float madd[kFk];
   const int b = blockIdx.z, h = blockIdx.y, tid = threadIdx.x;
   const int row = blockIdx.x * kFq + tid;
-  const float* kb = k + static_cast<size_t>(b) * M * ldkv + h * kDh;
-  const float* vb = v + static_cast<size_t>(b) * M * ldkv + h * kDh;
+  const float* kb = k + b * lk.batch + h * lk.head;
+  const float* vb = v + b * lv.batch + h * lv.head;
 
   float qr[kDh], o[kDh];
-  const float* qrow = q + (static_cast<size_t>(b) * N + (row < N ? row : 0)) * ldq + h * kDh;
+  const float* qrow = q + b * lq.batch + h * lq.head + (row < N ? row : 0) * lq.row;
 #pragma unroll
   for (int d = 0; d < kDh; d += 4) {
     const float4 x = *reinterpret_cast<const float4*>(qrow + d);
@@ -182,8 +184,8 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
       const int r = i / (kDh / 4), c = (i % (kDh / 4)) * 4;
       float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
       if (k0 + r < M) {
-        kv = *reinterpret_cast<const float4*>(kb + static_cast<size_t>(k0 + r) * ldkv + c);
-        vv = *reinterpret_cast<const float4*>(vb + static_cast<size_t>(k0 + r) * ldkv + c);
+        kv = *reinterpret_cast<const float4*>(kb + (k0 + r) * lk.row + c);
+        vv = *reinterpret_cast<const float4*>(vb + (k0 + r) * lv.row + c);
       }
       *reinterpret_cast<float4*>(&Ks[r][c]) = kv;
       *reinterpret_cast<float4*>(&Vs[r][c]) = vv;
@@ -216,7 +218,7 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   if (row < N) {
-    float* orow = out + (static_cast<size_t>(b) * N + row) * D + h * kDh;
+    float* orow = out + b * lo.batch + h * lo.head + row * lo.row;
 #pragma unroll
     for (int d = 0; d < kDh; ++d) orow[d] = o[d] / row_sum;
     if (lse != nullptr)
@@ -224,17 +226,28 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// operands by their layouts
+template <typename T, typename O = T>
+cudaError_t attention_views(const T* q, const T* k, const T* v, const uint8_t* mask, O* out,
+                            float* lse, int B, int N, int M, int H, HeadLayout lq, HeadLayout lk,
+                            HeadLayout lv, HeadLayout lo, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 2) {
+    const dim3 grid((N + kAq - 1) / kAq, H, B);
+    attention_bf16<O><<<grid, kAttnThreads, 0, stream>>>(q, k, v, mask, out, lse, N, M, lq, lk, lv, lo);
+  } else {
+    const dim3 grid((N + kFq - 1) / kFq, H, B);
+    attention_f32<<<grid, kFq, 0, stream>>>(q, k, v, mask, out, lse, N, M, lq, lk, lv, lo);
+  }
+  return cudaGetLastError();
+}
+
+// q [B, N, ldq], k/v [B, M, ldkv], out [B, N, D], head h in columns h*64..
 template <typename T, typename O = T>
 cudaError_t attention(const T* q, const T* k, const T* v, const uint8_t* mask, O* out, float* lse,
                       int B, int N, int M, int D, int H, int ldq, int ldkv, cudaStream_t stream) {
-  if constexpr (sizeof(T) == 2) {
-    const dim3 grid((N + kAq - 1) / kAq, H, B);
-    attention_bf16<O><<<grid, kAttnThreads, 0, stream>>>(q, k, v, mask, out, lse, N, M, D, ldq, ldkv);
-  } else {
-    const dim3 grid((N + kFq - 1) / kFq, H, B);
-    attention_f32<<<grid, kFq, 0, stream>>>(q, k, v, mask, out, lse, N, M, D, ldq, ldkv);
-  }
-  return cudaGetLastError();
+  const HeadLayout lkv = column_heads(M, ldkv);
+  return attention_views<T, O>(q, k, v, mask, out, lse, B, N, M, H, column_heads(N, ldq), lkv, lkv,
+                               column_heads(N, D), stream);
 }
 
 }  // namespace

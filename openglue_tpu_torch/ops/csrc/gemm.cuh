@@ -12,7 +12,7 @@
 namespace {
 
 // kBiasF32 writes f32 whatever T is: out is then a float buffer and ldo counts floats
-enum Epilogue { kBias = 0, kConcat = 1, kReluAffine = 2, kResidual = 3, kBiasF32 = 4 };
+enum Epilogue { kBias = 0, kConcat = 1, kReluAffine = 2, kResidual = 3, kBiasF32 = 4, kRelu = 5 };
 
 template <typename T>
 struct GemmArgs {
@@ -71,6 +71,8 @@ __device__ __forceinline__ void epilogue2(const GemmArgs<T>& p, int r, int c, fl
     // no valid key is NaN through the whole layer
     const float r0 = y0 < 0.f ? 0.f : y0, r1 = y1 < 0.f ? 0.f : y1;
     store2(o, r0 * p.scale[c] + p.shift[c], r1 * p.scale[c + 1] + p.shift[c + 1]);
+  } else if constexpr (EPI == kRelu) {  // the same ReLU, no affine after it
+    store2(o, y0 < 0.f ? 0.f : y0, y1 < 0.f ? 0.f : y1);
   } else {
     const float2 x = load2(p.x + static_cast<size_t>(r) * p.ldx + c);
     store2(o, x.x + y0, x.y + y1);

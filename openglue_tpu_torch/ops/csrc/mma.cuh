@@ -91,6 +91,18 @@ __device__ __forceinline__ float mask_add(const uint8_t* mask, int b, int M, int
   return (mask != nullptr && mask[static_cast<size_t>(b) * M + key] == 0) ? kMasked : 0.f;
 }
 
+// Where a [B, H, L, 64] attention operand lies: element (b, h, r, c) is at
+// base + b * batch + h * head + r * row + c, counted in elements. The kernels
+// load 16 bytes at a time, so every stride and the base are multiples of 16
+// bytes.
+struct HeadLayout {
+  long long batch, head, row;
+};
+// head h in columns [h * 64, h * 64 + 64) of a [B, L, ld] buffer
+inline HeadLayout column_heads(int L, int ld) {
+  return {static_cast<long long>(L) * ld, kDh, ld};
+}
+
 // A bump allocator over one workspace; every block 256-byte aligned. With a
 // null base it only measures (the wrapper asks for the size first).
 struct Carve {

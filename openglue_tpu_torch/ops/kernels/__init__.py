@@ -33,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = (
     "gnn_layer", "sinkhorn", "sinkhorn_adjoint", "message_forward", "message_backward",
-    "gnn_layer_features", "gnn_layer_int8",
+    "gnn_layer_features", "gnn_layer_int8", "attention", "attention_backward", "train_half",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,0 +1,248 @@
+"""Masked softmax attention on ``[B, H, N, dh]`` with a kernel backward: the
+kernel wrappers (``ops/csrc/attention.cu``, ``ops/csrc/attention_backward.cu``),
+their plain versions and the autograd Function.
+
+Port of ``openglue_tpu/ops/pallas/attention_kernel.py``
+(``masked_softmax_attention`` with ``_attention_kernel`` forward and
+``_attention_bwd_kernel`` backward): the attention of the composed multi-head
+attention module when ``use_pallas`` is set. The function is
+
+    out = softmax(q k^T * dh^-0.5 + (1 - mask) * -1e9) v
+
+with the kernels' rounding points, which the plain versions keep:
+
+* forward: logits, exp and the denominator in f32 (the denominator sums the
+  unrounded p); p cast to v's type for P.V; the division after P.V; out in q's
+  type;
+* backward: P recomputed in f32 (masked logits replaced by -1e9); P cast to
+  v's type for dV = P^T g; dP = g v^T and dS = P o (dP - rowsum(dP o P)) in
+  f32; dS cast to q's type for dQ = dS k * scale and dK = dS^T q * scale; dq,
+  dk, dv in their inputs' types.
+
+A key set that is masked entirely gives the uniform average over its M keys,
+forward and backward (the -1e9 absorbs every logit in f32). The TPU forward
+averages over its 128-padded key axis there; the port does not pad.
+
+The CUDA kernels take heads of width 64 and read every operand through its
+strides, so the ``[B, L, D]`` projections of the multi-head attention, seen as
+``[B, H, L, 64]`` through a transpose, are read where they lie. The kernel
+forward returns ``out`` as such a view of a ``[B, N, H * 64]`` buffer, so that
+merging the heads is free. A layout the kernels cannot take raises; nothing
+is copied and nothing falls back. There is no shape gate: any N and M run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from openglue_tpu_torch.ops import kernels
+
+NEG_INF = -1e9
+HEAD_DIM = 64  # the head width the CUDA kernels take
+
+counter = kernels.LaunchCounter()
+backward_counter = kernels.LaunchCounter()
+
+_VOID_P = ctypes.c_void_p
+
+
+def _masked_logits(q: torch.Tensor, k: torch.Tensor, kv_mask: Optional[torch.Tensor], additive: bool):
+    """f32 scaled logits [B, H, N, M] from operands in their own type."""
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if kv_mask is None:
+        return logits
+    if additive:  # the forward kernel's mask
+        return logits + ((1.0 - kv_mask.float()) * NEG_INF)[:, None, None, :]
+    return torch.where(kv_mask[:, None, None, :], logits, logits.new_tensor(NEG_INF))
+
+
+def attention_forward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: Optional[torch.Tensor] = None,
+    want_lse: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The plain version of the forward kernel: q [B, H, N, dh], k/v
+    [B, H, M, dh], kv_mask [B, M] bool or None -> (out [B, H, N, dh] in q's
+    type, lse [B, H, N] f32 or, without ``want_lse``, None)."""
+    logits = _masked_logits(q, k, kv_mask, additive=True)
+    row_max = logits.amax(dim=-1, keepdim=True)
+    p = torch.exp(logits - row_max)
+    denom = p.sum(dim=-1, keepdim=True)
+    out = (torch.matmul(p.to(v.dtype).float(), v.float()) / denom).to(q.dtype)
+    return out, (row_max + torch.log(denom))[..., 0] if want_lse else None
+
+
+def attention_backward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: Optional[torch.Tensor],
+    g: torch.Tensor, out: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the backward kernel, written out as the TPU
+    kernel computes it: g is the cotangent of out -> (dq, dk, dv) in the
+    types of q, k, v. It recomputes the softmax and takes neither ``out`` nor
+    ``lse`` (the kernel's shortcuts)."""
+    scale = q.shape[-1] ** -0.5
+    p = torch.softmax(_masked_logits(q, k, kv_mask, additive=False), dim=-1)
+    g32 = g.to(q.dtype).float()
+    dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), g32)
+    dp = torch.matmul(g32, v.float().transpose(-1, -2))
+    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(q.dtype).float()
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _head_strides(t: torch.Tensor, name: str):
+    """(batch, head, row) strides of a [B, H, L, 64] view the kernels can
+    read: the last axis contiguous, every other stride and the address a
+    multiple of 16 bytes."""
+    unit = 16 // t.element_size()
+    kernels.require(
+        t.stride(3) == 1,
+        f"{name}: the kernel reads heads whose last axis is contiguous, got strides {t.stride()}",
+    )
+    kernels.require(
+        all(s % unit == 0 for s in t.stride()[:3]) and t.data_ptr() % 16 == 0,
+        f"{name}: strides {t.stride()} and the address must be multiples of 16 bytes",
+    )
+    return t.stride()[:3]
+
+
+def _check_inputs(q, k, v, kv_mask):
+    kernels.require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "q, k, v must be [B, H, L, dh]")
+    batch, heads, n, dh = q.shape
+    m = k.shape[2]
+    kernels.require(
+        dh == HEAD_DIM, f"the kernel takes heads of width {HEAD_DIM}, got head_dim {dh}"
+    )
+    kernels.require(k.shape == (batch, heads, m, dh) and v.shape == k.shape, "k, v must be [B, H, M, dh]")
+    kernels.require(n >= 1 and m >= 1, "empty query or key set")
+    kernels.require(q.dtype in (torch.float32, torch.bfloat16), f"operand type {q.dtype}")
+    kernels.require(q.dtype == k.dtype == v.dtype, f"q, k, v types differ: {q.dtype}/{k.dtype}/{v.dtype}")
+    kernels.require(q.is_cuda and k.device == q.device and v.device == q.device, "q, k, v must share a CUDA device")
+    if kv_mask is not None:
+        kernels.require(kv_mask.shape == (batch, m) and kv_mask.dtype == torch.bool, "kv_mask must be [B, M] bool")
+        kernels.require(kv_mask.device == q.device, "kv_mask device")
+
+
+def _split_view(buffer: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, L, H * 64] -> its [B, H, L, 64] view."""
+    batch, length, _ = buffer.shape
+    return buffer.view(batch, length, heads, HEAD_DIM).transpose(1, 2)
+
+
+def attention_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: Optional[torch.Tensor] = None,
+    want_lse: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(out, lse) of the attention: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. ``lse`` is None unless ``want_lse``."""
+    if q.device.type == "cpu":
+        return attention_forward_plain(q, k, v, kv_mask, want_lse)
+    _check_inputs(q, k, v, kv_mask)
+    batch, heads, n, _ = q.shape
+    m = k.shape[2]
+    device = q.device
+    out = _split_view(torch.empty(batch, n, heads * HEAD_DIM, dtype=q.dtype, device=device), heads)
+    lse = torch.empty(batch, heads, n, dtype=torch.float32, device=device) if want_lse else None
+    strides = [*_head_strides(q, "q"), *_head_strides(k, "k"), *_head_strides(v, "v"),
+               *_head_strides(out, "out")]
+    mask = None if kv_mask is None else kv_mask.contiguous().view(torch.uint8)
+    fn = kernels.entry_point(
+        "attention", "og_attention",
+        [ctypes.c_int] * 5 + [_VOID_P] * 6 + [ctypes.POINTER(ctypes.c_longlong), _VOID_P],
+    )
+    status = fn(
+        int(q.dtype == torch.bfloat16), batch, heads, n, m, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), (ctypes.c_longlong * 12)(*strides),
+        kernels.stream_handle(device),
+    )
+    kernels.check(status, "og_attention")
+    counter.add()
+    return out, lse
+
+
+def attention_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: Optional[torch.Tensor],
+    g: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the cotangent g of ``out`` and the forward's ``out``
+    and ``lse``: the CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, kv_mask, g, out, lse)
+    _check_inputs(q, k, v, kv_mask)
+    batch, heads, n, _ = q.shape
+    m = k.shape[2]
+    device = q.device
+    kernels.require(g.shape == q.shape and out.shape == q.shape, "g and out must have q's shape")
+    kernels.require(out.dtype == q.dtype and out.device == device, "out must have q's type and device")
+    kernels.require(
+        lse.shape == (batch, heads, n) and lse.dtype == torch.float32 and lse.device == device,
+        "lse must be [B, H, N] f32",
+    )
+    g = g.to(q.dtype)
+    if g.stride(3) != 1 or any(s % (16 // g.element_size()) for s in g.stride()[:3]):
+        g = g.contiguous()  # a cotangent autograd broadcast or sliced
+    lse = lse.contiguous()
+    dq = _split_view(torch.empty(batch, n, heads * HEAD_DIM, dtype=q.dtype, device=device), heads)
+    dk = _split_view(torch.empty(batch, m, heads * HEAD_DIM, dtype=q.dtype, device=device), heads)
+    dv = _split_view(torch.empty(batch, m, heads * HEAD_DIM, dtype=q.dtype, device=device), heads)
+    row_sums = torch.empty(batch, heads, n, dtype=torch.float32, device=device)
+    strides = [
+        *_head_strides(q, "q"), *_head_strides(k, "k"), *_head_strides(v, "v"), *_head_strides(g, "g"),
+        *_head_strides(out, "out"), *_head_strides(dq, "dq"), *_head_strides(dk, "dk"),
+    ]
+    mask = dead = None
+    if kv_mask is not None:
+        mask = kv_mask.contiguous().view(torch.uint8)
+        dead = (~kv_mask.any(dim=1)).view(torch.uint8)  # elements with no valid key
+    fn = kernels.entry_point(
+        "attention_backward", "og_attention_backward",
+        [ctypes.c_int] * 5 + [ctypes.POINTER(_VOID_P)] + [_VOID_P] * 4
+        + [ctypes.POINTER(_VOID_P), ctypes.POINTER(ctypes.c_longlong), _VOID_P],
+    )
+    status = fn(
+        int(q.dtype == torch.bfloat16), batch, heads, n, m,
+        (_VOID_P * 5)(*(t.data_ptr() for t in (q, k, v, g, out))),
+        None if mask is None else mask.data_ptr(), None if dead is None else dead.data_ptr(),
+        lse.data_ptr(), row_sums.data_ptr(), (_VOID_P * 3)(dq.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+        (ctypes.c_longlong * 21)(*strides), kernels.stream_handle(device),
+    )
+    kernels.check(status, "og_attention_backward")
+    backward_counter.add()
+    return dq, dk, dv
+
+
+class _MaskedSoftmaxAttention(torch.autograd.Function):
+    """out = attention(q, k, v); the forward saves q, k, v, the mask, out and
+    the LSE, and the backward runs the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask):
+        needs_grad = any(ctx.needs_input_grad[:3])
+        out, lse = attention_forward(q, k, v, kv_mask, want_lse=needs_grad)
+        if needs_grad:
+            ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, kv_mask, g, out, lse)
+        return dq, dk, dv, None
+
+
+def masked_softmax_attention(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    kv_mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Softmax attention, differentiable in query, key and value: query
+    [B, H, N, dh], key/value [B, H, M, dh], kv_mask [B, M] bool or None ->
+    out [B, H, N, dh] in query's type. The kernels for CUDA tensors (dh = 64),
+    the plain versions for CPU tensors."""
+    return _MaskedSoftmaxAttention.apply(query, key, value, kv_mask)

@@ -36,6 +36,13 @@ backward kernel ``ops/csrc/message_backward.cu`` (replacing
 ``_message_bwd_kernel`` :627) returns the gradients of x_q, x_kv and the
 eight weights from them. The FFN and its train-mode BatchNorm stay in torch
 autograd.
+
+A second training route runs the attention half and the FFN's first dense +
+ReLU as one kernel (``fused_train_layer_half``, port of the JAX function of
+that name :1076): the forward kernel ``ops/csrc/train_half.cu`` (replacing
+``_train_half_kernel`` :587) returns z, the hidden before the BatchNorm, with
+attn and the LSE; the backward peels dense + ReLU off the cotangent in torch
+and ends in the message backward kernel.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ counter = kernels.LaunchCounter()
 feature_counter = kernels.LaunchCounter()
 message_counter = kernels.LaunchCounter()
 message_bwd_counter = kernels.LaunchCounter()
+half_counter = kernels.LaunchCounter()
 
 
 class PropagationWeights(NamedTuple):
@@ -603,3 +611,149 @@ def fused_attention_message(
     for CPU tensors."""
     dtype = compute_dtype or x_q.dtype
     return _FusedAttentionMessage.apply(x_q, x_kv, kv_mask, num_heads, dtype, *weights)
+
+
+# ----------------------------------------------------------- train-mode layer half
+
+
+def train_half_plain(
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    w: MessageWeights,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    num_heads: int,
+    use_offset: bool,
+    compute_dtype: torch.dtype,
+):
+    """The plain version of the train-half kernel: x_q [B, N, D], x_kv
+    [B, M, D], w1 [2D, 2D] (torch layout [out, in]), b1 [2D] -> (z [B, N, 2D]
+    and attn [B, N, D] in the compute type, lse [B, H, N] f32), with
+    z = relu(concat[x_q (- msg), msg] W1^T + b1). msg is rounded to the compute
+    type before the concat."""
+    dtype = compute_dtype
+    msg, attn, lse = message_forward_plain(x_q, x_kv, kv_mask, w, num_heads, dtype)
+    xq_c = x_q.to(dtype)
+    cat = torch.cat([xq_c - msg if use_offset else xq_c, msg], dim=-1)
+    z = torch.relu(_dense_f32(cat, w1.to(dtype), b1.float())).to(dtype)
+    return z, attn, lse
+
+
+def train_half_forward(
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    w: MessageWeights,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    num_heads: int,
+    use_offset: bool,
+    compute_dtype: torch.dtype,
+):
+    """(z, attn, lse) of the layer half: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if x_q.device.type == "cpu":
+        return train_half_plain(x_q, x_kv, kv_mask, w, w1, b1, num_heads, use_offset, compute_dtype)
+    dtype = compute_dtype
+    _check_message_inputs(x_q, x_kv, kv_mask, w, num_heads, dtype)
+    batch, n, dim = x_q.shape
+    m = x_kv.shape[1]
+    device = x_q.device
+    kernels.require(w1.shape == (2 * dim, 2 * dim) and w1.device == device, f"w1 shape {tuple(w1.shape)}")
+    kernels.require(
+        b1.shape == (2 * dim,) and b1.dtype == torch.float32 and b1.device == device, "b1: f32 [2D]"
+    )
+    x_q, x_kv = x_q.contiguous(), x_kv.contiguous()
+    mats = [t.detach().to(dtype).contiguous() for t in (w.wq, w.wk, w.wv, w.wo, w1)]
+    vecs = [t.detach().contiguous() for t in (w.bq, w.bk, w.bv, w.bo, b1)]
+    is_bf16 = int(dtype == torch.bfloat16)
+    size = kernels.entry_point(
+        "train_half", "og_train_half_workspace", [ctypes.c_int] * 5, ctypes.c_size_t
+    )(is_bf16, batch, n, m, dim)
+    workspace = torch.empty(size, dtype=torch.uint8, device=device)
+    z = torch.empty(batch, n, 2 * dim, dtype=dtype, device=device)
+    attn = torch.empty(batch, n, dim, dtype=dtype, device=device)
+    lse = torch.empty(batch, num_heads, n, dtype=torch.float32, device=device)
+    mask, mask_ptr = _mask_ptr(kv_mask)
+    fn = kernels.entry_point(
+        "train_half", "og_train_half",
+        [ctypes.c_int] * 7 + [_VOID_P] * 3 + [ctypes.POINTER(_VOID_P)] * 2 + [_VOID_P] * 5,
+    )
+    status = fn(
+        is_bf16, batch, n, m, dim, num_heads, int(use_offset), x_q.data_ptr(), x_kv.data_ptr(), mask_ptr,
+        (_VOID_P * 5)(*(t.data_ptr() for t in mats)), (_VOID_P * 5)(*(t.data_ptr() for t in vecs)),
+        workspace.data_ptr(), z.data_ptr(), attn.data_ptr(), lse.data_ptr(),
+        kernels.stream_handle(device),
+    )
+    kernels.check(status, "og_train_half")
+    half_counter.add()
+    return z, attn, lse
+
+
+class _FusedTrainLayerHalf(torch.autograd.Function):
+    """z = relu(concat[x_q (- msg), msg] W1^T + b1) with msg the attention
+    half. The backward is the JAX package's: a torch prologue that peels dense
+    + ReLU off the cotangent without forming the concat (w1 consumed in column
+    halves, dw1 assembled from the x_q and rebuilt-msg blocks), then the
+    message backward kernel with dmsg and the saved attn and lse."""
+
+    @staticmethod
+    def forward(ctx, x_q, x_kv, kv_mask, num_heads, use_offset, compute_dtype, w1, b1, *weights):
+        w = MessageWeights(*weights)
+        z, attn, lse = train_half_forward(
+            x_q, x_kv, kv_mask, w, w1, b1, num_heads, use_offset, compute_dtype
+        )
+        ctx.save_for_backward(x_q, x_kv, kv_mask, z, attn, lse, w1, b1, *weights)
+        ctx.num_heads, ctx.use_offset, ctx.compute_dtype = num_heads, use_offset, compute_dtype
+        return z
+
+    @staticmethod
+    def backward(ctx, dz):
+        x_q, x_kv, kv_mask, z, attn, lse, w1, b1, *weights = ctx.saved_tensors
+        w = MessageWeights(*weights)
+        dtype, dim = ctx.compute_dtype, x_q.shape[-1]
+        ds = torch.where(z > 0, dz, 0.0).to(dtype).float()  # [B, N, 2D], rounded to the compute type
+        wh = w1.to(dtype).float()  # [out, in]
+        d_first = torch.matmul(ds, wh[:, :dim])  # cotangent of concat[..., :D]
+        d_second = torch.matmul(ds, wh[:, dim:])
+        dmsg = d_second - d_first if ctx.use_offset else d_second
+        # msg rebuilt from the saved attention output
+        msg = _dense_f32(attn, w.wo.to(dtype), w.bo.float()).to(dtype)
+
+        def block(a):  # [out, D]: ds^T a over the B * N rows
+            return torch.einsum("bno,bni->oi", ds, a.to(dtype).float())
+
+        e_x, e_m = block(x_q), block(msg)
+        dw1 = torch.cat([e_x - e_m if ctx.use_offset else e_x, e_m], dim=1)
+        db1 = ds.sum(dim=(0, 1))
+        dxq_attn, dxkv, dw = message_backward(
+            x_q, x_kv, kv_mask, w, dmsg.to(dtype), attn, lse, ctx.num_heads, dtype
+        )
+        dxq = (dxq_attn.float() + d_first).to(x_q.dtype)
+        return (dxq, dxkv.to(x_kv.dtype), None, None, None, None, dw1.to(w1.dtype), db1.to(b1.dtype), *dw)
+
+
+def fused_train_layer_half(
+    x_q: torch.Tensor,
+    x_kv: torch.Tensor,
+    kv_mask: Optional[torch.Tensor],
+    weights: MessageWeights,
+    w1: torch.Tensor,
+    b1: torch.Tensor,
+    num_heads: int,
+    use_offset: bool = False,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The attention half of a train-mode layer and the FFN's first dense +
+    ReLU, differentiable in x_q, x_kv and the ten weights: x_q [B, N, D], x_kv
+    [B, M, D] (in the compute type), w1 [2D, 2D] in torch layout [out, in] and
+    b1 [2D] in the parameter type (f32; their gradients come back in it) ->
+    z = relu(concat[x_q (- msg), msg] W1^T + b1) [B, N, 2D] in the compute
+    type. The caller finishes the layer: the masked train-mode BatchNorm on z,
+    the second dense and the residual add. The kernels for CUDA tensors, the
+    plain versions for CPU tensors."""
+    dtype = compute_dtype or x_q.dtype
+    return _FusedTrainLayerHalf.apply(
+        x_q, x_kv, kv_mask, num_heads, use_offset, dtype, w1, b1, *weights
+    )

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (the eval layer for softmax, for the feature kinds
 and in int8, the Sinkhorn forward and adjoint, the message forward and
-backward) against their plain PyTorch versions on a card.
+backward, the attention forward and backward on heads, the train-mode layer
+half) against their plain PyTorch versions on a card.
 
 This file imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from openglue_tpu_torch.ops.attention import sample_orthogonal_random_matrix
+from openglue_tpu_torch.ops.kernels import attention_kernel as ak
 from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
 from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
 from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
@@ -365,3 +367,156 @@ def test_adjoint_kernel_raises_beyond_its_column_limit():
     vec_r, vec_c = torch.zeros(1, rows, device=dev), torch.zeros(1, cols, device=dev)
     with pytest.raises(ValueError, match="at most"):
         sk.sinkhorn_adjoint(M_pad, vec_r, vec_c, vec_r, vec_r, vec_c, 3)
+
+
+# ----------------------------------------------------------- attention on heads
+
+
+def _attention_case(dev, dtype, batch=3, heads=2, n=300, m=257, counts=(200, 0, 257), seed=5, layout="columns"):
+    """q, g [B, H, N, 64], k, v [B, H, M, 64] and a key mask of ``counts`` (its
+    second element masks every key). ``layout``: "columns" views [B, L, H*64]
+    buffers as the multi-head attention does; "heads" is contiguous."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(length):
+        if layout == "heads":
+            return torch.randn(batch, heads, length, 64, generator=gen, device=dev).to(dtype)
+        x = torch.randn(batch, length, heads * 64, generator=gen, device=dev).to(dtype)
+        return x.view(batch, length, heads, 64).transpose(1, 2)
+
+    q, k, v, g = r(n), r(m), r(m), r(n)
+    mask = torch.arange(m, device=dev)[None] < torch.tensor(counts, device=dev)[:, None]
+    return q, k, v, g, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["columns", "heads"])
+def test_attention_kernels_match_plain(dtype, layout):
+    dev = _cuda()
+    q, k, v, g, mask = _attention_case(dev, dtype, layout=layout)
+    before = ak.counter.count, ak.backward_counter.count
+    out, lse = ak.attention_forward(q, k, v, mask)
+    ref, ref_lse = ak.attention_forward_plain(q, k, v, mask)
+    grads = ak.attention_backward(q, k, v, mask, g, out, lse)
+    ref_grads = ak.attention_backward_plain(q, k, v, mask, g)
+    torch.cuda.synchronize()
+    assert (ak.counter.count, ak.backward_counter.count) == (before[0] + 1, before[1] + 1)
+    assert not q.is_contiguous() or layout == "heads"  # read where they lie, no copy
+    _close(out, ref, dtype, "out")
+    live = mask.any(dim=1)  # with no valid key the LSE sits at -1e9, where one f32 ulp is 64
+    _close(lse[live], ref_lse[live], dtype, "lse")
+    # the fully masked element is the uniform average over its M keys
+    _close(out[1], v[1].float().mean(dim=1, keepdim=True).expand_as(out[1]), dtype, "uniform average")
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+        assert a.dtype == dtype and a.shape == b.shape
+        _close(a, b, dtype, name, f32_tol=GRAD_F32_TOL)
+        _close(a[1], b[1], dtype, name + " (fully masked element)", f32_tol=GRAD_F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_kernel_is_deterministic_and_takes_any_size(dtype):
+    """Equal bits on two runs, no mask, and N = M = 2048 (a graph the TPU
+    backward kernel sends elsewhere)."""
+    dev = _cuda()
+    q, k, v, g, _ = _attention_case(dev, dtype, batch=1, heads=2, n=2048, m=2048, counts=(2048,))
+    out, lse = ak.attention_forward(q, k, v, None)
+    first = ak.attention_backward(q, k, v, None, g, out, lse)
+    again = ak.attention_backward(q, k, v, None, g, out, lse)
+    ref = ak.attention_backward_plain(q, k, v, None, g)
+    for name, a, b, c in zip(("dq", "dk", "dv"), first, again, ref):
+        assert torch.equal(a, b), name
+        _close(a, c, dtype, name, f32_tol=GRAD_F32_TOL)
+
+
+@pytest.mark.cuda
+def test_masked_softmax_attention_autograd_on_card():
+    """The autograd Function on the card against the CPU's autograd, through
+    the projections' transposed views as the multi-head attention makes
+    them."""
+    dev = _cuda()
+    q, k, v, _, mask = _attention_case(dev, torch.float32, n=130, m=90, counts=(90, 0, 40))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]  # clone keeps the strides
+    assert not leaves[0].is_contiguous()
+    before = ak.counter.count, ak.backward_counter.count
+    ak.masked_softmax_attention(*leaves, mask).square().sum().backward()
+    assert (ak.counter.count, ak.backward_counter.count) == (before[0] + 1, before[1] + 1)
+    cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    ak.masked_softmax_attention(*cpu, mask.cpu()).square().sum().backward()
+    for name, a, b in zip(("dq", "dk", "dv"), leaves, cpu):
+        _close(a.grad.cpu(), b.grad, torch.float32, name, f32_tol=CPU_F32_TOL)
+    with torch.no_grad():  # without a gradient no LSE is written and nothing is saved
+        out = ak.masked_softmax_attention(q, k, v, mask)
+    _close(out.cpu(), ak.attention_forward_plain(*[t.detach() for t in cpu], mask.cpu())[0], torch.float32, "out")
+
+
+@pytest.mark.cuda
+def test_attention_kernel_refuses_what_it_does_not_take():
+    dev = _cuda()
+    q, k, v, g, mask = _attention_case(dev, torch.float32)
+    with pytest.raises(ValueError, match="heads of width 64, got head_dim 32"):
+        ak.attention_forward(q[..., :32], k[..., :32], v[..., :32], mask)
+    t = lambda x: x.transpose(2, 3).contiguous().transpose(2, 3)  # the head axis not contiguous
+    with pytest.raises(ValueError, match="last axis is contiguous"):
+        ak.attention_forward(t(q), k, v, mask)
+    out, lse = ak.attention_forward(q, k, v, mask)
+    with pytest.raises(ValueError, match="last axis is contiguous"):
+        ak.attention_backward(q, t(k), v, mask, g, out, lse)
+    odd = torch.empty(3 * 2 * 257 * 64 + 1, device=dev)[1:].view(3, 2, 257, 64)  # 4 bytes off a 16-byte line
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ak.attention_forward(q, odd, v, mask)
+    with pytest.raises(ValueError, match="types differ"):
+        ak.attention_forward(q, k.bfloat16(), v, mask)
+
+
+# ----------------------------------------------------------- train-mode layer half
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_offset", [False, True])
+def test_train_half_kernel_matches_plain(dtype, use_offset):
+    dev = _cuda()
+    x_q, x_kv, mask, w, _ = _message_case(dev, dtype)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    w1 = torch.randn(512, 512, generator=gen, device=dev) * 512**-0.5
+    b1 = torch.randn(512, generator=gen, device=dev) * 0.1
+    before = glk.half_counter.count
+    out = glk.train_half_forward(x_q, x_kv, mask, w, w1, b1, 4, use_offset, dtype)
+    ref = glk.train_half_plain(x_q, x_kv, mask, w, w1, b1, 4, use_offset, dtype)
+    torch.cuda.synchronize()
+    assert glk.half_counter.count == before + 1
+    for name, a, b in zip(("z", "attn", "lse"), out, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        _close(a, b, dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_offset", [False, True])
+def test_fused_train_layer_half_autograd_on_card(use_offset):
+    """Self attention through the autograd Function on the card (the train-
+    half kernel forward, the torch prologue and the message backward kernel)
+    against the same Function on the CPU."""
+    dev = _cuda()
+    x, _, mask, w, _ = _message_case(dev, torch.float32, n=130, m=130, dim=128, counts=(130, 90))
+    gen = torch.Generator(device=dev).manual_seed(10)
+    w1 = torch.randn(256, 256, generator=gen, device=dev) * 256**-0.5
+    b1 = torch.randn(256, generator=gen, device=dev) * 0.1
+
+    def run(device):
+        leaves = [t.detach().to(device).clone().requires_grad_() for t in (x, w1, b1, *w)]
+        before = glk.half_counter.count, glk.message_bwd_counter.count
+        z = glk.fused_train_layer_half(
+            leaves[0], leaves[0], mask.to(device), glk.MessageWeights(*leaves[3:]), leaves[1], leaves[2],
+            2, use_offset)
+        (z * torch.cos(z)).sum().backward()
+        launched = glk.half_counter.count - before[0], glk.message_bwd_counter.count - before[1]
+        return [t.grad.cpu() for t in leaves], launched
+
+    card, launched = run(dev)
+    cpu, none = run("cpu")
+    assert launched == (1, 1) and none == (0, 0)
+    for name, a, b in zip(("dx", "dw1", "db1"), card[:3], cpu[:3]):
+        _close(a, b, torch.float32, name, f32_tol=CPU_F32_TOL)
+    _close_weight_grads(card[3:], cpu[3:], torch.float32, CPU_F32_TOL)

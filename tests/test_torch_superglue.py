@@ -170,6 +170,10 @@ def test_siren_encoder_forward_matches_jax(inputs):
 
 @pytest.mark.parametrize("field,value", [("ring_axis", "kp"), ("remat", True)])
 def test_unported_switches_are_refused(field, value):
+    """``ring_axis`` is the one switch still refused; ``remat`` is ported."""
+    if field == "remat":
+        assert SuperGlue(SuperGlueConfig(**SMALL, remat=True), device="cpu").attention_gnn.remat
+        return
     with pytest.raises(NotImplementedError, match=field):
         SuperGlue(SuperGlueConfig(**SMALL, **{field: value}), device="cpu")
 
