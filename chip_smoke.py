@@ -43,7 +43,20 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    and ``"half"`` (K8, K5): one step held against the plain versions, timed
    steps with the launch counts checked, a profile, and a small f32 step held
    against the ``"message"`` route; and one ``"message"`` step with
-   ``remat=True`` held against the step without it, with both peak memories.
+   ``remat=True`` held against the step without it, with both peak memories;
+6. keypoint-axis context parallelism (``ring_axis``): the ring's block
+   attention with the LSE (K11) at B=12 N=1024 and B=4 N=2048, bf16 and f32,
+   against its plain version with the library call's time beside it; the
+   block merge of the ring (K11 on 4 key blocks of a B=12 N=1024 request,
+   ``ring.merge_block``) against K9 and K10 on the whole key set, which runs
+   K10 with a non-zero LSE cotangent; then, in a one-rank NCCL process group
+   (the script drives one card), ``SuperGlue(..., mesh=make_mesh({"model": 1}))``
+   with ``ring_axis`` serving the B=16 N=1024 and B=4 N=2048 requests through
+   ``shard_pair_batch_cp``, the forward and the sharded decode (36 K11 and no
+   K1, K2 per forward), held against the same weights on the composed path
+   without ``ring_axis``, and a ring training step held against the same step
+   on ``train_route="composed"``, then timed with 36 K11 + 36 K10 per step.
+   The process group is destroyed before the last lines.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the line before that the JSON ``kernels`` record, and the last line the JSON
@@ -540,6 +553,243 @@ def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4):
     return res
 
 
+def lse_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4):
+    """K11, the ring's block attention with the LSE, on the heads of
+    [B, N, H*64] projections, valid key counts in [N/2, N] and one element with
+    every key masked: kernel vs plain, and ``scaled_dot_product_attention`` on
+    the same inputs (which returns no LSE), which the port never uses."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    dim = heads * 64
+
+    def r():
+        x = torch.randn(batch, n, dim, generator=gen, device=dev).to(dtype)
+        return x.view(batch, n, heads, 64).transpose(1, 2)
+
+    q, k, v = r(), r(), r()
+    counts = torch.randint(n // 2, n + 1, (batch,), generator=gen, device=dev)
+    counts[batch // 2] = 0
+    mask = torch.arange(n, device=dev)[None] < counts[:, None]
+    live = counts > 0
+    run = lambda: ak.attention_lse_forward(q, k, v, mask)
+    (out, lse), (ref, ref_lse) = run(), ak.attention_forward_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    name = str(dtype)[6:]
+    # K9's bars: f32 summation order; bf16 one or two ulps of the largest output
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = (1e-5 if dtype == torch.float32 else 2.0**-7) * ref.float().abs().max().item()
+    lse_err = (lse - ref_lse)[live].abs().max().item()
+    check(err <= tol and lse_err <= 1e-4 and bool((lse[~live] < -1e8).all()),
+          f"K11 {name}: out error {err} (tol {tol}), lse {lse_err} on live elements")
+    ms = cuda_ms(run, 10)
+    plain_ms = cuda_ms(lambda: ak.attention_forward_plain(q, k, v, mask), 3, warmup=1)
+    attn_mask = mask[:, None, None, :]
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask), 10)
+    elt = q.element_size()
+    act, stat = batch * n * dim * elt, batch * heads * n * 4
+    # S and P V per head; q, k, v and the mask in, out and the LSE out
+    bms, by = bound_ms(batch * 4 * n * n * dim, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS,
+                       4 * act + stat + batch * n)
+    print(f"K11 attention_lse {name} B={batch} H={heads} N=M={n} dh=64: max_abs_err={err:.3e} (bar {tol:.3e}), "
+          f"lse_max_abs_err={lse_err:.3e} on live elements; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bms:.4f} ms ({by}), library (scaled_dot_product_attention, no LSE) {lib:.4f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib,
+                lse_max_abs_err=lse_err)
+
+
+def merge_phase(ak, ring, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4, blocks=4):
+    """The ring's arithmetic that does not depend on the number of ranks, at
+    full width: K11 on ``blocks`` key blocks of one request, merged with
+    ``ring.merge_block`` and the final where, against K9 on the whole key set
+    (one element has a block entirely masked, one no valid key: 0); the
+    gradient (K10 with a non-zero g_lse per block) against K10 on the whole
+    set."""
+    dev = torch.device("cuda")
+    dim, width = heads * 64, n // blocks
+
+    def r():
+        x = torch.randn(batch, n, dim, generator=gen, device=dev).to(dtype)
+        return x.view(batch, n, heads, 64).transpose(1, 2)
+
+    q, k, v, g = r(), r(), r(), r()
+    counts = torch.randint(n // 2, n + 1, (batch,), generator=gen, device=dev)
+    counts[0] = n - width - 7  # the last block entirely masked
+    counts[batch // 2] = 0
+    mask = torch.arange(n, device=dev)[None] < counts[:, None]
+    live = counts > 0
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    with torch.enable_grad():
+        acc = torch.zeros_like(leaves[0])
+        lse_run = torch.full_like(leaves[0][..., 0], float("-inf"))
+        for j in range(blocks):
+            keys = slice(j * width, (j + 1) * width)
+            blk = ak.masked_softmax_attention_with_lse(
+                leaves[0], leaves[1][:, :, keys], leaves[2][:, :, keys], mask[:, keys])
+            acc, lse_run = ring.merge_block(acc, lse_run, *blk)
+        merged = torch.where(lse_run[..., None] < -1e8, 0.0, acc)
+        (merged * g.float()).sum().backward()
+    out, lse = ak.attention_forward(q, k, v, mask)
+    ref = ak.attention_backward(q, k, v, mask, g, out, lse)
+    torch.cuda.synchronize()
+    name = str(dtype)[6:]
+    # forward: K9's bars; gradients: K10's (2^-6 in bf16: a block's P and dS
+    # round against the block's LSE, the merged sum adds four roundings)
+    f_tol = (1e-5 if dtype == torch.float32 else 2.0**-7) * out[live].float().abs().max().item()
+    f_err = (merged[live] - out[live].float()).abs().max().item()
+    check(f_err <= f_tol and not merged[~live].any(), f"merge {name}: forward error {f_err} (bar {f_tol})")
+    rel = []
+    for a, b in zip(leaves, ref):
+        rel.append((a.grad[live].float() - b[live].float()).abs().max().item() / b[live].float().abs().max().item())
+        check(not a.grad[~live].any(), f"merge {name}: a gradient of the element with no key is not 0")
+    b_tol = 1e-4 if dtype == torch.float32 else 2.0**-6
+    check(max(rel) <= b_tol, f"merge {name}: relative gradient errors {rel} above {b_tol}")
+    print(f"merge {name} B={batch} N=M={n} in {blocks} blocks of {width} keys (one block masked, one element "
+          f"with no key): forward max_abs_err={f_err:.3e} (bar {f_tol:.3e}) vs K9 on the whole set, 0 where no "
+          f"key; gradient relative errors (dq, dk, dv) " + ", ".join(f"{x:.2e}" for x in rel)
+          + f" (bar {b_tol}) vs K10 on the whole set", flush=True)
+    return dict(forward_err=f_err, forward_bar=f_tol, grad_rel_err=max(rel), grad_bar=b_tol)
+
+
+def ring_phase(gen, card, base_model, ring_requests, device="cuda"):
+    """Keypoint-axis context parallelism through NCCL at world size 1 (the
+    script drives one card): ring serving of the flagship requests and a
+    ring training step. The ring never rotates at one rank; its all-reduces
+    run as one-rank NCCL calls. Returns the launches of the counted runs."""
+    import functools
+    import socket
+
+    import torch.distributed as dist
+
+    from openglue_tpu_torch import parallel
+    from openglue_tpu_torch.cli.common import loss_config_from, optimizer_from, superglue_config_from
+    from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
+    from openglue_tpu_torch.models.matching import decode_from_output
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import attention_kernel as ak
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.train.state import create_train_state
+    from openglue_tpu_torch.train.step import make_train_step, superglue_inputs
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    parallel.initialize(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, device_type=device)
+    check(dist.get_backend() == {"cuda": "nccl", "cpu": "gloo"}[device], f"backend {dist.get_backend()}")
+    mesh = parallel.make_mesh({parallel.MODEL_AXIS: 1}, device_type=device)
+    section = dict(SUPERGLUE_SECTION, ring_axis=parallel.MODEL_AXIS)
+    counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter, "K4": glk.message_counter,
+                "K5": glk.message_bwd_counter, "K8": glk.half_counter, "K9": ak.counter, "K10": ak.backward_counter,
+                "K11": ak.lse_counter}
+    layers = 2 * SUPERGLUE_SECTION["attention_gnn"]["num_stages"] * 2
+    launches = {}
+    try:
+        cfg = superglue_config_from({"superglue": section}, DESCRIPTOR_DIM, SIDE_INFO_DIM)
+        model = SuperGlue(cfg, device=device, mesh=mesh).eval()
+        model.load_state_dict(base_model.state_dict())
+        group = model.ring_group
+        composed = SuperGlue(dataclasses.replace(cfg, ring_axis=None, use_pallas=False), device=device).eval()
+        composed.load_state_dict(base_model.state_dict())
+        decode = functools.partial(decode_from_output, group=group)
+
+        def serve_ring(inputs):
+            out = model(**inputs)
+            return out, decode(out, MATCH_THRESHOLD, inputs["mask0"], inputs["mask1"])
+
+        with torch.inference_mode():
+            for name, pairs in ring_requests:
+                inputs = superglue_inputs(parallel.shard_pair_batch_cp(pairs, mesh))
+                serve_ring(inputs)
+                torch.cuda.synchronize()
+                for c in counters.values():
+                    c.reset()
+                out, decoded = serve_ring(inputs)
+                delta = {k: c.count for k, c in counters.items()}
+                expected = dict({k: 0 for k in counters}, K11=layers)
+                check(delta == expected, f"ring serve {name}: launches {delta}, expected {expected}")
+                launches[name] = delta["K11"]
+                times = []
+                for _ in range(SERVE_REPEATS):
+                    torch.cuda.synchronize()
+                    start = time.perf_counter()
+                    serve_ring(inputs)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - start)
+                latency = statistics.median(times)
+                whole = dict(out, scores=parallel.gather_rows(out["scores"], group))
+                ref = composed(**inputs)
+                nats, stats = compare(decode, whole, ref, inputs, f"ring serve {name}")
+                vs_kernels = decode_readings(decode, whole, base_model(**inputs), inputs)
+                batch = inputs["kpts0"].shape[0]
+                busy, kernels_by_time = device_profile(lambda: serve_ring(inputs))
+                idle = "not measured" if busy is None else f"{1 - busy / (latency * 1e3):.3f}"
+                print(f"ring serve {name} (NCCL, 1 rank): {latency * 1e3:.3f} ms (median of {SERVE_REPEATS}), "
+                      f"{batch / latency:.2f} pairs/s, device busy {busy} ms, idle share {idle}, launches "
+                      f"K11={delta['K11']} (K1=K2=K9=0), vs the composed path without ring_axis: {nats:.3e} nats, "
+                      f"decode {json.dumps(stats)}; vs the bf16 kernel path (reading) {json.dumps(vs_kernels)}, "
+                      f"matches {int((decoded['matches0'] >= 0).sum())} [{card}]", flush=True)
+                print(f"  device time by kernel, ring serve {name}: "
+                      + "; ".join(f"{kname} {ms:.3f} ms" for ms, kname, _ in kernels_by_time), flush=True)
+            del composed
+
+        # ---- one ring training step against the same step on the composed route
+        config = {"superglue": section, "train": TRAIN_SECTION}
+        step = make_train_step(loss_config_from(config))
+        ring_model = SuperGlue(cfg, device=device, generator=torch.Generator().manual_seed(1), mesh=mesh)
+        state = create_train_state(ring_model, optimizer=optimizer_from(config, ring_model.parameters()))
+        twin = SuperGlue(dataclasses.replace(cfg, ring_axis=None), device=device, train_route="composed")
+        twin.load_state_dict(ring_model.state_dict())
+        plain = create_train_state(twin, optimizer=optimizer_from(config, twin.parameters()))
+        n = MAX_KEYPOINTS
+        counts = lambda: torch.randint(n // 2, n + 1, (BATCH_SIZE,), generator=gen, device=device).tolist()
+        pairs = make_request(SyntheticHomographyPairs, gen, BATCH_SIZE, n, counts(), counts())
+        batch = parallel.shard_pair_batch_cp(pairs, mesh)
+        first = step(state, batch)
+        ref = step(plain, pairs)
+        torch.cuda.synchronize()
+        compare_steps(state.model, plain.model, first, ref,
+                      f"ring train step B={BATCH_SIZE} N={n} (NCCL, 1 rank) vs route=composed",
+                      loss_tol=1e-3, norm_tol=0.01, cos_min=0.999, stats_tol=1e-3)
+        del plain, twin
+        expected = dict({k: 0 for k in counters}, K11=layers, K10=layers)
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(ROUTE_WARMUP + ROUTE_TIMED):
+            before = {k: c.count for k, c in counters.items()}
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - start
+            delta = {k: c.count - before[k] for k, c in counters.items()}
+            check(delta == expected, f"ring step {i}: launches {delta}, expected {expected}")
+            check(all(torch.isfinite(v).item() for v in metrics.values()), f"ring step {i}: {metrics}")
+            losses.append(metrics["total_loss"].item())
+            if i >= ROUTE_WARMUP:
+                times.append(elapsed)
+        launches["train"] = {k: c.count for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy, kernels_by_time = device_profile(lambda: step(state, batch), top=8)
+        median = statistics.median(times)
+        idle = "not measured" if busy is None else f"{1 - busy / (median * 1e3):.3f}"
+        print(f"ring train B={BATCH_SIZE} N={n} (NCCL, 1 rank): step {median * 1e3:.3f} ms (median of {ROUTE_TIMED}; "
+              f"all {', '.join(f'{t * 1e3:.3f}' for t in times)}), {BATCH_SIZE / median:.2f} pairs/s, peak memory "
+              f"{peak:.2f} GiB, device busy {busy} ms, idle share {idle}, loss {first['total_loss'].item():.4f} -> "
+              f"{losses[-1]:.4f}, launches per step {json.dumps({k: v for k, v in expected.items() if v})} [{card}]",
+              flush=True)
+        print("  device time by kernel, ring train step: "
+              + "; ".join(f"{kname} {ms:.3f} ms ({calls} calls)" for ms, kname, calls in kernels_by_time), flush=True)
+        print("  host time by operator (self), ring train step: "
+              + "; ".join(f"{name} {ms:.3f} ms ({calls} calls)" for ms, name, calls in host_profile(
+                  lambda: step(state, batch))), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 @contextlib.contextmanager
 def plain_versions(glk, sk, gli8=None, ak=None):
     """Route the model's kernel calls to the kernels' plain versions, on the
@@ -766,6 +1016,19 @@ def device_profile(fn, top: int = 5):
     rows.sort(reverse=True)
     total = sum(row[0] for row in rows)
     return (total if total > 0 else None), rows[:top]
+
+
+def host_profile(fn, top: int = 6):
+    """The ``top`` operators by host (CPU) time that ``fn`` spends outside its
+    children, as (ms, name, calls) from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_cpu_time_total / 1e3, e.key, e.count) for e in prof.key_averages()]
+    return sorted(rows, reverse=True)[:top]
 
 
 def train_phase(gen, card, device="cuda"):
@@ -1014,6 +1277,7 @@ def main() -> int:
     from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
     from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
     from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.parallel import ring
     from openglue_tpu_torch.train.step import superglue_inputs
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1057,6 +1321,7 @@ def main() -> int:
             SyntheticHomographyPairs, gen, 16, 1024, counts(16, 1024), counts(16, 1024))))
         requests.append(("B=4 N=2048", make_request(
             SyntheticHomographyPairs, gen, 4, 2048, counts(4, 2048), counts(4, 2048))))
+        ring_requests = requests[-2:]  # the ring phase shards these
         requests = [(name, superglue_inputs(pairs)) for name, pairs in requests]
         for _, inputs in requests:  # warm the allocator and the folded weights
             serve(model, decode_from_output, inputs)
@@ -1120,9 +1385,13 @@ def main() -> int:
         k8 = {dt: half_phase(glk, dt, gen) for dt in (torch.bfloat16, torch.float32)}
         k910 = {(dt, n): attention_phase(ak, dt, gen, batch, n) for batch, n in ((BATCH_SIZE, 1024), (4, 2048))
                 for dt in (torch.bfloat16, torch.float32)}
+        k11 = {(dt, n): lse_phase(ak, dt, gen, batch, n) for batch, n in ((BATCH_SIZE, 1024), (4, 2048))
+               for dt in (torch.bfloat16, torch.float32)}
+    merge = {str(dt)[6:]: merge_phase(ak, ring, dt, gen) for dt in (torch.float32, torch.bfloat16)}
 
     train = train_phase(gen, card)
     routes = routes_phase(gen, card)
+    rings = ring_phase(gen, card, model, ring_requests)
 
     n1024 = sum(d[1] for name, *_, d in results if "N=1024" in name)
     n2048 = sum(d[1] for name, *_, d in results if "N=2048" in name)
@@ -1172,8 +1441,15 @@ def main() -> int:
         *[dict(name=f"{what} (f32, B=12 H=4 N=M=1024 dh=64)", route="cuda", source=csrc + what + ".cu",
                replaces=pallas + f"attention_kernel.py:{line}", launches=routes["composed"][kname],
                **k910[(torch.float32, 1024)][kname], bf16=k910[(torch.bfloat16, 1024)][kname],
-               n2048_f32=k910[(torch.float32, 2048)][kname], n2048_bf16=k910[(torch.bfloat16, 2048)][kname])
+               n2048_f32=k910[(torch.float32, 2048)][kname], n2048_bf16=k910[(torch.bfloat16, 2048)][kname],
+               **({"ring_train_launches": rings["train"]["K10"]} if kname == "K10" else {}))
           for kname, what, line in (("K9", "attention", 38), ("K10", "attention_backward", 251))],
+        # the ring's projections are f32 too
+        dict(name="attention_lse (f32, B=12 H=4 N=M=1024 dh=64)", route="cuda", source=csrc + "attention.cu",
+             replaces=pallas + "attention_kernel.py:57", launches=rings["B=16 N=1024"] + rings["B=4 N=2048"],
+             ring_train_launches=rings["train"]["K11"], **k11[(torch.float32, 1024)],
+             bf16=k11[(torch.bfloat16, 1024)], n2048_f32=k11[(torch.float32, 2048)],
+             n2048_bf16=k11[(torch.bfloat16, 2048)], block_merge=merge),
     ]}
     for entry in record["kernels"]:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")

@@ -6,6 +6,13 @@ margin hinge for unmatched keypoints). Within each batch element the
 per-keypoint terms are averaged; the per-image sums add as
 ``matched + 0.5 * (unmatched0 + unmatched1)`` and are divided by the batch
 size. An element with no keypoint in a category contributes zero.
+
+With ``group`` (keypoint-axis context parallelism, ``SuperGlue`` with
+``ring_axis``) the scores and ``gt_matches0`` are this rank's rows. The loss
+returned is the global one, on every rank; its gradient is this rank's share:
+the terms of its rows over the global counts, and the replicated dustbin
+row's terms over the number of ranks, so that they count once. The parameter
+gradients summed over the ranks are then the global loss's.
 """
 
 from __future__ import annotations
@@ -13,8 +20,10 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from openglue_tpu_torch.geometry.transforms import pairwise_cosine_dist
+from openglue_tpu_torch.parallel.distributed import all_reduce_sum
 
 _BIG = 1e9
 
@@ -27,21 +36,37 @@ def _per_image_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(count > 0, total / torch.clamp(count, min=1.0), torch.zeros_like(total))
 
 
+def _rows_mean(values: torch.Tensor, mask: torch.Tensor, group) -> torch.Tensor:
+    """This rank's share of the masked per-element mean over every rank's
+    rows: its masked sum over the global count."""
+    mask_f = mask.to(values.dtype)
+    count = all_reduce_sum(mask_f.sum(dim=1), group)
+    total = (values * mask_f).sum(dim=1)
+    return torch.where(count > 0, total / torch.clamp(count, min=1.0), torch.zeros_like(total))
+
+
 def matching_nll_loss(
-    gt_matches0: torch.Tensor, gt_matches1: torch.Tensor, scores: torch.Tensor
+    gt_matches0: torch.Tensor, gt_matches1: torch.Tensor, scores: torch.Tensor, group=None
 ) -> torch.Tensor:
     """Negative log-likelihood of the GT assignment: gt_matches0 [B, N],
-    gt_matches1 [B, M], scores [B, N+1, M+1] log-assignment."""
+    gt_matches1 [B, M], scores [B, N+1, M+1] log-assignment. With ``group``,
+    gt_matches0 and the scores' inner rows are this rank's."""
     batch, n_aug, m_aug = scores.shape
     n, m = n_aug - 1, m_aug - 1
     matched0 = gt_matches0 >= 0
     gt_cols = gt_matches0.clamp(0, m - 1).long()
     matched_ll = torch.gather(scores[:, :n, :m], 2, gt_cols[:, :, None])[..., 0]
-    matched_loss = _per_image_mean(-matched_ll, matched0)
-    unmatched0_loss = _per_image_mean(-scores[:, :n, m], gt_matches0 == -1)
     unmatched1_loss = _per_image_mean(-scores[:, n, :m], gt_matches1 == -1)
-    total = matched_loss + 0.5 * (unmatched0_loss + unmatched1_loss)
-    return total.sum() / batch
+    if group is None:
+        matched_loss = _per_image_mean(-matched_ll, matched0)
+        unmatched0_loss = _per_image_mean(-scores[:, :n, m], gt_matches0 == -1)
+        total = matched_loss + 0.5 * (unmatched0_loss + unmatched1_loss)
+        return total.sum() / batch
+    matched_loss = _rows_mean(-matched_ll, matched0, group)
+    unmatched0_loss = _rows_mean(-scores[:, :n, m], gt_matches0 == -1, group)
+    unmatched1_loss = unmatched1_loss / dist.get_world_size(group)
+    share = (matched_loss + 0.5 * (unmatched0_loss + unmatched1_loss)).sum() / batch
+    return share + (all_reduce_sum(share.detach(), group) - share.detach())
 
 
 def metric_learning_loss(
@@ -93,9 +118,12 @@ def criterion(
     margin: Optional[float] = None,
     mask0: Optional[torch.Tensor] = None,
     mask1: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """{"loss": NLL, "metric_loss": metric loss or 0 when margin is None}."""
-    nll = matching_nll_loss(y_true["gt_matches0"], y_true["gt_matches1"], y_pred["scores"])
+    if group is not None and margin is not None:
+        raise NotImplementedError("not ported yet: the metric-learning loss with ring_axis")
+    nll = matching_nll_loss(y_true["gt_matches0"], y_true["gt_matches1"], y_pred["scores"], group)
     if margin is None:
         metric = torch.zeros((), dtype=nll.dtype, device=nll.device)
     else:

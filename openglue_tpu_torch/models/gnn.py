@@ -30,7 +30,15 @@ here by the constructor argument ``train_route``:
 
 ``train_route`` has no effect in eval mode, without ``use_pallas`` or with
 another attention kind: there a training layer runs the composed modules
-below, under autograd for every kind. ``remat`` runs each layer under
+below, under autograd for every kind.
+
+With ``ring_group`` (a process group over which the keypoints of both images
+are sharded; ``SuperGlue`` with ``ring_axis``) every layer, in eval and in
+training, runs the composed modules, as the JAX package skips every fused
+route there: the multi-head attention runs the ring schedule of
+``parallel/ring.py`` (with ``use_pallas`` each key block through the
+LSE-emitting attention kernel). A self layer rotates the same image's K/V
+shards, a cross layer the other image's. ``remat`` runs each layer under
 ``torch.utils.checkpoint`` in training: its activations are rebuilt in the
 backward pass instead of kept, on every route, and the BatchNorm running
 statistics still move once per step.
@@ -57,6 +65,7 @@ from openglue_tpu_torch.ops import attention as attn_ops
 from openglue_tpu_torch.ops.kernels import attention_kernel
 from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
 from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+from openglue_tpu_torch.parallel import ring
 
 ATTENTION_KINDS = ("softmax", "linear", "favor_relu", "favor_softmax")
 TRAIN_ROUTES = ("message", "half", "composed")
@@ -78,6 +87,7 @@ class MultiheadAttention(nn.Module):
         favor_num_features: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
         use_pallas: bool = False,
+        ring_group=None,
     ):
         super().__init__()
         if attention not in ATTENTION_KINDS:
@@ -87,6 +97,7 @@ class MultiheadAttention(nn.Module):
         self.num_heads = num_heads
         self.attention = attention
         self.use_pallas = use_pallas
+        self.ring_group = ring_group
         self.in_proj_q = Conv1x1(embed_dim, embed_dim, dtype)
         self.in_proj_k = Conv1x1(embed_dim, embed_dim, dtype)
         self.in_proj_v = Conv1x1(embed_dim, embed_dim, dtype)
@@ -110,7 +121,9 @@ class MultiheadAttention(nn.Module):
         q = split(self.in_proj_q(query), n)
         k = split(self.in_proj_k(source), m)
         v = split(self.in_proj_v(source), m)
-        if self.attention == "softmax" and self.use_pallas:
+        if self.attention == "softmax" and self.ring_group is not None:
+            out = ring.ring_softmax_attention(q, k, v, kv_mask, self.ring_group, self.use_pallas)
+        elif self.attention == "softmax" and self.use_pallas:
             out = attention_kernel.masked_softmax_attention(q, k, v, kv_mask)
         elif self.attention == "softmax":
             out, _ = attn_ops.softmax_attention(q, k, v, kv_mask)
@@ -143,6 +156,7 @@ class AttentionalPropagation(nn.Module):
         quantize: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
         train_route: str = "message",
+        ring_group=None,
     ):
         super().__init__()
         if quantize is not None and quantize not in QUANTIZE_MODES:
@@ -155,12 +169,14 @@ class AttentionalPropagation(nn.Module):
         self.dtype = dtype
         self.use_pallas = use_pallas
         self.attention = attention
+        self.fused = ring_group is None  # the ring takes the composed modules only
         # the int8 layer exists for the fused softmax path only; elsewhere the
         # setting is inert (SuperGlue warns about it)
-        self.quantize = quantize if use_pallas and attention == "softmax" else None
+        self.quantize = quantize if use_pallas and attention == "softmax" and self.fused else None
         self.calibrating = False
         self.mha = MultiheadAttention(
-            embed_dim, num_heads, dtype, attention, favor_num_features, generator, use_pallas
+            embed_dim, num_heads, dtype, attention, favor_num_features, generator, use_pallas,
+            ring_group,
         )
         self.fc = FeedForwardNet((2 * embed_dim, 2 * embed_dim, embed_dim), dtype)
         if self.static_quantize:
@@ -256,7 +272,7 @@ class AttentionalPropagation(nn.Module):
         q_mask: Optional[torch.Tensor] = None,
         kv_mask: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
-        if self.use_pallas and not self.training:
+        if self.use_pallas and self.fused and not self.training:
             if self.quantize is not None:
                 return self._int8_layer(desc_q, desc_kv, kv_mask)
             weights = self.folded_weights(self.dtype or desc_q.dtype)
@@ -264,7 +280,8 @@ class AttentionalPropagation(nn.Module):
                 desc_q, desc_kv, kv_mask, weights, self.num_heads, self.use_offset,
                 self.attention, getattr(self.mha, "projection", None),
             )
-        route = self.train_route if self.use_pallas and self.attention == "softmax" else "composed"
+        fused_train = self.use_pallas and self.fused and self.attention == "softmax"
+        route = self.train_route if fused_train else "composed"
         if route != "composed":
             # the attention half computes in the layer's type or the chain's
             # (bf16 with a bf16 chain, where the composed path promotes to f32)
@@ -319,13 +336,14 @@ class AttentionGNN(nn.Module):
         generator: Optional[torch.Generator] = None,
         remat: bool = False,
         train_route: str = "message",
+        ring_group=None,
     ):
         super().__init__()
         self.remat = remat
         self.layers = nn.ModuleList(
             _Layer(AttentionalPropagation(
                 embed_dim, num_heads, use_offset, dtype, use_pallas, attention,
-                favor_num_features, quantize, generator, train_route,
+                favor_num_features, quantize, generator, train_route, ring_group,
             ))
             for _ in range(2 * num_stages)
         )

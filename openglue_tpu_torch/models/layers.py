@@ -20,6 +20,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from openglue_tpu_torch.parallel.distributed import all_reduce_sum
+
 
 def _compute_dtype(x: torch.Tensor, param: torch.Tensor, dtype: Optional[torch.dtype]):
     return dtype if dtype is not None else torch.promote_types(x.dtype, param.dtype)
@@ -55,7 +57,15 @@ class MaskedBatchNorm(nn.Module):
     ``dtype`` or, when None, the input's type. While ``update_running`` is
     False a training-mode call leaves the running statistics alone: a forward
     that is run again to rebuild activations (``frozen_running_statistics``)
-    must count once."""
+    must count once.
+
+    ``group``, set by a model whose keypoints are sharded over a process group
+    (``SuperGlue`` with ``ring_axis``), makes the training statistics those of
+    every rank's valid keypoints, as GSPMD makes them in the JAX package: the
+    count and the masked sum are all-reduced, then the masked sum of squared
+    deviations from the global mean, with differentiable all-reduces. The
+    running statistics then move alike on every rank; eval needs no
+    collective."""
 
     def __init__(
         self,
@@ -69,6 +79,7 @@ class MaskedBatchNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
         self.update_running = True
+        self.group = None
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -78,15 +89,14 @@ class MaskedBatchNorm(nn.Module):
         x32 = x.float()
         if self.training:
             flat = x32.reshape(-1, x32.shape[-1])
-            if mask is None:
-                count = torch.tensor(float(flat.shape[0]), device=x.device)
-                mean = flat.mean(dim=0)
-                var = ((flat - mean) ** 2).mean(dim=0)
-            else:
-                m = mask.reshape(-1, 1).float()
-                count = torch.clamp(m.sum(), min=1.0)
-                mean = (flat * m).sum(dim=0) / count
-                var = (((flat - mean) ** 2) * m).sum(dim=0) / count
+            m = flat.new_ones(flat.shape[0], 1) if mask is None else mask.reshape(-1, 1).float()
+            sums = torch.cat([(flat * m).sum(dim=0), m.sum()[None]])
+            if self.group is not None:
+                sums = all_reduce_sum(sums, self.group)
+            count = torch.clamp(sums[-1], min=1.0)
+            mean = sums[:-1] / count
+            squares = (((flat - mean) ** 2) * m).sum(dim=0)
+            var = (squares if self.group is None else all_reduce_sum(squares, self.group)) / count
             if self.update_running:
                 with torch.no_grad():
                     unbiased = var * count / torch.clamp(count - 1.0, min=1.0)

@@ -23,6 +23,21 @@ kind cannot run: the model warns and serves the unquantized path. The
 plain versions run instead. In training mode every ``MaskedBatchNorm``
 normalizes with the batch statistics of the valid keypoints and updates its
 running statistics, as the JAX package's ``mutable=["batch_stats"]`` does.
+
+``ring_axis`` names an axis of ``mesh`` (``parallel.make_mesh``) over whose
+process group the keypoints of both images are sharded
+(``parallel.shard_pair_batch_cp``): keypoint-axis context parallelism, each
+rank running this forward on its slice. Every GNN layer then takes the
+composed modules with the ring attention of ``parallel/ring.py`` (with
+``use_pallas`` each key block through the LSE-emitting attention kernel), the
+BatchNorm statistics of training are those of every rank, the score rows of
+this rank meet every column (the other image's projected descriptors are
+all-gathered) and the transport is ``parallel.ring.log_optimal_transport_ring``
+over the marginals of the whole problem. ``scores`` holds this rank's rows and
+then the replicated dustbin row, ``[B, N/P + 1, M + 1]``
+(``parallel.gather_rows`` assembles the whole matrix); the context
+descriptors are this rank's rows. Only softmax attention and no ``remat``
+run on the ring; ``quantize`` warns and serves unquantized, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,11 +50,13 @@ import torch
 from torch import nn
 
 from openglue_tpu_torch.models.gnn import AttentionGNN
-from openglue_tpu_torch.models.layers import Conv1x1
+from openglue_tpu_torch.models.layers import Conv1x1, MaskedBatchNorm
 from openglue_tpu_torch.models.matching import assignment_stats
 from openglue_tpu_torch.models.positional_encoding import MLPPositionalEncoding
 from openglue_tpu_torch.ops import sinkhorn as sinkhorn_ops
 from openglue_tpu_torch.ops.kernels import sinkhorn_kernel
+from openglue_tpu_torch.parallel import ring
+from openglue_tpu_torch.parallel.distributed import all_gather
 
 
 def as_torch_dtype(value: Any) -> Optional[torch.dtype]:
@@ -126,10 +143,18 @@ class SuperGlue(nn.Module):
         device: Any = "cuda",
         generator: Optional[torch.Generator] = None,
         train_route: str = "message",
+        mesh=None,
     ):
         super().__init__()
+        self.ring_group = None
         if config.ring_axis is not None:
-            raise NotImplementedError("not ported yet: ring_axis")
+            if config.attention != "softmax":
+                raise NotImplementedError(f"not ported yet: ring_axis with attention={config.attention!r}")
+            if config.remat:
+                raise NotImplementedError("not ported yet: ring_axis with remat")
+            if mesh is None:
+                raise ValueError(f"ring_axis={config.ring_axis!r} needs a mesh (SuperGlue(..., mesh=...))")
+            self.ring_group = mesh.get_group(config.ring_axis)
         self.config = config
         self.train_route = train_route
         dim = config.descriptor_dim
@@ -142,7 +167,7 @@ class SuperGlue(nn.Module):
         self.attention_gnn = AttentionGNN(
             config.num_stages, dim, config.num_heads, config.use_offset, dtype,
             config.use_pallas, config.attention, config.favor_num_features, config.quantize,
-            generator, bool(config.remat), train_route,
+            generator, bool(config.remat), train_route, self.ring_group,
         )
         self.linear_proj = Conv1x1(dim, dim, dtype)
         if config.residual:
@@ -152,6 +177,9 @@ class SuperGlue(nn.Module):
             if isinstance(module, Conv1x1):
                 module.reset_parameters(generator)
         self.positional_encoding.reset_parameters(generator)
+        for module in self.modules():
+            if isinstance(module, MaskedBatchNorm):
+                module.group = self.ring_group
         self.to(device)
 
     def calibrate(self, **inputs) -> Dict[str, torch.Tensor]:
@@ -195,6 +223,8 @@ class SuperGlue(nn.Module):
                 reasons.append("use_pallas=False")
             if cfg.attention != "softmax":
                 reasons.append(f"attention={cfg.attention!r} (softmax only)")
+            if cfg.ring_axis is not None:
+                reasons.append("ring_axis is set")
             if reasons:
                 warnings.warn(
                     f"quantize={cfg.quantize!r} requested but the int8 serving path cannot "
@@ -220,6 +250,8 @@ class SuperGlue(nn.Module):
             gdesc0 = alpha * gdesc0 + (1.0 - alpha) * desc0
             gdesc1 = alpha * gdesc1 + (1.0 - alpha) * desc1
 
+        if self.ring_group is not None:
+            return self._ring_head(gdesc0, gdesc1, mask0, mask1)
         S = torch.einsum("bnd,bmd->bnm", gdesc0, gdesc1) * cfg.descriptor_dim**-0.5
         ot = sinkhorn_kernel if cfg.use_pallas else sinkhorn_ops
         log_P = ot.log_optimal_transport(
@@ -236,4 +268,23 @@ class SuperGlue(nn.Module):
             out["decode_indices0"] = idx0
             out["decode_indices1"] = idx1
             out["decode_max0"] = max0
+        return out
+
+    def _ring_head(self, gdesc0, gdesc1, mask0, mask1) -> Dict[str, torch.Tensor]:
+        """Scores of this rank's rows against every column, and the
+        row-sharded transport over the whole problem's marginals."""
+        cfg, group = self.config, self.ring_group
+        S = torch.einsum("bnd,bmd->bnm", gdesc0, all_gather(gdesc1, group)) * cfg.descriptor_dim**-0.5
+        # the masks are small: gathered once per forward
+        mask0_all = None if mask0 is None else all_gather(mask0, group)
+        mask1_all = None if mask1 is None else all_gather(mask1, group)
+        log_P = ring.log_optimal_transport_ring(
+            S.float(), self.dustbin_score, group, num_iters=cfg.otp_num_iters, reg=cfg.otp_reg,
+            mask0=mask0_all, mask1=mask1_all,
+        )
+        out = {"context_descriptors0": gdesc0, "context_descriptors1": gdesc1, "scores": log_P}
+        if cfg.decode_stats:
+            out["decode_indices0"], out["decode_indices1"], out["decode_max0"] = assignment_stats(
+                log_P, mask0=mask0, mask1=mask1_all, group=group
+            )
         return out

@@ -10,6 +10,14 @@
 //   dV = T(P)^T g;  dK = T(dS)^T q * scale;  dQ = T(dS) k * scale
 // with dq, dk, dv written in T.
 //
+// It is also the backward of the LSE-emitting forward (kernel #12,
+// _attention_kernel_lse, which the ring schedule of openglue_tpu/parallel/
+// ring.py runs per key block): there the JAX package differentiates
+// ops/attention.py::softmax_attention_with_lse in XLA, and the cotangent
+// g_lse of the LSE, non-zero once blocks are merged, enters as
+// dS = P o (dP - rowsum(dP o P) + g_lse), one subtraction from the row term in
+// pass A; a fully masked element then takes dS = 0, as XLA's `where` gives.
+//
 // What bounds it on the H100: per head 5 N x M x dh products (S, dP, dV, dQ,
 // dK), 10 N M D FLOP per batch element: at the training shape (B=12, H=4,
 // N=M=1024) 3.2e10 FLOP against 50 MB (bf16), so the operations bound it:
@@ -33,8 +41,8 @@ HeadLayout layout(const long long* s) { return {s[0], s[1], s[2]}; }
 
 template <typename T>
 int backward(int B, int H, int N, int M, const void* const* in, const void* mask,
-             const void* dead, const float* lse, float* di, void* const* out, const long long* st,
-             cudaStream_t s) {
+             const void* dead, const float* lse, const float* g_lse, int zero_dead_ds, float* di,
+             void* const* out, const long long* st, cudaStream_t s) {
   AttnBwdArgs<T> a;
   a.q = static_cast<const T*>(in[0]); a.k = static_cast<const T*>(in[1]);
   a.v = static_cast<const T*>(in[2]); a.g = static_cast<const T*>(in[3]);
@@ -44,6 +52,7 @@ int backward(int B, int H, int N, int M, const void* const* in, const void* mask
   a.mask = static_cast<const uint8_t*>(mask);
   a.dead = static_cast<const uint8_t*>(dead);
   a.lse = lse; a.di = di; a.N = N; a.M = M;
+  a.g_lse = g_lse; a.zero_dead_ds = zero_dead_ds;
   a.dq = static_cast<T*>(out[0]); a.dq32 = nullptr; a.ldq = layout(st + 15);
   a.dk = static_cast<T*>(out[1]); a.dv = static_cast<T*>(out[2]); a.ldkv = layout(st + 18);
   a.dk32 = nullptr; a.dv32 = nullptr; a.ldkv32 = a.ldkv;
@@ -58,16 +67,20 @@ int backward(int B, int H, int N, int M, const void* const* in, const void* mask
 // and of dk and dv (which share one layout), 21 values; the last axis (64
 // wide) is contiguous. mask: [B, M] uint8 or null; dead: [B] uint8 or null,
 // 1 where every key of the element is masked. lse: [B, H, N] f32 from the
-// forward; row_sums: [B, H, N] f32 scratch. Returns the CUDA error code of the
-// launches (0 on success).
+// forward; row_sums: [B, H, N] f32 scratch. g_lse: [B, H, N] f32, the
+// cotangent of the forward's LSE, or null; with it, a dead element takes
+// dS = 0 (the LSE-emitting forward's backward). Returns the CUDA error code of
+// the launches (0 on success).
 extern "C" int og_attention_backward(int is_bf16, int B, int H, int N, int M,
                                      const void* const* inputs, const void* mask, const void* dead,
-                                     const void* lse, void* row_sums, void* const* outputs,
-                                     const long long* strides, void* stream) {
+                                     const void* lse, const void* g_lse, void* row_sums,
+                                     void* const* outputs, const long long* strides, void* stream) {
   if (B <= 0 || H <= 0 || N <= 0 || M <= 0) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
+  const float* gl = static_cast<const float*>(g_lse);
+  const int zero_dead_ds = gl != nullptr;
   float* di = static_cast<float*>(row_sums);
-  if (is_bf16) return backward<bf16>(B, H, N, M, inputs, mask, dead, l, di, outputs, strides, s);
-  return backward<float>(B, H, N, M, inputs, mask, dead, l, di, outputs, strides, s);
+  if (is_bf16) return backward<bf16>(B, H, N, M, inputs, mask, dead, l, gl, zero_dead_ds, di, outputs, strides, s);
+  return backward<float>(B, H, N, M, inputs, mask, dead, l, gl, zero_dead_ds, di, outputs, strides, s);
 }

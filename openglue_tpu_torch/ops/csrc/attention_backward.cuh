@@ -3,8 +3,12 @@
 // q, k, v, the cotangent g of the attention output and the forward's per-row
 // LSE:
 //   P  = exp(q k^T * dh^-0.5 + mask - lse)                      (f32, one exp)
-//   dP = g v^T;  dS = P o (dP - di),  di = rowsum(dP o P)       (f32)
+//   dP = g v^T;  dS = P o (dP - di),  di = rowsum(dP o P) - g_lse (f32)
 //   dV = T(P)^T g;  dK = T(dS)^T q * scale;  dQ = T(dS) k * scale
+// g_lse [B, H, N] (or null, read as 0) is the cotangent of the forward's LSE:
+// d lse / dS = P, so it enters dS = P o (dP - rowsum(dP o P) + g_lse) through
+// di, where pass A forms it, before pass A uses it and before it stores it
+// for pass B.
 // Pass A takes one 64-query block per CTA (and head): it forms dS over the key
 // tiles and accumulates dQ in registers. Pass B takes one 64-key block per
 // CTA: it sweeps the query tiles with the LSE and pass A's row sums and
@@ -25,7 +29,11 @@
 // `dead` [B] (or null) marks batch elements whose keys are all masked. Their
 // forward is the uniform average over the M keys (every logit is absorbed by
 // the -1e9 it is added to), and no f32 LSE near -1e9 can say so: for them the
-// passes take logits of 0 and an LSE of log(M).
+// passes take logits of 0 and an LSE of log(M). With `zero_dead_ds` they also
+// take dS = 0 there (dQ = dK = 0, dV = P^T g): the gradient of logits that a
+// `where` replaced by -1e9, as the XLA backward of the LSE-emitting attention
+// differentiates them; without it, dS of the uniform softmax, as the TPU
+// backward kernel does.
 
 #pragma once
 
@@ -42,6 +50,8 @@ struct AttnBwdArgs {
   const uint8_t* dead;  // [B] or null
   const float* lse;     // [B, H, N]
   float* di;            // [B, H, N]: written by pass A, read by pass B
+  const float* g_lse;   // [B, H, N] or null
+  int zero_dead_ds;     // dS = 0 in dead elements
   int N, M;
   T* dq; float* dq32; HeadLayout ldq;        // pass A; dq32 may be null
   T *dk, *dv; HeadLayout ldkv;               // pass B, in the compute type
@@ -65,7 +75,7 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dq_bf16(AttnBwdArgs<bf16> 
   const int N = a.N, M = a.M;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const bool dead = a.dead != nullptr && a.dead[b] != 0;
-  const float lscale = dead ? 0.f : kScale;
+  const float lscale = dead ? 0.f : kScale, ds_keep = dead && a.zero_dead_ds ? 0.f : 1.f;
   const uint8_t* __restrict__ mask = a.mask;
   const bf16* __restrict__ kb = a.k + b * a.lk.batch + h * a.lk.head;
   const bf16* __restrict__ vb = a.v + b * a.lv.batch + h * a.lv.head;
@@ -111,7 +121,7 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dq_bf16(AttnBwdArgs<bf16> 
       }
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
-      di[hh] = s;
+      di[hh] = s - (a.g_lse != nullptr && r < N ? a.g_lse[(static_cast<size_t>(b) * H + h) * N + r] : 0.f);
     }
   }
 
@@ -160,7 +170,7 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dq_bf16(AttnBwdArgs<bf16> 
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = expf(s[nt][e] * lscale + madd[st][nt * 8 + 2 * t + (e & 1)] - lse_r[e >> 1]);
-        if (second) s[nt][e] = p * (dp[nt][e] - di[e >> 1]);
+        if (second) s[nt][e] = ds_keep * p * (dp[nt][e] - di[e >> 1]);
         else di[e >> 1] = fmaf(p, dp[nt][e], di[e >> 1]);
       }
     if (second) {
@@ -183,6 +193,8 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dq_bf16(AttnBwdArgs<bf16> 
       for (int hh = 0; hh < 2; ++hh) {
         di[hh] += __shfl_xor_sync(0xffffffffu, di[hh], 1);
         di[hh] += __shfl_xor_sync(0xffffffffu, di[hh], 2);
+        const int r = n0 + warp * 16 + g + 8 * hh;
+        if (a.g_lse != nullptr && r < N) di[hh] -= a.g_lse[(static_cast<size_t>(b) * H + h) * N + r];
       }
     }
   }
@@ -214,6 +226,7 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dkdv_bf16(AttnBwdArgs<bf16
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const bool dead = a.dead != nullptr && a.dead[b] != 0;
   const float lscale = dead ? 0.f : kScale, dead_lse = logf(static_cast<float>(M));
+  const float ds_keep = dead && a.zero_dead_ds ? 0.f : 1.f;
   const bf16* __restrict__ qb = a.q + b * a.lq.batch + h * a.lq.head;
   const bf16* __restrict__ ab = a.g + b * a.lg.batch + h * a.lg.head;
   const float* __restrict__ lse = a.lse;
@@ -292,7 +305,7 @@ __global__ void __launch_bounds__(kBThreads) attn_bwd_dkdv_bf16(AttnBwdArgs<bf16
       for (int e = 0; e < 4; ++e) {
         const int c = nt * 8 + 2 * t + (e & 1);
         const float p = expf(s[nt][e] * lscale + madd_r[e >> 1] - lse_s[st][c]);
-        dp[nt][e] = p * (dp[nt][e] - di_s[st][c]);
+        dp[nt][e] = ds_keep * p * (dp[nt][e] - di_s[st][c]);
         s[nt][e] = p;
       }
 #pragma unroll
@@ -390,7 +403,7 @@ __global__ void __launch_bounds__(kFbThreads) attn_bwd_dq_f32(AttnBwdArgs<float>
   const int N = a.N, M = a.M;
   const int row = blockIdx.x * kFbq + tid / 2, col = half * (kHalf + 4);
   const bool dead = a.dead != nullptr && a.dead[b] != 0;
-  const float lscale = dead ? 0.f : kScale;
+  const float lscale = dead ? 0.f : kScale, ds_keep = dead && a.zero_dead_ds ? 0.f : 1.f;
   const uint8_t* __restrict__ mask = a.mask;
   const float* __restrict__ kb = a.k + b * a.lk.batch + h * a.lk.head;
   const float* __restrict__ vb = a.v + b * a.lv.batch + h * a.lv.head;
@@ -413,6 +426,8 @@ __global__ void __launch_bounds__(kFbThreads) attn_bwd_dq_f32(AttnBwdArgs<float>
     for (int e = 0; e < kHalf; ++e) di = fmaf(da[e], orow[e], di);
     di += __shfl_xor_sync(0xffffffffu, di, 1);
   }
+  const float g_lse = a.g_lse != nullptr && row < N ? a.g_lse[(static_cast<size_t>(b) * H + h) * N + row] : 0.f;
+  if constexpr (!kSweep) di -= g_lse;
 
   for (int pass = kSweep ? 0 : 1; pass < 2; ++pass) {
     for (int k0 = 0; k0 < M; k0 += kFbk) {
@@ -428,9 +443,10 @@ __global__ void __launch_bounds__(kFbThreads) attn_bwd_dq_f32(AttnBwdArgs<float>
         dp += __shfl_xor_sync(0xffffffffu, dp, 1);
         const float p = expf(s * lscale + madd[j] - lse_r);
         if (pass == 0) di = fmaf(p, dp, di);
-        else half_axpy(dq, p * (dp - di), &Ks[j][col]);
+        else half_axpy(dq, ds_keep * p * (dp - di), &Ks[j][col]);
       }
     }
+    if (kSweep && pass == 0) di -= g_lse;
   }
   if (row < N) {
     const long long base = b * a.ldq.batch + h * a.ldq.head + row * a.ldq.row + half * kHalf;
@@ -457,6 +473,7 @@ __global__ void __launch_bounds__(kFbThreads) attn_bwd_dkdv_f32(AttnBwdArgs<floa
   const int key = blockIdx.x * kFbkey + tid / 2, col = half * (kHalf + 4);
   const bool dead = a.dead != nullptr && a.dead[b] != 0;
   const float lscale = dead ? 0.f : kScale, dead_lse = logf(static_cast<float>(M));
+  const float ds_keep = dead && a.zero_dead_ds ? 0.f : 1.f;
   const size_t stat = (static_cast<size_t>(b) * H + h) * N;
   const long long src = key < M ? key : 0;
   const float* __restrict__ qb = a.q + b * a.lq.batch + h * a.lq.head;
@@ -491,7 +508,7 @@ __global__ void __launch_bounds__(kFbThreads) attn_bwd_dkdv_f32(AttnBwdArgs<floa
       dp += __shfl_xor_sync(0xffffffffu, dp, 1);
       const float p = expf(s * lscale + madd_k - lse_s[i]);
       half_axpy(dv, p, &As[i][col]);
-      half_axpy(dk, p * (dp - di_s[i]), &Qs[i][col]);
+      half_axpy(dk, ds_keep * p * (dp - di_s[i]), &Qs[i][col]);
     }
   }
   if (key < M) {

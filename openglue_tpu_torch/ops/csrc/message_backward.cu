@@ -295,6 +295,7 @@ int message_backward(int B, int N, int M, int D, int H, const void* xq_, const v
   ab.q = bf.q; ab.g = bf.dA; ab.k = bf.kv; ab.v = bf.kv + D; ab.out = nullptr;
   ab.lq = lq; ab.lg = lq; ab.lk = lkv; ab.lv = lkv; ab.lo = lq;
   ab.mask = mask; ab.dead = nullptr; ab.lse = lse; ab.di = bf.di;
+  ab.g_lse = nullptr; ab.zero_dead_ds = 0;
   ab.N = N; ab.M = M;
   ab.dq = bf.dqc; ab.dq32 = bf.dq32; ab.ldq = lq;
   ab.dk = bf.dkvc; ab.dv = bf.dkvc + D; ab.ldkv = lkv;

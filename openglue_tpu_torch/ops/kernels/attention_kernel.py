@@ -1,11 +1,24 @@
 """Masked softmax attention on ``[B, H, N, dh]`` with a kernel backward: the
 kernel wrappers (``ops/csrc/attention.cu``, ``ops/csrc/attention_backward.cu``),
-their plain versions and the autograd Function.
+their plain versions and the autograd Functions.
 
-Port of ``openglue_tpu/ops/pallas/attention_kernel.py``
-(``masked_softmax_attention`` with ``_attention_kernel`` forward and
-``_attention_bwd_kernel`` backward): the attention of the composed multi-head
-attention module when ``use_pallas`` is set. The function is
+Port of ``openglue_tpu/ops/pallas/attention_kernel.py``:
+
+* ``masked_softmax_attention`` (``_attention_kernel`` forward, counted by
+  ``counter``; ``_attention_bwd_kernel`` backward, ``backward_counter``): the
+  attention of the composed multi-head attention module when ``use_pallas``
+  is set;
+* ``masked_softmax_attention_with_lse`` (``_attention_kernel_lse`` forward,
+  counted by ``lse_counter``): the same forward returning the per-row LSE too,
+  which the ring schedule (``parallel/ring.py``) runs on every key block. The
+  TPU needed a second kernel only for Mosaic's block rule on the LSE output;
+  here it is the same CUDA forward with the LSE written. Its backward is the
+  backward kernel with the LSE's cotangent ``g_lse`` (the JAX package replays
+  ``ops/attention.py::softmax_attention_with_lse`` in XLA there): ``dS = P o
+  (dP - rowsum(dP o P) + g_lse)``, and in an element whose keys are all masked
+  dq = dk = 0 (XLA differentiates the ``where`` that set the logits to -1e9).
+
+The function is
 
     out = softmax(q k^T * dh^-0.5 + (1 - mask) * -1e9) v
 
@@ -45,6 +58,7 @@ HEAD_DIM = 64  # the head width the CUDA kernels take
 
 counter = kernels.LaunchCounter()
 backward_counter = kernels.LaunchCounter()
+lse_counter = kernels.LaunchCounter()
 
 _VOID_P = ctypes.c_void_p
 
@@ -77,17 +91,26 @@ def attention_forward_plain(
 def attention_backward_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: Optional[torch.Tensor],
     g: torch.Tensor, out: Optional[torch.Tensor] = None, lse: Optional[torch.Tensor] = None,
+    g_lse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain version of the backward kernel, written out as the TPU
     kernel computes it: g is the cotangent of out -> (dq, dk, dv) in the
     types of q, k, v. It recomputes the softmax and takes neither ``out`` nor
-    ``lse`` (the kernel's shortcuts)."""
+    ``lse`` (the kernel's shortcuts). ``g_lse`` [B, H, N] f32, the cotangent
+    of the LSE, adds to dS as P o g_lse, and an element whose keys are all
+    masked then takes dS = 0 (the backward of ``masked_softmax_attention_with_lse``)."""
     scale = q.shape[-1] ** -0.5
     p = torch.softmax(_masked_logits(q, k, kv_mask, additive=False), dim=-1)
     g32 = g.to(q.dtype).float()
     dv = torch.matmul(p.to(v.dtype).float().transpose(-1, -2), g32)
     dp = torch.matmul(g32, v.float().transpose(-1, -2))
-    ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).to(q.dtype).float()
+    row = (dp * p).sum(dim=-1, keepdim=True)
+    if g_lse is not None:
+        row = row - g_lse.float()[..., None]
+    ds = p * (dp - row)
+    if g_lse is not None and kv_mask is not None:
+        ds = ds * kv_mask.any(dim=1).to(ds.dtype)[:, None, None, None]
+    ds = ds.to(q.dtype).float()
     dq = torch.matmul(ds, k.float()) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -140,6 +163,25 @@ def attention_forward(
     plain version for CPU tensors. ``lse`` is None unless ``want_lse``."""
     if q.device.type == "cpu":
         return attention_forward_plain(q, k, v, kv_mask, want_lse)
+    result = _launch_forward(q, k, v, kv_mask, want_lse)
+    counter.add()
+    return result
+
+
+def attention_lse_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of one key block of the ring schedule: the CUDA forward with
+    the LSE written for CUDA tensors (counted by ``lse_counter``), the plain
+    version for CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_forward_plain(q, k, v, kv_mask, True)
+    result = _launch_forward(q, k, v, kv_mask, True)
+    lse_counter.add()
+    return result
+
+
+def _launch_forward(q, k, v, kv_mask, want_lse):
     _check_inputs(q, k, v, kv_mask)
     batch, heads, n, _ = q.shape
     m = k.shape[2]
@@ -160,19 +202,18 @@ def attention_forward(
         kernels.stream_handle(device),
     )
     kernels.check(status, "og_attention")
-    counter.add()
     return out, lse
 
 
 def attention_backward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_mask: Optional[torch.Tensor],
-    g: torch.Tensor, out: torch.Tensor, lse: torch.Tensor,
+    g: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, g_lse: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dq, dk, dv) from the cotangent g of ``out`` and the forward's ``out``
-    and ``lse``: the CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    """(dq, dk, dv) from the cotangent g of ``out`` (and ``g_lse`` of the LSE,
+    for the LSE-emitting forward) and the forward's ``out`` and ``lse``: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
     if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, kv_mask, g, out, lse)
+        return attention_backward_plain(q, k, v, kv_mask, g, out, lse, g_lse)
     _check_inputs(q, k, v, kv_mask)
     batch, heads, n, _ = q.shape
     m = k.shape[2]
@@ -187,6 +228,11 @@ def attention_backward(
     if g.stride(3) != 1 or any(s % (16 // g.element_size()) for s in g.stride()[:3]):
         g = g.contiguous()  # a cotangent autograd broadcast or sliced
     lse = lse.contiguous()
+    if g_lse is not None:
+        kernels.require(
+            g_lse.shape == lse.shape and g_lse.device == device, "g_lse must be [B, H, N]"
+        )
+        g_lse = g_lse.float().contiguous()
     dq = _split_view(torch.empty(batch, n, heads * HEAD_DIM, dtype=q.dtype, device=device), heads)
     dk = _split_view(torch.empty(batch, m, heads * HEAD_DIM, dtype=q.dtype, device=device), heads)
     dv = _split_view(torch.empty(batch, m, heads * HEAD_DIM, dtype=q.dtype, device=device), heads)
@@ -201,14 +247,15 @@ def attention_backward(
         dead = (~kv_mask.any(dim=1)).view(torch.uint8)  # elements with no valid key
     fn = kernels.entry_point(
         "attention_backward", "og_attention_backward",
-        [ctypes.c_int] * 5 + [ctypes.POINTER(_VOID_P)] + [_VOID_P] * 4
+        [ctypes.c_int] * 5 + [ctypes.POINTER(_VOID_P)] + [_VOID_P] * 5
         + [ctypes.POINTER(_VOID_P), ctypes.POINTER(ctypes.c_longlong), _VOID_P],
     )
     status = fn(
         int(q.dtype == torch.bfloat16), batch, heads, n, m,
         (_VOID_P * 5)(*(t.data_ptr() for t in (q, k, v, g, out))),
         None if mask is None else mask.data_ptr(), None if dead is None else dead.data_ptr(),
-        lse.data_ptr(), row_sums.data_ptr(), (_VOID_P * 3)(dq.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+        lse.data_ptr(), None if g_lse is None else g_lse.data_ptr(), row_sums.data_ptr(),
+        (_VOID_P * 3)(dq.data_ptr(), dk.data_ptr(), dv.data_ptr()),
         (ctypes.c_longlong * 21)(*strides), kernels.stream_handle(device),
     )
     kernels.check(status, "og_attention_backward")
@@ -246,3 +293,36 @@ def masked_softmax_attention(
     out [B, H, N, dh] in query's type. The kernels for CUDA tensors (dh = 64),
     the plain versions for CPU tensors."""
     return _MaskedSoftmaxAttention.apply(query, key, value, kv_mask)
+
+
+class _MaskedSoftmaxAttentionWithLse(torch.autograd.Function):
+    """(out, lse) = attention(q, k, v) with the LSE; the backward takes the
+    cotangents of both (autograd gives zeros for an unused one) and runs the
+    backward kernel with ``g_lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask):
+        out, lse = attention_lse_forward(q, k, v, kv_mask)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, kv_mask, g, out, lse, g_lse)
+        return dq, dk, dv, None
+
+
+def masked_softmax_attention_with_lse(
+    query: torch.Tensor,
+    key: torch.Tensor,
+    value: torch.Tensor,
+    kv_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Softmax attention and the per-row LSE of its scaled, masked logits,
+    differentiable in query, key and value through both outputs: query
+    [B, H, N, dh], key/value [B, H, M, dh], kv_mask [B, M] bool or None ->
+    (out [B, H, N, dh] in query's type, lse [B, H, N] f32). The kernels for
+    CUDA tensors (dh = 64), the plain versions for CPU tensors."""
+    return _MaskedSoftmaxAttentionWithLse.apply(query, key, value, kv_mask)

@@ -45,6 +45,46 @@ def augment_scores(scores: torch.Tensor, dustbin_score: torch.Tensor) -> torch.T
     return torch.cat([torch.cat([scores, row], dim=1), col], dim=2)
 
 
+def masked_otp_marginals(mask0: torch.Tensor, mask1: torch.Tensor, dtype: torch.dtype = torch.float32):
+    """The masked marginals of the dustbin-augmented problem from the valid
+    keypoints: mask0 [B, m], mask1 [B, n] bool -> (log_a_inner [B, m],
+    log_a_dust [B], log_b [B, n+1], norm [B]), masked entries at -1e9."""
+    count0 = mask0.sum(dim=1).to(dtype)
+    count1 = mask1.sum(dim=1).to(dtype)
+    norm = -torch.log(torch.clamp(count0 + count1, min=1.0))  # [B]
+    ones = torch.ones(mask1.shape[0], 1, dtype=torch.bool, device=mask1.device)
+    valid_col = torch.cat([mask1, ones], dim=1)
+    log_a_inner = torch.where(mask0, norm[:, None], norm.new_tensor(NEG_INF))
+    log_a_dust = norm + torch.log(torch.clamp(count1, min=1.0))
+    log_b = torch.where(valid_col, norm[:, None], norm.new_tensor(NEG_INF))
+    log_b = torch.cat(
+        [log_b[:, :-1], (norm + torch.log(torch.clamp(count0, min=1.0)))[:, None]], dim=1
+    )
+    return log_a_inner, log_a_dust, log_b, norm
+
+
+def masked_otp_matrix(
+    scores: torch.Tensor, dustbin_score: torch.Tensor, reg: float, mask0: torch.Tensor, mask1: torch.Tensor
+):
+    """The masked matrix in split form: scores [B, m, n] with their row and
+    column masks -> (S_inner [B, m, n+1], S_dust [B, 1, n+1]), already /reg
+    with masked entries at -1e9. The rows may be any slice of the score
+    matrix's rows, with ``mask0`` theirs."""
+    batch, m, n = scores.shape
+    dust = torch.as_tensor(dustbin_score, dtype=scores.dtype, device=scores.device)
+    ones = torch.ones(batch, 1, dtype=torch.bool, device=scores.device)
+    valid_col = torch.cat([mask1, ones], dim=1)
+    S_inner = torch.cat([scores / reg, (dust / reg).expand(batch, m, 1)], dim=2)
+    pair_valid = mask0[:, :, None] & valid_col[:, None, :]
+    S_inner = torch.where(pair_valid, S_inner, S_inner.new_tensor(NEG_INF))
+    S_dust = torch.where(
+        valid_col[:, None, :],
+        (dust / reg).expand(batch, 1, n + 1),
+        S_inner.new_tensor(NEG_INF),
+    )
+    return S_inner, S_dust
+
+
 def build_masked_otp_inputs(
     scores: torch.Tensor,
     dustbin_score: torch.Tensor,
@@ -58,30 +98,8 @@ def build_masked_otp_inputs(
     log_a_dust [B], log_b [B, n+1], norm [B]); matrices are already /reg with
     masked entries at -1e9.
     """
-    batch, m, n = scores.shape
-    dust = torch.as_tensor(dustbin_score, dtype=scores.dtype, device=scores.device)
-    count0 = mask0.sum(dim=1).to(scores.dtype)
-    count1 = mask1.sum(dim=1).to(scores.dtype)
-    norm = -torch.log(torch.clamp(count0 + count1, min=1.0))  # [B]
-
-    ones = torch.ones(batch, 1, dtype=torch.bool, device=scores.device)
-    valid_col = torch.cat([mask1, ones], dim=1)
-    S_inner = torch.cat([scores / reg, (dust / reg).expand(batch, m, 1)], dim=2)
-    pair_valid = mask0[:, :, None] & valid_col[:, None, :]
-    S_inner = torch.where(pair_valid, S_inner, S_inner.new_tensor(NEG_INF))
-    S_dust = torch.where(
-        valid_col[:, None, :],
-        (dust / reg).expand(batch, 1, n + 1),
-        S_inner.new_tensor(NEG_INF),
-    )
-
-    log_a_inner = torch.where(mask0, norm[:, None], norm.new_tensor(NEG_INF))
-    log_a_dust = norm + torch.log(torch.clamp(count1, min=1.0))
-    log_b = torch.where(valid_col, norm[:, None], norm.new_tensor(NEG_INF))
-    log_b = torch.cat(
-        [log_b[:, :-1], (norm + torch.log(torch.clamp(count0, min=1.0)))[:, None]], dim=1
-    )
-    return S_inner, S_dust, log_a_inner, log_a_dust, log_b, norm
+    S_inner, S_dust = masked_otp_matrix(scores, dustbin_score, reg, mask0, mask1)
+    return (S_inner, S_dust, *masked_otp_marginals(mask0, mask1, scores.dtype))
 
 
 def log_optimal_transport(

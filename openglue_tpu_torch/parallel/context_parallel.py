@@ -1,0 +1,81 @@
+"""Keypoint-axis context parallelism for the whole model (port of
+``openglue_tpu/parallel/context_parallel.py``).
+
+In the JAX package a pair batch is placed with its keypoint axis sharded over
+the ``model`` mesh axis and GSPMD partitions the model around the ring's
+``shard_map``s. Here each rank runs its own program on its contiguous slice of
+the keypoints (``shard_pair_batch_cp``); ``SuperGlue`` with ``ring_axis`` and
+a mesh makes the collectives the global program needs, and ``gather_rows`` /
+``gather_pair_batch`` put whole tensors together where a caller needs them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch.distributed.device_mesh import DeviceMesh
+
+from openglue_tpu_torch.core.types import KeypointSet, PairBatch, Transformation
+from openglue_tpu_torch.parallel.distributed import all_gather
+from openglue_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+
+_KEYPOINT_FIELDS = ("keypoints", "descriptors", "side_info", "mask")
+
+
+def _model_axis(mesh: DeviceMesh):
+    names = mesh.mesh_dim_names or ()
+    if DATA_AXIS in names and mesh.size(names.index(DATA_AXIS)) > 1:
+        raise NotImplementedError("not ported yet: a data axis of size > 1 (data parallelism)")
+    if MODEL_AXIS not in names:
+        raise ValueError(f"the mesh has no {MODEL_AXIS!r} axis: {names}")
+    return mesh.size(names.index(MODEL_AXIS)), mesh.get_local_rank(MODEL_AXIS)
+
+
+def shard_pair_batch_cp(batch: PairBatch, mesh: DeviceMesh) -> PairBatch:
+    """This rank's contiguous slice of the keypoints of both images
+    (keypoints, descriptors, side info, masks, per-keypoint depths); image
+    sizes, the homography or the pose and intrinsics, and dense depth maps
+    stay whole. Both keypoint counts must divide by the ``model`` axis."""
+    size, rank = _model_axis(mesh)
+
+    def cut(x):
+        n = x.shape[1]
+        if n % size:
+            raise ValueError(f"{n} keypoints do not divide over a model axis of {size}")
+        return x[:, rank * (n // size):(rank + 1) * (n // size)]
+
+    sides = [
+        dataclasses.replace(side, **{f: cut(getattr(side, f)) for f in _KEYPOINT_FIELDS})
+        for side in (batch.side0, batch.side1)
+    ]
+    tf = batch.transformation
+    if tf is not None and tf.kind == "3d_reprojection":
+        tf = dataclasses.replace(tf, **{
+            name: cut(d) for name in ("depth0", "depth1")
+            if (d := getattr(tf, name)) is not None and d.dim() == 2
+        })
+    return PairBatch(sides[0], sides[1], tf)
+
+
+def gather_pair_batch(batch: PairBatch, group) -> PairBatch:
+    """The whole pair batch from every rank's shard (the inverse of
+    ``shard_pair_batch_cp``), on every rank, without gradient."""
+    with torch.no_grad():
+        sides = [
+            dataclasses.replace(side, **{f: all_gather(getattr(side, f), group) for f in _KEYPOINT_FIELDS})
+            for side in (batch.side0, batch.side1)
+        ]
+        tf = batch.transformation
+        if tf is not None and tf.kind == "3d_reprojection":
+            tf = dataclasses.replace(tf, **{
+                name: all_gather(d, group) for name in ("depth0", "depth1")
+                if (d := getattr(tf, name)) is not None and d.dim() == 2
+            })
+    return PairBatch(sides[0], sides[1], tf)
+
+
+def gather_rows(scores: torch.Tensor, group) -> torch.Tensor:
+    """[B, n_loc + 1, M + 1] (this rank's rows of the log-assignment, then the
+    replicated dustbin row) -> the whole [B, N + 1, M + 1], on every rank."""
+    return torch.cat([all_gather(scores[:, :-1], group), scores[:, -1:]], dim=1)

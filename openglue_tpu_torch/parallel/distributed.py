@@ -1,0 +1,151 @@
+"""Process-group start-up and the collectives that autograd crosses (port of
+``openglue_tpu/parallel/distributed.py``; the collectives are what
+``lax.ppermute``, ``psum``, ``pmax`` and GSPMD's gathers do in the JAX package).
+
+``initialize`` starts ``torch.distributed`` with NCCL for ``device_type="cuda"``
+and gloo for ``"cpu"``; nothing falls back from one to the other. Nothing on a
+machine tells a process of its job, so the caller gives the address
+(``tcp://127.0.0.1:<port>``), the world size and the rank.
+
+The differentiable collectives follow one rule: each rank's loss is its share
+of the global loss (the shares sum to it), and each collective's backward is
+its transpose: a SUM all-reduce all-reduces the cotangents, an all-gather
+keeps this rank's slice of the summed cotangent, a rotation rotates the
+cotangent back. The parameter gradients summed over the ranks are then the
+global loss's.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+
+def initialize(
+    init_method: Optional[str] = None,
+    world_size: Optional[int] = None,
+    rank: Optional[int] = None,
+    device_type: str = "cuda",
+) -> bool:
+    """Start the default process group: NCCL on "cuda", gloo on "cpu".
+    Returns True when a group is (or already was) initialized, False when
+    nothing names a job (no arguments and no ``MASTER_ADDR``). On "cuda" the
+    process takes the card ``LOCAL_RANK`` (or its rank modulo the cards)."""
+    if dist.is_initialized():
+        return True
+    if init_method is None and world_size is None and "MASTER_ADDR" not in os.environ:
+        return False
+    backend = {"cuda": "nccl", "cpu": "gloo"}[device_type]
+    if device_type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", rank if rank is not None else 0))
+        torch.cuda.set_device(local % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method=init_method, world_size=world_size, rank=rank)
+    return True
+
+
+def barrier() -> None:
+    """Every process of the job meets here."""
+    if dist.is_initialized():
+        dist.barrier()
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.contiguous().clone()
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllReduceSum.apply(g, ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the group's ranks, on every rank; differentiable
+    (JAX's ``psum``)."""
+    return _AllReduceSum.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the group's ranks, detached (JAX's ``pmax``
+    under ``stop_gradient``)."""
+    y = x.detach().contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
+
+
+def all_reduce_min(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise min over the group's ranks, detached."""
+    y = x.detach().contiguous().clone()
+    dist.all_reduce(y, op=dist.ReduceOp.MIN, group=group)
+    return y
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.length = group, dim, x.shape[dim]
+        wire = x.contiguous()
+        wire = wire.view(torch.uint8) if wire.dtype == torch.bool else wire
+        parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, wire, group=group)
+        return torch.cat(parts, dim=dim).view(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = _AllReduceSum.apply(g, ctx.group)
+        start = dist.get_rank(ctx.group) * ctx.length
+        return total.narrow(ctx.dim, start, ctx.length), None, None
+
+
+def all_gather(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order, on every
+    rank; differentiable (the backward keeps this rank's slice of the summed
+    cotangent). A bool tensor travels as bytes."""
+    return _AllGather.apply(x, group, dim)
+
+
+def _exchange(tensors: Sequence[torch.Tensor], group, shift: int):
+    """Send each tensor to the rank ``shift`` ahead in the group and receive
+    its counterpart from the rank ``shift`` behind, in one batch."""
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    dst = dist.get_global_rank(group, (rank + shift) % size)
+    src = dist.get_global_rank(group, (rank - shift) % size)
+    sent = [t.contiguous() for t in tensors]
+    received = [torch.empty_like(t) for t in sent]
+    ops = [dist.P2POp(dist.isend, t, dst, group) for t in sent]
+    ops += [dist.P2POp(dist.irecv, t, src, group) for t in received]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return received
+
+
+class _Rotate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        ctx.floating = [t.is_floating_point() for t in tensors]
+        wire = [t if t.is_floating_point() else t.view(torch.uint8) for t in tensors]
+        received = _exchange(wire, group, 1)
+        out = [r if f else r.view(t.dtype) for r, t, f in zip(received, tensors, ctx.floating)]
+        ctx.mark_non_differentiable(*[o for o, f in zip(out, ctx.floating) if not f])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        floating = [g for g, f in zip(grads, ctx.floating) if f]
+        back = iter(_exchange(floating, ctx.group, -1))
+        return (None, *[next(back) if f else None for f in ctx.floating])
+
+
+def rotate(group, *tensors: torch.Tensor):
+    """Every rank sends its tensors to the next rank of the group and takes
+    the previous rank's (JAX's ``ppermute`` with ``j -> j + 1``); a bool
+    tensor travels as bytes. Differentiable in the floating tensors: the
+    backward rotates their cotangents the other way."""
+    return _Rotate.apply(group, *tensors)

@@ -3,6 +3,14 @@
 One step: GT match generation from the pair's geometry -> SuperGlue forward
 in training mode -> weighted NLL (+ metric) loss -> backward -> clipped Adam
 update. The BatchNorm running statistics update during the forward.
+
+A model with a ``ring_group`` (``SuperGlue`` with ``ring_axis``) takes this
+rank's shard of the batch (``parallel.shard_pair_batch_cp``): the GT comes
+from the gathered keypoints of both images (the mutual check needs them all)
+and keeps this rank's rows of image 0; the loss is the global one with this
+rank's share as its gradient; the parameter gradients are summed over the
+group before clipping and Adam, so that every rank takes the same step, as
+the JAX package's ``shard_train_step_cp`` with a replicated state does.
 """
 
 from __future__ import annotations
@@ -11,12 +19,15 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from openglue_tpu_torch.core.types import PairBatch
 from openglue_tpu_torch.geometry.gt_matches import generate_gt_matches
 from openglue_tpu_torch.losses import criterion
 from openglue_tpu_torch.models.matching import decode_from_output
 from openglue_tpu_torch.ops.attention import sample_orthogonal_random_matrix
+from openglue_tpu_torch.parallel.context_parallel import gather_pair_batch
+from openglue_tpu_torch.parallel.distributed import all_reduce_sum
 from openglue_tpu_torch.train.state import TrainState, global_norm
 
 
@@ -56,20 +67,28 @@ def make_train_step(loss_config: LossConfig) -> Callable[[TrainState, PairBatch]
 
     def train_step(state: TrainState, batch: PairBatch) -> Dict[str, torch.Tensor]:
         s0, s1 = batch.side0, batch.side1
+        group = getattr(state.model, "ring_group", None)
+        whole = batch if group is None else gather_pair_batch(batch, group)
         with torch.no_grad():
             gt = generate_gt_matches(
-                s0.keypoints, s1.keypoints, batch.transformation,
+                whole.side0.keypoints, whole.side1.keypoints, whole.transformation,
                 positive_threshold=loss_config.positive_threshold,
                 negative_threshold=loss_config.negative_threshold,
-                mask0=s0.mask, mask1=s1.mask, parity_mode=loss_config.gt_parity_mode,
+                mask0=whole.side0.mask, mask1=whole.side1.mask, parity_mode=loss_config.gt_parity_mode,
             )
+        if group is not None:
+            n_loc = s0.keypoints.shape[1]
+            start = dist.get_rank(group) * n_loc
+            gt["gt_matches0"] = gt["gt_matches0"][:, start:start + n_loc]
         model = state.model.train()
         out = model(**superglue_inputs(batch))
-        losses = criterion(gt, out, margin=loss_config.margin, mask0=s0.mask, mask1=s1.mask)
+        losses = criterion(gt, out, margin=loss_config.margin, mask0=s0.mask, mask1=s1.mask, group=group)
         total = (loss_config.nll_weight * losses["loss"]
                  + loss_config.metric_weight * losses["metric_loss"])
         state.optimizer.zero_grad()
         total.backward()
+        if group is not None:
+            _sum_gradients(state.optimizer.params, group)
         grads = [p.grad for p in state.optimizer.params if p.grad is not None]
         grad_norm = global_norm(grads)
         state.optimizer.step(grad_norm)
@@ -84,6 +103,15 @@ def make_train_step(loss_config: LossConfig) -> Callable[[TrainState, PairBatch]
     return train_step
 
 
+def _sum_gradients(params, group) -> None:
+    """Every parameter's gradient summed over the group, in place, in one
+    all-reduce (a parameter without a gradient takes zeros)."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), group)
+    for p, part in zip(params, torch.split(flat, [g.numel() for g in grads])):
+        p.grad = part.view_as(p)
+
+
 def make_eval_step(match_threshold: float = 0.2) -> Callable[[TrainState, PairBatch], Dict[str, torch.Tensor]]:
     """(state, batch) -> the decoded matches and the scores, in eval mode."""
 
@@ -92,7 +120,8 @@ def make_eval_step(match_threshold: float = 0.2) -> Callable[[TrainState, PairBa
         with torch.no_grad():
             out = model(**superglue_inputs(batch))
             matches = decode_from_output(
-                out, match_threshold=match_threshold, mask0=batch.side0.mask, mask1=batch.side1.mask
+                out, match_threshold=match_threshold, mask0=batch.side0.mask, mask1=batch.side1.mask,
+                group=getattr(model, "ring_group", None),
             )
         matches["scores"] = out["scores"]
         return matches

@@ -1,7 +1,9 @@
 """The port's CUDA kernels (the eval layer for softmax, for the feature kinds
 and in int8, the Sinkhorn forward and adjoint, the message forward and
-backward, the attention forward and backward on heads, the train-mode layer
-half) against their plain PyTorch versions on a card.
+backward, the attention forward and backward on heads, with and without the
+LSE's cotangent, the train-mode layer half) against their plain PyTorch
+versions on a card, and the ring schedule's block merge against attention over
+the whole key set.
 
 This file imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -18,6 +20,7 @@ from openglue_tpu_torch.ops.kernels import attention_kernel as ak
 from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
 from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
 from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+from openglue_tpu_torch.parallel import ring
 
 
 def _cuda():
@@ -449,6 +452,79 @@ def test_masked_softmax_attention_autograd_on_card():
     with torch.no_grad():  # without a gradient no LSE is written and nothing is saved
         out = ak.masked_softmax_attention(q, k, v, mask)
     _close(out.cpu(), ak.attention_forward_plain(*[t.detach() for t in cpu], mask.cpu())[0], torch.float32, "out")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_lse_attention_kernel_matches_plain(dtype):
+    """K11, the ring's block attention: out and the LSE against the plain
+    version, one element with every key masked (the uniform average over its
+    M keys, the LSE at -1e9), counted apart from K9."""
+    dev = _cuda()
+    q, k, v, _, mask = _attention_case(dev, dtype)
+    before = ak.lse_counter.count, ak.counter.count
+    out, lse = ak.attention_lse_forward(q, k, v, mask)
+    ref, ref_lse = ak.attention_forward_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert (ak.lse_counter.count, ak.counter.count) == (before[0] + 1, before[1])
+    _close(out, ref, dtype, "out")
+    live = mask.any(dim=1)
+    _close(lse[live], ref_lse[live], dtype, "lse")
+    assert bool((lse[~live] < -1e8).all())
+    _close(out[1], v[1].float().mean(dim=1, keepdim=True).expand_as(out[1]), dtype, "uniform average")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_kernel_with_lse_cotangent_matches_plain(dtype):
+    """K10 with g_lse (the backward of K11): dS = P o (dP - rowsum(dP o P) +
+    g_lse) against the plain version; the fully masked element takes dq =
+    dk = 0 and dv = P^T g."""
+    dev = _cuda()
+    q, k, v, g, mask = _attention_case(dev, dtype)
+    g_lse = torch.randn(q.shape[:3], generator=torch.Generator(device=dev).manual_seed(11), device=dev)
+    out, lse = ak.attention_lse_forward(q, k, v, mask)
+    before = ak.backward_counter.count
+    grads = ak.attention_backward(q, k, v, mask, g, out, lse, g_lse)
+    ref = ak.attention_backward_plain(q, k, v, mask, g, g_lse=g_lse)
+    torch.cuda.synchronize()
+    assert ak.backward_counter.count == before + 1
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref):
+        _close(a, b, dtype, name, f32_tol=GRAD_F32_TOL)
+    assert not grads[0][1].any() and not grads[1][1].any() and bool(grads[2][1].abs().sum() > 0)
+    without = ak.attention_backward(q, k, v, mask, g, out, lse)
+    assert not torch.equal(without[0][0], grads[0][0])  # the LSE's cotangent moved dq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_block_merge_matches_the_whole_key_set(dtype):
+    """The ring's arithmetic on one rank: K11 on 4 key blocks merged by
+    ``ring.merge_block``, with the final where, against K9 on the whole key
+    set (one element has a fully masked block, one no valid key: 0), and its
+    gradient (K10 with a non-zero g_lse per block) against K10 on the whole
+    set."""
+    dev = _cuda()
+    q, k, v, g, mask = _attention_case(dev, dtype, n=256, m=256, counts=(150, 0, 256))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    acc = torch.zeros_like(leaves[0])
+    lse_run = torch.full_like(leaves[0][..., 0], float("-inf"))
+    for j in range(4):
+        keys = slice(64 * j, 64 * (j + 1))
+        out_blk, lse_blk = ak.masked_softmax_attention_with_lse(
+            leaves[0], leaves[1][:, :, keys], leaves[2][:, :, keys], mask[:, keys])
+        acc, lse_run = ring.merge_block(acc, lse_run, out_blk, lse_blk)
+    merged = torch.where(lse_run[..., None] < -1e8, 0.0, acc)
+    (merged * g.float()).sum().backward()
+    out, lse = ak.attention_forward(q, k, v, mask)
+    ref = ak.attention_backward(q, k, v, mask, g, out, lse)
+    torch.cuda.synchronize()
+    live = mask.any(dim=1)
+    _close(merged[live], out[live], dtype, "merged out")
+    assert not merged[~live].any()
+    for name, a, b in zip(("dq", "dk", "dv"), leaves, ref):
+        _close(a.grad[live], b[live], dtype, name, f32_tol=GRAD_F32_TOL)
+        assert not a.grad[~live].any()
 
 
 @pytest.mark.cuda

@@ -168,14 +168,23 @@ def test_siren_encoder_forward_matches_jax(inputs):
         SuperGlue(SuperGlueConfig(**dict(SMALL, pe_encoder_name="Fourier")), device="cpu")
 
 
-@pytest.mark.parametrize("field,value", [("ring_axis", "kp"), ("remat", True)])
+@pytest.mark.parametrize("field,value", [
+    ("ring_axis", "kp"), ("remat", True), ("ring_axis+attention", "linear"), ("ring_axis+remat", True),
+])
 def test_unported_switches_are_refused(field, value):
-    """``ring_axis`` is the one switch still refused; ``remat`` is ported."""
+    """``ring_axis`` needs a mesh (``tests/test_torch_ring.py`` runs it on
+    one); with another attention kind or with ``remat`` it is not ported.
+    ``remat`` alone is ported."""
     if field == "remat":
         assert SuperGlue(SuperGlueConfig(**SMALL, remat=True), device="cpu").attention_gnn.remat
         return
-    with pytest.raises(NotImplementedError, match=field):
-        SuperGlue(SuperGlueConfig(**SMALL, **{field: value}), device="cpu")
+    if field == "ring_axis":
+        with pytest.raises(ValueError, match="needs a mesh"):
+            SuperGlue(SuperGlueConfig(**SMALL, ring_axis=value), device="cpu")
+        return
+    other = field.split("+")[1]
+    with pytest.raises(NotImplementedError, match=f"ring_axis with {other}"):
+        SuperGlue(SuperGlueConfig(**SMALL, ring_axis="kp", **{other: value}), device="cpu")
 
 
 def test_weights_round_trip_exactly(variables):
@@ -258,6 +267,7 @@ def _imports(path):
 
 def test_port_sources_import_no_jax():
     files = list((REPO / "openglue_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert REPO / "openglue_tpu_torch" / "parallel" / "ring.py" in files
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
@@ -288,6 +298,7 @@ metrics = make_train_step(LossConfig())(create_train_state(model), pairs)
 assert torch.isfinite(metrics["total_loss"])
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "openglue_tpu")]
 assert not bad, bad
+assert {"openglue_tpu_torch.parallel.ring", "openglue_tpu_torch.parallel.context_parallel"} <= set(sys.modules)
 print("ok")
 """
     result = subprocess.run(
