@@ -18,7 +18,11 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    attention forward and backward on heads (K9, K10; bf16 and f32, a ragged
    mask with one fully masked element, two runs of K10 compared bit for bit)
    at B=12, N=1024, K9 and K10 also at B=4, N=2048, with the time of
-   ``scaled_dot_product_attention`` on the same inputs beside them;
+   ``scaled_dot_product_attention`` on the same inputs beside them; the
+   streaming Sinkhorn forward (K2s) past the fused kernel's columns (B=1,
+   4352 x 4352); and every kernel that attends (K1, K4-K11) again at heads of
+   width 32 (D=128, 4 heads). f32 work is bounded at 495/3 TFLOP/s, the rate
+   of f32-accurate 3xTF32 products, with the f32 FMA bound beside it;
 4. serving: the flagship config (the ``superglue:`` section of
    configs/config_cached_sp_magicleap.yaml: D=256, 9 stages, 4 heads, bf16
    chain, 20 Sinkhorn iterations, use_pallas) with seeded random weights,
@@ -32,7 +36,10 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    favor_softmax (B=16 N=1024), each held against its plain path at the
    softmax phases' bars; quantize int8_static_attn (calibrated on its first
    request) and int8 at B=16 and B=1, N=1024, each held against the int8
-   plain path and against the bf16 kernel path, the readings printed;
+   plain path and against the bf16 kernel path, the readings printed; the
+   matcher at the SIFT shape (D=128, 4 heads of width 32, B=4 N=2048) and one
+   flagship pair of 4352 keypoints (its Sinkhorn on K2s), each held against
+   its plain path at the same bars;
 5. training: ``make_train_step`` of the same model with the optimizer and
    loss of the config's ``train:`` section, on synthetic homography pairs at
    the config's batch (B=12, N=1024, valid counts in [512, 1024]): one step
@@ -44,6 +51,13 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    steps with the launch counts checked, a profile, and a small f32 step held
    against the ``"message"`` route; and one ``"message"`` step with
    ``remat=True`` held against the step without it, with both peak memories;
+   then one step of examples/pretrain_e2e_fixture.yaml as written (bf16
+   compute and chain, SIFT D=128 with heads of width 32, B=2 N=2048, 9
+   stages), whose Sinkhorn backward takes the autograd route past the adjoint
+   kernel's columns: the same step in f32 compute held against its plain
+   step, the bf16 step's distance from the plain f32 step held to the plain
+   bf16 step's, and timed. Every training phase prints its device busy time
+   (kernel rows of the profile only);
 6. keypoint-axis context parallelism (``ring_axis``): the ring's block
    attention with the LSE (K11) at B=12 N=1024 and B=4 N=2048, bf16 and f32,
    against its plain version with the library call's time beside it; the
@@ -100,11 +114,27 @@ TRAIN_SECTION = {
 }
 BATCH_SIZE = 12
 MAX_KEYPOINTS = 1024
+# a bf16-compute step against an f32 step: the kernel path's distance may be
+# at most this multiple of the plain path's (both are bf16 rounding)
+BF16_DISTANCE_RATIO = 2.0
 DESCRIPTOR_DIM = 256  # SuperPoint descriptors
 SIDE_INFO_DIM = 0  # laf_to_sideinfo_method: none -> side info is the response only
+# SIFT features (configs/features/sift_opencv.yaml): D=128, so 4 heads of width 32
+SIFT_DESCRIPTOR_DIM, SIFT_MAX_KEYPOINTS = 128, 2048
+# examples/pretrain_e2e_fixture.yaml: the flagship matcher section with SIFT
+# descriptors in bf16 compute, B=2 pairs of 2048 keypoints, and its train:
+# section (a CPU test holds these to the YAML)
+PRETRAIN_SECTION = dict(SUPERGLUE_SECTION, dtype="bfloat16")
+PRETRAIN_TRAIN_SECTION = {
+    "grad_clip": 10.0, "gt_positive_threshold": 3, "gt_negative_threshold": 3, "margin": None,
+    "nll_weight": 1.0, "metric_weight": 0.0, "lr": 0.0002, "scheduler_gamma": 0.999994, "warmup_steps": 500,
+}
+PRETRAIN_BATCH = 2
+WIDE_KEYPOINTS = 4352  # past the fused Sinkhorn kernel's 4096 columns: the streaming kernel
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+PEAK_F32_TC_FLOPS = 495e12 / 3  # f32-accurate products as 3xTF32 (H100 SXM dense TF32: 495 TFLOP/s)
 PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 DECODE_AGREEMENT = 0.99
@@ -142,6 +172,22 @@ def bound_ms(flops: float, flop_rate: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def work_bound(flops: float, dtype, nbytes: float):
+    """(bound_ms, bound_by, fma_ms) of ``flops`` in ``dtype`` against
+    ``nbytes``: bf16 at the tensor-core rate; f32 at 495/3 TFLOP/s, the rate
+    of f32-accurate products as 3xTF32 on the tensor cores, with the bound at
+    the f32 FMA rate, which the phase lines print beside it (``fma_ms``,
+    None for bf16)."""
+    if dtype == torch.bfloat16:
+        return (*bound_ms(flops, PEAK_BF16_FLOPS, nbytes), None)
+    fma = bound_ms(flops, PEAK_F32_FLOPS, nbytes)[0]
+    return (*bound_ms(flops, PEAK_F32_TC_FLOPS, nbytes), fma)
+
+
+def bound_note(fma_ms) -> str:
+    return "" if fma_ms is None else f", FMA bound {fma_ms:.4f} ms"
+
+
 def check(cond: bool, message: str) -> None:
     if not cond:
         raise AssertionError(message)
@@ -164,10 +210,9 @@ def layer_phase(glk, dtype, gen, batch=16, n=1024, dim=256, heads=4):
     elt = x_q.element_size()
     flops = batch * (20 * n * dim * dim + 4 * n * n * dim)
     nbytes = 3 * batch * n * dim * elt + (4 * dim * dim + 6 * dim * dim) * elt + batch * n
-    rate = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
-    bms, by = bound_ms(flops, rate, nbytes)
+    bms, by, fma = work_bound(flops, dtype, nbytes)
     print(f"K1 gnn_layer {str(dtype)[6:]} B={batch} N=M={n} D={dim} H={heads}: max_abs_err={err:.3e} "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}){bound_note(fma)}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
@@ -404,7 +449,6 @@ def message_phase(glk, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, dim=256, h
     act = batch * n * dim * elt
     f_bytes = 2 * act + 2 * act + batch * heads * n * 4 + batch * n + 4 * dim * dim * 4
     b_bytes = 4 * act + batch * heads * n * 4 + batch * n + 2 * act + 8 * (dim * dim + dim) * 4
-    rate = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     res = {}
     lse_note = f" lse_max_abs_err={lse_err:.3e} (bar {lse_tol:.1e})"
     for kname, fn, plain, flops, nbytes, err in (
@@ -414,11 +458,11 @@ def message_phase(glk, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, dim=256, h
     ):
         ms = cuda_ms(fn, 10)
         plain_ms = cuda_ms(plain, 3, warmup=1)
-        bms, by = bound_ms(flops, rate, nbytes)
+        bms, by, fma = work_bound(flops, dtype, nbytes)
         res[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
         print(f"{kname} message_{'forward' if kname == 'K4' else 'backward'} {name} B={batch} N=M={n} "
               f"D={dim} H={heads}: max_abs_err={err:.3e}{lse_note if kname == 'K4' else ''} kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}){bound_note(fma)}", flush=True)
     res["K4"]["lse_max_abs_err"] = lse_err
     res["K5"]["max_rel_err"] = max(rel)
     print(f"  K5 {name} relative errors (dx_q, dx_kv, dWq, dbq, dWk, dbk, dWv, dbv, dWo, dbo): "
@@ -465,15 +509,15 @@ def half_phase(glk, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, dim=256, head
     flops = batch * (16 * n * dim * dim + 4 * n * n * dim)
     act = batch * n * dim * elt
     nbytes = 2 * act + 3 * act + batch * heads * n * 4 + batch * n + (8 * dim * dim + 6 * dim) * 4
-    bms, by = bound_ms(flops, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS, nbytes)
+    bms, by, fma = work_bound(flops, dtype, nbytes)
     print(f"K8 train_half {name} B={batch} N=M={n} D={dim} H={heads}: max_abs_err={errs[False]:.3e} "
-          f"(use_offset {errs[True]:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})",
-          flush=True)
+          f"(use_offset {errs[True]:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
+          f"{bound_note(fma)}", flush=True)
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
-def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4):
-    """K9 and K10 on the heads of [B, N, H*64] projections (the views the
+def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4, dh=64):
+    """K9 and K10 on the heads of [B, N, H*dh] projections (the views the
     multi-head attention makes), valid key counts in [N/2, N] and one element
     with every key masked: kernel vs plain, two runs of K10 bit for bit, and
     the time of one ``scaled_dot_product_attention`` call on the same inputs
@@ -481,11 +525,11 @@ def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4):
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
-    dim = heads * 64
+    dim = heads * dh
 
     def r():
         x = torch.randn(batch, n, dim, generator=gen, device=dev).to(dtype)
-        return x.view(batch, n, heads, 64).transpose(1, 2)
+        return x.view(batch, n, heads, dh).transpose(1, 2)
 
     q, k, v, g = r(), r(), r(), r()
     counts = torch.randint(n // 2, n + 1, (batch,), generator=gen, device=dev)
@@ -528,7 +572,6 @@ def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4):
         lib_bwd = cuda_ms(sdpa_both, 10) - lib_fwd
 
     elt = q.element_size()
-    rate = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     act, stat = batch * n * dim * elt, batch * heads * n * 4
     # forward: S and P V per head; q, k, v and the mask in, out and the LSE out.
     # backward: S, dP, dV, dQ, dK per head; q, k, v, g, out, the LSE and the
@@ -541,11 +584,11 @@ def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4):
     for kname, what, fn, plain, flops, nbytes, err, lib in cases:
         ms = cuda_ms(fn, 10)
         plain_ms = cuda_ms(plain, 3, warmup=1)
-        bms, by = bound_ms(flops, rate, nbytes)
+        bms, by, fma = work_bound(flops, dtype, nbytes)
         res[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib)
-        print(f"{kname} {what} {name} B={batch} H={heads} N=M={n} dh=64: max_abs_err={err:.3e} kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library (scaled_dot_product_attention) "
-              f"{lib:.4f} ms", flush=True)
+        print(f"{kname} {what} {name} B={batch} H={heads} N=M={n} dh={dh}: max_abs_err={err:.3e} kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}){bound_note(fma)}, library "
+              f"(scaled_dot_product_attention) {lib:.4f} ms", flush=True)
     res["K9"]["lse_max_abs_err"] = lse_err
     res["K10"]["max_rel_err"] = max(rel)
     print(f"  K9 {name} lse_max_abs_err={lse_err:.3e} on live elements; K10 {name} relative errors (dq, dk, dv): "
@@ -553,19 +596,19 @@ def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4):
     return res
 
 
-def lse_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4):
+def lse_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4, dh=64):
     """K11, the ring's block attention with the LSE, on the heads of
-    [B, N, H*64] projections, valid key counts in [N/2, N] and one element with
+    [B, N, H*dh] projections, valid key counts in [N/2, N] and one element with
     every key masked: kernel vs plain, and ``scaled_dot_product_attention`` on
     the same inputs (which returns no LSE), which the port never uses."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
-    dim = heads * 64
+    dim = heads * dh
 
     def r():
         x = torch.randn(batch, n, dim, generator=gen, device=dev).to(dtype)
-        return x.view(batch, n, heads, 64).transpose(1, 2)
+        return x.view(batch, n, heads, dh).transpose(1, 2)
 
     q, k, v = r(), r(), r()
     counts = torch.randint(n // 2, n + 1, (batch,), generator=gen, device=dev)
@@ -589,11 +632,11 @@ def lse_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4):
     elt = q.element_size()
     act, stat = batch * n * dim * elt, batch * heads * n * 4
     # S and P V per head; q, k, v and the mask in, out and the LSE out
-    bms, by = bound_ms(batch * 4 * n * n * dim, PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS,
-                       4 * act + stat + batch * n)
-    print(f"K11 attention_lse {name} B={batch} H={heads} N=M={n} dh=64: max_abs_err={err:.3e} (bar {tol:.3e}), "
+    bms, by, fma = work_bound(batch * 4 * n * n * dim, dtype, 4 * act + stat + batch * n)
+    print(f"K11 attention_lse {name} B={batch} H={heads} N=M={n} dh={dh}: max_abs_err={err:.3e} (bar {tol:.3e}), "
           f"lse_max_abs_err={lse_err:.3e} on live elements; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bms:.4f} ms ({by}), library (scaled_dot_product_attention, no LSE) {lib:.4f} ms", flush=True)
+          f"bound {bms:.4f} ms ({by}){bound_note(fma)}, library (scaled_dot_product_attention, no LSE) "
+          f"{lib:.4f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib,
                 lse_max_abs_err=lse_err)
 
@@ -838,10 +881,10 @@ def compare_steps(kernel, plain, m_kernel, m_plain, name, loss_tol, norm_tol, co
     return dict(loss_abs_diff=loss, grad_norm_rel_diff=norm, grad_cosine=cos, bn_stats_max_diff=stats)
 
 
-def make_request(SyntheticHomographyPairs, gen, batch, n, counts0, counts1):
+def make_request(SyntheticHomographyPairs, gen, batch, n, counts0, counts1, descriptor_dim=DESCRIPTOR_DIM):
     """Synthetic pairs padded as a bucketed server pads them: keypoints beyond
     each image's valid count are zeros with mask False."""
-    pairs = SyntheticHomographyPairs(num_keypoints=n, descriptor_dim=DESCRIPTOR_DIM).sample(gen, batch)
+    pairs = SyntheticHomographyPairs(num_keypoints=n, descriptor_dim=descriptor_dim).sample(gen, batch)
     dev = pairs.side0.keypoints.device
     for side, counts in ((pairs.side0, counts0), (pairs.side1, counts1)):
         valid = torch.arange(n, device=dev)[None] < torch.as_tensor(counts, device=dev)[:, None]
@@ -929,24 +972,9 @@ def other_configs_phase(gen, card, base_model, mods, requests):
         return cfg, SuperGlue(cfg, device="cuda", generator=torch.Generator().manual_seed(0)).eval()
 
     def counted(model, inputs, name, kernel):
-        """Warm, then one run with the counts from 0, then the latency."""
-        serve(model, decode_from_output, inputs)
-        torch.cuda.synchronize()
-        for counter in counters.values():
-            counter.reset()
-        out, decoded = serve(model, decode_from_output, inputs)
-        delta = {k: c.count for k, c in counters.items()}
-        layers = 2 * model.config.num_stages * 2
-        expected = {"K1": 0, "K6": 0, "K7": 0, "K2": 1, kernel: layers}
-        check(delta == expected, f"{name}: launches {delta}, expected {expected}")
-        times = []
-        for _ in range(SERVE_REPEATS):
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            serve(model, decode_from_output, inputs)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - start)
-        return out, decoded, statistics.median(times), delta[kernel]
+        expected = {"K1": 0, "K6": 0, "K7": 0, "K2": 1, kernel: 2 * model.config.num_stages * 2}
+        out, decoded, latency, delta = counted_serve(model, decode_from_output, inputs, counters, expected, name)
+        return out, decoded, latency, delta[kernel]
 
     def report(name, model, inputs, latency, decoded, launches, kernel, notes):
         batch = inputs["kpts0"].shape[0]
@@ -1000,7 +1028,9 @@ def other_configs_phase(gen, card, base_model, mods, requests):
 def device_profile(fn, top: int = 5):
     """Device time of the kernels ``fn`` runs (torch.profiler), in ms, and the
     ``top`` kernels by device time as (ms, name, calls); (None, []) when the
-    profiler sees no device activity."""
+    profiler sees no kernel. Only kernel rows count: a user annotation (such
+    as ``Optimizer.step#Adam.step``) carries the device time of the kernels
+    inside it again, and copies and memsets are not kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1010,9 +1040,13 @@ def device_profile(fn, top: int = 5):
     rows = []
     for event in prof.key_averages():
         ms = getattr(event, "self_device_time_total", 0.0) / 1e3
-        if str(getattr(event, "device_type", "")).endswith("CUDA") and ms > 0:
-            name = event.key.replace("void ", "").replace("(anonymous namespace)::", "")
-            rows.append((ms, name.split("(")[0], event.count))
+        if not str(getattr(event, "device_type", "")).endswith("CUDA") or ms <= 0:
+            continue
+        annotation = getattr(event, "is_user_annotation", False) or "#" in event.key  # "Optimizer.step#Adam.step"
+        if annotation or event.key.startswith(("Memcpy", "Memset")):
+            continue
+        name = event.key.replace("void ", "").replace("(anonymous namespace)::", "")
+        rows.append((ms, name.split("(")[0], event.count))
     rows.sort(reverse=True)
     total = sum(row[0] for row in rows)
     return (total if total > 0 else None), rows[:top]
@@ -1251,10 +1285,206 @@ def routes_phase(gen, card, device="cuda"):
             torch.cuda.synchronize()
             runs.append(time.perf_counter() - start)
         times[name] = statistics.median(runs)
+    busy = {name: device_profile(lambda: step(st, batch))[0] for name, st in (("without", state), ("with", remat))}
     print(f"train remat B={BATCH_SIZE} N={n} route=message: peak memory {peak_remat:.2f} GiB with remat, "
           f"{peak_plain:.2f} GiB without; step {times['with'] * 1e3:.3f} ms with, {times['without'] * 1e3:.3f} ms "
-          f"without (median of {ROUTE_TIMED}); launches per remat step "
-          f"{json.dumps({k: v for k, v in expected.items() if v})} [{card}]", flush=True)
+          f"without (median of {ROUTE_TIMED}); device busy {busy['with']} ms with, {busy['without']} ms without; "
+          f"launches per remat step {json.dumps({k: v for k, v in expected.items() if v})} [{card}]", flush=True)
+    return launches
+
+
+def streaming_sinkhorn_phase(sk, gen, batch=1, n=WIDE_KEYPOINTS, iters=20):
+    """K2's streaming variant past the fused kernel's columns (bf16 K, B=1,
+    4352 x 4352): kernel vs plain, two runs bit for bit."""
+    dev = torch.device("cuda")
+    scores = torch.randn(batch, n, n, generator=gen, device=dev) * 4
+    mask0 = torch.rand(batch, n, generator=gen, device=dev) > 0.1
+    mask1 = torch.rand(batch, n, generator=gen, device=dev) > 0.1
+    rows, cols = n + 1, n + 1
+    cp = sk._round_up(cols, sk.COL_ALIGN)
+    k_dtype = sk.k_storage_dtype(rows, cols)
+    check(cp > sk.FUSED_MAX_COLS[k_dtype], f"K2s: {cp} columns fit the fused kernel")
+    M_pad = sk.build_padded_otp_matrix(scores, torch.tensor(1.0, device=dev), 1.0, mask0, mask1, rows, cp)
+    la, lb, _ = sk.otp_marginals(batch, n, n, mask0, mask1, dev)
+    la, lb = sk.padded_marginals(la, lb, rows, cp)
+    run = lambda: sk.sinkhorn_scale(M_pad, la, lb, iters, k_dtype)
+    plain = lambda: sk.sinkhorn_scale_plain(M_pad, la, lb, iters, k_dtype)
+    before = sk.stream_counter.count, sk.counter.count
+    u, again, ref = run(), run(), plain()
+    torch.cuda.synchronize()
+    check((sk.stream_counter.count - before[0], sk.counter.count - before[1]) == (2, 0), "K2s: launches")
+    check(torch.equal(u, again), "K2s: two runs differ")
+    live = la > -1e8  # masked rows sit near -1e9, where one f32 ulp is 64
+    err = (u - ref).abs()[live].max().item()
+    check(err <= 1e-3, f"K2s B={batch} N={n}: max error {err} on live rows")  # K2's bar
+    ms = cuda_ms(run, 5)
+    plain_ms = cuda_ms(plain, 2, warmup=1)
+    flops = batch * rows * cp * (4 * (iters - 1) + 2)
+    nbytes = batch * (rows * cp * 4 + 2 * rows * 4 + cp * 4)
+    bms, by = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
+    print(f"K2s sinkhorn_streaming K={str(k_dtype)[6:]} B={batch} N={n} ({cp} columns): max_abs_err={err:.3e} "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), two runs equal", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def counted_serve(model, decode_from_output, inputs, counters, expected, name):
+    """Warm, one run with the counts from 0 (checked against ``expected``),
+    then the latency: (out, decoded, median seconds, launches)."""
+    serve(model, decode_from_output, inputs)
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    out, decoded = serve(model, decode_from_output, inputs)
+    delta = {k: c.count for k, c in counters.items()}
+    check(delta == expected, f"{name}: launches {delta}, expected {expected}")
+    times = []
+    for _ in range(SERVE_REPEATS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        serve(model, decode_from_output, inputs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+    return out, decoded, statistics.median(times), delta
+
+
+def wider_serving_phase(gen, card, model, mods):
+    """Two serving requests beyond the flagship's shapes, each held against
+    the plain path at the bars of the flagship phases: the matcher at the
+    SIFT shape (configs/features/sift_opencv.yaml: D=128, so 4 heads of width
+    32; B=4 pairs of 2048 keypoints) through K1 and K2, and one flagship pair
+    of 4352 keypoints per image, whose Sinkhorn runs the streaming kernel.
+    Returns the launches of the counted runs."""
+    glk, sk, SuperGlue = mods["glk"], mods["sk"], mods["SuperGlue"]
+    decode_from_output = mods["decode_from_output"]
+    counters = {"K1": glk.counter, "K2": sk.counter, "K2s": sk.stream_counter}
+    layers = 2 * SUPERGLUE_SECTION["attention_gnn"]["num_stages"] * 2
+    cfg = mods["superglue_config_from"]({"superglue": SUPERGLUE_SECTION}, SIFT_DESCRIPTOR_DIM, SIDE_INFO_DIM)
+    sift = SuperGlue(cfg, device="cuda", generator=torch.Generator().manual_seed(2)).eval()
+    n = SIFT_MAX_KEYPOINTS
+    counts = lambda: torch.randint(n // 2, n + 1, (4,), generator=gen, device="cuda").tolist()
+    cases = (
+        ("sift_opencv shape B=4 N=2048 D=128 H=4 (dh=32)", sift,
+         mods["make"](gen, 4, n, counts(), counts(), descriptor_dim=SIFT_DESCRIPTOR_DIM), dict(K1=layers, K2=1, K2s=0)),
+        (f"B=1 N={WIDE_KEYPOINTS} valid={WIDE_KEYPOINTS}/{WIDE_KEYPOINTS - 500}", model,
+         mods["make"](gen, 1, WIDE_KEYPOINTS, [WIDE_KEYPOINTS], [WIDE_KEYPOINTS - 500]), dict(K1=layers, K2=0, K2s=1)),
+    )
+    launches = {}
+    for name, net, pairs, expected in cases:
+        inputs = mods["superglue_inputs"](pairs)
+        out, decoded, latency, delta = counted_serve(net, decode_from_output, inputs, counters, expected,
+                                                     f"serve {name}")
+        launches[name] = delta
+        with plain_versions(glk, sk):
+            ref = serve(net, decode_from_output, inputs)[0]
+        nats, stats = compare(decode_from_output, out, ref, inputs, name)
+        batch = inputs["kpts0"].shape[0]
+        busy, kernels_by_time = device_profile(lambda: serve(net, decode_from_output, inputs))
+        idle = "not measured" if busy is None else f"{1 - busy / (latency * 1e3):.3f}"
+        print(f"serve {name}: {latency * 1e3:.3f} ms (median of {SERVE_REPEATS}), {batch / latency:.2f} pairs/s, "
+              f"device busy {busy} ms, idle share {idle}, launches {json.dumps(delta)}, vs plain path: "
+              f"{nats:.3e} nats, decode {json.dumps(stats)}, matches {int((decoded['matches0'] >= 0).sum())} "
+              f"[{card}]", flush=True)
+        print(f"  device time by kernel, {name}: "
+              + "; ".join(f"{kname} {ms:.3f} ms" for ms, kname, _ in kernels_by_time), flush=True)
+    del sift
+    return launches
+
+
+def step_distance(model, ref_model, metrics, ref_metrics):
+    """How far one training step lies from a reference step: the loss, and
+    the gradient's L2 distance relative to the reference gradient's norm."""
+    a, b = flat_grads(model), flat_grads(ref_model)
+    return dict(loss=abs(metrics["total_loss"].item() - ref_metrics["total_loss"].item()),
+                grad=((a - b).norm() / b.norm()).item(), cosine=(a @ b / (a.norm() * b.norm())).item())
+
+
+def pretrain_phase(gen, card, device="cuda"):
+    """One use_pallas training step at examples/pretrain_e2e_fixture.yaml's
+    shape, as the fixture writes it: the flagship matcher section in bf16
+    compute, SIFT descriptors (D=128, 4 heads of width 32), B=2 pairs of 2048
+    keypoints, 9 stages, route ``message``, the fixture's loss and optimizer.
+    Its Sinkhorn backward is past the adjoint kernel's columns and takes the
+    autograd route, which the count shows. Two checks: the same step in f32
+    compute, kernels against plain, within the training bars; and the bf16
+    step through the kernels and through the plain versions, each against
+    the plain f32 step, the kernels' distance at most BF16_DISTANCE_RATIO
+    times the plain path's. Then timed steps with the counts checked.
+    Returns the launches of the counted run."""
+    from openglue_tpu_torch.cli.common import loss_config_from, optimizer_from, superglue_config_from
+    from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.train.state import create_train_state
+    from openglue_tpu_torch.train.step import make_train_step
+
+    config = {"superglue": PRETRAIN_SECTION, "train": PRETRAIN_TRAIN_SECTION}
+    step = make_train_step(loss_config_from(config))
+    cfg = superglue_config_from(config, SIFT_DESCRIPTOR_DIM, SIDE_INFO_DIM)
+    f32_section = {k: v for k, v in PRETRAIN_SECTION.items() if k != "dtype"}
+    cfg32 = superglue_config_from({"superglue": f32_section}, SIFT_DESCRIPTOR_DIM, SIDE_INFO_DIM)
+
+    def fresh(c=cfg):
+        model = SuperGlue(c, device=device, generator=torch.Generator().manual_seed(1))
+        return create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
+
+    n = SIFT_MAX_KEYPOINTS
+    counts = lambda: torch.randint(n // 2, n + 1, (PRETRAIN_BATCH,), generator=gen, device=device).tolist()
+    batch = make_request(SyntheticHomographyPairs, gen, PRETRAIN_BATCH, n, counts(), counts(),
+                         descriptor_dim=SIFT_DESCRIPTOR_DIM)
+    counters = {"K1": glk.counter, "K2": sk.counter, "K2s": sk.stream_counter, "K3": sk.adjoint_counter,
+                "K4": glk.message_counter, "K5": glk.message_bwd_counter, "autograd_sinkhorn": sk.autograd_counter}
+    layers = 2 * cfg.num_stages * 2
+    expected = dict({k: 0 for k in counters}, K2=1, K4=layers, K5=layers, autograd_sinkhorn=1)
+    state = fresh()
+    for c in counters.values():
+        c.reset()
+    first = step(state, batch)
+    launches = {k: c.count for k, c in counters.items()}
+    check(launches == expected, f"pretrain step: launches {launches}, expected {expected}")
+    kernel32, plain32, plain16 = fresh(cfg32), fresh(cfg32), fresh()
+    m32 = step(kernel32, batch)
+    with plain_versions(glk, sk):
+        ref32, ref16 = step(plain32, batch), step(plain16, batch)
+    torch.cuda.synchronize()
+    name = f"pretrain step B={PRETRAIN_BATCH} N={n} D=128 H=4 (dh=32)"
+    compare_steps(kernel32.model, plain32.model, m32, ref32, f"{name} f32 compute, kernels vs plain",
+                  loss_tol=1e-3, norm_tol=0.01, cos_min=0.999, stats_tol=1e-3)
+    d_kernel = step_distance(state.model, plain32.model, first, ref32)
+    d_plain = step_distance(plain16.model, plain32.model, ref16, ref32)
+    print(f"{name} bf16 compute against the plain f32 step: kernels loss |diff| {d_kernel['loss']:.3e}, "
+          f"gradient distance {d_kernel['grad']:.3e}, cosine {d_kernel['cosine']:.6f}; plain loss |diff| "
+          f"{d_plain['loss']:.3e}, gradient distance {d_plain['grad']:.3e}, cosine {d_plain['cosine']:.6f}; "
+          f"ratio of the gradient distances {d_kernel['grad'] / d_plain['grad']:.3f} "
+          f"(bar {BF16_DISTANCE_RATIO})", flush=True)
+    check(d_kernel["grad"] <= BF16_DISTANCE_RATIO * d_plain["grad"],
+          f"{name} bf16 compute: the kernels' gradient lies {d_kernel['grad']:.3e} from the f32 step, "
+          f"more than {BF16_DISTANCE_RATIO} times the plain path's {d_plain['grad']:.3e}")
+    del kernel32, plain32, plain16
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(ROUTE_WARMUP + ROUTE_TIMED):
+        before = {k: c.count for k, c in counters.items()}
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        metrics = step(state, batch)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - start
+        delta = {k: c.count - before[k] for k, c in counters.items()}
+        check(delta == expected, f"pretrain step {i}: launches {delta}, expected {expected}")
+        check(all(torch.isfinite(v).item() for v in metrics.values()), f"pretrain step {i}: {metrics}")
+        if i >= ROUTE_WARMUP:
+            times.append(elapsed)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy, kernels_by_time = device_profile(lambda: step(state, batch), top=8)
+    median = statistics.median(times)
+    idle = "not measured" if busy is None else f"{1 - busy / (median * 1e3):.3f}"
+    print(f"pretrain train B={PRETRAIN_BATCH} N={n} D=128 H=4: step {median * 1e3:.3f} ms (median of {ROUTE_TIMED}; "
+          f"all {', '.join(f'{t * 1e3:.3f}' for t in times)}), {PRETRAIN_BATCH / median:.2f} pairs/s, peak memory "
+          f"{peak:.2f} GiB, device busy {busy} ms, idle share {idle}, loss {first['total_loss'].item():.4f}, "
+          f"launches per step {json.dumps({k: v for k, v in expected.items() if v})} [{card}]", flush=True)
+    print("  device time by kernel, pretrain step: "
+          + "; ".join(f"{kname} {ms:.3f} ms ({calls} calls)" for ms, kname, calls in kernels_by_time), flush=True)
     return launches
 
 
@@ -1310,6 +1540,13 @@ def main() -> int:
         k6 = {(kind, dt): feature_layer_phase(glk, sample_orthogonal_random_matrix, kind, dt, gen)
               for kind in glk.FEATURE_KINDS for dt in (torch.bfloat16, torch.float32)}
         k7 = {mode: int8_layer_phase(glk, gli8, mode, gen) for mode in INT8_MODES}
+        k2s = streaming_sinkhorn_phase(sk, gen)
+        # every kernel that attends, at heads of width 32 (D=128, 4 heads: the SIFT configurations)
+        k1_32 = {dt: layer_phase(glk, dt, gen, dim=128) for dt in (torch.bfloat16, torch.float32)}
+        k45_32 = {dt: message_phase(glk, dt, gen, dim=128) for dt in (torch.bfloat16, torch.float32)}
+        k6_32 = {(kind, dt): feature_layer_phase(glk, sample_orthogonal_random_matrix, kind, dt, gen, dim=128)
+                 for kind in glk.FEATURE_KINDS for dt in (torch.bfloat16, torch.float32)}
+        k7_32 = {mode: int8_layer_phase(glk, gli8, mode, gen, dim=128) for mode in ("int8", "int8_static_attn")}
 
         # ---- slice: serve requests through SuperGlue.forward + decode
         layers = 2 * cfg.num_stages * 2  # self + cross per stage, both images
@@ -1379,6 +1616,12 @@ def main() -> int:
         # ---- the other serving configurations (K6, K7)
         other = other_configs_phase(gen, card, model, (glk, gli8, sk, decode_from_output), dict(requests))
 
+        # ---- the SIFT shape (heads of width 32) and a request past 4096 keypoints
+        make = lambda *a, **kw: make_request(SyntheticHomographyPairs, *a, **kw)
+        wider = wider_serving_phase(gen, card, model, dict(
+            glk=glk, sk=sk, SuperGlue=SuperGlue, decode_from_output=decode_from_output, make=make,
+            superglue_config_from=superglue_config_from, superglue_inputs=superglue_inputs))
+
     # the kernels of the other training routes (the library call beside K9 and
     # K10 differentiates, which inference mode forbids)
     with torch.no_grad():
@@ -1387,10 +1630,14 @@ def main() -> int:
                 for dt in (torch.bfloat16, torch.float32)}
         k11 = {(dt, n): lse_phase(ak, dt, gen, batch, n) for batch, n in ((BATCH_SIZE, 1024), (4, 2048))
                for dt in (torch.bfloat16, torch.float32)}
+        k8_32 = {dt: half_phase(glk, dt, gen, dim=128) for dt in (torch.bfloat16, torch.float32)}
+        k910_32 = {dt: attention_phase(ak, dt, gen, BATCH_SIZE, 1024, dh=32) for dt in (torch.bfloat16, torch.float32)}
+        k11_32 = {dt: lse_phase(ak, dt, gen, BATCH_SIZE, 1024, dh=32) for dt in (torch.bfloat16, torch.float32)}
     merge = {str(dt)[6:]: merge_phase(ak, ring, dt, gen) for dt in (torch.float32, torch.bfloat16)}
 
     train = train_phase(gen, card)
     routes = routes_phase(gen, card)
+    pretrain = pretrain_phase(gen, card)
     rings = ring_phase(gen, card, model, ring_requests)
 
     n1024 = sum(d[1] for name, *_, d in results if "N=1024" in name)
@@ -1398,11 +1645,17 @@ def main() -> int:
     csrc = "openglue_tpu_torch/ops/csrc/"
     layer, sinkhorn = csrc + "gnn_layer.cu", csrc + "sinkhorn.cu"
     pallas = "openglue_tpu/ops/pallas/"
+    sift = "sift_opencv shape B=4 N=2048 D=128 H=4 (dh=32)"
+
+    def dh32(bf16, f32=None):  # a kernel's readings at heads of width 32, beside its row
+        return dict(bf16, library_ms=bf16.get("library_ms"), **({} if f32 is None else {"f32": f32}))
+
     record = {"kernels": [
         dict(name="gnn_layer_softmax (bf16, B=16 N=M=1024 D=256 H=4)", route="cuda", source=layer,
              replaces="openglue_tpu/ops/pallas/gnn_layer_kernel.py:117", launches=launches["layer"],
              **k1[torch.bfloat16], library_ms=None,
-             f32=dict(k1[torch.float32], library_ms=None)),
+             f32=dict(k1[torch.float32], library_ms=None),
+             dh32=dh32(k1_32[torch.bfloat16], k1_32[torch.float32]), sift_launches=wider[sift]["K1"]),
         dict(name="sinkhorn_scale (f32 K, B=16 N=1024)", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:128", launches=n1024,
              train_launches=train["K2"],
@@ -1411,37 +1664,47 @@ def main() -> int:
                               replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:56")),
         dict(name="sinkhorn_scale (bf16 K, B=4 N=2048)", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315", launches=n2048,
-             **{k: v for k, v in k2[(4, 2048)].items() if k != "k_dtype"}, library_ms=None),
+             **{k: v for k, v in k2[(4, 2048)].items() if k != "k_dtype"}, library_ms=None,
+             pretrain_launches=pretrain["K2"]),
+        dict(name=f"sinkhorn_scale streaming (bf16 K, B=1 N={WIDE_KEYPOINTS})", route="cuda", source=sinkhorn,
+             replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315",
+             launches=sum(d["K2s"] for d in wider.values()), **k2s, library_ms=None),
         dict(name="sinkhorn_adjoint (f32 K, B=12 N=1024 T=20)", route="cuda", source=csrc + "sinkhorn_adjoint.cu",
              replaces=pallas + "sinkhorn_kernel.py:548", launches=train["K3"], **k3, library_ms=None),
         dict(name="message_forward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_forward.cu", replaces=pallas + "gnn_layer_kernel.py:557",
              launches=train["K4"], **k45[torch.bfloat16]["K4"], library_ms=None,
-             f32=dict(k45[torch.float32]["K4"], library_ms=None)),
+             f32=dict(k45[torch.float32]["K4"], library_ms=None),
+             dh32=dh32(k45_32[torch.bfloat16]["K4"], k45_32[torch.float32]["K4"]), pretrain_launches=pretrain["K4"]),
         dict(name="message_backward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_backward.cu", replaces=pallas + "gnn_layer_kernel.py:627",
              launches=train["K5"], **k45[torch.bfloat16]["K5"], library_ms=None,
-             f32=dict(k45[torch.float32]["K5"], library_ms=None)),
+             f32=dict(k45[torch.float32]["K5"], library_ms=None),
+             dh32=dh32(k45_32[torch.bfloat16]["K5"], k45_32[torch.float32]["K5"]), pretrain_launches=pretrain["K5"]),
         *[dict(name=f"gnn_layer_features {kind} (bf16, B=16 N=M=1024 D=256 H=4)", route="cuda",
                source=csrc + "gnn_layer_features.cu", replaces=pallas + "gnn_layer_kernel.py:117",
                launches=other[kind], **k6[(kind, torch.bfloat16)], library_ms=None,
-               f32=dict(k6[(kind, torch.float32)], library_ms=None)) for kind in glk.FEATURE_KINDS],
+               f32=dict(k6[(kind, torch.float32)], library_ms=None),
+               dh32=dh32(k6_32[(kind, torch.bfloat16)], k6_32[(kind, torch.float32)])) for kind in glk.FEATURE_KINDS],
         dict(name="gnn_layer_int8 int8 (bf16 x, B=16 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "gnn_layer_int8.cu", replaces=pallas + "gnn_layer_int8.py:129",
              launches=other["int8"], **k7["int8"], library_ms=None,
              int8_static=dict(k7["int8_static"], library_ms=None),
-             int8_attn=dict(k7["int8_attn"], library_ms=None)),
+             int8_attn=dict(k7["int8_attn"], library_ms=None), dh32=dh32(k7_32["int8"])),
         dict(name="gnn_layer_int8 int8_static_attn (bf16 x, B=16 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "gnn_layer_int8.cu", replaces=pallas + "gnn_layer_int8.py:129",
-             launches=other["int8_static_attn"], **k7["int8_static_attn"], library_ms=None),
+             launches=other["int8_static_attn"], **k7["int8_static_attn"], library_ms=None,
+             dh32=dh32(k7_32["int8_static_attn"])),
         dict(name="train_half (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda", source=csrc + "train_half.cu",
              replaces=pallas + "gnn_layer_kernel.py:587", launches=routes["half"]["K8"],
-             **k8[torch.bfloat16], library_ms=None, f32=dict(k8[torch.float32], library_ms=None)),
+             **k8[torch.bfloat16], library_ms=None, f32=dict(k8[torch.float32], library_ms=None),
+             dh32=dh32(k8_32[torch.bfloat16], k8_32[torch.float32])),
         # the composed route's projections are f32, so its launches are
         *[dict(name=f"{what} (f32, B=12 H=4 N=M=1024 dh=64)", route="cuda", source=csrc + what + ".cu",
                replaces=pallas + f"attention_kernel.py:{line}", launches=routes["composed"][kname],
                **k910[(torch.float32, 1024)][kname], bf16=k910[(torch.bfloat16, 1024)][kname],
                n2048_f32=k910[(torch.float32, 2048)][kname], n2048_bf16=k910[(torch.bfloat16, 2048)][kname],
+               dh32=dh32(k910_32[torch.bfloat16][kname], k910_32[torch.float32][kname]),
                **({"ring_train_launches": rings["train"]["K10"]} if kname == "K10" else {}))
           for kname, what, line in (("K9", "attention", 38), ("K10", "attention_backward", 251))],
         # the ring's projections are f32 too
@@ -1449,7 +1712,8 @@ def main() -> int:
              replaces=pallas + "attention_kernel.py:57", launches=rings["B=16 N=1024"] + rings["B=4 N=2048"],
              ring_train_launches=rings["train"]["K11"], **k11[(torch.float32, 1024)],
              bf16=k11[(torch.bfloat16, 1024)], n2048_f32=k11[(torch.float32, 2048)],
-             n2048_bf16=k11[(torch.bfloat16, 2048)], block_merge=merge),
+             n2048_bf16=k11[(torch.bfloat16, 2048)], block_merge=merge,
+             dh32=dh32(k11_32[torch.bfloat16], k11_32[torch.float32])),
     ]}
     for entry in record["kernels"]:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")

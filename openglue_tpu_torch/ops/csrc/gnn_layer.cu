@@ -2,15 +2,16 @@
 //
 // Replaces the Pallas TPU kernel openglue_tpu/ops/pallas/gnn_layer_kernel.py::
 // _layer_kernel (softmax kind), reached through fused_attention_propagation. It
-// computes, for x_q [B, N, D] and x_kv [B, M, D] with H heads of dh = 64:
+// computes, for x_q [B, N, D] and x_kv [B, M, D] with H heads of dh = 32 or 64:
 //   q, k, v = T(x W + b)                         (T: the compute type)
 //   logits  = (q_h . k_h) * dh^-0.5 + (mask ? 0 : -1e9)        (f32)
 //   attn_h  = T((T(exp(logits - max)) . v_h) / sum exp(logits - max))
 //   msg     = T(attn Wo + bo);  cat = [x_q, msg] or [T(x_q - msg), msg]
 //   h1      = T(relu(cat W1 + b1) * a1 + c1)     (eval BatchNorm folded to a1, c1)
 //   out     = T(x_q + (h1 W2 + b2))
-// in bf16 (mma.sync m16n8k16, f32 accumulation) or f32 (FMA tiles), keeping the
-// TPU kernel's rounding points.
+// in bf16 (mma.sync m16n8k16, f32 accumulation) or f32 (FMA GEMM tiles, the
+// attention in 3xTF32 on the tensor cores), keeping the TPU kernel's rounding
+// points.
 //
 // What bounds it on the H100: at the serving shape (B=16, N=M=1024, D=256) the
 // layer is 3.9e10 FLOP against 64 MB of activations in and out, so the tensor
@@ -74,14 +75,14 @@ int layer(int B, int N, int M, int D, int H, int use_offset, const void* xq_, co
 // One layer. is_bf16 selects the compute type T of x and the weights.
 // weights (T, [out, in]): wq, wk, wv, wo [D, D], w1 [2D, 2D], w2 [D, 2D].
 // f32 vectors: bq, bk, bv, bo [D], b1, a1, c1 [2D], b2 [D]. workspace (T): B*N*6*D + B*M*2*D elements; out (T): [B, N, D].
-// mask: [B, M] uint8 or null. D = 64 * H.
+// mask: [B, M] uint8 or null. D = dh * H with dh 32 or 64.
 // Returns the CUDA error code of the launches (0 on success).
 extern "C" int og_gnn_layer(int is_bf16, int B, int N, int M, int D, int H, int use_offset,
                             const void* xq, const void* xkv, const void* mask,
                             const void* const* weights, const void* const* vectors,
                             void* workspace, void* out, void* stream) {
   if (B == 0 || N == 0) return cudaSuccess;
-  if (D != H * kDh || D % kFN != 0 || M <= 0) return cudaErrorInvalidValue;
+  if (!head_width_ok(D, H) || D % kFN != 0 || M <= 0) return cudaErrorInvalidValue;
   const float* const* f = reinterpret_cast<const float* const*>(vectors);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return layer<bf16>(B, N, M, D, H, use_offset, xq, xkv, mask, weights, f, workspace, out, s);

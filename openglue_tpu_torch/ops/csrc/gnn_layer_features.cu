@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel openglue_tpu/ops/pallas/gnn_layer_kernel.py::
 // _layer_kernel, feature-map kinds, reached through fused_attention_propagation.
-// For x_q [B, N, D], x_kv [B, M, D], H heads of dh = 64 and F features per head
-// (F = 64 for linear; the rows of the projection [F, dh] for FAVOR):
+// For x_q [B, N, D], x_kv [B, M, D], H heads of dh = 32 or 64 and F features per head
+// (F = dh for linear; the rows of the projection [F, dh] for FAVOR):
 //   q = T(x_q Wq + bq);  k = x_kv Wk + bk (kept f32);  v = T(x_kv Wv + bv)
 //   phi(x):  linear         x > 0 ? x + 1 : exp(min(x, 0)), + 1e-6
 //            favor_relu     max(ph, 0) + 1e-8,          ph = T(x dh^-1/4) . T(proj)^T
@@ -50,7 +50,6 @@ namespace {
 enum Kind { kLinear = 0, kFavorRelu = 1, kFavorSoftmax = 2 };
 
 constexpr float kEluEps = 1e-6f, kFavorEps = 1e-8f;
-constexpr float kDataNorm = 0.35355339059327373f;  // kDh^-0.25
 constexpr int kTile = 64;          // query or key rows per block
 constexpr int kFeatThreads = 256;
 constexpr int kLd = kTile + 4;     // row stride of the shared tiles (float4 rows)
@@ -65,25 +64,26 @@ __device__ __forceinline__ void st4(float* p, float a, float b, float c, float d
 
 // Shared-memory plan of the key and query kernels (floats). The tiles are
 // k-major, so that a thread reads four rows or four features as one float4:
-//   xsT [64 d][68] | region: psT [64 d][F + 4], later KV [F][68] | fsT [F][68]
+//   xsT [dh][68] | region: psT [dh][F + 4], later KV [F][68] | fsT [F][68]
 //   | diag [64] | rowmax [64] | ksum [F]
-__host__ __device__ inline size_t region_floats(int F) {
-  const size_t proj = static_cast<size_t>(kDh) * (F + 4), kv = static_cast<size_t>(F) * kLd;
+__host__ __device__ inline size_t region_floats(int F, int dh) {
+  const size_t proj = static_cast<size_t>(dh) * (F + 4), kv = static_cast<size_t>(F) * kLd;
   return proj > kv ? proj : kv;
 }
-__host__ __device__ inline size_t feature_smem_floats(int F) {
-  return static_cast<size_t>(kDh) * kLd + region_floats(F) + static_cast<size_t>(F) * kLd +
+__host__ __device__ inline size_t feature_smem_floats(int F, int dh) {
+  return static_cast<size_t>(dh) * kLd + region_floats(F, dh) + static_cast<size_t>(F) * kLd +
          2 * kTile + F;
 }
 
 // fsT[f][r] = sum_d xsT[d][r] * psT[d][f] for 64 rows and F features; each
 // thread 4 rows x 4 features, two float4 loads for 16 FMAs
+template <int DH>
 __device__ __forceinline__ void project_tile(const float* xsT, const float* psT, float* fsT, int F) {
   const int rg = threadIdx.x / 16, ft = threadIdx.x % 16, ldp = F + 4;
   for (int f = ft * 4; f < F; f += 64) {
     float acc[4][4] = {};  // [feature][row]
 #pragma unroll 8
-    for (int d = 0; d < kDh; ++d) {
+    for (int d = 0; d < DH; ++d) {
       const float4 a = ld4(&xsT[d * kLd + rg * 4]), w = ld4(&psT[d * ldp + f]);
       const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
@@ -100,22 +100,23 @@ __device__ __forceinline__ void project_tile(const float* xsT, const float* psT,
 // The first half of a feature tile, shared by keys and queries: xsT holds 64
 // rows of one head in f32. linear: fsT = elu1p(xsT) + eps. FAVOR: diag (softmax
 // only), xsT <- T(xsT * dh^-1/4), fsT = ph. Ends synchronized.
-template <typename T, int KIND>
+template <typename T, int KIND, int DH>
 __device__ __forceinline__ void feature_tile(float* xsT, float* psT, float* fsT, float* diag,
                                              const float* __restrict__ proj, int F) {
   const int tid = threadIdx.x;
   if constexpr (KIND == kLinear) {
-    for (int i = tid; i < kDh * kTile; i += kFeatThreads) {
+    for (int i = tid; i < DH * kTile; i += kFeatThreads) {
       const int d = i / kTile, r = i % kTile;
       fsT[d * kLd + r] = elu1p(xsT[d * kLd + r]) + kEluEps;
     }
   } else {
-    for (int i = tid; i < F * kDh; i += kFeatThreads)
-      psT[(i % kDh) * (F + 4) + i / kDh] = round_to<T>(proj[i]);
+    constexpr float kDataNorm = Head<DH>::data_norm;
+    for (int i = tid; i < F * DH; i += kFeatThreads)
+      psT[(i % DH) * (F + 4) + i / DH] = round_to<T>(proj[i]);
     if constexpr (KIND == kFavorSoftmax) {
       if (tid < kTile) {
         float s = 0.f;
-        for (int d = 0; d < kDh; ++d) {
+        for (int d = 0; d < DH; ++d) {
           const float y = xsT[d * kLd + tid] * kDataNorm;
           s = fmaf(y, y, s);
         }
@@ -123,12 +124,12 @@ __device__ __forceinline__ void feature_tile(float* xsT, float* psT, float* fsT,
       }
       __syncthreads();
     }
-    for (int i = tid; i < kDh * kTile; i += kFeatThreads) {
+    for (int i = tid; i < DH * kTile; i += kFeatThreads) {
       float* x = &xsT[(i / kTile) * kLd + i % kTile];
       *x = round_to<T>(*x * kDataNorm);
     }
     __syncthreads();
-    project_tile(xsT, psT, fsT, F);
+    project_tile<DH>(xsT, psT, fsT, F);
   }
   __syncthreads();
 }
@@ -136,26 +137,26 @@ __device__ __forceinline__ void feature_tile(float* xsT, float* psT, float* fsT,
 // Feature rows of one 64-key tile of one (element, head) -> kfeat [B, H, M, F].
 // linear and favor_relu write kf * mask; favor_softmax writes ph - diag and the
 // tile's max of ph over valid keys (masked keys at ph - 1e9) into tilemax.
-template <typename T, int KIND>
+template <typename T, int KIND, int DH>
 __global__ void __launch_bounds__(kFeatThreads)
 key_features_kernel(const float* __restrict__ k32, const uint8_t* __restrict__ mask,
                     const float* __restrict__ proj, float* __restrict__ kfeat,
                     float* __restrict__ tilemax, int M, int D, int F) {
   extern __shared__ __align__(16) float smem[];
   float* xsT = smem;
-  float* psT = xsT + kDh * kLd;
-  float* fsT = psT + region_floats(F);
+  float* psT = xsT + DH * kLd;
+  float* fsT = psT + region_floats(F, DH);
   float* diag = fsT + static_cast<size_t>(F) * kLd;
   __shared__ float red[kFeatThreads / 32];
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z, H = gridDim.y, tid = threadIdx.x;
   const int m0 = tile * kTile;
-  for (int i = tid; i < kTile * kDh; i += kFeatThreads) {
-    const int r = i / kDh, d = i % kDh;
+  for (int i = tid; i < kTile * DH; i += kFeatThreads) {
+    const int r = i / DH, d = i % DH;
     xsT[d * kLd + r] =
-        m0 + r < M ? k32[(static_cast<size_t>(b) * M + m0 + r) * D + h * kDh + d] : 0.f;
+        m0 + r < M ? k32[(static_cast<size_t>(b) * M + m0 + r) * D + h * DH + d] : 0.f;
   }
   __syncthreads();
-  feature_tile<T, KIND>(xsT, psT, fsT, diag, proj, F);
+  feature_tile<T, KIND, DH>(xsT, psT, fsT, diag, proj, F);
 
   float* out = kfeat + (static_cast<size_t>(b) * H + h) * M * F;
   float local_max = -INFINITY;
@@ -188,33 +189,35 @@ key_features_kernel(const float* __restrict__ k32, const uint8_t* __restrict__ m
 
 // Partial KV [B, H, S, F, dh] and ksum [B, H, S, F]: a block owns 64 features of
 // one (element, head) and the 128 keys of split s, walked in order. Thread
-// (fg, dg) owns features 4 fg .. 4 fg + 3 and columns 4 dg .. 4 dg + 3.
-template <typename T, int KIND>
+// (fg, dg) owns features kFpt fg .. kFpt fg + kFpt - 1 (kFpt = dh / 16) and
+// columns 4 dg .. 4 dg + 3.
+template <typename T, int KIND, int DH>
 __global__ void __launch_bounds__(kFeatThreads)
 aggregate_kernel(const float* __restrict__ kfeat, const T* __restrict__ v,
                  const uint8_t* __restrict__ mask, const float* __restrict__ tilemax,
                  float* __restrict__ kv_part, float* __restrict__ ksum_part, int M, int D, int F,
                  int tiles, float ratio) {
-  __shared__ __align__(16) float kfs[kTile][kDh];
-  __shared__ __align__(16) float vs[kTile][kDh];
+  constexpr int kGroups = DH / 4, kFpt = 64 * kGroups / kFeatThreads;  // column groups; features a thread owns
+  __shared__ __align__(16) float kfs[kTile][64];
+  __shared__ __align__(16) float vs[kTile][DH];
   const int chunks = (F + 63) / 64, splits = gridDim.x / chunks;
   const int f0 = (blockIdx.x % chunks) * 64, sp = blockIdx.x / chunks;
   const int h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const int tid = threadIdx.x, fg = tid / 16, dg = tid % 16;
+  const int tid = threadIdx.x, fg = tid / kGroups, dg = tid % kGroups;
   const float* kf = kfeat + (static_cast<size_t>(b) * H + h) * M * F;
-  const T* vb = v + static_cast<size_t>(b) * M * D + h * kDh;
+  const T* vb = v + static_cast<size_t>(b) * M * D + h * DH;
   float stab = 0.f;
   if constexpr (KIND == kFavorSoftmax) {
     stab = -INFINITY;
     for (int t = 0; t < tiles; ++t)
       stab = fmaxf(stab, tilemax[(static_cast<size_t>(b) * H + h) * tiles + t]);
   }
-  float acc[4][4] = {}, sum[4] = {0.f, 0.f, 0.f, 0.f};
+  float acc[kFpt][4] = {}, sum[kFpt] = {};
   const int m_end = min(M, (sp + 1) * kAggKeys);
   for (int m0 = sp * kAggKeys; m0 < m_end; m0 += kTile) {
     __syncthreads();
-    for (int i = tid; i < kTile * kDh / 4; i += kFeatThreads) {
-      const int r = i / (kDh / 4), c = (i % (kDh / 4)) * 4;
+    for (int i = tid; i < kTile * 16; i += kFeatThreads) {
+      const int r = i / 16, c = (i % 16) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (m0 + r < m_end && f0 + c < F) {
         x = ld4(kf + static_cast<size_t>(m0 + r) * F + f0 + c);
@@ -229,8 +232,8 @@ aggregate_kernel(const float* __restrict__ kfeat, const T* __restrict__ v,
       }
       *reinterpret_cast<float4*>(&kfs[r][c]) = x;
     }
-    for (int i = tid; i < kTile * kDh / 2; i += kFeatThreads) {
-      const int r = i / (kDh / 2), c = (i % (kDh / 2)) * 2;
+    for (int i = tid; i < kTile * DH / 2; i += kFeatThreads) {
+      const int r = i / (DH / 2), c = (i % (DH / 2)) * 2;
       float2 x = make_float2(0.f, 0.f);
       if (m0 + r < m_end) x = load2(vb + static_cast<size_t>(m0 + r) * D + c);
       vs[r][c] = x.x;
@@ -239,10 +242,18 @@ aggregate_kernel(const float* __restrict__ kfeat, const T* __restrict__ v,
     __syncthreads();
 #pragma unroll 4
     for (int r = 0; r < kTile; ++r) {
-      const float4 a = ld4(&kfs[r][fg * 4]), x = ld4(&vs[r][dg * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, xv[4] = {x.x, x.y, x.z, x.w};
+      const float4 x = ld4(&vs[r][dg * 4]);
+      float av[kFpt];
+      if constexpr (kFpt == 4) {
+        const float4 a = ld4(&kfs[r][fg * 4]);
+        av[0] = a.x; av[1] = a.y; av[2] = a.z; av[3] = a.w;
+      } else {
+        const float2 a = *reinterpret_cast<const float2*>(&kfs[r][fg * kFpt]);
+        av[0] = a.x; av[1] = a.y;
+      }
+      const float xv[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kFpt; ++j) {
         const float ar = round_to<T>(av[j]);
         sum[j] += av[j];
 #pragma unroll
@@ -252,10 +263,10 @@ aggregate_kernel(const float* __restrict__ kfeat, const T* __restrict__ v,
   }
   const size_t group = (static_cast<size_t>(b) * H + h) * splits + sp;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int f = f0 + fg * 4 + j;
+  for (int j = 0; j < kFpt; ++j) {
+    const int f = f0 + fg * kFpt + j;
     if (f < F) {
-      st4(kv_part + (group * F + f) * kDh + dg * 4, acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+      st4(kv_part + (group * F + f) * DH + dg * 4, acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
       if (dg == 0) ksum_part[group * F + f] = sum[j];
     }
   }
@@ -278,28 +289,29 @@ reduce_splits_kernel(const float* __restrict__ part, float* __restrict__ out, in
 
 // attn rows of 64 queries of one (element, head): the feature rows in shared
 // memory, then o = T(qf) . KV, norm = qf . ksum, attn = T(o / norm). Thread
-// (rg, dg) owns rows 4 rg .. 4 rg + 3 and columns 4 dg .. 4 dg + 3.
-template <typename T, int KIND>
+// (rg, dg) owns rows kRpt rg .. kRpt rg + kRpt - 1 (kRpt = dh / 16) and
+// columns 4 dg .. 4 dg + 3.
+template <typename T, int KIND, int DH>
 __global__ void __launch_bounds__(kFeatThreads)
 query_kernel(const T* __restrict__ q, const float* __restrict__ proj,
              const float* __restrict__ kv, const float* __restrict__ ksum, T* __restrict__ attn,
              int N, int D, int F, float ratio) {
   extern __shared__ __align__(16) float smem[];
   float* xsT = smem;
-  float* region = xsT + kDh * kLd;
-  float* fsT = region + region_floats(F);
+  float* region = xsT + DH * kLd;
+  float* fsT = region + region_floats(F, DH);
   float* diag = fsT + static_cast<size_t>(F) * kLd;
   float* rowmax = diag + kTile;
   float* ks = rowmax + kTile;
   const int n0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
   const int tid = threadIdx.x;
-  const T* qb = q + static_cast<size_t>(b) * N * D + h * kDh;
-  for (int i = tid; i < kTile * kDh; i += kFeatThreads) {
-    const int r = i / kDh, d = i % kDh;
+  const T* qb = q + static_cast<size_t>(b) * N * D + h * DH;
+  for (int i = tid; i < kTile * DH; i += kFeatThreads) {
+    const int r = i / DH, d = i % DH;
     xsT[d * kLd + r] = n0 + r < N ? to_f(qb[static_cast<size_t>(n0 + r) * D + d]) : 0.f;
   }
   __syncthreads();
-  feature_tile<T, KIND>(xsT, region, fsT, diag, proj, F);
+  feature_tile<T, KIND, DH>(xsT, region, fsT, diag, proj, F);
   if constexpr (KIND == kFavorRelu) {
     for (int i = tid; i < F * kTile; i += kFeatThreads) {
       float* y = &fsT[(i / kTile) * kLd + i % kTile];
@@ -319,33 +331,42 @@ query_kernel(const T* __restrict__ q, const float* __restrict__ proj,
     }
   }
   // KV and ksum of this (element, head) take the projection's place
-  const float* kvb = kv + (static_cast<size_t>(b) * H + h) * F * kDh;
-  for (int i = tid; i < F * kDh / 4; i += kFeatThreads) {
-    const int f = i / (kDh / 4), c = (i % (kDh / 4)) * 4;
-    *reinterpret_cast<float4*>(&region[f * kLd + c]) = ld4(kvb + static_cast<size_t>(f) * kDh + c);
+  const float* kvb = kv + (static_cast<size_t>(b) * H + h) * F * DH;
+  for (int i = tid; i < F * DH / 4; i += kFeatThreads) {
+    const int f = i / (DH / 4), c = (i % (DH / 4)) * 4;
+    *reinterpret_cast<float4*>(&region[f * kLd + c]) = ld4(kvb + static_cast<size_t>(f) * DH + c);
   }
   for (int f = tid; f < F; f += kFeatThreads) ks[f] = ksum[(static_cast<size_t>(b) * H + h) * F + f];
   __syncthreads();
 
-  const int rg = tid / 16, dg = tid % 16;
-  float acc[4][4] = {}, norm[4] = {0.f, 0.f, 0.f, 0.f};
+  constexpr int kGroups = DH / 4, kRpt = 64 * kGroups / kFeatThreads;  // column groups; rows a thread owns
+  const int rg = tid / kGroups, dg = tid % kGroups;
+  float acc[kRpt][4] = {}, norm[kRpt] = {};
 #pragma unroll 4
   for (int f = 0; f < F; ++f) {
-    const float4 a = ld4(&fsT[f * kLd + rg * 4]), w = ld4(&region[f * kLd + dg * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w}, wv[4] = {w.x, w.y, w.z, w.w};
+    const float4 w = ld4(&region[f * kLd + dg * 4]);
+    float av[kRpt];
+    if constexpr (kRpt == 4) {
+      const float4 a = ld4(&fsT[f * kLd + rg * 4]);
+      av[0] = a.x; av[1] = a.y; av[2] = a.z; av[3] = a.w;
+    } else {
+      const float2 a = *reinterpret_cast<const float2*>(&fsT[f * kLd + rg * kRpt]);
+      av[0] = a.x; av[1] = a.y;
+    }
+    const float wv[4] = {w.x, w.y, w.z, w.w};
     const float s = ks[f];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < kRpt; ++i) {
       const float ar = round_to<T>(av[i]);
       norm[i] = fmaf(av[i], s, norm[i]);
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(ar, wv[c], acc[i][c]);
     }
   }
-  T* ob = attn + static_cast<size_t>(b) * N * D + h * kDh + dg * 4;
+  T* ob = attn + static_cast<size_t>(b) * N * D + h * DH + dg * 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = n0 + rg * 4 + i;
+  for (int i = 0; i < kRpt; ++i) {
+    const int r = n0 + rg * kRpt + i;
     if (r < N) {
       store2(ob + static_cast<size_t>(r) * D, acc[i][0] / norm[i], acc[i][1] / norm[i]);
       store2(ob + static_cast<size_t>(r) * D + 2, acc[i][2] / norm[i], acc[i][3] / norm[i]);
@@ -367,9 +388,9 @@ Buffers carve(Carve& ws, int B, int N, int M, int D, int H, int F, size_t elt) {
   p.kfeat = ws.take<float>(heads * M * F);
   p.tilemax = ws.take<float>(heads * ((M + kTile - 1) / kTile));
   const size_t splits = (M + kAggKeys - 1) / kAggKeys;
-  p.kv_part = ws.take<float>(heads * splits * F * kDh);
+  p.kv_part = ws.take<float>(heads * splits * F * (D / H));
   p.ksum_part = ws.take<float>(heads * splits * F);
-  p.kv = ws.take<float>(heads * F * kDh);
+  p.kv = ws.take<float>(heads * F * (D / H));
   p.ksum = ws.take<float>(heads * F);
   p.attn = ws.take<char>(rq * D * elt);
   p.cat = ws.take<char>(rq * 2 * D * elt);
@@ -377,7 +398,7 @@ Buffers carve(Carve& ws, int B, int N, int M, int D, int H, int F, size_t elt) {
   return p;
 }
 
-template <typename T, int KIND>
+template <typename T, int KIND, int DH>
 int layer(int B, int N, int M, int D, int H, int F, int use_offset, const void* xq_,
           const void* xkv_, const void* mask_, const void* const* w, const float* const* f,
           const float* proj, void* ws_, void* out_, cudaStream_t s) {
@@ -399,22 +420,22 @@ int layer(int B, int N, int M, int D, int H, int F, int use_offset, const void* 
         *ksum_part = static_cast<float*>(p.ksum_part);
   const int nq = B * N, nk = B * M, tiles = (M + kTile - 1) / kTile;
   const int splits = (M + kAggKeys - 1) / kAggKeys, chunks = (F + 63) / 64;
-  const size_t smem = feature_smem_floats(F) * sizeof(float);
+  const size_t smem = feature_smem_floats(F, DH) * sizeof(float);
   const float ratio = static_cast<float>(1.0 / sqrt(static_cast<double>(F)));  // F^-1/2
   cudaError_t err;
   // k stays f32 into the feature map; v and q are cast to T
   if ((err = gemm<T, kBiasF32>({xkv, D, wk, bk, nk, D, D, reinterpret_cast<T*>(k32), D, nullptr, 0, nullptr, nullptr, 0}, s))) return err;
   if ((err = gemm<T, kBias>({xkv, D, wv, bv, nk, D, D, v, D, nullptr, 0, nullptr, nullptr, 0}, s))) return err;
   if ((err = gemm<T, kBias>({xq, D, wq, bq, nq, D, D, q, D, nullptr, 0, nullptr, nullptr, 0}, s))) return err;
-  if ((err = cudaFuncSetAttribute(key_features_kernel<T, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)))) return err;
-  if ((err = cudaFuncSetAttribute(query_kernel<T, KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)))) return err;
-  key_features_kernel<T, KIND><<<dim3(tiles, H, B), kFeatThreads, smem, s>>>(k32, mask, proj, kfeat, tilemax, M, D, F);
+  if ((err = cudaFuncSetAttribute(key_features_kernel<T, KIND, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)))) return err;
+  if ((err = cudaFuncSetAttribute(query_kernel<T, KIND, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)))) return err;
+  key_features_kernel<T, KIND, DH><<<dim3(tiles, H, B), kFeatThreads, smem, s>>>(k32, mask, proj, kfeat, tilemax, M, D, F);
   if ((err = cudaGetLastError())) return err;
-  aggregate_kernel<T, KIND><<<dim3(chunks * splits, H, B), kFeatThreads, 0, s>>>(kfeat, v, mask, tilemax, kv_part, ksum_part, M, D, F, tiles, ratio);
-  reduce_splits_kernel<<<dim3((F * kDh + 1023) / 1024, B * H), 256, 0, s>>>(kv_part, kv, splits, F * kDh);
+  aggregate_kernel<T, KIND, DH><<<dim3(chunks * splits, H, B), kFeatThreads, 0, s>>>(kfeat, v, mask, tilemax, kv_part, ksum_part, M, D, F, tiles, ratio);
+  reduce_splits_kernel<<<dim3((F * DH + 1023) / 1024, B * H), 256, 0, s>>>(kv_part, kv, splits, F * DH);
   reduce_splits_kernel<<<dim3(1, B * H), 256, 0, s>>>(ksum_part, ksum, splits, F);
   if ((err = cudaGetLastError())) return err;
-  query_kernel<T, KIND><<<dim3((N + kTile - 1) / kTile, H, B), kFeatThreads, smem, s>>>(q, proj, kv, ksum, attn, N, D, F, ratio);
+  query_kernel<T, KIND, DH><<<dim3((N + kTile - 1) / kTile, H, B), kFeatThreads, smem, s>>>(q, proj, kv, ksum, attn, N, D, F, ratio);
   if ((err = cudaGetLastError())) return err;
   // out projection with the concat, then the FFN, as in the softmax layer
   if ((err = gemm<T, kConcat>({attn, D, wo, bo, nq, D, D, cat, 2 * D, xq, D, nullptr, nullptr, use_offset}, s))) return err;
@@ -426,12 +447,15 @@ template <typename T>
 int layer_of_kind(int kind, int B, int N, int M, int D, int H, int F, int use_offset,
                   const void* xq, const void* xkv, const void* mask, const void* const* w,
                   const float* const* f, const float* proj, void* ws, void* out, cudaStream_t s) {
-  switch (kind) {
-    case kLinear: return layer<T, kLinear>(B, N, M, D, H, F, use_offset, xq, xkv, mask, w, f, proj, ws, out, s);
-    case kFavorRelu: return layer<T, kFavorRelu>(B, N, M, D, H, F, use_offset, xq, xkv, mask, w, f, proj, ws, out, s);
-    case kFavorSoftmax: return layer<T, kFavorSoftmax>(B, N, M, D, H, F, use_offset, xq, xkv, mask, w, f, proj, ws, out, s);
-  }
-  return cudaErrorInvalidValue;
+  return with_head_width(D / H, [&](auto width) -> cudaError_t {
+    constexpr int DH = decltype(width)::value;
+    switch (kind) {
+      case kLinear: return static_cast<cudaError_t>(layer<T, kLinear, DH>(B, N, M, D, H, F, use_offset, xq, xkv, mask, w, f, proj, ws, out, s));
+      case kFavorRelu: return static_cast<cudaError_t>(layer<T, kFavorRelu, DH>(B, N, M, D, H, F, use_offset, xq, xkv, mask, w, f, proj, ws, out, s));
+      case kFavorSoftmax: return static_cast<cudaError_t>(layer<T, kFavorSoftmax, DH>(B, N, M, D, H, F, use_offset, xq, xkv, mask, w, f, proj, ws, out, s));
+    }
+    return cudaErrorInvalidValue;
+  });
 }
 
 }  // namespace
@@ -445,10 +469,10 @@ extern "C" size_t og_gnn_layer_features_workspace(int is_bf16, int B, int N, int
 }
 
 // One layer. is_bf16 selects the compute type T of x and the weights; kind is 0
-// linear (F = 64, proj unused), 1 favor_relu, 2 favor_softmax (proj: f32 [F, 64], F a
+// linear (F = dh, proj unused), 1 favor_relu, 2 favor_softmax (proj: f32 [F, dh], F a
 // multiple of 16 up to 256). weights (T, [out, in]): wq, wk, wv, wo [D, D], w1
 // [2D, 2D], w2 [D, 2D]. f32 vectors: bq, bk, bv, bo [D], b1, a1, c1 [2D], b2 [D].
-// mask: [B, M] uint8 or null. out (T): [B, N, D]. D = 64 * H.
+// mask: [B, M] uint8 or null. out (T): [B, N, D]. D = dh * H with dh 32 or 64.
 // Returns the CUDA error code of the launches (0 on success).
 extern "C" int og_gnn_layer_features(int is_bf16, int B, int N, int M, int D, int H, int F,
                                      int kind, int use_offset, const void* xq, const void* xkv,
@@ -456,8 +480,8 @@ extern "C" int og_gnn_layer_features(int is_bf16, int B, int N, int M, int D, in
                                      const void* const* vectors, const void* proj,
                                      void* workspace, void* out, void* stream) {
   if (B == 0 || N == 0) return cudaSuccess;
-  if (D != H * kDh || D % kFN != 0 || M <= 0) return cudaErrorInvalidValue;
-  if (F % 16 != 0 || F <= 0 || F > kMaxFeatures || (kind == kLinear && F != kDh)) return cudaErrorInvalidValue;
+  if (!head_width_ok(D, H) || D % kFN != 0 || M <= 0) return cudaErrorInvalidValue;
+  if (F % 16 != 0 || F <= 0 || F > kMaxFeatures || (kind == kLinear && F != D / H)) return cudaErrorInvalidValue;
   if (kind != kLinear && proj == nullptr) return cudaErrorInvalidValue;
   const float* const* f = reinterpret_cast<const float* const*>(vectors);
   const float* pr = static_cast<const float*>(proj);

@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas TPU kernel openglue_tpu/ops/pallas/gnn_layer_int8.py::
 // _layer_kernel_int8, reached through fused_attention_propagation_int8. For x_q
-// [B, N, D], x_kv [B, M, D] (f32 or bf16), H heads of dh = 64, int8 weights
+// [B, N, D], x_kv [B, M, D] (f32 or bf16), H heads of dh = 32 or 64, int8 weights
 // [out, in] with f32 per-output-channel scales:
 //   quant(x):  dynamic  s_row = absmax_row / 127 + 1e-12, x8 = clip(rint(x / s_row))
 //              static   s = act_scales[site],             x8 = clip(rint(x * (1 / s)))
@@ -293,23 +293,25 @@ quant_tensor_kernel(const float* __restrict__ x, size_t per_batch, const unsigne
 
 // v [B, M, D] f32 -> s8 transposed per head, vt [B, H, dh, Mp] (Mp a multiple
 // of 64; keys from M on are 0): one 64-key tile of one head per block
+template <int DH>
 __global__ void __launch_bounds__(256)
 quant_v_transposed_kernel(const float* __restrict__ v, int M, int Mp, int D,
                           const unsigned* __restrict__ absmax, const float* __restrict__ static_scale,
                           int8_t* __restrict__ vt) {
-  __shared__ int8_t tile[kDh][64 + 16];  // [d][key]
+  __shared__ int8_t tile[DH][64 + 16];  // [d][key]
   const int m0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z, H = gridDim.y, tid = threadIdx.x;
   const float inv = __fdiv_rn(1.f, tensor_scale(absmax, static_scale, b));
-  for (int i = tid; i < 64 * kDh; i += 256) {
-    const int r = i / kDh, d = i % kDh;
+  for (int i = tid; i < 64 * DH; i += 256) {
+    const int r = i / DH, d = i % DH;
     int q = 0;
-    if (m0 + r < M) q = quant(__fmul_rn(v[(static_cast<size_t>(b) * M + m0 + r) * D + h * kDh + d], inv));
+    if (m0 + r < M) q = quant(__fmul_rn(v[(static_cast<size_t>(b) * M + m0 + r) * D + h * DH + d], inv));
     tile[d][r] = static_cast<int8_t>(q);
   }
   __syncthreads();
   const int d = tid / 4, c = (tid % 4) * 16;
-  *reinterpret_cast<uint4*>(vt + ((static_cast<size_t>(b) * H + h) * kDh + d) * Mp + m0 + c) =
-      *reinterpret_cast<const uint4*>(&tile[d][c]);
+  if (d < DH)
+    *reinterpret_cast<uint4*>(vt + ((static_cast<size_t>(b) * H + h) * DH + d) * Mp + m0 + c) =
+        *reinterpret_cast<const uint4*>(&tile[d][c]);
 }
 
 // ------------------------------------------------------------ s8 attention
@@ -317,54 +319,58 @@ quant_v_transposed_kernel(const float* __restrict__ v, int M, int Mp, int D,
 // 4 warps, 16 query rows each, one (element, head, 64-query block) per CTA.
 // Pass 0 finds each row's max logit; pass 1 recomputes the logits and
 // accumulates denom and the s8 P.V against that max.
+template <int DH>
 __global__ void __launch_bounds__(kAttnThreads)
 attention_s8(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
              const int8_t* __restrict__ vt8, const uint8_t* __restrict__ mask,
              const unsigned* __restrict__ absmax, const float* __restrict__ act_scales,
              float* __restrict__ out, int B, int N, int M, int Mp, int D) {
-  constexpr int kLd = kDh + 16;
+  constexpr int kLd = DH + 16, kChunks = DH / 16, kSteps = DH / 32;  // 16-byte chunks; k-steps of 32
   __shared__ __align__(16) int8_t Qs[kAq][kLd];
   __shared__ __align__(16) int8_t Ks[2][kAk][kLd];
-  __shared__ __align__(16) int8_t Vs[2][kDh][kAk + 16];  // [d][key]
+  __shared__ __align__(16) int8_t Vs[2][DH][kAk + 16];  // [d][key]
   __shared__ float madd[2][kAk];
   const int b = blockIdx.z, h = blockIdx.y, H = gridDim.y, n0 = blockIdx.x * kAq;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int8_t* qb = q8 + static_cast<size_t>(b) * N * D + h * kDh;
-  const int8_t* kb = k8 + static_cast<size_t>(b) * M * D + h * kDh;
-  const int8_t* vb = vt8 + (static_cast<size_t>(b) * H + h) * kDh * Mp;
+  const int8_t* qb = q8 + static_cast<size_t>(b) * N * D + h * DH;
+  const int8_t* kb = k8 + static_cast<size_t>(b) * M * D + h * DH;
+  const int8_t* vb = vt8 + (static_cast<size_t>(b) * H + h) * DH * Mp;
   // sites 5, 6, 7 of act_scales are k, v, q; absmax holds [k, v, q][B]
   const float s_k = tensor_scale(absmax, act_scales ? act_scales + 5 : nullptr, b);
   const float s_v = tensor_scale(absmax ? absmax + B : nullptr, act_scales ? act_scales + 6 : nullptr, b);
   const float s_q = tensor_scale(absmax ? absmax + 2 * B : nullptr, act_scales ? act_scales + 7 : nullptr, b);
-  const float logit_scale = __fmul_rn(__fmul_rn(s_q, s_k), kScale);
+  const float logit_scale = __fmul_rn(__fmul_rn(s_q, s_k), Head<DH>::scale);
   const float out_scale = __fmul_rn(s_v, kInv127);
 
   auto load_kv = [&](int stage, int k0, bool with_v) {
-    for (int i = tid; i < kAk * (kDh / 16); i += kAttnThreads) {
-      const int r = i / (kDh / 16), c = (i % (kDh / 16)) * 16;
+    for (int i = tid; i < kAk * kChunks; i += kAttnThreads) {
+      const int r = i / kChunks, c = (i % kChunks) * 16;
       const bool ok = k0 + r < M;
       cp_async16(&Ks[stage][r][c], kb + static_cast<size_t>(ok ? k0 + r : 0) * D + c, ok);
-      if (with_v)  // row r is a column d of V; its keys k0 .. k0 + 63 exist up to Mp
-        cp_async16(&Vs[stage][r][c], vb + static_cast<size_t>(r) * Mp + k0 + c, true);
     }
+    if (with_v)  // row r is a column d of V; its keys k0 .. k0 + 63 exist up to Mp
+      for (int i = tid; i < DH * (kAk / 16); i += kAttnThreads) {
+        const int r = i / (kAk / 16), c = (i % (kAk / 16)) * 16;
+        cp_async16(&Vs[stage][r][c], vb + static_cast<size_t>(r) * Mp + k0 + c, true);
+      }
     if (tid < kAk) madd[stage][tid] = mask_add(mask, b, M, k0 + tid);
     cp_async_commit();
   };
 
-  for (int i = tid; i < kAq * (kDh / 16); i += kAttnThreads) {
-    const int r = i / (kDh / 16), c = (i % (kDh / 16)) * 16;
+  for (int i = tid; i < kAq * kChunks; i += kAttnThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 16;
     const bool ok = n0 + r < N;
     cp_async16(&Qs[r][c], qb + static_cast<size_t>(ok ? n0 + r : 0) * D + c, ok);
   }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qa[2][4];
+  uint32_t qa[kSteps][4];
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
+  for (int kk = 0; kk < kSteps; ++kk)
     ldmatrix_x4(qa[kk], &Qs[warp * 16 + (lane % 16)][kk * 32 + (lane / 16) * 16]);
 
-  int o[8][4] = {};
+  int o[DH / 8][4] = {};
   float row_max[2] = {-INFINITY, -INFINITY};
   float row_sum[2] = {0.f, 0.f};
   const int ktiles = (M + kAk - 1) / kAk;
@@ -382,7 +388,7 @@ attention_s8(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
 
       int s[8][4] = {};
 #pragma unroll
-      for (int kk = 0; kk < 2; ++kk)
+      for (int kk = 0; kk < kSteps; ++kk)
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t r[4];
@@ -423,7 +429,7 @@ attention_s8(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
           pa[2] = pack4(p8[4 * kc + 2][0], p8[4 * kc + 2][1], p8[4 * kc + 3][0], p8[4 * kc + 3][1]);
           pa[3] = pack4(p8[4 * kc + 2][2], p8[4 * kc + 2][3], p8[4 * kc + 3][2], p8[4 * kc + 3][3]);
 #pragma unroll
-          for (int nd = 0; nd < 8; ++nd) {
+          for (int nd = 0; nd < DH / 8; ++nd) {
             const int8_t* vrow = &Vs[st][nd * 8 + g][kc * 32 + 2 * t];
             const uint32_t b0 = *reinterpret_cast<const uint16_t*>(vrow) |
                                 (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(vrow + 8)) << 16);
@@ -449,13 +455,13 @@ attention_s8(const int8_t* __restrict__ q8, const int8_t* __restrict__ k8,
     row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 1);
     row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 2);
   }
-  float* ob = out + static_cast<size_t>(b) * N * D + h * kDh;
+  float* ob = out + static_cast<size_t>(b) * N * D + h * DH;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = n0 + warp * 16 + g + 8 * hh;
     if (r < N) {
 #pragma unroll
-      for (int nd = 0; nd < 8; ++nd)
+      for (int nd = 0; nd < DH / 8; ++nd)
         store2(ob + static_cast<size_t>(r) * D + nd * 8 + 2 * t,
                __fmul_rn(__int2float_rn(o[nd][2 * hh]), out_scale) / row_sum[hh],
                __fmul_rn(__int2float_rn(o[nd][2 * hh + 1]), out_scale) / row_sum[hh]);
@@ -487,7 +493,7 @@ Buffers carve(Carve& ws, int B, int N, int M, int D, int H, int quant_attention)
     p.absmax = ws.take<unsigned>(3 * static_cast<size_t>(B));
     p.q8 = ws.take<int8_t>(rq * D);
     p.k8 = ws.take<int8_t>(rk * D);
-    p.vt8 = ws.take<int8_t>(static_cast<size_t>(B) * H * kDh * mp);
+    p.vt8 = ws.take<int8_t>(static_cast<size_t>(B) * mp * D);  // [B, H, dh, Mp]
   } else {
     p.qb = ws.take<bf16>(rq * D);
     p.kb = ws.take<bf16>(rk * D);
@@ -540,13 +546,15 @@ int layer(int B, int N, int M, int D, int H, int quant_attention, int use_offset
       absmax = p.absmax;
     }
     quant_tensor_kernel<<<dim3(32, B), 256, 0, s>>>(p.kf, per_k, absmax, site(5), p.k8);
-    quant_v_transposed_kernel<<<dim3(mp / 64, H, B), 256, 0, s>>>(
-        p.vf, M, mp, D, absmax ? absmax + B : nullptr, site(6), p.vt8);
     quant_tensor_kernel<<<dim3(32, B), 256, 0, s>>>(p.qf, per_q, absmax ? absmax + 2 * B : nullptr, site(7), p.q8);
-    if ((err = cudaGetLastError())) return err;
-    attention_s8<<<dim3((N + kAq - 1) / kAq, H, B), kAttnThreads, 0, s>>>(
-        p.q8, p.k8, p.vt8, mask, absmax, act, p.attn, B, N, M, mp, D);
-    if ((err = cudaGetLastError())) return err;
+    if ((err = with_head_width(D / H, [&](auto width) -> cudaError_t {
+          constexpr int DH = decltype(width)::value;
+          quant_v_transposed_kernel<DH><<<dim3(mp / 64, H, B), 256, 0, s>>>(
+              p.vf, M, mp, D, absmax ? absmax + B : nullptr, site(6), p.vt8);
+          attention_s8<DH><<<dim3((N + kAq - 1) / kAq, H, B), kAttnThreads, 0, s>>>(
+              p.q8, p.k8, p.vt8, mask, absmax, act, p.attn, B, N, M, mp, D);
+          return cudaGetLastError();
+        }))) return err;
   } else {
     if ((err = gemm8<kOutBf16, TX>({p.kv8, D, p.skv, wk, sk, bk, nk, D, D, p.kb, D}, s))) return err;
     if ((err = gemm8<kOutBf16, TX>({p.kv8, D, p.skv, wv, sv, bv, nk, D, D, p.vb, D}, s))) return err;
@@ -576,7 +584,7 @@ extern "C" size_t og_gnn_layer_int8_workspace(int x_is_bf16, int B, int N, int M
 // h1) or, with quant_attention, [8] (+ k, v, q of the attention). weights (s8,
 // [out, in]): wq, wk, wv, wo [D, D], w1 [2D, 2D], w2 [D, 2D]. f32 vectors: sq,
 // bq, sk, bk, sv, bv, so, bo [D], s1, b1, a1, c1 [2D], s2, b2 [D]. mask: [B, M]
-// uint8 or null. D = 64 * H.
+// uint8 or null. D = dh * H with dh 32 or 64.
 // Returns the CUDA error code of the launches (0 on success).
 extern "C" int og_gnn_layer_int8(int x_is_bf16, int B, int N, int M, int D, int H,
                                  int quant_attention, int use_offset, const void* xq,
@@ -584,7 +592,7 @@ extern "C" int og_gnn_layer_int8(int x_is_bf16, int B, int N, int M, int D, int 
                                  const void* const* weights, const void* const* vectors,
                                  void* workspace, void* out, void* stream) {
   if (B == 0 || N == 0) return cudaSuccess;
-  if (D != H * kDh || M <= 0) return cudaErrorInvalidValue;
+  if (!head_width_ok(D, H) || M <= 0) return cudaErrorInvalidValue;
   const float* const* f = reinterpret_cast<const float* const*>(vectors);
   const float* act = static_cast<const float*>(act_scales);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -28,21 +28,25 @@
 // * recompute q and k+v with the forward's GEMMs; dattn = g Wo, dx_q and
 //   dx_kv take the weights as stored ([out, in]) through the GEMM's KN mode;
 // * attention backward in two passes (attention_backward.cuh). Pass A takes
-//   one 64-query block per CTA (and head): a first sweep over the key tiles
-//   sums rowsum(dP o P), a second recomputes P and dP, forms dS and
-//   accumulates dQ in registers. Pass B takes one 64-key block per CTA: it
-//   sweeps the query tiles with the saved LSE and pass A's row sums and
-//   accumulates dK and dV in registers. S and dP are recomputed in each pass
-//   (9 N x M x dh products per head against the TPU kernel's 5); that keeps
-//   every sum inside one CTA;
+//   one 64-query block per CTA (and head): in f32 it takes rowsum(dP o P)
+//   from the saved attn as rowsum(dattn o attn); in bf16, where attn is
+//   rounded, a first sweep over the key tiles sums it. Then it recomputes P
+//   and dP, forms dS and accumulates dQ in registers. Pass B takes one 64-key
+//   block per CTA: it sweeps the query tiles with the saved LSE and pass A's
+//   row sums and accumulates dK and dV in registers. S and dP are recomputed
+//   in each pass (7 N x M x dh products per head in f32, 9 in bf16, against
+//   the TPU kernel's 5); that keeps every sum inside one CTA. In an element
+//   with every key masked the TPU kernel's f32 LSE sits at -1e9 and has lost
+//   log M, so it rebuilds P = 1 on every key: the passes take that element's
+//   P as 1 (`dead_p_one`);
 // * dx_q = dQ Wq and dx_kv = [dK | dV] [Wk; Wv], the stacked weight read
 //   from its two parts;
 // * the weight gradients are one batched split-K GEMM (X^T Y over the B*N or
 //   B*M rows) into per-split f32 partials, summed in a fixed order by a second
 //   kernel; the bias gradients are column sums done the same way.
-// bf16 uses mma.sync with cp.async double buffering. f32 uses FMA: two
-// threads per query (pass A) or key (pass B) row, each owning half of the
-// head dims, with the accumulators in registers.
+// bf16 uses mma.sync with cp.async double buffering. In f32 the attention
+// passes run their products in 3xTF32 on the tensor cores; the dense GEMMs
+// are FMA tiles.
 
 #include "attention_backward.cuh"
 #include "gemm.cuh"
@@ -262,7 +266,7 @@ Buffers<T> carve(Carve& ws, int B, int N, int M, int D, int H, const Plan& pl) {
 
 template <typename T>
 int message_backward(int B, int N, int M, int D, int H, const void* xq_, const void* xkv_,
-                     const void* mask_, const void* g_, const void* attn_, const float* lse,
+                     const void* mask_, const void* dead, const void* g_, const void* attn_, const float* lse,
                      const void* const* w, const float* const* f, void* const* o, void* ws_,
                      cudaStream_t s) {
   const T* xq = static_cast<const T*>(xq_);
@@ -290,17 +294,18 @@ int message_backward(int B, int N, int M, int D, int H, const void* xq_, const v
 
   // attention backward: pass A (row sums, dQ), then pass B (dK, dV)
   // (the compute-type dK and dV are the column halves of dkvc)
-  const HeadLayout lq = column_heads(N, D), lkv = column_heads(M, 2 * D), lk32 = column_heads(M, D);
+  const int dh = D / H;
+  const HeadLayout lq = column_heads(N, D, dh), lkv = column_heads(M, 2 * D, dh), lk32 = column_heads(M, D, dh);
   AttnBwdArgs<T> ab;
-  ab.q = bf.q; ab.g = bf.dA; ab.k = bf.kv; ab.v = bf.kv + D; ab.out = nullptr;
+  ab.q = bf.q; ab.g = bf.dA; ab.k = bf.kv; ab.v = bf.kv + D; ab.out = attn;
   ab.lq = lq; ab.lg = lq; ab.lk = lkv; ab.lv = lkv; ab.lo = lq;
-  ab.mask = mask; ab.dead = nullptr; ab.lse = lse; ab.di = bf.di;
-  ab.g_lse = nullptr; ab.zero_dead_ds = 0;
+  ab.mask = mask; ab.dead = static_cast<const uint8_t*>(dead); ab.lse = lse; ab.di = bf.di;
+  ab.g_lse = nullptr; ab.zero_dead_ds = 0; ab.dead_p_one = 1;
   ab.N = N; ab.M = M;
   ab.dq = bf.dqc; ab.dq32 = bf.dq32; ab.ldq = lq;
   ab.dk = bf.dkvc; ab.dv = bf.dkvc + D; ab.ldkv = lkv;
   ab.dk32 = bf.dk32; ab.dv32 = bf.dv32; ab.ldkv32 = lk32;
-  if ((err = attention_backward_passes<T, true>(ab, B, H, s))) return err;
+  if ((err = attention_backward_passes<T, sizeof(T) == 2>(ab, B, H, dh, s))) return err;
 
   // dx_q = T(dQ) Wq, dx_kv = [T(dK) | T(dV)] [Wk; Wv]
   if ((err = gemm<T, kBias, true>({bf.dqc, D, wq, nullptr, nq, D, D, dxq, D, nullptr, 0, nullptr, nullptr, 0}, s))) return err;
@@ -351,21 +356,23 @@ extern "C" size_t og_message_backward_workspace(int is_bf16, int B, int N, int M
 
 // The backward of og_message_forward. is_bf16 selects the compute type T of
 // x_q, x_kv, g (the cotangent of msg), attn and the weights; lse f32 [B, H, N].
+// mask: [B, M] uint8 or null; dead: [B] uint8 or null, 1 where every key of
+// the element is masked.
 // weights (T): wq, wk, wv, wo (torch layout [out, in], [D, D]); f32 biases
 // bq, bk, bv [D].
 // outputs: dx_q (T, [B, N, D]), dx_kv (T, [B, M, D]), then f32 dWq, dWk, dWv,
-// dWo ([D, D], torch layout) and dbq, dbk, dbv, dbo ([D]). D = 64 * H.
+// dWo ([D, D], torch layout) and dbq, dbk, dbv, dbo ([D]). D = dh * H with dh 32 or 64.
 // Returns the CUDA error code of the launches (0 on success).
 extern "C" int og_message_backward(int is_bf16, int B, int N, int M, int D, int H,
-                                   const void* xq, const void* xkv, const void* mask,
+                                   const void* xq, const void* xkv, const void* mask, const void* dead,
                                    const void* g, const void* attn, const void* lse,
                                    const void* const* weights, const void* const* biases,
                                    void* const* outputs, void* workspace, void* stream) {
-  if (D != H * kDh || M <= 0 || N <= 0 || B <= 0) return cudaErrorInvalidValue;
+  if (!head_width_ok(D, H) || M <= 0 || N <= 0 || B <= 0) return cudaErrorInvalidValue;
   const float* const* f = reinterpret_cast<const float* const*>(biases);
   const float* l = static_cast<const float*>(lse);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return message_backward<bf16>(B, N, M, D, H, xq, xkv, mask, g, attn, l, weights, f, outputs, workspace, s);
-  return message_backward<float>(B, N, M, D, H, xq, xkv, mask, g, attn, l, weights, f, outputs, workspace, s);
+    return message_backward<bf16>(B, N, M, D, H, xq, xkv, mask, dead, g, attn, l, weights, f, outputs, workspace, s);
+  return message_backward<float>(B, N, M, D, H, xq, xkv, mask, dead, g, attn, l, weights, f, outputs, workspace, s);
 }

@@ -3,7 +3,7 @@
 // Replaces the Pallas TPU kernel openglue_tpu/ops/pallas/gnn_layer_kernel.py::
 // _message_kernel (with save_stats), reached through _message_forward and
 // fused_attention_message. For x_q [B, N, D] and x_kv [B, M, D] with H heads
-// of dh = 64 it computes, in the compute type T with f32 accumulation,
+// of dh = 32 or 64 it computes, in the compute type T with f32 accumulation,
 //   q, k, v = T(x W + b)
 //   logits  = (q_h . k_h) * dh^-0.5 + (mask ? 0 : -1e9)        (f32)
 //   attn_h  = T((T(exp(logits - max)) . v_h) / sum exp(logits - max))
@@ -20,8 +20,9 @@
 // the same device code: the k+v GEMM over the stacked [wk; wv] and the q GEMM
 // write to global memory (they stay in L2), the flash-style attention kernel
 // writes attn and the per-row LSE, and the out projection is the tiled GEMM
-// with a bias epilogue. mma.sync with cp.async double buffering in bf16, FMA
-// tiles in f32; wgmma and TMA are later work.
+// with a bias epilogue. mma.sync with cp.async double buffering in bf16; in
+// f32 FMA GEMM tiles and the attention in 3xTF32; wgmma and TMA are later
+// work.
 
 #include "attention.cuh"
 #include "gemm.cuh"
@@ -68,7 +69,7 @@ extern "C" size_t og_message_forward_workspace(int is_bf16, int B, int N, int M,
 // One attention half. is_bf16 selects the compute type T of x and the weights.
 // weights (T, torch layout [out, in]): wq, wk, wv, wo [D, D]; f32 biases
 // bq, bk, bv, bo [D]. mask: [B, M] uint8 or null. Outputs: msg, attn (T,
-// [B, N, D]) and lse (f32, [B, H, N]). D = 64 * H.
+// [B, N, D]) and lse (f32, [B, H, N]). D = dh * H with dh 32 or 64.
 // Returns the CUDA error code of the launches (0 on success).
 extern "C" int og_message_forward(int is_bf16, int B, int N, int M, int D, int H,
                                   const void* xq, const void* xkv, const void* mask,
@@ -76,7 +77,7 @@ extern "C" int og_message_forward(int is_bf16, int B, int N, int M, int D, int H
                                   void* workspace, void* msg, void* attn, void* lse,
                                   void* stream) {
   if (B == 0 || N == 0) return cudaSuccess;
-  if (D != H * kDh || M <= 0) return cudaErrorInvalidValue;
+  if (!head_width_ok(D, H) || M <= 0) return cudaErrorInvalidValue;
   const float* const* f = reinterpret_cast<const float* const*>(biases);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);

@@ -1,5 +1,6 @@
 // Device primitives shared by the layer and message kernels: type conversion,
-// ldmatrix, mma.sync m16n8k16 (bf16 in, f32 accumulate) and cp.async.
+// ldmatrix, mma.sync m16n8k16 (bf16 in, f32 accumulate), mma.sync m16n8k8 in
+// TF32 with the 3xTF32 split, cp.async, and the head widths the kernels take.
 
 #pragma once
 
@@ -7,13 +8,40 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kDh = 64;  // head width
-constexpr float kScale = 0.125f;  // kDh^-0.5
 constexpr float kMasked = -1e9f;
+
+// The head widths the attention kernels are instantiated for, with the
+// logit scale dh^-1/2 and the FAVOR data norm dh^-1/4 of each (f32 of the
+// exact value).
+template <int DH> struct Head;
+template <> struct Head<32> {
+  static constexpr float scale = 0.17677669529663687f;
+  static constexpr float data_norm = 0.42044820762685725f;
+};
+template <> struct Head<64> {
+  static constexpr float scale = 0.125f;
+  static constexpr float data_norm = 0.35355339059327373f;
+};
+
+// D = H * dh with dh an instantiated head width
+inline bool head_width_ok(int D, int H) { return H > 0 && D % H == 0 && (D / H == 32 || D / H == 64); }
+
+// f(std::integral_constant<int, dh>{}) for an instantiated head width, else
+// cudaErrorInvalidValue
+template <typename F>
+cudaError_t with_head_width(int dh, F&& f) {
+  switch (dh) {
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+  }
+  return cudaErrorInvalidValue;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -62,6 +90,34 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&lo)[4], c
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
+// TF32 of x, rounded to nearest (ties away), in a 32-bit register. Volatile,
+// so that a split stays where it is written among the volatile loads and
+// products of tf32_tiles.cuh instead of being hoisted ahead of them.
+__device__ __forceinline__ uint32_t tf32_of(float x) {
+  uint32_t r;
+  asm volatile("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// x = hi + lo + O(2^-22 |x|): the 3xTF32 split of one f32 operand
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_of(x);
+  lo = tf32_of(x - __uint_as_float(hi));
+}
+template <int N>
+__device__ __forceinline__ void split_tf32(const float (&x)[N], uint32_t (&hi)[N], uint32_t (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_tf32(x[i], hi[i], lo[i]);
+}
+
+// d += a (16x8, row) * b (8x8, col), tf32 in, f32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // 16-byte asynchronous copy global -> shared; a false predicate zero-fills
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
@@ -91,16 +147,16 @@ __device__ __forceinline__ float mask_add(const uint8_t* mask, int b, int M, int
   return (mask != nullptr && mask[static_cast<size_t>(b) * M + key] == 0) ? kMasked : 0.f;
 }
 
-// Where a [B, H, L, 64] attention operand lies: element (b, h, r, c) is at
+// Where a [B, H, L, dh] attention operand lies: element (b, h, r, c) is at
 // base + b * batch + h * head + r * row + c, counted in elements. The kernels
 // load 16 bytes at a time, so every stride and the base are multiples of 16
 // bytes.
 struct HeadLayout {
   long long batch, head, row;
 };
-// head h in columns [h * 64, h * 64 + 64) of a [B, L, ld] buffer
-inline HeadLayout column_heads(int L, int ld) {
-  return {static_cast<long long>(L) * ld, kDh, ld};
+// head h in columns [h * dh, h * dh + dh) of a [B, L, ld] buffer
+inline HeadLayout column_heads(int L, int ld, int dh) {
+  return {static_cast<long long>(L) * ld, dh, ld};
 }
 
 // A bump allocator over one workspace; every block 256-byte aligned. With a

@@ -4,7 +4,7 @@
 // Replaces the Pallas TPU kernel openglue_tpu/ops/pallas/gnn_layer_kernel.py::
 // _train_half_kernel (with save_stats), reached through _train_half_forward
 // and fused_train_layer_half. For x_q [B, N, D] and x_kv [B, M, D] with H
-// heads of dh = 64 it computes, in the compute type T with f32 accumulation,
+// heads of dh = 32 or 64 it computes, in the compute type T with f32 accumulation,
 //   q, k, v = T(x W + b)
 //   logits  = (q_h . k_h) * dh^-0.5 + (mask ? 0 : -1e9)        (f32)
 //   attn_h  = T((T(exp(logits - max)) . v_h) / sum exp(logits - max))
@@ -84,14 +84,14 @@ extern "C" size_t og_train_half_workspace(int is_bf16, int B, int N, int M, int 
 // One layer half. is_bf16 selects the compute type T of x and the weights.
 // weights (T, torch layout [out, in]): wq, wk, wv, wo [D, D], w1 [2D, 2D]; f32
 // biases bq, bk, bv, bo [D], b1 [2D]. mask: [B, M] uint8 or null. Outputs: z
-// (T, [B, N, 2D]), attn (T, [B, N, D]) and lse (f32, [B, H, N]). D = 64 * H.
+// (T, [B, N, 2D]), attn (T, [B, N, D]) and lse (f32, [B, H, N]). D = dh * H with dh 32 or 64.
 // Returns the CUDA error code of the launches (0 on success).
 extern "C" int og_train_half(int is_bf16, int B, int N, int M, int D, int H, int use_offset,
                              const void* xq, const void* xkv, const void* mask,
                              const void* const* weights, const void* const* biases,
                              void* workspace, void* z, void* attn, void* lse, void* stream) {
   if (B == 0 || N == 0) return cudaSuccess;
-  if (D != H * kDh || M <= 0) return cudaErrorInvalidValue;
+  if (!head_width_ok(D, H) || M <= 0) return cudaErrorInvalidValue;
   const float* const* f = reinterpret_cast<const float* const*>(biases);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);

@@ -31,6 +31,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# the head widths the attention kernels are instantiated for (a template
+# parameter of every kernel that attends: K1, K4-K11)
+HEAD_WIDTHS = (32, 64)
+
 SOURCES = (
     "gnn_layer", "sinkhorn", "sinkhorn_adjoint", "message_forward", "message_backward",
     "gnn_layer_features", "gnn_layer_int8", "attention", "attention_backward", "train_half",
@@ -159,3 +163,20 @@ def stream_handle(device: torch.device) -> int:
 def require(cond: bool, message: str) -> None:
     if not cond:
         raise ValueError(message)
+
+
+def require_head_width(head_dim: int) -> None:
+    """Raise unless the kernels are instantiated for heads of width
+    ``head_dim``, naming the widths they take."""
+    require(
+        head_dim in HEAD_WIDTHS,
+        f"the kernels take heads of width {' or '.join(map(str, HEAD_WIDTHS))}, got head_dim {head_dim}",
+    )
+
+
+def require_heads(dim: int, num_heads: int) -> int:
+    """The head width of a D-wide model with ``num_heads`` heads, or raise
+    unless the kernels take it."""
+    require(num_heads >= 1 and dim % num_heads == 0, f"D={dim} does not split into {num_heads} heads")
+    require_head_width(dim // num_heads)
+    return dim // num_heads

@@ -36,10 +36,11 @@ A key set that is masked entirely gives the uniform average over its M keys,
 forward and backward (the -1e9 absorbs every logit in f32). The TPU forward
 averages over its 128-padded key axis there; the port does not pad.
 
-The CUDA kernels take heads of width 64 and read every operand through its
-strides, so the ``[B, L, D]`` projections of the multi-head attention, seen as
-``[B, H, L, 64]`` through a transpose, are read where they lie. The kernel
-forward returns ``out`` as such a view of a ``[B, N, H * 64]`` buffer, so that
+The CUDA kernels take heads of width 32 or 64 (``kernels.HEAD_WIDTHS``) and
+read every operand through its strides, so the ``[B, L, D]`` projections of
+the multi-head attention, seen as ``[B, H, L, dh]`` through a transpose, are
+read where they lie. The kernel forward returns ``out`` as such a view of a
+``[B, N, H * dh]`` buffer, so that
 merging the heads is free. A layout the kernels cannot take raises; nothing
 is copied and nothing falls back. There is no shape gate: any N and M run.
 """
@@ -54,7 +55,6 @@ import torch
 from openglue_tpu_torch.ops import kernels
 
 NEG_INF = -1e9
-HEAD_DIM = 64  # the head width the CUDA kernels take
 
 counter = kernels.LaunchCounter()
 backward_counter = kernels.LaunchCounter()
@@ -117,7 +117,7 @@ def attention_backward_plain(
 
 
 def _head_strides(t: torch.Tensor, name: str):
-    """(batch, head, row) strides of a [B, H, L, 64] view the kernels can
+    """(batch, head, row) strides of a [B, H, L, dh] view the kernels can
     read: the last axis contiguous, every other stride and the address a
     multiple of 16 bytes."""
     unit = 16 // t.element_size()
@@ -136,9 +136,7 @@ def _check_inputs(q, k, v, kv_mask):
     kernels.require(q.dim() == 4 and k.dim() == 4 and v.dim() == 4, "q, k, v must be [B, H, L, dh]")
     batch, heads, n, dh = q.shape
     m = k.shape[2]
-    kernels.require(
-        dh == HEAD_DIM, f"the kernel takes heads of width {HEAD_DIM}, got head_dim {dh}"
-    )
+    kernels.require_head_width(dh)
     kernels.require(k.shape == (batch, heads, m, dh) and v.shape == k.shape, "k, v must be [B, H, M, dh]")
     kernels.require(n >= 1 and m >= 1, "empty query or key set")
     kernels.require(q.dtype in (torch.float32, torch.bfloat16), f"operand type {q.dtype}")
@@ -150,9 +148,9 @@ def _check_inputs(q, k, v, kv_mask):
 
 
 def _split_view(buffer: torch.Tensor, heads: int) -> torch.Tensor:
-    """[B, L, H * 64] -> its [B, H, L, 64] view."""
-    batch, length, _ = buffer.shape
-    return buffer.view(batch, length, heads, HEAD_DIM).transpose(1, 2)
+    """[B, L, H * dh] -> its [B, H, L, dh] view."""
+    batch, length, width = buffer.shape
+    return buffer.view(batch, length, heads, width // heads).transpose(1, 2)
 
 
 def attention_forward(
@@ -183,20 +181,20 @@ def attention_lse_forward(
 
 def _launch_forward(q, k, v, kv_mask, want_lse):
     _check_inputs(q, k, v, kv_mask)
-    batch, heads, n, _ = q.shape
+    batch, heads, n, dh = q.shape
     m = k.shape[2]
     device = q.device
-    out = _split_view(torch.empty(batch, n, heads * HEAD_DIM, dtype=q.dtype, device=device), heads)
+    out = _split_view(torch.empty(batch, n, heads * dh, dtype=q.dtype, device=device), heads)
     lse = torch.empty(batch, heads, n, dtype=torch.float32, device=device) if want_lse else None
     strides = [*_head_strides(q, "q"), *_head_strides(k, "k"), *_head_strides(v, "v"),
                *_head_strides(out, "out")]
     mask = None if kv_mask is None else kv_mask.contiguous().view(torch.uint8)
     fn = kernels.entry_point(
         "attention", "og_attention",
-        [ctypes.c_int] * 5 + [_VOID_P] * 6 + [ctypes.POINTER(ctypes.c_longlong), _VOID_P],
+        [ctypes.c_int] * 6 + [_VOID_P] * 6 + [ctypes.POINTER(ctypes.c_longlong), _VOID_P],
     )
     status = fn(
-        int(q.dtype == torch.bfloat16), batch, heads, n, m, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        int(q.dtype == torch.bfloat16), batch, heads, n, m, dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), (ctypes.c_longlong * 12)(*strides),
         kernels.stream_handle(device),
@@ -215,7 +213,7 @@ def attention_backward(
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, kv_mask, g, out, lse, g_lse)
     _check_inputs(q, k, v, kv_mask)
-    batch, heads, n, _ = q.shape
+    batch, heads, n, dh = q.shape
     m = k.shape[2]
     device = q.device
     kernels.require(g.shape == q.shape and out.shape == q.shape, "g and out must have q's shape")
@@ -233,9 +231,9 @@ def attention_backward(
             g_lse.shape == lse.shape and g_lse.device == device, "g_lse must be [B, H, N]"
         )
         g_lse = g_lse.float().contiguous()
-    dq = _split_view(torch.empty(batch, n, heads * HEAD_DIM, dtype=q.dtype, device=device), heads)
-    dk = _split_view(torch.empty(batch, m, heads * HEAD_DIM, dtype=q.dtype, device=device), heads)
-    dv = _split_view(torch.empty(batch, m, heads * HEAD_DIM, dtype=q.dtype, device=device), heads)
+    dq = _split_view(torch.empty(batch, n, heads * dh, dtype=q.dtype, device=device), heads)
+    dk = _split_view(torch.empty(batch, m, heads * dh, dtype=q.dtype, device=device), heads)
+    dv = _split_view(torch.empty(batch, m, heads * dh, dtype=q.dtype, device=device), heads)
     row_sums = torch.empty(batch, heads, n, dtype=torch.float32, device=device)
     strides = [
         *_head_strides(q, "q"), *_head_strides(k, "k"), *_head_strides(v, "v"), *_head_strides(g, "g"),
@@ -247,11 +245,11 @@ def attention_backward(
         dead = (~kv_mask.any(dim=1)).view(torch.uint8)  # elements with no valid key
     fn = kernels.entry_point(
         "attention_backward", "og_attention_backward",
-        [ctypes.c_int] * 5 + [ctypes.POINTER(_VOID_P)] + [_VOID_P] * 5
+        [ctypes.c_int] * 6 + [ctypes.POINTER(_VOID_P)] + [_VOID_P] * 5
         + [ctypes.POINTER(_VOID_P), ctypes.POINTER(ctypes.c_longlong), _VOID_P],
     )
     status = fn(
-        int(q.dtype == torch.bfloat16), batch, heads, n, m,
+        int(q.dtype == torch.bfloat16), batch, heads, n, m, dh,
         (_VOID_P * 5)(*(t.data_ptr() for t in (q, k, v, g, out))),
         None if mask is None else mask.data_ptr(), None if dead is None else dead.data_ptr(),
         lse.data_ptr(), None if g_lse is None else g_lse.data_ptr(), row_sums.data_ptr(),
@@ -290,7 +288,7 @@ def masked_softmax_attention(
 ) -> torch.Tensor:
     """Softmax attention, differentiable in query, key and value: query
     [B, H, N, dh], key/value [B, H, M, dh], kv_mask [B, M] bool or None ->
-    out [B, H, N, dh] in query's type. The kernels for CUDA tensors (dh = 64),
+    out [B, H, N, dh] in query's type. The kernels for CUDA tensors (dh = 32 or 64),
     the plain versions for CPU tensors."""
     return _MaskedSoftmaxAttention.apply(query, key, value, kv_mask)
 
@@ -324,5 +322,5 @@ def masked_softmax_attention_with_lse(
     differentiable in query, key and value through both outputs: query
     [B, H, N, dh], key/value [B, H, M, dh], kv_mask [B, M] bool or None ->
     (out [B, H, N, dh] in query's type, lse [B, H, N] f32). The kernels for
-    CUDA tensors (dh = 64), the plain versions for CPU tensors."""
+    CUDA tensors (dh = 32 or 64), the plain versions for CPU tensors."""
     return _MaskedSoftmaxAttentionWithLse.apply(query, key, value, kv_mask)

@@ -265,7 +265,7 @@ def fused_attention_propagation_int8(
     )
     kernels.require(attn_dtype == torch.bfloat16, "the kernel's attention runs in bf16 or int8")
     kernels.require(x_kv.shape[0] == batch and x_kv.shape[2] == dim, "x_kv shape")
-    kernels.require(dim == 64 * num_heads, "the kernel takes heads of width 64")
+    kernels.require_heads(dim, num_heads)
     kernels.require(m >= 1, "empty key set")
     kernels.require(x_q.is_contiguous() and x_kv.is_contiguous(), "x_q and x_kv must be contiguous")
     mats = (w.wq, w.wk, w.wv, w.wo, w.w1, w.w2)

@@ -234,7 +234,7 @@ def fused_attention_propagation(
         f"the kernel takes x in its compute type {dtype}, got {x_q.dtype}/{x_kv.dtype}",
     )
     kernels.require(x_kv.shape[0] == batch and x_kv.shape[2] == dim, "x_kv shape")
-    kernels.require(dim == 64 * num_heads, "the kernel takes heads of width 64")
+    head_dim = kernels.require_heads(dim, num_heads)
     kernels.require(m >= 1, "empty key set")
     kernels.require(x_q.is_contiguous() and x_kv.is_contiguous(), "x_q and x_kv must be contiguous")
     mats = (w.wq, w.wk, w.wv, w.wo, w.w1, w.w2)
@@ -274,12 +274,12 @@ def fused_attention_propagation(
         kernels.check(status, "og_gnn_layer")
         counter.add()
         return out
-    num_features = 64
+    num_features = head_dim
     proj = None
     if favor:
         kernels.require(
-            projection.dim() == 2 and projection.shape[1] == 64 and projection.device == device,
-            "projection must be [F, 64] on the inputs' device",
+            projection.dim() == 2 and projection.shape[1] == head_dim and projection.device == device,
+            f"projection must be [F, {head_dim}] on the inputs' device",
         )
         num_features = projection.shape[0]
         kernels.require(
@@ -453,7 +453,7 @@ def _check_message_inputs(x_q, x_kv, kv_mask, w: MessageWeights, num_heads, dtyp
         f"the kernel takes x in its compute type {dtype}, got {x_q.dtype}/{x_kv.dtype}",
     )
     kernels.require(x_kv.shape[0] == batch and x_kv.shape[2] == dim, "x_kv shape")
-    kernels.require(dim == 64 * num_heads, "the kernel takes heads of width 64")
+    kernels.require_heads(dim, num_heads)
     kernels.require(n >= 1 and m >= 1, "empty query or key set")
     for t in w:
         kernels.require(t.device == device, "weights must be on the inputs' device")
@@ -555,13 +555,14 @@ def message_backward(
     )(is_bf16, batch, n, m, dim, num_heads)
     workspace = torch.empty(size, dtype=torch.uint8, device=device)
     mask, mask_ptr = _mask_ptr(kv_mask)
+    dead = None if kv_mask is None else (~kv_mask.any(dim=1)).view(torch.uint8)  # no valid key
     fn = kernels.entry_point(
         "message_backward", "og_message_backward",
-        [ctypes.c_int] * 6 + [_VOID_P] * 6 + [ctypes.POINTER(_VOID_P)] * 3 + [_VOID_P] * 2,
+        [ctypes.c_int] * 6 + [_VOID_P] * 7 + [ctypes.POINTER(_VOID_P)] * 3 + [_VOID_P] * 2,
     )
     status = fn(
         is_bf16, batch, n, m, dim, num_heads, x_q.data_ptr(), x_kv.data_ptr(), mask_ptr,
-        g.data_ptr(), attn.data_ptr(), lse.data_ptr(),
+        None if dead is None else dead.data_ptr(), g.data_ptr(), attn.data_ptr(), lse.data_ptr(),
         (_VOID_P * 4)(*(t.data_ptr() for t in mats)), (_VOID_P * 3)(*(t.data_ptr() for t in vecs)),
         (_VOID_P * 10)(*(t.data_ptr() for t in outputs)),
         workspace.data_ptr(), kernels.stream_handle(device),

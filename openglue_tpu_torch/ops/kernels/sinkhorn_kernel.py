@@ -11,9 +11,14 @@ templated on K's storage type, replaces the three TPU kernels
     u = log_a - rmax - log(max(K v̂, 1e-30))
 
 with a = exp(log_a), b = exp(log_b), each iteration one pass over K. The
-padded cost matrix, the marginals, the final column-stabilized
-half-iteration and the log_P assembly stay in torch, as they stay in XLA in
-the JAX package.
+kernel holds K's rows in registers and its column sums in shared memory, so
+it takes at most 1536 columns with f32 K and 4096 with bf16 K
+(``FUSED_MAX_COLS``); beyond that a streaming variant of the same kernel
+source (counted by ``stream_counter``), the counterpart of
+``_blocked_scale_kernel``, reads K from device memory in every
+half-iteration. The padded cost matrix, the marginals, the final
+column-stabilized half-iteration and the log_P assembly stay in torch, as
+they stay in XLA in the JAX package.
 
 The backward is the port of ``_sinkhorn_vjp_kernel_path`` (:670). A second
 kernel (``ops/csrc/sinkhorn_adjoint.cu``, replacing
@@ -21,7 +26,13 @@ kernel (``ops/csrc/sinkhorn_adjoint.cu``, replacing
 the adjoint recursion, emitting rank-2T factors P ``[B, 2T, R]`` and Q
 ``[B, 2T, C]``; the torch glue around it zeroes the cotangent on masked
 entries and forms ``dM = g - exp(M - rmax) o (P^T Q)``. Masked entries get
-no gradient.
+no gradient. The adjoint kernel holds a row of K in registers, so it takes at
+most ``ADJOINT_MAX_COLS`` columns; beyond that the backward is the VJP of the
+plain log-domain loop (``ops/sinkhorn.py::log_optimal_transport``) through
+autograd, as the JAX package sends shapes its adjoint kernel cannot hold to
+the XLA VJP of the same loop (``sinkhorn_kernel.py:790-801``). The route is
+chosen from the shape (``backward_route``) before anything runs, and
+``autograd_counter`` counts the backwards that took the autograd route.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from openglue_tpu_torch.ops import kernels
+from openglue_tpu_torch.ops import sinkhorn as sinkhorn_ref
 
 NEG_INF = -1e9
 TINY = 1e-30
@@ -44,7 +56,13 @@ COL_ALIGN = 8  # column pitch of M_pad and K: 16-byte aligned rows in f32 and bf
 _VMEM_BUDGET_BYTES = 13 * 1024 * 1024
 
 counter = kernels.LaunchCounter()
+stream_counter = kernels.LaunchCounter()
 adjoint_counter = kernels.LaunchCounter()
+autograd_counter = kernels.LaunchCounter()  # backwards on the autograd route: no kernel
+
+# the column limits of the fused forward kernel, by K's storage type: a
+# warp's row of K in registers, the column sums in shared memory
+FUSED_MAX_COLS = {torch.float32: 1536, torch.bfloat16: 4096}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -152,7 +170,8 @@ def sinkhorn_scale(
     k_dtype: torch.dtype,
 ) -> torch.Tensor:
     """u [B, R] of the scale-domain recursion: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor."""
+    tensor (the fused kernel up to ``FUSED_MAX_COLS[k_dtype]`` columns, the
+    streaming kernel beyond), the plain version for a CPU tensor."""
     if M_pad.device.type == "cpu":
         return sinkhorn_scale_plain(M_pad, la, lb, num_iters, k_dtype)
     batch, rows, cols = M_pad.shape
@@ -170,12 +189,27 @@ def sinkhorn_scale(
     kernels.require(cols % COL_ALIGN == 0, f"column count must be a multiple of {COL_ALIGN}")
     kernels.require(k_dtype in (torch.float32, torch.bfloat16), f"K storage {k_dtype}")
     kernels.require(num_iters >= 1, "num_iters must be >= 1")
-    max_cols = 1536 if k_dtype == torch.float32 else 4096
-    kernels.require(cols <= max_cols, f"K {k_dtype} holds at most {max_cols} columns")
     kernels.require(not torch.is_grad_enabled() or not M_pad.requires_grad,
                     "the Sinkhorn kernel is forward only")
     K = torch.empty(batch, rows, cols, dtype=k_dtype, device=M_pad.device)
     u = torch.empty(batch, rows, dtype=torch.float32, device=M_pad.device)
+    if cols > FUSED_MAX_COLS[k_dtype]:
+        size = kernels.entry_point(
+            "sinkhorn", "og_sinkhorn_scale_streaming_workspace", [ctypes.c_int] * 3, ctypes.c_size_t
+        )(batch, rows, cols)
+        workspace = torch.empty(size, dtype=torch.uint8, device=M_pad.device)
+        fn = kernels.entry_point(
+            "sinkhorn", "og_sinkhorn_scale_streaming",
+            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        )
+        status = fn(
+            int(k_dtype == torch.bfloat16), M_pad.data_ptr(), la.data_ptr(), lb.data_ptr(),
+            K.data_ptr(), u.data_ptr(), workspace.data_ptr(), batch, rows, cols, num_iters,
+            kernels.stream_handle(M_pad.device),
+        )
+        kernels.check(status, "og_sinkhorn_scale_streaming")
+        stream_counter.add()
+        return u
     fn = kernels.entry_point(
         "sinkhorn", "og_sinkhorn_scale",
         [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
@@ -367,9 +401,37 @@ def log_optimal_transport_vjp(
     return dscores, ddustbin
 
 
+def backward_route(num_cols: int) -> str:
+    """The Sinkhorn backward's route for ``num_cols`` padded columns (n + 1
+    rounded up to ``COL_ALIGN``): "kernel", the adjoint kernel, where it holds
+    the columns, else "autograd", the VJP of the plain log-domain loop."""
+    return "kernel" if num_cols <= ADJOINT_MAX_COLS else "autograd"
+
+
+def log_optimal_transport_autograd_vjp(
+    scores: torch.Tensor,
+    dustbin_score: torch.Tensor,
+    g: torch.Tensor,
+    num_iters: int,
+    reg: float,
+    mask0: Optional[torch.Tensor],
+    mask1: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d scores, d dustbin) from the cotangent g [B, m+1, n+1] of log_P: the
+    VJP of ``ops/sinkhorn.py::log_optimal_transport`` on the same inputs,
+    through autograd (the JAX package's XLA route). g is taken as it comes,
+    as that VJP takes it."""
+    with torch.enable_grad():
+        s = scores.detach().requires_grad_()
+        d = dustbin_score.detach().requires_grad_()
+        out = sinkhorn_ref.log_optimal_transport(s, d, num_iters, reg, mask0, mask1)
+        return torch.autograd.grad(out, (s, d), g.to(out.dtype))
+
+
 class _LogOptimalTransport(torch.autograd.Function):
     """Forward through the scale-domain kernel, backward through the adjoint
-    kernel; the gradient flows to the scores and the dustbin score."""
+    kernel or, beyond its columns, the autograd route (``backward_route``);
+    the gradient flows to the scores and the dustbin score."""
 
     @staticmethod
     def forward(ctx, scores, dustbin_score, num_iters, reg, mask0, mask1, k_dtype):
@@ -380,9 +442,12 @@ class _LogOptimalTransport(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         scores, dustbin_score, mask0, mask1 = ctx.saved_tensors
-        dscores, ddustbin = log_optimal_transport_vjp(
-            scores, dustbin_score, g, ctx.num_iters, ctx.reg, mask0, mask1
-        )
+        args = (scores, dustbin_score, g, ctx.num_iters, ctx.reg, mask0, mask1)
+        if backward_route(_round_up(scores.shape[2] + 1, COL_ALIGN)) == "autograd":
+            dscores, ddustbin = log_optimal_transport_autograd_vjp(*args)
+            autograd_counter.add()
+        else:
+            dscores, ddustbin = log_optimal_transport_vjp(*args)
         return dscores, ddustbin, None, None, None, None, None
 
 

@@ -19,6 +19,18 @@ import torch
 NEG_INF = -1e9
 
 
+def logsumexp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """log(sum(exp(x))) over ``dim`` as ``jax.nn.logsumexp`` computes it, with
+    the max held out of the gradient, so that the gradient is exp(x - max) /
+    sum. ``torch.logsumexp`` differentiates as exp(x - result), which fails
+    on a masked row: every entry sits near -1e9, where f32 rounds x and the
+    result to the same multiple of 64, so each of the row's C entries gets a
+    weight of 1 instead of 1/C, and 20 iterations of that overflow to NaN."""
+    m = x.detach().amax(dim=dim, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return (m + torch.log(torch.exp(x - m).sum(dim=dim, keepdim=True))).squeeze(dim)
+
+
 def log_sinkhorn(
     log_a: torch.Tensor,
     log_b: torch.Tensor,
@@ -31,8 +43,8 @@ def log_sinkhorn(
     u = torch.zeros_like(log_a)
     v = torch.zeros_like(log_b)
     for _ in range(num_iters):
-        u = log_a - torch.logsumexp(M + v[:, None, :], dim=2)
-        v = log_b - torch.logsumexp(M + u[:, :, None], dim=1)
+        u = log_a - logsumexp(M + v[:, None, :], dim=2)
+        v = log_b - logsumexp(M + u[:, :, None], dim=1)
     return M + u[:, :, None] + v[:, None, :]
 
 

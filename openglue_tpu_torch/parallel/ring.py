@@ -137,8 +137,8 @@ def sharded_log_sinkhorn(
     v = torch.zeros_like(log_b)
     dust_row = S_dust_row[:, 0, :]
     for _ in range(num_iters):
-        u_inner = log_a_inner - torch.logsumexp(S_inner + v[:, None, :], dim=2)
-        u_dust = log_a_dust - torch.logsumexp(dust_row + v, dim=1)
+        u_inner = log_a_inner - sinkhorn_ops.logsumexp(S_inner + v[:, None, :], dim=2)
+        u_dust = log_a_dust - sinkhorn_ops.logsumexp(dust_row + v, dim=1)
         part = S_inner + u_inner[:, :, None]  # [B, n_loc, C]
         dust_part = dust_row + u_dust[:, None]
         global_max = torch.maximum(all_reduce_max(part.amax(dim=1), group), dust_part).detach()

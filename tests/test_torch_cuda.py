@@ -375,17 +375,18 @@ def test_adjoint_kernel_raises_beyond_its_column_limit():
 # ----------------------------------------------------------- attention on heads
 
 
-def _attention_case(dev, dtype, batch=3, heads=2, n=300, m=257, counts=(200, 0, 257), seed=5, layout="columns"):
-    """q, g [B, H, N, 64], k, v [B, H, M, 64] and a key mask of ``counts`` (its
-    second element masks every key). ``layout``: "columns" views [B, L, H*64]
+def _attention_case(dev, dtype, batch=3, heads=2, n=300, m=257, counts=(200, 0, 257), seed=5, layout="columns",
+                    dh=64):
+    """q, g [B, H, N, dh], k, v [B, H, M, dh] and a key mask of ``counts`` (its
+    second element masks every key). ``layout``: "columns" views [B, L, H*dh]
     buffers as the multi-head attention does; "heads" is contiguous."""
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def r(length):
         if layout == "heads":
-            return torch.randn(batch, heads, length, 64, generator=gen, device=dev).to(dtype)
-        x = torch.randn(batch, length, heads * 64, generator=gen, device=dev).to(dtype)
-        return x.view(batch, length, heads, 64).transpose(1, 2)
+            return torch.randn(batch, heads, length, dh, generator=gen, device=dev).to(dtype)
+        x = torch.randn(batch, length, heads * dh, generator=gen, device=dev).to(dtype)
+        return x.view(batch, length, heads, dh).transpose(1, 2)
 
     q, k, v, g = r(n), r(m), r(m), r(n)
     mask = torch.arange(m, device=dev)[None] < torch.tensor(counts, device=dev)[:, None]
@@ -531,8 +532,9 @@ def test_ring_block_merge_matches_the_whole_key_set(dtype):
 def test_attention_kernel_refuses_what_it_does_not_take():
     dev = _cuda()
     q, k, v, g, mask = _attention_case(dev, torch.float32)
-    with pytest.raises(ValueError, match="heads of width 64, got head_dim 32"):
-        ak.attention_forward(q[..., :32], k[..., :32], v[..., :32], mask)
+    ak.attention_forward(q[..., :32], k[..., :32], v[..., :32], mask)  # heads of width 32 run
+    with pytest.raises(ValueError, match="heads of width 32 or 64, got head_dim 48"):
+        ak.attention_forward(q[..., :48], k[..., :48], v[..., :48], mask)
     t = lambda x: x.transpose(2, 3).contiguous().transpose(2, 3)  # the head axis not contiguous
     with pytest.raises(ValueError, match="last axis is contiguous"):
         ak.attention_forward(t(q), k, v, mask)
@@ -596,3 +598,194 @@ def test_fused_train_layer_half_autograd_on_card(use_offset):
     for name, a, b in zip(("dx", "dw1", "db1"), card[:3], cpu[:3]):
         _close(a, b, torch.float32, name, f32_tol=CPU_F32_TOL)
     _close_weight_grads(card[3:], cpu[3:], torch.float32, CPU_F32_TOL)
+
+
+# ----------------------------------------------------------- heads of width 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_kernels_take_heads_of_width_32(dtype):
+    """K1 and the three K6 kinds at D=128 with 4 heads (dh = 32, the SIFT
+    feature configurations), at the bars of the D=256 tests."""
+    dev = _cuda()
+    w, x_q, x_kv, mask = _layer_case(dev, dtype, counts=(200, 257), dim=128)
+    atol = lambda ref: 1e-4 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+    for kind in ("softmax", *glk.FEATURE_KINDS):
+        proj = None
+        if kind.startswith("favor"):
+            proj = sample_orthogonal_random_matrix(torch.Generator().manual_seed(7), 64, 32, device=dev)
+        before = glk.counter.count, glk.feature_counter.count
+        with torch.no_grad():
+            out = glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, True, kind, proj)
+            ref = glk.layer_plain(x_q, x_kv, mask, w, 4, True, kind, proj)
+        torch.cuda.synchronize()
+        launched = (glk.counter.count - before[0], glk.feature_counter.count - before[1])
+        assert launched == ((1, 0) if kind == "softmax" else (0, 1)), kind
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol(ref), rtol=0, msg=lambda m: f"{kind}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "int8_static_attn"])
+def test_int8_layer_kernel_takes_heads_of_width_32(mode):
+    dev = _cuda()
+    static, quant_attention = MODES[mode]
+    w, x_q, x_kv, mask = _layer_case(dev, torch.float32, counts=(200, 0), dim=128)
+    qw = gli8.quantize_propagation_weights(w)
+    scales = None
+    if static:
+        absmax = gli8.reference_activation_absmax(x_q, x_kv, mask, qw, 4, False, quant_attention)
+        scales = absmax * (1.1 / 127.0) + 1e-12
+    kwargs = dict(act_scales=scales, quant_attention=quant_attention)
+    before = gli8.counter.count
+    with torch.no_grad():
+        out = gli8.fused_attention_propagation_int8(x_q, x_kv, mask, qw, 4, **kwargs)
+        ref = gli8.layer_int8_plain(x_q, x_kv, mask, qw, 4, **kwargs)
+    torch.cuda.synchronize()
+    assert gli8.counter.count == before + 1
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()  # the D=256 test's bars
+    assert rel < (1e-3 if quant_attention else 0.015), rel
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_message_and_half_kernels_take_heads_of_width_32(dtype):
+    """K4, K5 and K8 at D=128 with 4 heads, at the bars of the D=256 tests."""
+    dev = _cuda()
+    x_q, x_kv, mask, w, g = _message_case(dev, dtype, dim=128)
+    before = glk.message_counter.count, glk.message_bwd_counter.count, glk.half_counter.count
+    out = glk.message_forward(x_q, x_kv, mask, w, 4, dtype)
+    ref = glk.message_forward_plain(x_q, x_kv, mask, w, 4, dtype)
+    grads = glk.message_backward(x_q, x_kv, mask, w, g, out[1], out[2], 4, dtype)
+    ref_grads = glk.message_backward_plain(x_q, x_kv, mask, w, g, ref[1], ref[2], 4, dtype)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    w1 = torch.randn(256, 256, generator=gen, device=dev) * 256**-0.5
+    b1 = torch.randn(256, generator=gen, device=dev) * 0.1
+    half = glk.train_half_forward(x_q, x_kv, mask, w, w1, b1, 4, True, dtype)
+    half_ref = glk.train_half_plain(x_q, x_kv, mask, w, w1, b1, 4, True, dtype)
+    torch.cuda.synchronize()
+    launched = (glk.message_counter.count - before[0], glk.message_bwd_counter.count - before[1],
+                glk.half_counter.count - before[2])
+    assert launched == (1, 1, 1)
+    for name, a, b in zip(("msg", "attn", "lse"), out, ref):
+        _close(a, b, dtype, name)
+    for name, a, b in zip(("dx_q", "dx_kv"), grads[:2], ref_grads[:2]):
+        _close(a, b, dtype, name, f32_tol=GRAD_F32_TOL)
+    _close_weight_grads(grads[2], ref_grads[2], dtype)
+    for name, a, b in zip(("z", "attn", "lse"), half, half_ref):
+        _close(a, b, dtype, "half " + name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_take_heads_of_width_32(dtype):
+    """K9, K10 (with and without the LSE's cotangent) and K11 at dh = 32, a
+    fully masked element included, at the bars of the dh = 64 tests."""
+    dev = _cuda()
+    q, k, v, g, mask = _attention_case(dev, dtype, heads=4, dh=32)
+    g_lse = torch.randn(q.shape[:3], generator=torch.Generator(device=dev).manual_seed(11), device=dev)
+    before = ak.counter.count, ak.backward_counter.count, ak.lse_counter.count
+    out, lse = ak.attention_forward(q, k, v, mask)
+    ref, ref_lse = ak.attention_forward_plain(q, k, v, mask)
+    lse_out, lse_lse = ak.attention_lse_forward(q, k, v, mask)
+    grads = ak.attention_backward(q, k, v, mask, g, out, lse)
+    ref_grads = ak.attention_backward_plain(q, k, v, mask, g)
+    grads_lse = ak.attention_backward(q, k, v, mask, g, out, lse, g_lse)
+    ref_grads_lse = ak.attention_backward_plain(q, k, v, mask, g, g_lse=g_lse)
+    torch.cuda.synchronize()
+    assert (ak.counter.count - before[0], ak.backward_counter.count - before[1],
+            ak.lse_counter.count - before[2]) == (1, 2, 1)
+    live = mask.any(dim=1)
+    _close(out, ref, dtype, "out")
+    _close(lse_out, ref, dtype, "K11 out")
+    _close(lse[live], ref_lse[live], dtype, "lse")
+    _close(lse_lse[live], ref_lse[live], dtype, "K11 lse")
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+        _close(a, b, dtype, name, f32_tol=GRAD_F32_TOL)
+    for name, a, b in zip(("dq", "dk", "dv"), grads_lse, ref_grads_lse):
+        _close(a, b, dtype, name + " with g_lse", f32_tol=GRAD_F32_TOL)
+
+
+# ----------------------------------------------------------- the Sinkhorn past the fused kernels' columns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_dtype,m,n", [(torch.bfloat16, 130, 4400), (torch.float32, 40, 1700)])
+def test_streaming_sinkhorn_kernel_matches_plain(k_dtype, m, n):
+    """Past 4096 columns with bf16 K, and past 1536 with f32 K, the forward
+    runs the streaming kernel (counted apart from the fused one)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    batch = 2
+    scores = torch.randn(batch, m, n, generator=gen, device=dev) * 3
+    mask0 = torch.rand(batch, m, generator=gen, device=dev) > 0.2
+    mask1 = torch.rand(batch, n, generator=gen, device=dev) > 0.2
+    rows, cp = m + 1, sk._round_up(n + 1, sk.COL_ALIGN)
+    assert cp > sk.FUSED_MAX_COLS[k_dtype]
+    M_pad = sk.build_padded_otp_matrix(scores, torch.tensor(1.0, device=dev), 1.0, mask0, mask1, rows, cp)
+    la, lb, _ = sk.otp_marginals(batch, m, n, mask0, mask1, dev)
+    la, lb = sk.padded_marginals(la, lb, rows, cp)
+    before = sk.counter.count, sk.stream_counter.count
+    u = sk.sinkhorn_scale(M_pad, la, lb, 20, k_dtype)
+    again = sk.sinkhorn_scale(M_pad, la, lb, 20, k_dtype)
+    ref = sk.sinkhorn_scale_plain(M_pad, la, lb, 20, k_dtype)
+    torch.cuda.synchronize()
+    assert (sk.counter.count - before[0], sk.stream_counter.count - before[1]) == (0, 2)
+    assert torch.equal(u, again)  # fixed summation order
+    live = la > -1e8
+    # the fused kernel's bar: the same f32 recursion and storage rounding
+    torch.testing.assert_close(u[live], ref[live], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_training_at_2048_keypoints_and_heads_of_width_32_matches_plain(monkeypatch):
+    """A use_pallas training step at the pretraining fixture's shape, cut to
+    two stages: B=2, N=2048, D=128 with 4 heads (dh = 32), bf16 chain, the
+    message route. It needs both kernels' repairs: K4/K5 at dh = 32, and the
+    Sinkhorn backward past the adjoint kernel's columns, which takes the
+    autograd route. Held against the same step through the plain versions."""
+    from openglue_tpu_torch.cli.common import loss_config_from, superglue_config_from
+    from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.train.state import create_train_state
+    from openglue_tpu_torch.train.step import make_train_step
+
+    dev = _cuda()
+    section = {
+        "laf_to_sideinfo_method": "none", "positional_encoding": {"hidden_layers_sizes": [32, 64, 128]},
+        "attention_gnn": {"num_stages": 2, "num_heads": 4, "attention": "softmax", "use_offset": False},
+        "dustbin_score_init": 1.0, "otp": {"num_iters": 20, "reg": 1.0}, "residual": True,
+        "use_pallas": True, "chain_dtype": "bfloat16",
+    }
+    cfg = superglue_config_from({"superglue": section}, 128, 0)
+    step = make_train_step(loss_config_from({"train": {"gt_positive_threshold": 3, "gt_negative_threshold": 3}}))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    batch = SyntheticHomographyPairs(num_keypoints=2048, descriptor_dim=128).sample(gen, 2)
+
+    def run(plain):
+        model = SuperGlue(cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        state = create_train_state(model)
+        with monkeypatch.context() as m:
+            if plain:
+                m.setattr(glk, "message_forward", glk.message_forward_plain)
+                m.setattr(glk, "message_backward", glk.message_backward_plain)
+                m.setattr(sk, "sinkhorn_scale", sk.sinkhorn_scale_plain)
+            before = (glk.message_counter.count, glk.message_bwd_counter.count, sk.counter.count,
+                      sk.adjoint_counter.count, sk.autograd_counter.count)
+            metrics = step(state, batch)
+            after = (glk.message_counter.count, glk.message_bwd_counter.count, sk.counter.count,
+                     sk.adjoint_counter.count, sk.autograd_counter.count)
+        grads = torch.cat([p.grad.double().flatten() for p in model.parameters() if p.grad is not None])
+        return metrics, grads, tuple(a - b for a, b in zip(after, before))
+
+    got, g_got, launched = run(False)
+    ref, g_ref, plain_launched = run(True)
+    torch.cuda.synchronize()
+    layers = 2 * 2 * 2
+    assert launched == (layers, layers, 1, 0, 1)  # K4, K5, K2, no K3, one autograd-route backward
+    assert plain_launched == (0, 0, 0, 0, 1)
+    # the bars of chip_smoke.py's training step against its plain step
+    assert abs(got["total_loss"].item() - ref["total_loss"].item()) <= 1e-3
+    assert abs(got["grad_norm"].item() / ref["grad_norm"].item() - 1) <= 0.01
+    cos = (g_got @ g_ref / (g_got.norm() * g_ref.norm())).item()
+    assert cos >= 0.999, cos

@@ -16,13 +16,14 @@ SINKHORN_SOURCES = {"sinkhorn", "sinkhorn_adjoint"}
 def test_every_source_has_its_headers():
     names = {name: {p.name for p in kernels.source_files(name)} for name in kernels.SOURCES}
     assert set(kernels.SOURCES) == LAYER_SOURCES | SINKHORN_SOURCES
-    assert names["gnn_layer"] == {"gnn_layer.cu", "attention.cuh", "gemm.cuh", "mma.cuh"}
-    assert names["message_backward"] == {"message_backward.cu", "attention_backward.cuh", "gemm.cuh", "mma.cuh"}
-    assert names["attention"] == {"attention.cu", "attention.cuh", "mma.cuh"}
-    assert names["attention_backward"] == {"attention_backward.cu", "attention_backward.cuh", "mma.cuh"}
-    assert names["train_half"] == {"train_half.cu", "attention.cuh", "gemm.cuh", "mma.cuh"}
+    tiles = {"tf32_tiles.cuh", "mma.cuh"}  # the f32 attention's 3xTF32 tiles
+    assert names["gnn_layer"] == {"gnn_layer.cu", "attention.cuh", "gemm.cuh", *tiles}
+    assert names["message_backward"] == {"message_backward.cu", "attention_backward.cuh", "gemm.cuh", *tiles}
+    assert names["attention"] == {"attention.cu", "attention.cuh", *tiles}
+    assert names["attention_backward"] == {"attention_backward.cu", "attention_backward.cuh", *tiles}
+    assert names["train_half"] == {"train_half.cu", "attention.cuh", "gemm.cuh", *tiles}
     assert names["gnn_layer_features"] == {"gnn_layer_features.cu", "gemm.cuh", "mma.cuh"}
-    assert names["gnn_layer_int8"] == {"gnn_layer_int8.cu", "attention.cuh", "mma.cuh"}
+    assert names["gnn_layer_int8"] == {"gnn_layer_int8.cu", "attention.cuh", *tiles}
     assert names["sinkhorn_adjoint"] == {"sinkhorn_adjoint.cu", "sinkhorn_rows.cuh"}
 
 

@@ -256,6 +256,22 @@ def test_chip_smoke_config_is_the_yaml_section():
     assert (smoke.BATCH_SIZE, smoke.MAX_KEYPOINTS) == (full["data"]["batch_size"], full["data"]["max_keypoints"])
 
 
+def test_chip_smoke_sift_and_pretraining_shapes_are_the_yaml_files():
+    smoke = _load_chip_smoke()
+    with open(REPO / "configs" / "features" / "sift_opencv.yaml") as f:
+        sift = yaml.safe_load(f)
+    assert (smoke.SIFT_DESCRIPTOR_DIM, smoke.SIFT_MAX_KEYPOINTS) == (
+        sift["descriptor_dim"], sift["parameters"]["max_keypoints"])
+    with open(REPO / "examples" / "pretrain_e2e_fixture.yaml") as f:
+        fixture = yaml.safe_load(f)
+    assert smoke.PRETRAIN_SECTION == fixture["superglue"]
+    assert smoke.PRETRAIN_TRAIN_SECTION == {k: fixture["train"][k] for k in smoke.PRETRAIN_TRAIN_SECTION}
+    assert smoke.PRETRAIN_BATCH == fixture["data"]["batch_size"]
+    assert smoke.SIFT_MAX_KEYPOINTS == fixture["features"]["parameters"]["max_keypoints"]
+    cfg = superglue_config_from({"superglue": smoke.PRETRAIN_SECTION}, smoke.SIFT_DESCRIPTOR_DIM, 0)
+    assert cfg.descriptor_dim // cfg.num_heads == 32 and cfg.use_pallas
+
+
 def _imports(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
