@@ -20,9 +20,14 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    at B=12, N=1024, K9 and K10 also at B=4, N=2048, with the time of
    ``scaled_dot_product_attention`` on the same inputs beside them; the
    streaming Sinkhorn forward (K2s) past the fused kernel's columns (B=1,
-   4352 x 4352); and every kernel that attends (K1, K4-K11) again at heads of
-   width 32 (D=128, 4 heads). f32 work is bounded at 495/3 TFLOP/s, the rate
-   of f32-accurate 3xTF32 products, with the f32 FMA bound beside it;
+   4352 x 4352); every kernel that attends (K1, K4-K11) again at heads of
+   width 32 (D=128, 4 heads); and the dense GEMMs inside the layer kernels
+   alone (gemm_f32 at every shape of a ``message`` step and of the
+   pretraining fixture's width, tn_gemm_f32 at their weight gradients, each
+   beside one PyTorch call for the same function; the bf16 GEMM at K1's five
+   shapes beside ``F.linear`` in bf16), timed by their device time. f32 work
+   is bounded at 495/3 TFLOP/s, the rate of f32-accurate 3xTF32 products,
+   with the f32 FMA bound beside it;
 4. serving: the flagship config (the ``superglue:`` section of
    configs/config_cached_sp_magicleap.yaml: D=256, 9 stages, 4 heads, bf16
    chain, 20 Sinkhorn iterations, use_pallas) with seeded random weights,
@@ -45,7 +50,9 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    the config's batch (B=12, N=1024, valid counts in [512, 1024]): one step
    held against the same step through the plain versions, 2 warm-up and 5
    timed steps with the launch counts checked per step, a profile, and a
-   small f32 step held against the composed path. Then the same step on the
+   small f32 step held against the composed path; the f32 GEMMs that K4 and
+   K5 launch are counted too, by the C code where it launches them (272
+   gemm_f32 and 34 tn_gemm_f32 per step). Then the same step on the
    model's two other training routes, ``train_route="composed"`` (K9, K10)
    and ``"half"`` (K8, K5): one step held against the plain versions, timed
    steps with the launch counts checked, a profile, and a small f32 step held
@@ -165,6 +172,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time of ``calls`` back-to-back calls of ``fn``, in ms per call,
+    by CUDA events recorded after the card has been held busy
+    (``torch.cuda._sleep``, about 20 ms) while the host queues every call. A
+    GEMM alone takes the card less time than its launch takes the host, so
+    events around calls that start at once would time the host."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def bound_ms(flops: float, flop_rate: float, nbytes: float):
@@ -514,6 +540,128 @@ def half_phase(glk, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, dim=256, head
           f"(use_offset {errs[True]:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
           f"{bound_note(fma)}", flush=True)
     return dict(max_abs_err=max(errs.values()), ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+# The f32 layers of a `message` training step: 34 of the 36 (the chain is f32
+# after the first layer), each K4 (kv, q, out GEMMs) and K5 (kv and q again,
+# dA and dx_q in the kn form, dx_kv in the kn form over [Wk; Wv], and the four
+# weight gradients in one tn GEMM)
+F32_MESSAGE_LAYERS = 34
+# (name, n_out / D, k / D, form, launches per f32 message layer)
+GEMM_F32_SHAPES = (("kv", 2, 1, "split", 2), ("q/out", 1, 1, "plain", 3), ("dA/dx_q", 1, 1, "kn", 2),
+                   ("dx_kv", 1, 2, "kn_split", 1))
+# K1's five GEMMs (name, n_out / D, k / D, epilogue)
+GEMM_K1_SHAPES = (("kv", 2, 1, "bias"), ("q", 1, 1, "bias"), ("out+concat", 1, 1, "concat"),
+                  ("ffn1", 2, 2, "relu_affine"), ("ffn2", 1, 2, "residual"))
+
+
+def gemm_phase(gk, gen):
+    """The dense GEMMs alone: gemm_f32 at every shape of a `message` training
+    step (B=12 N=M=1024 D=256: 12,288 rows) and of the pretraining fixture's
+    width (B=2 N=2048 D=128: 4,096 rows), tn_gemm_f32 at the four weight
+    gradients of both, each against its plain version, with its bounds and
+    the time of one PyTorch call for the same function (``F.linear``, ``a @
+    w`` for the kn form, ``torch.bmm`` of the stacked X^T Y for the tn form);
+    then the unchanged bf16 GEMM at K1's five shapes (B=16 N=1024 D=256)
+    beside ``F.linear`` in bf16, with each launch's bound. Times are device
+    times (``device_ms``)."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    res = {"f32": {}, "tn": {}, "bf16": {}}
+    for width, rows, dim in (("B=12 N=1024 D=256", BATCH_SIZE * MAX_KEYPOINTS, 256),
+                             ("B=2 N=2048 D=128", PRETRAIN_BATCH * SIFT_MAX_KEYPOINTS, SIFT_DESCRIPTOR_DIM)):
+        step_ms = step_lib = step_bound = 0.0
+        for name, n_mul, k_mul, form, per_layer in GEMM_F32_SHAPES:
+            n_out, k = n_mul * dim, k_mul * dim
+            a = r(rows, k)
+            if form == "split":
+                w, b = r(n_out, k, scale=k**-0.5), r(n_out)
+                half = n_out // 2
+                kw = dict(a=a, w=w[:half].contiguous(), bias=b[:half].contiguous(), w2=w[half:].contiguous(),
+                          bias2=b[half:].contiguous(), split=half)
+                library = lambda a=a, w=w, b=b: F.linear(a, w, b)
+            elif form == "plain":
+                w, b = r(n_out, k, scale=k**-0.5), r(n_out)
+                kw = dict(a=a, w=w, bias=b)
+                library = lambda a=a, w=w, b=b: F.linear(a, w, b)
+            else:
+                w = r(k, n_out, scale=k**-0.5)
+                kw = dict(a=a, w=w, bias=None, kn=True)
+                if form == "kn_split":
+                    kw.update(w=w[: k // 2].contiguous(), w2=w[k // 2:].contiguous(), k_split=k // 2)
+                library = lambda a=a, w=w: a @ w
+            out, ref = gk.gemm(**kw), gk.gemm_plain(**kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = 1e-5 * ref.abs().max().item()  # summation order and the split's 2^-22 (the layer kernels' bar)
+            check(err <= tol, f"gemm_f32 {name} {rows}x{n_out}x{k}: error {err} above {tol}")
+            ms = device_ms(lambda: gk.gemm(**kw))
+            plain_ms = device_ms(lambda: gk.gemm_plain(**kw), 5)
+            library_ms = device_ms(library)
+            bms, by, fma = work_bound(2.0 * rows * n_out * k, torch.float32, 4.0 * (rows * k + n_out * k + rows * n_out))
+            res["f32"][(width, name)] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                                             library_ms=library_ms, launches_per_layer=per_layer)
+            step_ms += F32_MESSAGE_LAYERS * per_layer * ms
+            step_lib += F32_MESSAGE_LAYERS * per_layer * library_ms
+            step_bound += F32_MESSAGE_LAYERS * per_layer * bms
+            print(f"gemm_f32 {name} ({form}) {width}: {rows}x{n_out}x{k}, max_abs_err={err:.3e} (bar {tol:.1e}) "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}){bound_note(fma)}, "
+                  f"library {library_ms:.4f} ms; {per_layer} per f32 message layer", flush=True)
+        xs, ys = [r(rows, dim) for _ in range(4)], [r(rows, dim) for _ in range(4)]
+        xst, yst = torch.stack(xs), torch.stack(ys)
+        outs, refs = gk.tn_gemm(xs, ys), gk.tn_gemm_plain(xs, ys)
+        again = gk.tn_gemm(xs, ys)
+        torch.cuda.synchronize()
+        check(all(torch.equal(u, v) for u, v in zip(outs, again)), f"tn_gemm_f32 {width}: two runs differ")
+        err = max((o - q).abs().max().item() for o, q in zip(outs, refs))
+        tol = 1e-5 * max(q.abs().max().item() for q in refs)
+        check(err <= tol, f"tn_gemm_f32 {width}: error {err} above {tol}")
+        ms = device_ms(lambda: gk.tn_gemm(xs, ys))
+        plain_ms = device_ms(lambda: gk.tn_gemm_plain(xs, ys), 5)
+        library_ms = device_ms(lambda: torch.bmm(xst.transpose(1, 2), yst))
+        bms, by, fma = work_bound(4 * 2.0 * rows * dim * dim, torch.float32, 4.0 * (8 * rows * dim + 4 * dim * dim))
+        res["tn"][width] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                                library_ms=library_ms, launches_per_layer=1)
+        print(f"tn_gemm_f32 {width}: 4 x {dim}x{dim} over {rows} rows, max_abs_err={err:.3e} (bar {tol:.1e}), two "
+              f"runs bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by})"
+              f"{bound_note(fma)}, library (torch.bmm of X^T Y) {library_ms:.4f} ms", flush=True)
+        layers = F32_MESSAGE_LAYERS
+        print(f"  per message step at {width} were its {layers} layers f32 ({8 * layers} gemm_f32, {layers} "
+              f"tn_gemm_f32): "
+              f"gemm_f32 {step_ms:.3f} ms (library {step_lib:.3f}, bound {step_bound:.3f}), tn_gemm_f32 "
+              f"{layers * ms:.3f} ms (library {layers * library_ms:.3f}, bound {layers * bms:.3f})", flush=True)
+        res["tn"][width]["per_step_ms"] = layers * ms
+        res["f32"][(width, "step")] = dict(ms=step_ms, library_ms=step_lib, bound_ms=step_bound)
+
+    rows, dim = 16 * MAX_KEYPOINTS, 256
+    for name, n_mul, k_mul, epilogue in GEMM_K1_SHAPES:
+        n_out, k = n_mul * dim, k_mul * dim
+        a, w, b = r(rows, k).bfloat16(), r(n_out, k, scale=k**-0.5).bfloat16(), r(n_out)
+        x, sc, sh = r(rows, n_out).bfloat16(), 1.0 + 0.1 * r(n_out), 0.1 * r(n_out)
+        kw = dict(a=a, w=w, bias=b, epilogue=epilogue, x=x, scale=sc, shift=sh)
+        out, ref = gk.gemm(**kw), gk.gemm_plain(**kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = 2.0**-7 * ref.float().abs().max().item()  # two bf16 ulps of the largest entry
+        check(err <= tol, f"gemm_bf16 {name}: error {err} above {tol}")
+        ms = device_ms(lambda: gk.gemm(**kw))
+        library_ms = device_ms(lambda: F.linear(a, w, b.bfloat16()))
+        # bf16 a and w in, out written (the concat twice as wide), x read by concat and residual
+        nbytes = 2.0 * (rows * k + n_out * k + rows * n_out * (2 if epilogue == "concat" else 1)
+                        + (rows * n_out if epilogue in ("concat", "residual") else 0))
+        bms, by, _ = work_bound(2.0 * rows * n_out * k, torch.bfloat16, nbytes)
+        res["bf16"][name] = dict(max_abs_err=err, ms=ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+        print(f"gemm_bf16 K1 {name} ({epilogue}) B=16 N=1024 D=256: {rows}x{n_out}x{k}, max_abs_err={err:.3e} "
+              f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}), library (F.linear bf16) {library_ms:.4f} ms",
+              flush=True)
+    print(f"  gemm_bf16 per K1 layer (B=16): kernel {sum(v['ms'] for v in res['bf16'].values()):.4f} ms, library "
+          f"{sum(v['library_ms'] for v in res['bf16'].values()):.4f} ms, bound "
+          f"{sum(v['bound_ms'] for v in res['bf16'].values()):.4f} ms", flush=True)
+    return res
 
 
 def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4, dh=64):
@@ -1072,6 +1220,7 @@ def train_phase(gen, card, device="cuda"):
     from openglue_tpu_torch.cli.common import loss_config_from, optimizer_from, superglue_config_from
     from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
     from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import gemm_kernel as gk
     from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
     from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
     from openglue_tpu_torch.train.state import create_train_state
@@ -1111,9 +1260,12 @@ def train_phase(gen, card, device="cuda"):
 
     # the main training path, its counts from 0
     counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter,
-                "K4": glk.message_counter, "K5": glk.message_bwd_counter}
+                "K4": glk.message_counter, "K5": glk.message_bwd_counter,
+                "gemm_f32": gk.counter, "tn_gemm_f32": gk.tn_counter}
     layers = 2 * cfg.num_stages * 2  # self + cross per stage, both images
-    expected = {"K1": 0, "K2": 1, "K3": 1, "K4": layers, "K5": layers}
+    # the chain is f32 after the first layer: 34 f32 layers, 8 + 1 f32 GEMMs each (K4, K5)
+    expected = {"K1": 0, "K2": 1, "K3": 1, "K4": layers, "K5": layers,
+                "gemm_f32": 8 * F32_MESSAGE_LAYERS, "tn_gemm_f32": F32_MESSAGE_LAYERS}
     for counter in counters.values():
         counter.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -1164,6 +1316,7 @@ def routes_phase(gen, card, device="cuda"):
     from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
     from openglue_tpu_torch.models.superglue import SuperGlue
     from openglue_tpu_torch.ops.kernels import attention_kernel as ak
+    from openglue_tpu_torch.ops.kernels import gemm_kernel as gk
     from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
     from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
     from openglue_tpu_torch.train.state import create_train_state
@@ -1197,9 +1350,11 @@ def routes_phase(gen, card, device="cuda"):
     small = make_request(SyntheticHomographyPairs, gen, 2, 256, [256, 180], [200, 256])
     counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter, "K4": glk.message_counter,
                 "K5": glk.message_bwd_counter, "K8": glk.half_counter, "K9": ak.counter,
-                "K10": ak.backward_counter}
+                "K10": ak.backward_counter, "gemm_f32": gk.counter, "tn_gemm_f32": gk.tn_counter}
     layers = 2 * SUPERGLUE_SECTION["attention_gnn"]["num_stages"] * 2  # self + cross per stage, both images
-    per_step = {"composed": {"K9": layers, "K10": layers}, "half": {"K8": layers, "K5": layers}}
+    f32 = F32_MESSAGE_LAYERS  # composed: the projections are cuBLAS; half: K8 4 GEMMs, K5 5 + 1 tn
+    per_step = {"composed": {"K9": layers, "K10": layers},
+                "half": {"K8": layers, "K5": layers, "gemm_f32": 9 * f32, "tn_gemm_f32": f32}}
     launches = {}
     for route, kernels_of_route in per_step.items():
         state = fresh(SUPERGLUE_SECTION, route)
@@ -1268,9 +1423,10 @@ def routes_phase(gen, card, device="cuda"):
     m_remat, peak_remat = peak_of(lambda: step(remat, batch))
     launches["remat"] = {k: c.count for k, c in counters.items()}
     expected = {name: 0 for name in counters}
-    expected.update(K2=1, K3=1, K4=layers, K5=layers)
+    expected.update(K2=1, K3=1, K4=layers, K5=layers, gemm_f32=8 * f32, tn_gemm_f32=f32)
     check(plain_counts == expected, f"message step: launches {plain_counts}, expected {expected}")
     expected["K4"] = 2 * layers  # each layer's forward runs again in the backward pass
+    expected["gemm_f32"] = 11 * f32
     check(launches["remat"] == expected, f"remat step: launches {launches['remat']}, expected {expected}")
     # the rebuilt forward repeats the first one's arithmetic in the same order
     compare_steps(remat.model, state.model, m_remat, m_plain, f"train step remat vs not, B={BATCH_SIZE} N={n}",
@@ -1504,6 +1660,7 @@ def main() -> int:
     from openglue_tpu_torch.ops import kernels
     from openglue_tpu_torch.ops.attention import sample_orthogonal_random_matrix
     from openglue_tpu_torch.ops.kernels import attention_kernel as ak
+    from openglue_tpu_torch.ops.kernels import gemm_kernel as gk
     from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
     from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
     from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
@@ -1633,6 +1790,8 @@ def main() -> int:
         k8_32 = {dt: half_phase(glk, dt, gen, dim=128) for dt in (torch.bfloat16, torch.float32)}
         k910_32 = {dt: attention_phase(ak, dt, gen, BATCH_SIZE, 1024, dh=32) for dt in (torch.bfloat16, torch.float32)}
         k11_32 = {dt: lse_phase(ak, dt, gen, BATCH_SIZE, 1024, dh=32) for dt in (torch.bfloat16, torch.float32)}
+        # its own generator, so that every later phase draws the data it drew before this phase existed
+        gemms = gemm_phase(gk, torch.Generator(device="cuda").manual_seed(7))
     merge = {str(dt)[6:]: merge_phase(ak, ring, dt, gen) for dt in (torch.float32, torch.bfloat16)}
 
     train = train_phase(gen, card)
@@ -1714,6 +1873,19 @@ def main() -> int:
              bf16=k11[(torch.bfloat16, 1024)], n2048_f32=k11[(torch.float32, 2048)],
              n2048_bf16=k11[(torch.bfloat16, 2048)], block_merge=merge,
              dh32=dh32(k11_32[torch.bfloat16], k11_32[torch.float32])),
+        # the dense GEMMs inside K4 and K5 (and K1, K6, K8 in f32): the row's
+        # numbers are the q/out shape's; every shape's beside them
+        dict(name="gemm_f32 (q/out projection, f32, 12288x256x256)", route="cuda", source=csrc + "gemm.cuh",
+             replaces=pallas + "gnn_layer_kernel.py:557", launches=train["gemm_f32"],
+             **{k: v for k, v in gemms["f32"][("B=12 N=1024 D=256", "q/out")].items() if k != "launches_per_layer"},
+             shapes={f"{w} {n}": v for (w, n), v in gemms["f32"].items()}, remat_launches=routes["remat"]["gemm_f32"],
+             half_launches=routes["half"]["gemm_f32"], bf16_k1_yardstick=gemms["bf16"]),
+        dict(name="tn_gemm_f32 (weight gradients, f32, 4 x 256x256 over 12288 rows)", route="cuda",
+             source=csrc + "tn_gemm.cuh", replaces=pallas + "gnn_layer_kernel.py:627", launches=train["tn_gemm_f32"],
+             **{k: v for k, v in gemms["tn"]["B=12 N=1024 D=256"].items() if k not in ("launches_per_layer",
+                                                                                      "per_step_ms")},
+             per_step_ms=gemms["tn"]["B=12 N=1024 D=256"]["per_step_ms"], d128=gemms["tn"]["B=2 N=2048 D=128"],
+             half_launches=routes["half"]["tn_gemm_f32"]),
     ]}
     for entry in record["kernels"]:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")

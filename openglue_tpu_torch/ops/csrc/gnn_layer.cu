@@ -9,13 +9,14 @@
 //   msg     = T(attn Wo + bo);  cat = [x_q, msg] or [T(x_q - msg), msg]
 //   h1      = T(relu(cat W1 + b1) * a1 + c1)     (eval BatchNorm folded to a1, c1)
 //   out     = T(x_q + (h1 W2 + b2))
-// in bf16 (mma.sync m16n8k16, f32 accumulation) or f32 (FMA GEMM tiles, the
-// attention in 3xTF32 on the tensor cores), keeping the TPU kernel's rounding
-// points.
+// in bf16 (mma.sync m16n8k16, f32 accumulation) or f32 (every product in
+// 3xTF32 on the tensor cores: the GEMMs of gemm.cuh and the attention of
+// tf32_tiles.cuh), keeping the TPU kernel's rounding points.
 //
 // What bounds it on the H100: at the serving shape (B=16, N=M=1024, D=256) the
 // layer is 3.9e10 FLOP against 64 MB of activations in and out, so the tensor
-// cores bound it (about 39 us at 989 TFLOP/s bf16).
+// cores bound it (about 39 us at 989 TFLOP/s bf16, 0.23 ms at 165 TFLOP/s in
+// f32 as 3xTF32, of which the five GEMMs are 0.13 ms).
 //
 // Design: the TPU kernel keeps K/V of the whole key set in VMEM (about 1 MB at
 // M=1024, D=256) and runs one exact softmax pass per query block. An SM has 227
@@ -82,7 +83,7 @@ extern "C" int og_gnn_layer(int is_bf16, int B, int N, int M, int D, int H, int 
                             const void* const* weights, const void* const* vectors,
                             void* workspace, void* out, void* stream) {
   if (B == 0 || N == 0) return cudaSuccess;
-  if (!head_width_ok(D, H) || D % kFN != 0 || M <= 0) return cudaErrorInvalidValue;
+  if (!head_width_ok(D, H) || D % 64 != 0 || M <= 0) return cudaErrorInvalidValue;
   const float* const* f = reinterpret_cast<const float* const*>(vectors);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return layer<bf16>(B, N, M, D, H, use_offset, xq, xkv, mask, weights, f, workspace, out, s);

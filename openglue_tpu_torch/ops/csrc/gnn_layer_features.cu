@@ -27,7 +27,8 @@
 // element and carries KV and ksum in VMEM scratch to the later query blocks.
 // CUDA blocks run in no order, so the layer is eleven launches on one stream:
 // the k (f32 out), v and q projections and, at the end, the out projection and
-// the two FFN products run in the shared tiled GEMM with its fused epilogues; a
+// the two FFN products run in the shared tiled GEMM with its fused epilogues
+// (in f32 3xTF32 on the tensor cores, gemm.cuh); a
 // key kernel writes the feature rows of 64-key tiles (for favor_softmax the
 // pre-exponent ph - diag and each tile's max, because the key max needs the
 // whole key set before any exp); an aggregate kernel gives one block 64 features
@@ -36,7 +37,8 @@
 // atomics and two runs give equal bits; a query kernel builds the feature rows
 // of 64 queries in shared memory and applies KV and ksum. KV stays f32 as on the
 // TPU, so the feature products are f32 FMAs on operands rounded to T, not
-// tensor-core products: they are a fifth of the layer's operations. Their
+// tensor-core products (the feature kernels have no tensor-core path): they
+// are a fifth of the layer's operations. Their
 // shared tiles are k-major and every thread owns a 4 x 4 block, so one float4
 // load of each operand feeds 16 FMAs. The features of the keys go through
 // global memory (they stay in the 50 MB L2 at these sizes).
@@ -480,7 +482,7 @@ extern "C" int og_gnn_layer_features(int is_bf16, int B, int N, int M, int D, in
                                      const void* const* vectors, const void* proj,
                                      void* workspace, void* out, void* stream) {
   if (B == 0 || N == 0) return cudaSuccess;
-  if (!head_width_ok(D, H) || D % kFN != 0 || M <= 0) return cudaErrorInvalidValue;
+  if (!head_width_ok(D, H) || D % 64 != 0 || M <= 0) return cudaErrorInvalidValue;
   if (F % 16 != 0 || F <= 0 || F > kMaxFeatures || (kind == kLinear && F != D / H)) return cudaErrorInvalidValue;
   if (kind != kLinear && proj == nullptr) return cudaErrorInvalidValue;
   const float* const* f = reinterpret_cast<const float* const*>(vectors);

@@ -16,7 +16,8 @@
 //
 // What bounds it on the H100: at the training shape (B=12, N=M=1024, D=256)
 // the backward is 5.0e10 FLOP per call against about 40 MB of activations, so
-// the tensor cores bound it (about 50 us at 989 TFLOP/s bf16). Per element it
+// the tensor cores bound it (about 50 us at 989 TFLOP/s bf16, 0.30 ms at
+// 165 TFLOP/s in f32 as 3xTF32). Per element it
 // needs 11 N x D x D products (q, k, v recomputed, dattn, dWo, dx_q, dx_kv as
 // two, dWq, dWk, dWv: 22 N D^2 FLOP) and per head 5 N x M x dh products (S,
 // dP, dV, dQ, dK: 10 N M D FLOP over the heads).
@@ -41,148 +42,22 @@
 //   P as 1 (`dead_p_one`);
 // * dx_q = dQ Wq and dx_kv = [dK | dV] [Wk; Wv], the stacked weight read
 //   from its two parts;
-// * the weight gradients are one batched split-K GEMM (X^T Y over the B*N or
-//   B*M rows) into per-split f32 partials, summed in a fixed order by a second
-//   kernel; the bias gradients are column sums done the same way.
-// bf16 uses mma.sync with cp.async double buffering. In f32 the attention
-// passes run their products in 3xTF32 on the tensor cores; the dense GEMMs
-// are FMA tiles.
+// * the weight gradients are one batched split-K GEMM (tn_gemm.cuh: X^T Y
+//   over the B*N or B*M rows) into per-split f32 partials, summed in a fixed
+//   order by a second kernel; the bias gradients are column sums done the
+//   same way.
+// bf16 uses mma.sync with cp.async double buffering. In f32 every product
+// runs in 3xTF32 on the tensor cores: the attention passes on hi/lo tiles
+// split once per tile (tf32_tiles.cuh), the five dense GEMMs (gemm.cuh) and
+// the weight gradients (tn_gemm.cuh) on raw f32 tiles from a three-stage
+// cp.async ring, split per fragment. The dense products are 22 N D^2 of the
+// 22 N D^2 + 10 N M D FLOP: a third at this shape.
 
 #include "attention_backward.cuh"
 #include "gemm.cuh"
+#include "tn_gemm.cuh"
 
 namespace {
-
-// ------------------------------------------------ weight gradients: C = X^T Y
-// Up to four problems per launch; each is split over row chunks into f32
-// partials [problem][split][P][Q] that reduce_partials sums in order.
-
-struct TnProblem {
-  const void* X; int ldx;  // [rows, >= P]
-  const void* Y; int ldy;  // [rows, >= Q]
-  int rows;
-};
-struct TnArgs {
-  TnProblem p[4];
-  int P, Q, chunk, splits;
-  float* partial;
-};
-
-constexpr int kTn = 64, kTk = 32;
-
-__global__ void __launch_bounds__(128) tn_gemm_bf16(TnArgs a) {
-  constexpr int MI = 2, NI = 4;
-  __shared__ __align__(16) bf16 Xs[2][kTk][kTn + 8];
-  __shared__ __align__(16) bf16 Ys[2][kTk][kTn + 8];
-  const int prob = blockIdx.z / a.splits, split = blockIdx.z % a.splits;
-  const TnProblem pr = a.p[prob];
-  const bf16* X = static_cast<const bf16*>(pr.X);
-  const bf16* Y = static_cast<const bf16*>(pr.Y);
-  const int i0 = blockIdx.y * kTn, j0 = blockIdx.x * kTn;
-  const int r_begin = split * a.chunk, r_end = min(pr.rows, r_begin + a.chunk);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;
-  float acc[MI][NI][4] = {};
-
-  auto load = [&](int stage, int r0) {
-    for (int i = tid; i < kTk * kTn / 8; i += 128) {
-      const int r = i / (kTn / 8), c = (i % (kTn / 8)) * 8;
-      const bool ok = r0 + r < r_end;
-      const size_t row = static_cast<size_t>(ok ? r0 + r : 0);
-      cp_async16(&Xs[stage][r][c], X + row * pr.ldx + i0 + c, ok);
-      cp_async16(&Ys[stage][r][c], Y + row * pr.ldy + j0 + c, ok);
-    }
-    cp_async_commit();
-  };
-
-  const int ktiles = r_end > r_begin ? (r_end - r_begin + kTk - 1) / kTk : 0;
-  if (ktiles > 0) load(0, r_begin);
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < ktiles) {
-      load(st ^ 1, r_begin + (kt + 1) * kTk);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTk; kk += 16) {
-      uint32_t af[MI][4], bfr[NI][2];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)  // X is stored [row][i]: the transposed load gives A = X^T
-        ldmatrix_x4_trans(af[mi], &Xs[st][kk + (lane % 8) + (lane / 16) * 8][wm + mi * 16 + ((lane / 8) % 2) * 8]);
-#pragma unroll
-      for (int np = 0; np < NI / 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &Ys[st][kk + (lane % 8) + ((lane / 8) % 2) * 8][wn + np * 16 + (lane / 16) * 8]);
-        bfr[2 * np][0] = r[0]; bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2]; bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
-    }
-    __syncthreads();
-  }
-  float* out = a.partial + static_cast<size_t>(blockIdx.z) * a.P * a.Q;
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int i = i0 + wm + mi * 16 + g + 8 * hh, j = j0 + wn + ni * 8 + 2 * t;
-        store2(out + static_cast<size_t>(i) * a.Q + j, acc[mi][ni][2 * hh], acc[mi][ni][2 * hh + 1]);
-      }
-}
-
-__global__ void __launch_bounds__(128) tn_gemm_f32(TnArgs a) {
-  __shared__ __align__(16) float Xs[kTk][kTn + 4];
-  __shared__ __align__(16) float Ys[kTk][kTn + 4];
-  const int prob = blockIdx.z / a.splits, split = blockIdx.z % a.splits;
-  const TnProblem pr = a.p[prob];
-  const float* X = static_cast<const float*>(pr.X);
-  const float* Y = static_cast<const float*>(pr.Y);
-  const int i0 = blockIdx.y * kTn, j0 = blockIdx.x * kTn;
-  const int r_begin = split * a.chunk, r_end = min(pr.rows, r_begin + a.chunk);
-  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
-  float acc[4][8] = {};  // rows ty + 16i; columns 2tx + 16(j/2) + j%2
-
-  for (int r0 = r_begin; r0 < r_end; r0 += kTk) {
-    for (int i = tid; i < kTk * kTn / 4; i += 128) {
-      const int r = i / (kTn / 4), c = (i % (kTn / 4)) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
-      if (r0 + r < r_end) {
-        x = *reinterpret_cast<const float4*>(X + static_cast<size_t>(r0 + r) * pr.ldx + i0 + c);
-        y = *reinterpret_cast<const float4*>(Y + static_cast<size_t>(r0 + r) * pr.ldy + j0 + c);
-      }
-      *reinterpret_cast<float4*>(&Xs[r][c]) = x;
-      *reinterpret_cast<float4*>(&Ys[r][c]) = y;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kTk; ++kk) {
-      float xa[4], yb[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xa[i] = Xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) yb[j] = Ys[kk][2 * tx + 16 * (j / 2) + j % 2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(xa[i], yb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  float* out = a.partial + static_cast<size_t>(blockIdx.z) * a.P * a.Q;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; j += 2)
-      store2(out + static_cast<size_t>(i0 + ty + 16 * i) * a.Q + j0 + 2 * tx + 8 * j, acc[i][j], acc[i][j + 1]);
-}
 
 // ------------------------------------------------ bias gradients: column sums
 struct ColProblem {
@@ -209,32 +84,17 @@ __global__ void __launch_bounds__(kColThreads) colsum_partial(ColArgs a) {
   a.partial[(static_cast<size_t>(blockIdx.z) * a.splits + blockIdx.y) * a.cols + col] = s;
 }
 
-struct Outputs4 {
-  float* out[4];
-};
-
-// out[p][e] = sum over s of partial[p][s][e], s in order
-__global__ void __launch_bounds__(256)
-reduce_partials(const float* __restrict__ partial, int splits, int count, Outputs4 o) {
-  const int e = blockIdx.x * 256 + threadIdx.x;
-  if (e >= count) return;
-  const float* src = partial + static_cast<size_t>(blockIdx.y) * splits * count + e;
-  float s = 0.f;
-  for (int sp = 0; sp < splits; ++sp) s += src[static_cast<size_t>(sp) * count];
-  o.out[blockIdx.y][e] = s;
-}
-
 // ------------------------------------------------ host side
 struct Plan {
-  int tn_splits, tn_chunk, col_splits, col_chunk;
+  TnPlan tn;
+  int col_splits, col_chunk;
 };
 
-Plan plan(int B, int N, int M) {
+template <typename T>
+Plan plan(int B, int N, int M, int D) {
   const int rows = B * (N > M ? N : M);
   Plan p;
-  p.tn_splits = (rows + 1023) / 1024;
-  if (p.tn_splits > 64) p.tn_splits = 64;
-  p.tn_chunk = ((rows + p.tn_splits - 1) / p.tn_splits + kTk - 1) / kTk * kTk;
+  p.tn = tn_plan<T>(rows, D, D, 4);
   p.col_chunk = 128;
   p.col_splits = (rows + p.col_chunk - 1) / p.col_chunk;
   return p;
@@ -259,7 +119,7 @@ Buffers<T> carve(Carve& ws, int B, int N, int M, int D, int H, const Plan& pl) {
   b.dq32 = ws.take<float>(nq * D);
   b.dk32 = ws.take<float>(nk * D);
   b.dv32 = ws.take<float>(nk * D);
-  b.tn_partial = ws.take<float>(static_cast<size_t>(4) * pl.tn_splits * D * D);
+  b.tn_partial = ws.take<float>(static_cast<size_t>(4) * pl.tn.splits * D * D);
   b.col_partial = ws.take<float>(static_cast<size_t>(4) * pl.col_splits * D);
   return b;
 }
@@ -281,7 +141,7 @@ int message_backward(int B, int N, int M, int D, int H, const void* xq_, const v
   const float *bq = f[0], *bk = f[1], *bv = f[2];
   T* dxq = static_cast<T*>(o[0]);
   T* dxkv = static_cast<T*>(o[1]);
-  const Plan pl = plan(B, N, M);
+  const Plan pl = plan<T>(B, N, M, D);
   Carve ws{static_cast<char*>(ws_)};
   const Buffers<T> bf = carve<T>(ws, B, N, M, D, H, pl);
   const int nq = B * N, nk = B * M;
@@ -318,15 +178,10 @@ int message_backward(int B, int N, int M, int D, int H, const void* xq_, const v
   tn.p[1] = {bf.dkvc, 2 * D, xkv, D, nk};
   tn.p[2] = {bf.dkvc + D, 2 * D, xkv, D, nk};
   tn.p[3] = {g, D, attn, D, nq};
-  tn.P = D; tn.Q = D; tn.chunk = pl.tn_chunk; tn.splits = pl.tn_splits; tn.partial = bf.tn_partial;
-  const dim3 tgrid(D / kTn, D / kTn, 4 * pl.tn_splits);
-  if constexpr (sizeof(T) == 2) tn_gemm_bf16<<<tgrid, 128, 0, s>>>(tn);
-  else tn_gemm_f32<<<tgrid, 128, 0, s>>>(tn);
-  if ((err = cudaGetLastError())) return err;
-  Outputs4 dw = {{static_cast<float*>(o[2]), static_cast<float*>(o[3]), static_cast<float*>(o[4]),
-                  static_cast<float*>(o[5])}};
-  reduce_partials<<<dim3((D * D + 255) / 256, 4), 256, 0, s>>>(bf.tn_partial, pl.tn_splits, D * D, dw);
-  if ((err = cudaGetLastError())) return err;
+  tn.P = D; tn.Q = D; tn.chunk = pl.tn.chunk; tn.splits = pl.tn.splits; tn.partial = bf.tn_partial;
+  const Outputs4 dw = {{static_cast<float*>(o[2]), static_cast<float*>(o[3]), static_cast<float*>(o[4]),
+                        static_cast<float*>(o[5])}};
+  if ((err = tn_gemm<T>(tn, 4, pl.tn.tile, dw, s))) return err;
 
   // bias gradients dbq, dbk, dbv from the f32 sums, dbo from g
   ColArgs ca;
@@ -348,9 +203,8 @@ int message_backward(int B, int N, int M, int D, int H, const void* xq_, const v
 // Bytes of workspace og_message_backward needs.
 extern "C" size_t og_message_backward_workspace(int is_bf16, int B, int N, int M, int D, int H) {
   Carve ws{nullptr};
-  const Plan pl = plan(B, N, M);
-  if (is_bf16) carve<bf16>(ws, B, N, M, D, H, pl);
-  else carve<float>(ws, B, N, M, D, H, pl);
+  if (is_bf16) carve<bf16>(ws, B, N, M, D, H, plan<bf16>(B, N, M, D));
+  else carve<float>(ws, B, N, M, D, H, plan<float>(B, N, M, D));
   return ws.used;
 }
 

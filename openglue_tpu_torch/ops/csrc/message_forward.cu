@@ -14,15 +14,18 @@
 //
 // What bounds it on the H100: at the training shape (B=12, N=M=1024, D=256)
 // it is 1.9e10 FLOP against about 25 MB of activations in and out, so the
-// tensor cores bound it (about 20 us at 989 TFLOP/s bf16).
+// tensor cores bound it (about 20 us at 989 TFLOP/s bf16, 0.12 ms at 165
+// TFLOP/s in f32 as 3xTF32).
 //
 // Design: the first two thirds of the eval layer kernel (gnn_layer.cu), from
 // the same device code: the k+v GEMM over the stacked [wk; wv] and the q GEMM
 // write to global memory (they stay in L2), the flash-style attention kernel
 // writes attn and the per-row LSE, and the out projection is the tiled GEMM
 // with a bias epilogue. mma.sync with cp.async double buffering in bf16; in
-// f32 FMA GEMM tiles and the attention in 3xTF32; wgmma and TMA are later
-// work.
+// f32 every product runs in 3xTF32 on the tensor cores, the three GEMMs
+// (8 N D^2 of the 8 N D^2 + 4 N M D FLOP, 0.039 ms of the 0.117 ms bound) from
+// a three-stage cp.async ring of raw f32 tiles (gemm.cuh); wgmma and TMA are
+// later work.
 
 #include "attention.cuh"
 #include "gemm.cuh"

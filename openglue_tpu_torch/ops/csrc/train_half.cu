@@ -18,7 +18,9 @@
 // What bounds it on the H100: at the training shape (B=12, N=M=1024, D=256)
 // it is 16 N D^2 + 4 N M D = 2.6e10 FLOP per call against about 38 MB (bf16)
 // of activations, so the operations bound it: about 26 us at the bf16
-// tensor-core rate, 0.39 ms at the f32 rate.
+// tensor-core rate, 0.16 ms at 165 TFLOP/s in f32 as 3xTF32 (the rate of
+// its f32 products: the four GEMMs of gemm.cuh and the attention of
+// tf32_tiles.cuh), 0.39 ms at the f32 FMA rate.
 //
 // Design: the message forward's four launches (message_forward.cu: the k+v
 // GEMM over the stacked weights, the q GEMM, the flash-style attention writing

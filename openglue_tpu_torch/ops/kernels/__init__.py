@@ -9,14 +9,18 @@ is named after the content hash of its source and of every header under
 so an edited source or header rebuilds and an unchanged one is reused.
 
 Every wrapper module keeps a ``LaunchCounter`` that it advances where it
-launches its kernel and nowhere else. A wrapper runs its plain PyTorch version
-only for a CPU tensor; for a CUDA tensor it launches the kernel or raises.
+launches its kernel and nowhere else. A kernel that the C code launches from
+several entries (the dense GEMMs inside the layer kernels) is counted by the C
+code where it launches it, and read through a ``LibraryLaunchCounter``. A
+wrapper runs its plain PyTorch version only for a CPU tensor; for a CUDA
+tensor it launches the kernel or raises.
 There is no shape gate and no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -37,7 +41,7 @@ HEAD_WIDTHS = (32, 64)
 
 SOURCES = (
     "gnn_layer", "sinkhorn", "sinkhorn_adjoint", "message_forward", "message_backward",
-    "gnn_layer_features", "gnn_layer_int8", "attention", "attention_backward", "train_half",
+    "gnn_layer_features", "gnn_layer_int8", "attention", "attention_backward", "train_half", "gemm",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,6 +65,32 @@ class LaunchCounter:
 
     def reset(self) -> None:
         self.count = 0
+
+
+class LibraryLaunchCounter:
+    """The launches of a kernel that the C code counts where it launches it:
+    the sum, over every loaded library whose source includes ``header``, of
+    ``symbol(which, reset)``, a C function that returns the library's count
+    and with ``reset`` sets it to 0. Reading builds nothing, and reads 0
+    before the libraries are loaded."""
+
+    def __init__(self, header: str, symbol: str, which: int):
+        self.header, self.symbol, self.which = header, symbol, which
+
+    def _read(self, reset: bool) -> int:
+        total = 0
+        for name in libraries_including(self.header):
+            if name in _libs:
+                fn = entry_point(name, self.symbol, [ctypes.c_int, ctypes.c_int], ctypes.c_ulonglong)
+                total += fn(self.which, int(reset))
+        return total
+
+    @property
+    def count(self) -> int:
+        return self._read(False)
+
+    def reset(self) -> None:
+        self._read(True)
 
 
 def _nvcc() -> str:
@@ -91,6 +121,13 @@ def source_files(name: str) -> list:
             if header.is_file() and CSRC in header.parents:
                 todo.append(header)
     return found
+
+
+@functools.lru_cache(maxsize=None)
+def libraries_including(header: str) -> tuple:
+    """The sources whose library includes ``ops/csrc/<header>``."""
+    path = (CSRC / header).resolve()
+    return tuple(name for name in SOURCES if path in source_files(name))
 
 
 def library_path(name: str) -> Path:

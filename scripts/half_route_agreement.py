@@ -1,0 +1,233 @@
+"""How closely one training step on the ``half`` route (or the ``message``
+route) agrees with the same step through the kernels' plain versions, batch
+by batch, on a CUDA card.
+
+    python3 scripts/half_route_agreement.py --repo DIR [--label NAME] [--seeds 0-10] [--route half]
+    python3 scripts/half_route_agreement.py --repo DIR --smoke-batch FILE [--label NAME] [--route half]
+
+Imports ``openglue_tpu_torch`` and ``chip_smoke.py``'s config and helpers
+from the checkout DIR. For each seed it draws a B=12 N=1024 batch of
+synthetic pairs as ``chip_smoke.py`` does, builds the flagship model on the
+route from one weight seed, and runs one step five ways from the same state:
+every kernel of the path; every plain version; every kernel but the route's
+forward layer kernel (K8 on ``half``, K4 on ``message``) plain; that kernel
+plain on its bf16 launches only (the first layer of each image: the chain is
+f32 after it); that kernel plain on its f32 launches only. It prints one line
+per batch: the loss difference, the relative difference of the unclipped
+gradient norm and the gradient cosine of each run against the plain one,
+and the three parameters whose gradients differ most between the first run
+and the plain one, with their share of the squared difference. Run it for
+two checkouts in one call to compare them.
+
+With ``--smoke-batch``, the batch is instead the one that ``chip_smoke.py``'s
+routes phase draws when its GEMM phase takes the generator that the later
+phases share (as it did before it got a generator of its own). If FILE does
+not exist, the script makes it first: it runs DIR's ``chip_smoke.py`` main
+with that change, up to the routes phase, saves the batch there and stops
+(about two minutes; DIR must have the GEMM phase). Then every run above
+takes the saved batch.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import sys
+from pathlib import Path
+
+import torch
+
+
+def seeds_of(text: str):
+    first, _, last = text.partition("-")
+    return range(int(first), int(last or first) + 1)
+
+
+@contextlib.contextmanager
+def swapped(pairs):
+    saved = [(module, name, getattr(module, name)) for module, name, _ in pairs]
+    for module, name, fn in pairs:
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--repo", type=Path, required=True)
+    parser.add_argument("--label", default=None)
+    parser.add_argument("--seeds", default="0-10")
+    parser.add_argument("--smoke-batch", type=Path, default=None)
+    parser.add_argument("--route", choices=("half", "message"), default="half")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("half_route_agreement: no CUDA card is available", file=sys.stderr)
+        return 1
+    repo = args.repo.resolve()
+    sys.path.insert(0, str(repo))
+    import chip_smoke as cs
+    from openglue_tpu_torch.cli.common import loss_config_from, optimizer_from, superglue_config_from
+    from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.train.state import create_train_state
+    from openglue_tpu_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = {"superglue": cs.SUPERGLUE_SECTION, "train": cs.TRAIN_SECTION}
+    step = make_train_step(loss_config_from(config))
+    cfg = superglue_config_from({"superglue": cs.SUPERGLUE_SECTION}, cs.DESCRIPTOR_DIM, cs.SIDE_INFO_DIM)
+    base = SuperGlue(cfg, device="cuda", generator=torch.Generator().manual_seed(1), train_route=args.route)
+
+    def state():
+        model = SuperGlue(cfg, device="cuda", train_route=args.route)
+        model.load_state_dict(base.state_dict())
+        return create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
+
+    name, kernel_name, plain_fn = {
+        "half": ("K8", "train_half_forward", glk.train_half_plain),
+        "message": ("K4", "message_forward", glk.message_forward_plain),
+    }[args.route]
+    kernel_fn = getattr(glk, kernel_name)
+    plain = [(glk, "message_backward", glk.message_backward_plain), (glk, kernel_name, plain_fn),
+             (sk, "sinkhorn_scale", sk.sinkhorn_scale_plain), (sk, "sinkhorn_adjoint", sk.sinkhorn_adjoint_plain)]
+
+    def plain_in(dtype):
+        """The forward layer kernel plain where its compute type (the last
+        argument) is ``dtype``."""
+        def forward(*a):
+            return (plain_fn if a[-1] == dtype else kernel_fn)(*a)
+        return [(glk, kernel_name, forward)]
+
+    variants = (("kernels", []), ("plain", plain), (f"{name} plain", [(glk, kernel_name, plain_fn)]),
+                (f"{name} bf16 plain", plain_in(torch.bfloat16)), (f"{name} f32 plain", plain_in(torch.float32)))
+    first_bf16 = {}
+
+    def mixed(from_plain):
+        """K8's bf16 launches with the outputs named in ``from_plain`` (z, or
+        attn and lse) taken from its plain version, the rest from the kernel;
+        the first such call's arguments are kept for ``z_report``."""
+        def forward(*a):
+            out = kernel_fn(*a)
+            if a[-1] != torch.bfloat16:
+                return out
+            first_bf16.setdefault("args", clone(a))
+            ref = plain_fn(*a)
+            return (ref if "z" in from_plain else out)[0], *(ref if "attn" in from_plain else out)[1:]
+        return [(glk, kernel_name, forward)]
+
+    if args.route == "half":
+        variants += (("K8 bf16, z plain", mixed(("z",))), ("K8 bf16, attn and lse plain", mixed(("attn",))))
+    label = args.label or str(repo)
+    n, batch = cs.MAX_KEYPOINTS, cs.BATCH_SIZE
+    if args.smoke_batch is not None:
+        if not args.smoke_batch.exists():
+            smoke_batch(cs, args.smoke_batch)
+        batches = [("chip_smoke.py's routes batch with a shared GEMM generator",
+                    torch.load(args.smoke_batch, map_location="cuda", weights_only=False))]
+    else:
+        batches = []
+        for seed in seeds_of(args.seeds):
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            counts = lambda: torch.randint(n // 2, n + 1, (batch,), generator=gen, device="cuda").tolist()
+            pairs = cs.make_request(SyntheticHomographyPairs, gen, batch, n, counts(), counts())
+            batches.append((f"seed {seed}", pairs))
+    for what, pairs in batches:
+        runs = {}
+        grads = {}
+        for variant, swap in variants:
+            st = state()
+            with swapped(swap):
+                metrics = step(st, pairs)
+            runs[variant] = (metrics, cs.flat_grads(st.model))
+            grads[variant] = {k: p.grad.double() for k, p in st.model.named_parameters() if p.grad is not None}
+        ref, g_ref = runs["plain"]
+        parts = []
+        for variant in (variant for variant, _ in variants if variant != "plain"):
+            m, g = runs[variant]
+            parts.append(f"{variant}: loss {abs(m['total_loss'].item() - ref['total_loss'].item()):.2e}, norm "
+                         f"{abs(m['grad_norm'].item() / ref['grad_norm'].item() - 1):.2e}, cosine "
+                         f"{(g @ g_ref / (g.norm() * g_ref.norm())).item():.6f}")
+        diff = {k: (grads["kernels"][k] - grads["plain"][k]).pow(2).sum().item() for k in grads["plain"]}
+        total = sum(diff.values()) or 1.0
+        top = sorted(diff, key=diff.get, reverse=True)[:3]
+        parts.append("largest gradient differences (kernels - plain): "
+                     + ", ".join(f"{k} {diff[k] / total:.3f}" for k in top))
+        print(f"[{label}] {what}, route {args.route}, against the plain step: " + "; ".join(parts), flush=True)
+        if first_bf16:
+            print(f"[{label}] {what}, the first bf16 layer: " + z_report(glk, *first_bf16.pop("args")), flush=True)
+    return 0
+
+
+def clone(args):
+    """A copy of a layer call's arguments that the optimizer step leaves as
+    they were."""
+    copy = lambda t: t.detach().clone() if torch.is_tensor(t) else t
+    return [type(a)(*map(copy, a)) if isinstance(a, tuple) else copy(a) for a in args]
+
+
+def z_report(glk, x_q, x_kv, mask, w, w1, b1, heads, use_offset, dtype):
+    """How far z = relu(concat . W1^T + b1) of one layer is from its plain
+    version when K8 computes it, and when K4 computes msg and PyTorch the
+    rest (the ``message`` route): entries that differ, entries whose sign
+    gate (z > 0) differs, and the largest difference over the largest z."""
+    def z_of(msg):
+        xq = x_q.to(dtype)
+        cat = torch.cat([xq - msg if use_offset else xq, msg], dim=-1)
+        return torch.relu(glk._dense_f32(cat, w1.to(dtype), b1.float())).to(dtype)
+
+    with torch.no_grad():
+        z_ref = glk.train_half_plain(x_q, x_kv, mask, w, w1, b1, heads, use_offset, dtype)[0].float()
+        z_k8 = glk.train_half_forward(x_q, x_kv, mask, w, w1, b1, heads, use_offset, dtype)[0].float()
+        z_k4 = z_of(glk.message_forward(x_q, x_kv, mask, w, heads, dtype)[0]).float()
+        z_plain_msg = z_of(glk.message_forward_plain(x_q, x_kv, mask, w, heads, dtype)[0]).float()
+    parts = []
+    for name, z in (("K8", z_k8), ("K4 + torch", z_k4), ("plain msg + torch", z_plain_msg)):
+        parts.append(f"{name}: {int((z != z_ref).sum())} of {z.numel()} entries differ, "
+                     f"{int(((z > 0) != (z_ref > 0)).sum())} gates, largest "
+                     f"{((z - z_ref).abs().max() / z_ref.abs().max()).item():.2e}")
+    return "; ".join(parts)
+
+
+class _BatchSaved(Exception):
+    pass
+
+
+def smoke_batch(cs, path: Path) -> None:
+    """Run ``chip_smoke.py``'s main with its GEMM phase on the generator that
+    the later phases share, up to the routes phase; save the batch that phase
+    draws first to ``path``."""
+    shared = {}
+    lse_phase, gemm_phase = cs.lse_phase, cs.gemm_phase
+
+    def lse_phase_seen(ak, dtype, gen, *a, **kw):  # the phase just before the GEMM phase
+        shared["gen"] = gen
+        return lse_phase(ak, dtype, gen, *a, **kw)
+
+    def routes_batch(gen, card, device="cuda"):  # the routes phase's first draws
+        from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
+
+        n = cs.MAX_KEYPOINTS
+        counts = lambda: torch.randint(n // 2, n + 1, (cs.BATCH_SIZE,), generator=gen, device=device).tolist()
+        batch = cs.make_request(SyntheticHomographyPairs, gen, cs.BATCH_SIZE, n, counts(), counts())
+        torch.save(batch, path)
+        raise _BatchSaved
+
+    cs.lse_phase = lse_phase_seen
+    cs.gemm_phase = lambda gk, gen: gemm_phase(gk, shared["gen"])
+    cs.routes_phase = routes_batch
+    try:
+        cs.main()
+    except _BatchSaved:
+        print(f"saved the routes phase's batch to {path}", flush=True)
+    else:
+        raise RuntimeError("chip_smoke.py's main returned before its routes phase")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,15 +1,24 @@
-"""Time the bf16 attention kernels of one checkout of the port on a CUDA card.
+"""Time the attending layer kernels and the dense GEMMs of one checkout of
+the port on a CUDA card.
 
     python3 scripts/kernel_times.py --repo DIR [--label NAME] [--rounds 7]
 
 Imports ``openglue_tpu_torch`` from the checkout DIR (its kernels build into
-DIR/build/kernels), times the bf16 kernels that attend with heads of width 64
-at the shapes of ``chip_smoke.py`` (K1 B=16 N=1024 D=256; K4, K5, K8 B=12
-N=1024 D=256; K9, K10 B=12 N=1024 and B=4 N=2048, H=4), and prints one JSON
-line: the card (``nvidia-smi`` name and power limit), each kernel's time in ms
-as the median of ``--rounds`` rounds of 20 back-to-back calls timed with CUDA
-events (every round listed), and the registers and spill bytes per thread
-that ``ptxas -v`` reports for the bf16 attention kernels of DIR's sources.
+DIR/build/kernels) and prints one JSON line: the card (``nvidia-smi`` name and
+power limit); each case's time in ms as the median of ``--rounds`` rounds of
+20 back-to-back calls timed with CUDA events (the GEMMs alone: queued while
+the card is held busy, so that the events time the card; every round
+listed); the device
+time by kernel of one f32 ``message`` layer (K4 + K5, torch.profiler), which
+splits the layer into its GEMM, attention and reduction launches; and the
+registers and spill bytes per thread that ``ptxas -v`` reports for the
+attention kernels and the dense GEMMs of DIR's sources.
+
+The cases, at the shapes of ``chip_smoke.py``: K1 B=16 N=1024 D=256; K4, K5,
+K8 B=12 N=1024 D=256; K6 (linear) B=16 N=1024; each in bf16 and f32; K9, K10
+bf16 at B=12 N=1024 and B=4 N=2048 (H=4, heads of width 64); and, where the
+checkout has ``ops/kernels/gemm_kernel.py``, the f32 GEMM and weight-gradient
+GEMM alone at the ``message`` step's shapes (12,288 rows, D=256).
 
 To compare two checkouts on one card, run it in one session in the order
 A, B, B, A.
@@ -29,9 +38,10 @@ from pathlib import Path
 
 import torch
 
-# the sources whose bf16 attention kernels ptxas reports on, and the kernels
-PTXAS_SOURCES = ("gnn_layer", "message_forward", "message_backward", "train_half", "attention", "attention_backward")
-PTXAS_KERNELS = ("attention_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16")
+# the sources ptxas reports on (those the checkout has), and the kernels
+PTXAS_SOURCES = ("gnn_layer", "message_forward", "message_backward", "train_half", "attention", "attention_backward",
+                 "gemm")
+PTXAS_KERNELS = ("attention_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16", "gemm_f32", "tn_gemm_f32")
 
 
 def card_line() -> str:
@@ -61,7 +71,7 @@ def kernel_cases(gen):
     from openglue_tpu_torch.ops.kernels import attention_kernel as ak
     from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
 
-    dev, dt = torch.device("cuda"), torch.bfloat16
+    dev = torch.device("cuda")
 
     def r(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
@@ -73,23 +83,33 @@ def kernel_cases(gen):
     cases = {}
     dim, heads = 256, 4
     d2 = 2 * dim
-    lw = glk.PropagationWeights(
-        r(dim, dim, scale=dim**-0.5).to(dt), r(dim), r(dim, dim, scale=dim**-0.5).to(dt), r(dim),
-        r(dim, dim, scale=dim**-0.5).to(dt), r(dim), r(dim, dim, scale=dim**-0.5).to(dt), r(dim),
-        r(d2, d2, scale=d2**-0.5).to(dt), r(d2), 1.0 + 0.1 * r(d2), 0.1 * r(d2),
-        r(dim, d2, scale=d2**-0.5).to(dt), r(dim),
-    )
-    xq, xkv, mask = r(16, 1024, dim).to(dt), r(16, 1024, dim).to(dt), ragged(16, 1024, 256)
-    cases["K1 B=16 N=1024"] = lambda: glk.fused_attention_propagation(xq, xkv, mask, lw, heads)
+    for dt, tag in ((torch.bfloat16, ""), (torch.float32, " f32")):
+        lw = glk.PropagationWeights(
+            r(dim, dim, scale=dim**-0.5).to(dt), r(dim), r(dim, dim, scale=dim**-0.5).to(dt), r(dim),
+            r(dim, dim, scale=dim**-0.5).to(dt), r(dim), r(dim, dim, scale=dim**-0.5).to(dt), r(dim),
+            r(d2, d2, scale=d2**-0.5).to(dt), r(d2), 1.0 + 0.1 * r(d2), 0.1 * r(d2),
+            r(dim, d2, scale=d2**-0.5).to(dt), r(dim),
+        )
+        xq, xkv, mask = r(16, 1024, dim).to(dt), r(16, 1024, dim).to(dt), ragged(16, 1024, 256)
+        cases[f"K1 B=16 N=1024{tag}"] = (
+            lambda xq=xq, xkv=xkv, mask=mask, lw=lw: glk.fused_attention_propagation(xq, xkv, mask, lw, heads))
+        cases[f"K6 linear B=16 N=1024{tag}"] = (
+            lambda xq=xq, xkv=xkv, mask=mask, lw=lw: glk.fused_attention_propagation(xq, xkv, mask, lw, heads,
+                                                                                     False, "linear"))
 
-    w = glk.MessageWeights(*[r(dim, dim, scale=dim**-0.5) if i % 2 == 0 else r(dim) for i in range(8)])
-    mq, mkv, mg, mmask = r(12, 1024, dim).to(dt), r(12, 1024, dim).to(dt), r(12, 1024, dim).to(dt), ragged(12, 1024, 512)
-    _, attn, lse = glk.message_forward(mq, mkv, mmask, w, heads, dt)
-    cases["K4 B=12 N=1024"] = lambda: glk.message_forward(mq, mkv, mmask, w, heads, dt)
-    cases["K5 B=12 N=1024"] = lambda: glk.message_backward(mq, mkv, mmask, w, mg, attn, lse, heads, dt)
-    w1, b1 = r(d2, d2, scale=d2**-0.5), r(d2)
-    cases["K8 B=12 N=1024"] = lambda: glk.train_half_forward(mq, mkv, mmask, w, w1, b1, heads, False, dt)
+        w = glk.MessageWeights(*[r(dim, dim, scale=dim**-0.5) if i % 2 == 0 else r(dim) for i in range(8)])
+        mq, mkv, mg = r(12, 1024, dim).to(dt), r(12, 1024, dim).to(dt), r(12, 1024, dim).to(dt)
+        mmask = ragged(12, 1024, 512)
+        _, attn, lse = glk.message_forward(mq, mkv, mmask, w, heads, dt)
+        cases[f"K4 B=12 N=1024{tag}"] = lambda mq=mq, mkv=mkv, m=mmask, w=w, dt=dt: glk.message_forward(
+            mq, mkv, m, w, heads, dt)
+        cases[f"K5 B=12 N=1024{tag}"] = lambda mq=mq, mkv=mkv, m=mmask, w=w, g=mg, a=attn, l=lse, dt=dt: (
+            glk.message_backward(mq, mkv, m, w, g, a, l, heads, dt))
+        w1, b1 = r(d2, d2, scale=d2**-0.5), r(d2)
+        cases[f"K8 B=12 N=1024{tag}"] = lambda mq=mq, mkv=mkv, m=mmask, w=w, w1=w1, b1=b1, dt=dt: (
+            glk.train_half_forward(mq, mkv, m, w, w1, b1, heads, False, dt))
 
+    dt = torch.bfloat16
     for batch, n in ((12, 1024), (4, 2048)):
         def heads_of():
             return r(batch, n, dim).to(dt).view(batch, n, heads, 64).transpose(1, 2)
@@ -103,9 +123,91 @@ def kernel_cases(gen):
     return cases
 
 
+def gemm_cases(gen):
+    """The f32 GEMMs alone at the message step's shapes (none where the
+    checkout has no gemm_kernel module)."""
+    try:
+        from openglue_tpu_torch.ops.kernels import gemm_kernel as gk
+    except ImportError:
+        return {}
+    dev, rows, dim = torch.device("cuda"), 12 * 1024, 256
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    a, a2 = r(rows, dim), r(rows, 2 * dim)
+    wkv, bkv, w, b = r(2 * dim, dim, scale=dim**-0.5), r(2 * dim), r(dim, dim, scale=dim**-0.5), r(dim)
+    wt, wt2 = r(dim, dim, scale=dim**-0.5), r(2 * dim, dim, scale=dim**-0.5)
+    xs, ys = [r(rows, dim) for _ in range(4)], [r(rows, dim) for _ in range(4)]
+    return {
+        "gemm_f32 kv 12288x512x256": lambda: gk.gemm(a, wkv[:dim], bkv[:dim], w2=wkv[dim:], bias2=bkv[dim:],
+                                                     split=dim),
+        "gemm_f32 q/out 12288x256x256": lambda: gk.gemm(a, w, b),
+        "gemm_f32 kn 12288x256x256": lambda: gk.gemm(a, wt, None, kn=True),
+        "gemm_f32 kn dx_kv 12288x256x512": lambda: gk.gemm(a2, wt2[:dim], None, kn=True, w2=wt2[dim:], k_split=dim),
+        "tn_gemm_f32 4x256x256 over 12288": lambda: gk.tn_gemm(xs, ys),
+    }
+
+
+def device_rounds_ms(fn, rounds: int, calls: int = 20):
+    """Every round's device time of ``calls`` back-to-back calls of ``fn``,
+    in ms per call, by CUDA events recorded after the card has been held busy
+    (``torch.cuda._sleep``, about 20 ms) while the host queues every call: a
+    GEMM alone takes the card less time than its launch takes the host, so
+    events around calls that start at once would time the host."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(40_000_000)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return times
+
+
+def layer_profile(gen):
+    """Device ms per call of each kernel of one f32 message layer (K4 + K5
+    at B=12 N=1024 D=256), from torch.profiler over 10 calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+
+    dev, dim, heads, dt = torch.device("cuda"), 256, 4, torch.float32
+    r = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device=dev) * scale
+    w = glk.MessageWeights(*[r(dim, dim, scale=dim**-0.5) if i % 2 == 0 else r(dim) for i in range(8)])
+    mq, mkv, mg = r(12, 1024, dim), r(12, 1024, dim), r(12, 1024, dim)
+    mask = torch.arange(1024, device=dev)[None] < torch.randint(512, 1025, (12,), generator=gen, device=dev)[:, None]
+
+    def layer():
+        _, attn, lse = glk.message_forward(mq, mkv, mask, w, heads, dt)
+        glk.message_backward(mq, mkv, mask, w, mg, attn, lse, heads, dt)
+
+    layer()
+    torch.cuda.synchronize()
+    calls = 10
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            layer()
+        torch.cuda.synchronize()
+    rows = {}
+    for event in prof.key_averages():
+        ms = getattr(event, "self_device_time_total", 0.0) / 1e3
+        if ms <= 0 or event.key.startswith(("Memcpy", "Memset")):
+            continue
+        name = event.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+        rows[name] = {"ms_per_layer": ms / calls, "launches_per_layer": event.count / calls}
+    return rows
+
+
 def ptxas_usage(repo: Path):
     """{source: {kernel: (registers, spill store bytes, spill load bytes)}}
-    for the bf16 attention kernels, from ``nvcc -Xptxas -v``."""
+    for the attention kernels and the dense GEMMs, from ``nvcc -Xptxas -v``."""
     from openglue_tpu_torch.ops import kernels
 
     nvcc, cxxfilt = kernels._nvcc(), shutil.which("c++filt")
@@ -114,7 +216,7 @@ def ptxas_usage(repo: Path):
     procs = {name: subprocess.Popen([nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o", f"{scratch}/{name}.cubin",
                                      str(csrc / f"{name}.cu")],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name in PTXAS_SOURCES}
+             for name in PTXAS_SOURCES if (csrc / f"{name}.cu").exists()}
     usage = {}
     for name, proc in procs.items():
         out, _ = proc.communicate()
@@ -157,11 +259,15 @@ def main() -> int:
 
     kernels.build_all()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    torch.backends.cuda.matmul.allow_tf32 = False
     with torch.no_grad():
         times = {name: rounds_ms(fn, args.rounds) for name, fn in kernel_cases(gen).items()}
+        times.update({name: device_rounds_ms(fn, args.rounds) for name, fn in gemm_cases(gen).items()})
+        profile = layer_profile(gen)
     print(json.dumps({
         "label": args.label or str(repo), "card": card_line(),
         "ms": {name: statistics.median(t) for name, t in times.items()},
+        "f32_message_layer_profile": profile,
         "rounds_ms": times, "ptxas": ptxas_usage(repo),
     }), flush=True)
     return 0

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (the eval layer for softmax, for the feature kinds
 and in int8, the Sinkhorn forward and adjoint, the message forward and
 backward, the attention forward and backward on heads, with and without the
-LSE's cotangent, the train-mode layer half) against their plain PyTorch
+LSE's cotangent, the train-mode layer half, the dense GEMMs of the layer
+kernels on their own) against their plain PyTorch
 versions on a card, and the ring schedule's block merge against attention over
 the whole key set.
 
@@ -17,6 +18,7 @@ import torch
 
 from openglue_tpu_torch.ops.attention import sample_orthogonal_random_matrix
 from openglue_tpu_torch.ops.kernels import attention_kernel as ak
+from openglue_tpu_torch.ops.kernels import gemm_kernel as gk
 from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
 from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
 from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
@@ -789,3 +791,168 @@ def test_training_at_2048_keypoints_and_heads_of_width_32_matches_plain(monkeypa
     assert abs(got["grad_norm"].item() / ref["grad_norm"].item() - 1) <= 0.01
     cos = (g_got @ g_ref / (g_got.norm() * g_ref.norm())).item()
     assert cos >= 0.999, cos
+
+
+# ------------------------------------------------------------ dense GEMMs
+
+# the launch rule takes 128 x 128 tiles where they give every SM two (12,325
+# rows at n_out 512 on 132 SMs), else 64 x 64 tiles
+GEMM_ROWS, GEMM_N, GEMM_K = (1, 37, 300, 4113, 12325), (64, 128, 512), (32, 256, 512)
+
+
+def _gemm_case(dev, dtype, rows, n_out, k, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device=dev) * scale
+    return dict(a=r(rows, k).to(dtype), w=r(n_out, k, scale=k**-0.5).to(dtype), b=r(n_out),
+                x=r(rows, n_out).to(dtype), scale=1.0 + 0.1 * r(n_out), shift=0.1 * r(n_out))
+
+
+def _gemm_close(out, ref, dtype, what):
+    # f32 (3xTF32): the split drops lo.lo, 2^-22 of each product, and the sums
+    # run in another order: 1e-5 of the largest entry, the layer kernels' bar;
+    # bf16: two ulps of the largest entry (one rounding of the output flipped)
+    scale = ref.float().abs().max().item()
+    tol = 1e-5 * scale if dtype == torch.float32 else 2.0**-7 * scale
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol, f"{what}: max error {err} above {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", gk.EPILOGUES)
+def test_gemm_kernel_matches_plain(dtype, epilogue):
+    """Every epilogue at rows {1, 37, 300, 4113, 12325} x n_out {64, 128,
+    512} x k {32, 256, 512}, through both f32 tile shapes; each f32 call
+    counts one gemm_f32 launch, a bf16 call none."""
+    dev = _cuda()
+    for rows in GEMM_ROWS:
+        for n_out in GEMM_N:
+            for k in GEMM_K:
+                c = _gemm_case(dev, dtype, rows, n_out, k)
+                use_offset = epilogue == "concat" and rows % 2 == 1
+                kw = dict(x=c["x"], scale=c["scale"], shift=c["shift"], use_offset=use_offset)
+                ref = gk.gemm_plain(c["a"], c["w"], c["b"], epilogue, **kw)
+                before = gk.counter.count
+                out = gk.gemm(c["a"], c["w"], c["b"], epilogue, **kw)
+                torch.cuda.synchronize()
+                assert gk.counter.count == before + (dtype == torch.float32)
+                assert out.dtype == ref.dtype and out.shape == ref.shape
+                _gemm_close(out, ref, dtype, f"{epilogue} rows={rows} n_out={n_out} k={k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_kernel_kn_and_stacked_weights_match_plain(dtype):
+    """The kn form (a . w for w [k, n_out]) with and without k_split, and the
+    stacked weight of the k+v projection (split, bias2), through both f32
+    tile shapes."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device=dev) * scale
+    for rows in GEMM_ROWS:
+        for n_out, k in ((256, 256), (256, 512), (128, 32), (512, 256)):
+            a = r(rows, k).to(dtype)
+            w = r(k, n_out, scale=k**-0.5).to(dtype)
+            half = k // 2
+            wk, wv = r(n_out // 2, k, scale=k**-0.5).to(dtype), r(n_out // 2, k, scale=k**-0.5).to(dtype)
+            bk, bv = r(n_out // 2), r(n_out // 2)
+            cases = {
+                "kn": (dict(a=a, w=w, bias=None, kn=True), {}),
+                "kn k_split": (dict(a=a, w=w[:half].contiguous(), bias=None, kn=True, w2=w[half:].contiguous(),
+                                    k_split=half), {}),
+                "split": (dict(a=a, w=wk, bias=bk, w2=wv, bias2=bv, split=n_out // 2), {}),
+            }
+            for name, (kw, _) in cases.items():
+                ref = gk.gemm_plain(**kw)
+                out = gk.gemm(**kw)
+                torch.cuda.synchronize()
+                _gemm_close(out, ref, dtype, f"{name} rows={rows} n_out={n_out} k={k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_kernel_keeps_nan_and_is_deterministic(dtype):
+    """A NaN row of a comes out NaN through both ReLU epilogues and no other
+    row does; two runs give equal bits. Both f32 tile shapes: 300 rows at
+    n_out 128 take 64 x 64 tiles, 12,325 rows at n_out 512 128 x 128."""
+    dev = _cuda()
+    for rows, n_out in ((300, 128), (12325, 512)):
+        c = _gemm_case(dev, dtype, rows, n_out, 256, seed=5)
+        c["a"][17, 40] = float("nan")
+        others = torch.arange(rows, device=dev) != 17
+        for epilogue in ("relu", "relu_affine"):
+            out = gk.gemm(c["a"], c["w"], c["b"], epilogue, scale=c["scale"], shift=c["shift"])
+            again = gk.gemm(c["a"], c["w"], c["b"], epilogue, scale=c["scale"], shift=c["shift"])
+            torch.cuda.synchronize()
+            assert torch.isnan(out[17]).all() and torch.isfinite(out[others]).all(), (rows, epilogue)
+            assert torch.equal(out[others], again[others]), (rows, epilogue)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tn_gemm_kernel_matches_plain_and_is_deterministic(dtype):
+    """The weight-gradient GEMM with one to four problems of different row
+    counts (1 to 13,000 rows: one to 26 row chunks), through both f32 tile
+    shapes (the plan takes 128 x 128 for the first and the last case on 132
+    SMs, 64 x 64 for the others); two runs give equal bits."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
+    for p, q, rows in ((256, 256, (12288, 12288, 12288, 12288)), (128, 128, (4096, 300, 1, 4113)),
+                       (64, 128, (37,)), (256, 512, (13000, 700))):
+        xs = [r(n, p) for n in rows]
+        ys = [r(n, q) for n in rows]
+        refs = gk.tn_gemm_plain(xs, ys)
+        before = gk.tn_counter.count
+        outs = gk.tn_gemm(xs, ys)
+        again = gk.tn_gemm(xs, ys)
+        torch.cuda.synchronize()
+        assert gk.tn_counter.count == before + 2 * (dtype == torch.float32)
+        for i, (o, o2, ref) in enumerate(zip(outs, again, refs)):
+            assert torch.equal(o, o2)
+            # f32 out either way: 1e-5 of the largest entry in f32; bf16
+            # operands summed in another f32 order, 1e-5 too
+            scale = ref.abs().max().item()
+            err = (o - ref).abs().max().item()
+            assert err <= 1e-5 * scale, f"tn P={p} Q={q} rows={rows[i]}: {err} above {1e-5 * scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_kernels_count_the_gemms_they_launch(dtype):
+    """The C code counts each f32 GEMM where it launches it: an f32 K1 layer
+    launches 5 gemm_f32, K6 6, K4 3, K5 5 and one tn_gemm_f32, K8 4; a bf16
+    layer none."""
+    dev = _cuda()
+    counts = lambda: (gk.counter.count, gk.tn_counter.count)
+    f32 = dtype == torch.float32
+
+    def launched(fn):
+        before = counts()
+        fn()
+        torch.cuda.synchronize()
+        return tuple(a - b for a, b in zip(counts(), before))
+
+    w, x_q, x_kv, mask = _layer_case(dev, dtype, counts=(200, 257))
+    with torch.no_grad():
+        assert launched(lambda: glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, False)) == (5 * f32, 0)
+        assert launched(lambda: glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, False, "linear")) == (6 * f32, 0)
+    x_q, x_kv, mask, mw, g = _message_case(dev, dtype)
+    out = []
+    assert launched(lambda: out.extend(glk.message_forward(x_q, x_kv, mask, mw, 4, dtype))) == (3 * f32, 0)
+    assert launched(lambda: glk.message_backward(x_q, x_kv, mask, mw, g, out[1], out[2], 4, dtype)) == (5 * f32, f32)
+    w1 = torch.randn(512, 512, device=dev) * 512**-0.5
+    b1 = torch.zeros(512, device=dev)
+    assert launched(lambda: glk.train_half_forward(x_q, x_kv, mask, mw, w1, b1, 4, False, dtype)) == (4 * f32, 0)
+
+
+@pytest.mark.cuda
+def test_gemm_kernel_refuses_what_it_does_not_take():
+    dev = _cuda()
+    a, w = torch.randn(37, 96, device=dev), torch.randn(96, 96, device=dev)
+    with pytest.raises(ValueError, match="n_out % 64"):
+        gk.gemm(a, w)
+    with pytest.raises(ValueError, match="kn form takes the bias epilogue only"):
+        gk.gemm(a, torch.randn(96, 64, device=dev), epilogue="relu", kn=True)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        gk.tn_gemm([torch.randn(37, 96, device=dev)], [torch.randn(37, 64, device=dev)])

@@ -8,7 +8,7 @@ from openglue_tpu_torch.ops import kernels
 
 LAYER_SOURCES = {
     "gnn_layer", "message_forward", "message_backward", "gnn_layer_features", "gnn_layer_int8",
-    "attention", "attention_backward", "train_half",
+    "attention", "attention_backward", "train_half", "gemm",
 }
 SINKHORN_SOURCES = {"sinkhorn", "sinkhorn_adjoint"}
 
@@ -18,13 +18,16 @@ def test_every_source_has_its_headers():
     assert set(kernels.SOURCES) == LAYER_SOURCES | SINKHORN_SOURCES
     tiles = {"tf32_tiles.cuh", "mma.cuh"}  # the f32 attention's 3xTF32 tiles
     assert names["gnn_layer"] == {"gnn_layer.cu", "attention.cuh", "gemm.cuh", *tiles}
-    assert names["message_backward"] == {"message_backward.cu", "attention_backward.cuh", "gemm.cuh", *tiles}
+    assert names["message_backward"] == {
+        "message_backward.cu", "attention_backward.cuh", "gemm.cuh", "tn_gemm.cuh", *tiles
+    }
     assert names["attention"] == {"attention.cu", "attention.cuh", *tiles}
     assert names["attention_backward"] == {"attention_backward.cu", "attention_backward.cuh", *tiles}
     assert names["train_half"] == {"train_half.cu", "attention.cuh", "gemm.cuh", *tiles}
     assert names["gnn_layer_features"] == {"gnn_layer_features.cu", "gemm.cuh", "mma.cuh"}
     assert names["gnn_layer_int8"] == {"gnn_layer_int8.cu", "attention.cuh", *tiles}
     assert names["sinkhorn_adjoint"] == {"sinkhorn_adjoint.cu", "sinkhorn_rows.cuh"}
+    assert names["gemm"] == {"gemm.cu", "gemm.cuh", "tn_gemm.cuh", "mma.cuh"}  # the dense GEMMs alone
 
 
 def _names(csrc, monkeypatch):
