@@ -10,7 +10,9 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
 3. kernels: each kernel at the shapes its path gives it, held against its
    plain PyTorch version on the card, with its time, the plain version's time
    and its bound: the eval layer (K1) and the Sinkhorn forward (K2) at the
-   serving shapes; the Sinkhorn adjoint (K3) and the message forward and
+   serving shapes, and K1's attention core alone at B=16 on K1's operand
+   layout beside ``scaled_dot_product_attention`` with the same mask; the
+   Sinkhorn adjoint (K3) and the message forward and
    backward (K4, K5; bf16 and f32) at the training shape B=12, N=1024; the
    feature-kind layer (K6: linear, FAVOR-relu, FAVOR-softmax; bf16 and f32)
    and the int8 layer (K7: its four modes) at B=16, N=1024; the train-mode
@@ -25,7 +27,8 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    alone (gemm_f32 at every shape of a ``message`` step and of the
    pretraining fixture's width, tn_gemm_f32 at their weight gradients, each
    beside one PyTorch call for the same function; the bf16 GEMM at K1's five
-   shapes beside ``F.linear`` in bf16), timed by their device time. f32 work
+   shapes beside ``F.linear`` in bf16), every kernel, plain version and
+   library call timed by its device time (``device_ms``). f32 work
    is bounded at 495/3 TFLOP/s, the rate of f32-accurate 3xTF32 products,
    with the f32 FMA bound beside it;
 4. serving: the flagship config (the ``superglue:`` section of
@@ -33,7 +36,9 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    chain, 20 Sinkhorn iterations, use_pallas) with seeded random weights,
    serving single-pair requests, a B=16 batch at N=1024 and a B=4 batch at
    N=2048 through ``SuperGlue.forward`` + ``decode_from_output``. It checks
-   the kernel launch counts and holds every request against the same model
+   the kernel launch counts (per forward 36 layer kernels, one Sinkhorn, and
+   inside the layers 180 bf16 GEMMs and 36 bf16 attentions, which the C code
+   counts where it launches them) and holds every request against the same model
    run through the kernels' plain versions; a small f32 input is also held
    against the independent composed path (use_pallas=False);
    Then the matcher's other serving configurations at the same width and
@@ -160,26 +165,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` back-to-back calls."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def device_ms(fn, calls: int = 20) -> float:
     """Device time of ``calls`` back-to-back calls of ``fn``, in ms per call,
     by CUDA events recorded after the card has been held busy
     (``torch.cuda._sleep``, about 20 ms) while the host queues every call. A
-    GEMM alone takes the card less time than its launch takes the host, so
-    events around calls that start at once would time the host."""
+    short kernel takes the card less time than its launch takes the host, so
+    events around calls that start at once would time the host: every kernel
+    and library time of this script is taken so."""
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -231,8 +223,8 @@ def layer_phase(glk, dtype, gen, batch=16, n=1024, dim=256, heads=4):
     # flips from the online softmax and the accumulation order)
     tol = 1e-3 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
     check(err <= tol, f"K1 {dtype}: max error {err} above {tol}")
-    ms = cuda_ms(lambda: glk.fused_attention_propagation(x_q, x_kv, mask, w, heads), 20)
-    plain_ms = cuda_ms(lambda: glk.layer_plain(x_q, x_kv, mask, w, heads), 5, warmup=1)
+    ms = device_ms(lambda: glk.fused_attention_propagation(x_q, x_kv, mask, w, heads), 20)
+    plain_ms = device_ms(lambda: glk.layer_plain(x_q, x_kv, mask, w, heads), 5)
     elt = x_q.element_size()
     flops = batch * (20 * n * dim * dim + 4 * n * n * dim)
     nbytes = 3 * batch * n * dim * elt + (4 * dim * dim + 6 * dim * dim) * elt + batch * n
@@ -240,6 +232,37 @@ def layer_phase(glk, dtype, gen, batch=16, n=1024, dim=256, heads=4):
     print(f"K1 gnn_layer {str(dtype)[6:]} B={batch} N=M={n} D={dim} H={heads}: max_abs_err={err:.3e} "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}){bound_note(fma)}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+
+def k1_attention_phase(ak, gen, batch=16, n=1024, heads=4, dh=64):
+    """K1's attention core alone at the serving shape (bf16, ragged key masks
+    with valid counts in [N/4, N]), on K1's operand layout (q a [B, N, D]
+    buffer, k and v the column blocks of one [B, M, 2D] buffer): kernel vs
+    plain, and ``scaled_dot_product_attention`` with the same mask on the
+    same views, which the port never uses."""
+    F = torch.nn.functional
+    dev, dt, dim = torch.device("cuda"), torch.bfloat16, heads * dh
+    split = lambda x: x.view(batch, n, heads, dh).transpose(1, 2)
+    q = split(torch.randn(batch, n, dim, generator=gen, device=dev).to(dt))
+    kv = torch.randn(batch, n, 2 * dim, generator=gen, device=dev).to(dt)
+    k, v = split(kv[..., :dim]), split(kv[..., dim:])
+    counts = torch.randint(n // 4, n + 1, (batch,), generator=gen, device=dev)
+    mask = torch.arange(n, device=dev)[None] < counts[:, None]
+    run = lambda: ak.attention_forward(q, k, v, mask, False)
+    out, ref = run()[0], ak.attention_forward_plain(q, k, v, mask, False)[0]
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = 2.0**-7 * ref.float().abs().max().item()  # K9's bar: one or two ulps of the largest output
+    check(err <= tol, f"K1 attention bf16: error {err} above {tol}")
+    ms = device_ms(run)
+    plain_ms = device_ms(lambda: ak.attention_forward_plain(q, k, v, mask, False), 5)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask[:, None, None, :]))
+    # S and P V per head; q, k, v and the mask in, out written
+    bms, by, _ = work_bound(batch * 4 * n * n * dim, dt, 4 * batch * n * dim * 2 + batch * n)
+    print(f"K1 attention core bf16 B={batch} H={heads} N=M={n} dh={dh} (K1's layout): max_abs_err={err:.3e} "
+          f"(bar {tol:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library "
+          f"(scaled_dot_product_attention, same mask) {lib:.4f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib)
 
 
 def layer_weights(glk, dtype, gen, dim=256):
@@ -283,8 +306,8 @@ def feature_layer_phase(glk, sample_projection, kind, dtype, gen, batch=16, n=10
     # (rounding flips of q, v, the features and the aggregate's operands)
     tol = 1e-3 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
     check(err <= tol, f"K6 {kind} {dtype}: max error {err} above {tol}")
-    ms = cuda_ms(run, 20)
-    plain_ms = cuda_ms(plain, 5, warmup=1)
+    ms = device_ms(run, 20)
+    plain_ms = device_ms(plain, 5)
     elt = x_q.element_size()
     # the work the function needs: the six dense products; per head the FAVOR
     # projection of queries and keys, the aggregate kf^T v and the key sum, all
@@ -337,8 +360,8 @@ def int8_layer_phase(glk, gli8, mode, gen, batch=16, n=1024, dim=256, heads=4):
     exact = (diff == 0).float().mean().item()
     bar = INT8_REL_NORM[quant_attention]
     check(rel <= bar, f"K7 {mode}: relative norm {rel} above {bar}")
-    ms = cuda_ms(run, 20)
-    plain_ms = cuda_ms(plain, 3, warmup=1)
+    ms = device_ms(run, 20)
+    plain_ms = device_ms(plain, 3)
     # the six dense products are s8; the attention's two are bf16, or s8 too
     dense, attn = batch * 20 * n * dim * dim, batch * 4 * n * n * dim
     t_op = dense / PEAK_INT8_OPS + attn / (PEAK_INT8_OPS if quant_attention else PEAK_BF16_FLOPS)
@@ -370,8 +393,8 @@ def sinkhorn_phase(sk, batch, n, gen, iters=20):
     live = la > -1e8  # masked rows sit near -1e9, where one f32 ulp is 64
     err = (u - ref).abs()[live].max().item()
     check(err <= 1e-3, f"K2 B={batch} N={n}: max error {err} on live rows")
-    ms = cuda_ms(lambda: sk.sinkhorn_scale(M_pad, la, lb, iters, k_dtype), 10)
-    plain_ms = cuda_ms(lambda: sk.sinkhorn_scale_plain(M_pad, la, lb, iters, k_dtype), 5, warmup=1)
+    ms = device_ms(lambda: sk.sinkhorn_scale(M_pad, la, lb, iters, k_dtype), 10)
+    plain_ms = device_ms(lambda: sk.sinkhorn_scale_plain(M_pad, la, lb, iters, k_dtype), 5)
     flops = batch * rows * cp * (4 * (iters - 1) + 2)
     nbytes = batch * (rows * cp * 4 + 2 * rows * 4 + cp * 4)
     bms, by = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
@@ -406,8 +429,8 @@ def adjoint_phase(sk, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, iters=20):
     scale = dm[1].abs()[live].max().item()
     # the same f32 recursion over 2T passes; matvec summation order differs
     check(err <= 1e-4 * scale, f"K3 B={batch} N={n}: max error {err} above 1e-4 of {scale}")
-    ms = cuda_ms(lambda: sk.sinkhorn_adjoint(*args), 10)
-    plain_ms = cuda_ms(lambda: sk.sinkhorn_adjoint_plain(*args), 3, warmup=1)
+    ms = device_ms(lambda: sk.sinkhorn_adjoint(*args), 10)
+    plain_ms = device_ms(lambda: sk.sinkhorn_adjoint_plain(*args), 3)
     # FMAs of 2T passes over K (the last reverse step has no column pass),
     # bytes: M and the vectors read once, the factors written once
     flops = batch * rows * cp * (8 * iters - 2)
@@ -482,8 +505,8 @@ def message_phase(glk, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, dim=256, h
         ("K5", bwd, lambda: glk.message_backward_plain(x_q, x_kv, mask, w, g, ref[1], ref[2], heads, dtype),
          b_flops, b_bytes, b_err),
     ):
-        ms = cuda_ms(fn, 10)
-        plain_ms = cuda_ms(plain, 3, warmup=1)
+        ms = device_ms(fn, 10)
+        plain_ms = device_ms(plain, 3)
         bms, by, fma = work_bound(flops, dtype, nbytes)
         res[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
         print(f"{kname} message_{'forward' if kname == 'K4' else 'backward'} {name} B={batch} N=M={n} "
@@ -527,8 +550,8 @@ def half_phase(glk, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, dim=256, head
               f"K8 {name} use_offset={use_offset}: z/attn error {err} (tol {tol}), lse {lse_err} (tol {lse_tol})")
         errs[use_offset] = err
     run = lambda: glk.train_half_forward(x_q, x_kv, mask, w, w1, b1, heads, False, dtype)
-    ms = cuda_ms(run, 10)
-    plain_ms = cuda_ms(lambda: glk.train_half_plain(x_q, x_kv, mask, w, w1, b1, heads, False, dtype), 3, warmup=1)
+    ms = device_ms(run, 10)
+    plain_ms = device_ms(lambda: glk.train_half_plain(x_q, x_kv, mask, w, w1, b1, heads, False, dtype), 3)
     elt = x_q.element_size()
     # 4 N x D x D products (q, k, v, out), one N x 2D x 2D, per head 2 N x M x dh;
     # x_q, x_kv and the mask in, z, attn and the LSE out, ten weights in f32
@@ -562,9 +585,9 @@ def gemm_phase(gk, gen):
     gradients of both, each against its plain version, with its bounds and
     the time of one PyTorch call for the same function (``F.linear``, ``a @
     w`` for the kn form, ``torch.bmm`` of the stacked X^T Y for the tn form);
-    then the unchanged bf16 GEMM at K1's five shapes (B=16 N=1024 D=256)
-    beside ``F.linear`` in bf16, with each launch's bound. Times are device
-    times (``device_ms``)."""
+    then the bf16 GEMM (wgmma on TMA tiles) at K1's five shapes (B=16 N=1024
+    D=256) against its plain version, beside ``F.linear`` in bf16, with each
+    launch's bound. Times are device times (``device_ms``)."""
     F = torch.nn.functional
     dev = torch.device("cuda")
 
@@ -649,18 +672,23 @@ def gemm_phase(gk, gen):
         tol = 2.0**-7 * ref.float().abs().max().item()  # two bf16 ulps of the largest entry
         check(err <= tol, f"gemm_bf16 {name}: error {err} above {tol}")
         ms = device_ms(lambda: gk.gemm(**kw))
+        plain_ms = device_ms(lambda: gk.gemm_plain(**kw), 5)
         library_ms = device_ms(lambda: F.linear(a, w, b.bfloat16()))
         # bf16 a and w in, out written (the concat twice as wide), x read by concat and residual
         nbytes = 2.0 * (rows * k + n_out * k + rows * n_out * (2 if epilogue == "concat" else 1)
                         + (rows * n_out if epilogue in ("concat", "residual") else 0))
         bms, by, _ = work_bound(2.0 * rows * n_out * k, torch.bfloat16, nbytes)
-        res["bf16"][name] = dict(max_abs_err=err, ms=ms, bound_ms=bms, bound_by=by, library_ms=library_ms)
+        res["bf16"][name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                                 library_ms=library_ms)
         print(f"gemm_bf16 K1 {name} ({epilogue}) B=16 N=1024 D=256: {rows}x{n_out}x{k}, max_abs_err={err:.3e} "
-              f"kernel {ms:.4f} ms, bound {bms:.4f} ms ({by}), library (F.linear bf16) {library_ms:.4f} ms",
-              flush=True)
-    print(f"  gemm_bf16 per K1 layer (B=16): kernel {sum(v['ms'] for v in res['bf16'].values()):.4f} ms, library "
-          f"{sum(v['library_ms'] for v in res['bf16'].values()):.4f} ms, bound "
-          f"{sum(v['bound_ms'] for v in res['bf16'].values()):.4f} ms", flush=True)
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), library (F.linear bf16) "
+              f"{library_ms:.4f} ms", flush=True)
+    per_layer = {key: sum(v[key] for v in res["bf16"].values()) for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    res["bf16_layer"] = dict(per_layer, max_abs_err=max(v["max_abs_err"] for v in res["bf16"].values()),
+                             bound_by="bytes" if all(v["bound_by"] == "bytes" for v in res["bf16"].values())
+                             else "operations")
+    print(f"  gemm_bf16 per K1 layer (B=16): kernel {per_layer['ms']:.4f} ms, plain {per_layer['plain_ms']:.4f} ms, "
+          f"library {per_layer['library_ms']:.4f} ms, bound {per_layer['bound_ms']:.4f} ms", flush=True)
     return res
 
 
@@ -716,8 +744,8 @@ def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4, 
         sdpa().backward(g)
 
     with torch.enable_grad():
-        lib_fwd = cuda_ms(sdpa, 10)
-        lib_bwd = cuda_ms(sdpa_both, 10) - lib_fwd
+        lib_fwd = device_ms(sdpa, 10)
+        lib_bwd = device_ms(sdpa_both, 10) - lib_fwd
 
     elt = q.element_size()
     act, stat = batch * n * dim * elt, batch * heads * n * 4
@@ -730,8 +758,8 @@ def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4, 
               batch * 10 * n * n * dim, 8 * act + stat + batch * n, b_err, lib_bwd))
     res = {}
     for kname, what, fn, plain, flops, nbytes, err, lib in cases:
-        ms = cuda_ms(fn, 10)
-        plain_ms = cuda_ms(plain, 3, warmup=1)
+        ms = device_ms(fn, 10)
+        plain_ms = device_ms(plain, 3)
         bms, by, fma = work_bound(flops, dtype, nbytes)
         res[kname] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib)
         print(f"{kname} {what} {name} B={batch} H={heads} N=M={n} dh={dh}: max_abs_err={err:.3e} kernel {ms:.4f} ms, "
@@ -773,10 +801,10 @@ def lse_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4, dh=64)
     lse_err = (lse - ref_lse)[live].abs().max().item()
     check(err <= tol and lse_err <= 1e-4 and bool((lse[~live] < -1e8).all()),
           f"K11 {name}: out error {err} (tol {tol}), lse {lse_err} on live elements")
-    ms = cuda_ms(run, 10)
-    plain_ms = cuda_ms(lambda: ak.attention_forward_plain(q, k, v, mask), 3, warmup=1)
+    ms = device_ms(run, 10)
+    plain_ms = device_ms(lambda: ak.attention_forward_plain(q, k, v, mask), 3)
     attn_mask = mask[:, None, None, :]
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask), 10)
+    lib = device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask), 10)
     elt = q.element_size()
     act, stat = batch * n * dim * elt, batch * heads * n * 4
     # S and P V per head; q, k, v and the mask in, out and the LSE out
@@ -1473,8 +1501,8 @@ def streaming_sinkhorn_phase(sk, gen, batch=1, n=WIDE_KEYPOINTS, iters=20):
     live = la > -1e8  # masked rows sit near -1e9, where one f32 ulp is 64
     err = (u - ref).abs()[live].max().item()
     check(err <= 1e-3, f"K2s B={batch} N={n}: max error {err} on live rows")  # K2's bar
-    ms = cuda_ms(run, 5)
-    plain_ms = cuda_ms(plain, 2, warmup=1)
+    ms = device_ms(run, 5)
+    plain_ms = device_ms(plain, 2)
     flops = batch * rows * cp * (4 * (iters - 1) + 2)
     nbytes = batch * (rows * cp * 4 + 2 * rows * 4 + cp * 4)
     bms, by = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
@@ -1691,6 +1719,7 @@ def main() -> int:
     composed.load_state_dict(model.state_dict())
     with torch.inference_mode():
         k1 = {dt: layer_phase(glk, dt, gen) for dt in (torch.bfloat16, torch.float32)}
+        k1_attention = k1_attention_phase(ak, torch.Generator(device="cuda").manual_seed(8))
         k2 = {shape: sinkhorn_phase(sk, *shape, gen) for shape in ((16, 1024), (1, 1024), (4, 2048))}
         k3 = adjoint_phase(sk, gen)
         k45 = {dt: message_phase(glk, dt, gen) for dt in (torch.bfloat16, torch.float32)}
@@ -1721,14 +1750,19 @@ def main() -> int:
             serve(model, decode_from_output, inputs)
         torch.cuda.synchronize()
 
-        glk.counter.reset()
-        sk.counter.reset()
+        # the layer kernel's launches, and inside each the five bf16 GEMMs and
+        # the bf16 attention, which the C code counts where it launches them
+        main_counters = (glk.counter, sk.counter, gk.bf16_counter, ak.bf16_counter)
+        expected = (layers, 1, 5 * layers, layers)
+        for c in main_counters:
+            c.reset()
         results = []
         for name, inputs in requests:
-            before = glk.counter.count, sk.counter.count
+            before = tuple(c.count for c in main_counters)
             out, decoded = serve(model, decode_from_output, inputs)
-            delta = glk.counter.count - before[0], sk.counter.count - before[1]
-            check(delta == (layers, 1), f"{name}: launches {delta}, expected ({layers}, 1)")
+            delta = tuple(c.count - b for c, b in zip(main_counters, before))
+            check(delta == expected, f"{name}: launches (layer, sinkhorn, gemm_bf16, attention_bf16) {delta}, "
+                                     f"expected {expected}")
             times = []
             for _ in range(SERVE_REPEATS):
                 torch.cuda.synchronize()
@@ -1737,7 +1771,8 @@ def main() -> int:
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - start)
             results.append((name, inputs, out, decoded, statistics.median(times), delta))
-        launches = {"layer": glk.counter.count, "sinkhorn": sk.counter.count}
+        launches = {"layer": glk.counter.count, "sinkhorn": sk.counter.count, "gemm_bf16": gk.bf16_counter.count,
+                    "attention_bf16": ak.bf16_counter.count}
 
         with plain_versions(glk, sk):
             refs = [serve(model, decode_from_output, inputs)[0] for _, inputs, *_ in results]
@@ -1751,7 +1786,8 @@ def main() -> int:
             print(f"serve {name}: {latency * 1e3:.3f} ms (median of {SERVE_REPEATS}), "
                   f"{batch / latency:.2f} pairs/s, "
                   f"device busy {busy} ms, idle share {idle}, "
-                  f"launches layer={delta[0]} sinkhorn={delta[1]}, vs plain path: "
+                  f"launches layer={delta[0]} sinkhorn={delta[1]} (gemm_bf16={delta[2]}, attention_bf16={delta[3]}), "
+                  f"vs plain path: "
                   f"{nats:.3e} nats, decode {json.dumps(stats)}, matches {n_matches} "
                   f"[{card}]", flush=True)
             print(f"  device time by kernel, {name}: "
@@ -1879,13 +1915,21 @@ def main() -> int:
              replaces=pallas + "gnn_layer_kernel.py:557", launches=train["gemm_f32"],
              **{k: v for k, v in gemms["f32"][("B=12 N=1024 D=256", "q/out")].items() if k != "launches_per_layer"},
              shapes={f"{w} {n}": v for (w, n), v in gemms["f32"].items()}, remat_launches=routes["remat"]["gemm_f32"],
-             half_launches=routes["half"]["gemm_f32"], bf16_k1_yardstick=gemms["bf16"]),
+             half_launches=routes["half"]["gemm_f32"]),
         dict(name="tn_gemm_f32 (weight gradients, f32, 4 x 256x256 over 12288 rows)", route="cuda",
              source=csrc + "tn_gemm.cuh", replaces=pallas + "gnn_layer_kernel.py:627", launches=train["tn_gemm_f32"],
              **{k: v for k, v in gemms["tn"]["B=12 N=1024 D=256"].items() if k not in ("launches_per_layer",
                                                                                       "per_step_ms")},
              per_step_ms=gemms["tn"]["B=12 N=1024 D=256"]["per_step_ms"], d128=gemms["tn"]["B=2 N=2048 D=128"],
              half_launches=routes["half"]["tn_gemm_f32"]),
+        # K1's parts in bf16 (their launches on the serving requests above,
+        # counted by the C code): the five GEMMs of a layer, summed, each beside them
+        dict(name="gemm_bf16 (K1's five GEMMs per layer, bf16, B=16 N=1024 D=256)", route="cuda",
+             source=csrc + "gemm.cuh", replaces=pallas + "gnn_layer_kernel.py:117", launches=launches["gemm_bf16"],
+             **gemms["bf16_layer"], shapes=gemms["bf16"]),
+        dict(name="attention_bf16 (K1's attention core, bf16, B=16 H=4 N=M=1024 dh=64)", route="cuda",
+             source=csrc + "attention.cuh", replaces=pallas + "gnn_layer_kernel.py:117",
+             launches=launches["attention_bf16"], **k1_attention),
     ]}
     for entry in record["kernels"]:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on the main path")

@@ -18,14 +18,18 @@
 // 0.19 ms at the f32 FMA rate.
 //
 // Design: the TPU kernel holds a whole [BQ, M] score block in VMEM and takes
-// one exact softmax per row. Here the flash-style kernel of attention.cuh
-// streams key tiles through shared memory with an f32 running max and sum
-// (one CTA per batch element, head and 64-query block; mma.sync in bf16; in
-// f32, mma.sync TF32 on hi/lo splits made once per staged tile, see
-// tf32_tiles.cuh). The multi-head attention's q, k and v are [B, L, D] projections
-// seen through a transpose: the kernel takes every operand by its strides, so
-// it reads them where they lie and writes out the same way, without a copy.
-// Keys past M take no weight; a fully masked key set averages over the M keys.
+// one exact softmax per row. Here the flash-style kernels of attention.cuh
+// stream key tiles through shared memory with an f32 running max and sum. In
+// bf16: 128 queries per CTA in two consumer warpgroups that take turns on the
+// tensor cores (wgmma), 128-key K/V tiles that a producer warp loads by TMA
+// into an mbarrier ring, exp2 on the MUFU overlapped with the products. In
+// f32: one CTA per batch element, head and 64-query block, mma.sync TF32 on
+// hi/lo splits made once per staged tile (tf32_tiles.cuh). The multi-head
+// attention's q, k and v are [B, L, D] projections seen through a transpose:
+// the kernel takes every operand by its strides (TMA tensor maps of four
+// dimensions in bf16), so it reads them where they lie and writes out the
+// same way, without a copy. Keys past M take no weight; a fully masked key
+// set averages over the M keys.
 
 #include "attention.cuh"
 

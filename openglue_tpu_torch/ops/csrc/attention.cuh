@@ -6,152 +6,287 @@
 // and v column blocks of one buffer, out [B, N, D]); mask [B, M] (1 valid, 0
 // masked) or null; out in the compute type (the bf16 kernel can also write
 // f32); lse [B, H, N] f32 (max + log(sum exp)) or null. The row max and sum
-// run online in f32; the division comes after P.V.
+// run online in f32; the division comes after P.V. bf16: wgmma on TMA tiles
+// in FlashAttention-3's shape (below); every view's base and strides are
+// multiples of 16 bytes, as TMA needs. f32: 3xTF32 mma.sync (tf32_tiles.cuh).
 
 #pragma once
 
+#include "hopper.cuh"
 #include "tf32_tiles.cuh"
 
 namespace {
 
+// the tiles of K7's int8 attention (gnn_layer_int8.cu): 4 warps, 64 queries, 64 keys
 constexpr int kAq = 64, kAk = 64, kAttnThreads = 128;
 
-// bf16: 4 warps, 16 query rows each; S, P and O stay in mma registers; K/V
-// tiles double-buffered with cp.async
-template <int DH, typename O>
-__global__ void __launch_bounds__(kAttnThreads)
-attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-               O* __restrict__ out, float* __restrict__ lse, int N, int M, HeadLayout lq,
-               HeadLayout lk, HeadLayout lv, HeadLayout lo) {
-  constexpr int kPad = 8;
-  constexpr int kChunks = DH / 8, kSteps = DH / 16;  // 16-byte chunks per row; k-steps over dh
-  __shared__ __align__(16) bf16 Qs[kAq][DH + kPad];
-  __shared__ __align__(16) bf16 Ks[2][kAk][DH + kPad];
-  __shared__ __align__(16) bf16 Vs[2][kAk][DH + kPad];
-  __shared__ float madd[2][kAk];
-  const int b = blockIdx.z, h = blockIdx.y, n0 = blockIdx.x * kAq;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
-  const bf16* qb = q + b * lq.batch + h * lq.head;
-  const bf16* kb = k + b * lk.batch + h * lk.head;
-  const bf16* vb = v + b * lv.batch + h * lv.head;
+// ---------------------------------------------------------------- bf16
+// wgmma on TMA tiles (hopper.cuh), in the shape of FlashAttention-3. A CTA
+// is a producer warp and two consumer warpgroups of 64 query rows, persistent
+// over tiles of 128 queries of one (batch element, head), the query blocks of
+// one head next to each other (they share K and V in L2). The producer loads
+// each tile's Q into one of two Q buffers, then keeps 128-key K and V tiles
+// in a ring of kHStages stages guarded by mbarriers, with each key tile's
+// additive mask (log2 units: 0, -1e9 log2(e), or -inf for keys at or past M,
+// whose rows TMA fills with zeros), which its 32 lanes read a tile ahead and
+// write. Each consumer computes S = Q K^T (m64n128k16, Q and K from shared
+// memory), the online softmax in registers with exp2 and the scale dh^-1/2
+// log2(e) folded into one multiply, then O += P V with P, rounded to bf16,
+// as the register A operand and V (MN-major) from shared memory. The row max
+// and sum stay f32; the division comes after P V.
+//
+// What bounds it: 4 N M dh FLOP against exp on every score. At dh=64 the
+// exps (one MUFU op each, 16 per SM per clock) take as long as the products
+// at the tensor cores' rate. The two consumers take turns issuing S on named
+// barriers, so one's softmax runs while the other's products do
+// (FlashAttention-3's ping-pong); being persistent, a CTA's next tile loads
+// while it finishes this one. Issuing the next tile's S ahead of this tile's
+// P V within a warpgroup (FlashAttention-3's other overlap) measured slower
+// here (PERF.md), and is not done.
 
-  auto load_kv = [&](int stage, int k0) {
-    for (int i = tid; i < kAk * kChunks; i += kAttnThreads) {
-      const int r = i / kChunks, c = (i % kChunks) * 8;
-      const bool ok = k0 + r < M;
-      const long long row = ok ? k0 + r : 0;
-      cp_async16(&Ks[stage][r][c], kb + row * lk.row + c, ok);
-      cp_async16(&Vs[stage][r][c], vb + row * lv.row + c, ok);
+constexpr int kHq = 128, kHk = 128, kHStages = 3, kHThreads = 384;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
+template <int DH>
+struct Bf16Attn {
+  static constexpr int row_bytes = 2 * DH;  // 128 or 64: the swizzle
+  static constexpr int q_bytes = kHq * row_bytes, kv_bytes = kHk * row_bytes;
+  static constexpr int sbo = 8 * row_bytes;  // between groups of 8 rows
+  // slack to align to the swizzle period, two Q tiles, the K/V ring, the
+  // masks and the barriers
+  static constexpr size_t bytes =
+      1024 + 2 * q_bytes + 2 * kHStages * kv_bytes + kHStages * kHk * sizeof(float) + (4 + 2 * kHStages) * 8;
+};
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// d += A . V for one 16-key step of P V (A: P's bf16 fragments)
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2], const uint32_t (&a)[4], uint64_t v) {
+  if constexpr (DH == 64) wgmma_rs_n64(d, a, v);
+  else wgmma_rs_n32(d, a, v);
+}
+
+// The online softmax of one tile's scores s (entry (j, e): row 16 warp + g,
+// + 8 for e >= 2, key 8 j + 2 t + (e & 1)) with its additive mask ma (log2
+// units): the scores become log2-unit logits, the running row max moves
+// (alpha: the factor for what was summed before), the row sums take the
+// tile's exps, and p gets them rounded to bf16 as P's A fragments.
+template <int DH>
+__device__ __forceinline__ void online_softmax(float (&s)[64], const float* ma, int t, float (&row_max)[2],
+                                               float (&row_sum)[2], float (&alpha)[2], uint32_t (&p)[8][4]) {
+  constexpr float kScale = Head<DH>::scale * kLog2e;
+  float tile_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = s[4 * j + e] * kScale + ma[8 * j + 2 * t + (e & 1)];
+      tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s[4 * j + e]);
     }
-    if (tid < kAk) madd[stage][tid] = mask_add(mask, b, M, k0 + tid);
-    cp_async_commit();
-  };
-
-  for (int i = tid; i < kAq * kChunks; i += kAttnThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const bool ok = n0 + r < N;
-    cp_async16(&Qs[r][c], qb + (ok ? n0 + r : 0) * lq.row + c, ok);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mx = tile_max[hh];
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(row_max[hh], mx);
+    alpha[hh] = exp2_approx(row_max[hh] - m_new);
+    row_max[hh] = m_new;
+    row_sum[hh] *= alpha[hh];
   }
-  load_kv(0, 0);  // commits Q's copies with the first tile's
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qa[kSteps][4];
 #pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk)
-    ldmatrix_x4(qa[kk], &Qs[warp * 16 + (lane % 16)][kk * 16 + (lane / 16) * 8]);
+  for (int i = 0; i < 64; ++i) {
+    const float pe = exp2_approx(s[i] - row_max[(i >> 1) & 1]);
+    s[i] = pe;
+    row_sum[(i >> 1) & 1] += pe;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+}
 
-  float o[DH / 8][4] = {};
-  float row_max[2] = {-INFINITY, -INFINITY};
-  float row_sum[2] = {0.f, 0.f};
+// S = Q K^T (Q and K at shared addresses q and k) into s, issued and committed
+template <int DH>
+__device__ __forceinline__ void issue_scores(float (&s)[64], uint32_t q, uint32_t k) {
+  using S = Bf16Attn<DH>;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  fence_regs(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    wgmma_ss_n128<0>(s, smem_desc(q + 32 * kk, 16, S::sbo, S::row_bytes),
+                     smem_desc(k + 32 * kk, 16, S::sbo, S::row_bytes));
+  wgmma_commit();
+}
 
-  const int ktiles = (M + kAk - 1) / kAk;
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < ktiles) {
-      load_kv(st ^ 1, (kt + 1) * kAk);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+template <int DH, typename O>
+__global__ void __launch_bounds__(kHThreads, 1)
+    attention_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v, const uint8_t* __restrict__ mask,
+                   O* __restrict__ out, float* __restrict__ lse, int B, int H, int N, int M, HeadLayout lo) {
+  using S = Bf16Attn<DH>;
+  extern __shared__ uint8_t attn_smem[];
+  uint8_t* const qs = attn_smem + ((1024 - (smem_addr(attn_smem) & 1023)) & 1023);  // [2][kHq][DH]
+  uint8_t* const ks = qs + 2 * S::q_bytes;  // [stage][kHk][DH], as are vs
+  uint8_t* const vs = ks + kHStages * S::kv_bytes;
+  float* const madd = reinterpret_cast<float*>(vs + kHStages * S::kv_bytes);  // [stage][kHk]
+  uint64_t* const q_full = reinterpret_cast<uint64_t*>(madd + kHStages * kHk);
+  uint64_t* const q_empty = q_full + 2;
+  uint64_t* const full = q_empty + 2;
+  uint64_t* const empty = full + kHStages;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int qblocks = (N + kHq - 1) / kHq, tiles = qblocks * H * B, ktiles = (M + kHk - 1) / kHk;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 8);  // the consumers' warps
     }
-    __syncthreads();
+    for (int s = 0; s < kHStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer's lanes, after their mask entries
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float s[8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < kSteps; ++kk)
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, &Ks[st][np * 16 + (lane % 8) + (lane / 16) * 8][kk * 16 + ((lane / 8) % 2) * 8]);
-        mma_bf16(s[2 * np], qa[kk], r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], r[2], r[3]);
+  if (wg == 0) {  // the producer: its first warp
+    regs_release<24>();
+    if (warp != 0) return;
+    int stage = 0, qbuf = 0;
+    uint32_t phase = 0, qphase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n0 = tile % qblocks * kHq, h = tile / qblocks % H, b = tile / qblocks / H;
+      if (lane == 0) {
+        mbar_wait(&q_empty[qbuf], qphase ^ 1);
+        mbar_arrive_tx(&q_full[qbuf], S::q_bytes);
+        tma_load_4d(qs + qbuf * S::q_bytes, &map_q, &q_full[qbuf], 0, n0, h, b);
       }
+      if (++qbuf == 2) qbuf = 0, qphase ^= 1;
+      float next[kHk / 32];  // this lane's mask entries of the next key tile, read a tile ahead
+#pragma unroll
+      for (int j = 0; j < kHk / 32; ++j) next[j] = mask_add(mask, b, M, lane + 32 * j) * kLog2e;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int k0 = kt * kHk;
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[stage], 2 * S::kv_bytes);
+          tma_load_4d(ks + stage * S::kv_bytes, &map_k, &full[stage], 0, k0, h, b);
+          tma_load_4d(vs + stage * S::kv_bytes, &map_v, &full[stage], 0, k0, h, b);
+        }
+#pragma unroll
+        for (int j = 0; j < kHk / 32; ++j) madd[stage * kHk + lane + 32 * j] = next[j];
+        mbar_arrive(&full[stage]);
+#pragma unroll
+        for (int j = 0; j < kHk / 32; ++j) next[j] = mask_add(mask, b, M, k0 + kHk + lane + 32 * j) * kLog2e;
+        if (++stage == kHStages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
 
-    float tile_max[2] = {-INFINITY, -INFINITY};
+  // a consumer warpgroup: query rows [64 cw, 64 cw + 64) of each tile. The
+  // two take turns issuing S (named barrier 1 + cw, then passing the turn on
+  // 2 - cw); the second passes none after its very last turn.
+  regs_acquire<240>();
+  const int cw = wg - 1, g = lane / 4, t = lane % 4;
+  float o[DH / 2], s[64], row_max[2], row_sum[2], alpha[2];
+  uint32_t p[8][4];
+  int stage = 0, qbuf = 0;
+  uint32_t phase = 0, qphase = 0;
+  if (cw == 1) named_arrive(1, 256);  // the first turn is warpgroup 0's
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = tile % qblocks * kHq, h = tile / qblocks % H, b = tile / qblocks / H;
+    const bool last_tile = tile + static_cast<int>(gridDim.x) >= tiles;
+    mbar_wait(&q_full[qbuf], qphase);
+    const uint32_t q_addr = smem_addr(qs + qbuf * S::q_bytes + cw * 64 * S::row_bytes);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    row_max[0] = row_max[1] = -INFINITY;  // log2 units
+    row_sum[0] = row_sum[1] = 0.f;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      mbar_wait(&full[stage], phase);
+      named_sync(1 + cw, 256);
+      issue_scores<DH>(s, q_addr, smem_addr(ks + stage * S::kv_bytes));
+      if (cw == 0 || !last_tile || kt + 1 < ktiles) named_arrive(2 - cw, 256);
+      wgmma_wait<0>();
+      fence_regs(s);
+      online_softmax<DH>(s, madd + stage * kHk, t, row_max, row_sum, alpha, p);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = s[nt][e] * Head<DH>::scale + madd[st][nt * 8 + 2 * t + (e & 1)];
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], s[nt][e]);
-      }
-    float alpha[2];
+      for (int i = 0; i < DH / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      fence_regs(o);
+      wgmma_fence();
+      const uint32_t v_addr = smem_addr(vs + stage * S::kv_bytes);
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_pv<DH>(o, p[kk], smem_desc(v_addr + 16 * kk * S::row_bytes, 8192, S::sbo, S::row_bytes));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == kHStages) stage = 0, phase ^= 1;
+    }
+    if (lane == 0) mbar_arrive(&q_empty[qbuf]);
+    if (++qbuf == 2) qbuf = 0, qphase ^= 1;
+
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      float mx = tile_max[hh];
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(row_max[hh], mx);
-      alpha[hh] = expf(row_max[hh] - m_new);
-      row_max[hh] = m_new;
-      row_sum[hh] *= alpha[hh];
+      row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 1);
+      row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 2);
     }
+    O* ob = out + b * lo.batch + h * lo.head;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = n0 + 64 * cw + 16 * warp + g + 8 * hh;
+      if (r < N) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = expf(s[nt][e] - row_max[e >> 1]);
-        s[nt][e] = pe;
-        row_sum[e >> 1] += pe;
-      }
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; ++nd) {
-      o[nd][0] *= alpha[0]; o[nd][1] *= alpha[0];
-      o[nd][2] *= alpha[1]; o[nd][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t pa[4];
-      pack_a(pa, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int ndp = 0; ndp < kSteps; ++ndp) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &Vs[st][kc * 16 + (lane % 8) + ((lane / 8) % 2) * 8][ndp * 16 + (lane / 16) * 8]);
-        mma_bf16(o[2 * ndp], pa, r[0], r[1]);
-        mma_bf16(o[2 * ndp + 1], pa, r[2], r[3]);
+        for (int j = 0; j < DH / 8; ++j)
+          store2(ob + r * lo.row + 8 * j + 2 * t, o[4 * j + 2 * hh] / row_sum[hh],
+                 o[4 * j + 2 * hh + 1] / row_sum[hh]);
+        if (lse != nullptr && t == 0)
+          lse[(static_cast<size_t>(b) * H + h) * N + r] = row_max[hh] * kLn2 + logf(row_sum[hh]);
       }
     }
-    __syncthreads();  // this stage is refilled by the next iteration's load
   }
+}
 
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 1);
-    row_sum[hh] += __shfl_xor_sync(0xffffffffu, row_sum[hh], 2);
-  }
-  O* ob = out + b * lo.batch + h * lo.head;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = n0 + warp * 16 + g + 8 * hh;
-    if (r < N) {
-#pragma unroll
-      for (int nd = 0; nd < DH / 8; ++nd)
-        store2(ob + r * lo.row + nd * 8 + 2 * t, o[nd][2 * hh] / row_sum[hh],
-               o[nd][2 * hh + 1] / row_sum[hh]);
-      if (lse != nullptr && t == 0)
-        lse[(static_cast<size_t>(b) * gridDim.y + h) * N + r] = row_max[hh] + logf(row_sum[hh]);
-    }
-  }
+// The launches of attention_bf16 this library made, counted on the host where
+// each is launched; og_attention_launches reads them
+unsigned long long attention_launches[1] = {0};
+
+// The tensor map of a [B, H, L, DH] bf16 operand: 128-row boxes of one head
+template <int DH>
+bool head_map(CUtensorMap* map, const bf16* base, int B, int H, int L, HeadLayout l) {
+  const uint64_t dims[4] = {DH, static_cast<uint64_t>(L), static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(l.row) * 2, static_cast<uint64_t>(l.head) * 2,
+                               static_cast<uint64_t>(l.batch) * 2};
+  const uint32_t box[4] = {DH, kHq, 1, 1};
+  return bf16_map(map, base, 4, dims, strides, box, 2 * DH);
+}
+
+template <int DH, typename O>
+cudaError_t launch_attention_bf16(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask, O* out,
+                                  float* lse, int B, int N, int M, int H, HeadLayout lq, HeadLayout lk,
+                                  HeadLayout lv, HeadLayout lo, cudaStream_t stream) {
+  static_assert(kHq == kHk, "one box shape for Q, K and V");
+  CUtensorMap mq, mk, mv;
+  if (!head_map<DH>(&mq, q, B, H, N, lq) || !head_map<DH>(&mk, k, B, H, M, lk) || !head_map<DH>(&mv, v, B, H, M, lv))
+    return cudaErrorInvalidValue;
+  const size_t smem = Bf16Attn<DH>::bytes;
+  const cudaError_t err = cudaFuncSetAttribute(attention_bf16<DH, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int tiles = (N + kHq - 1) / kHq * H * B;
+  attention_bf16<DH, O><<<tiles < sm_count() ? tiles : sm_count(), kHThreads, smem, stream>>>(mq, mk, mv, mask, out,
+                                                                                             lse, B, H, N, M, lo);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess) ++attention_launches[0];
+  return launched;
 }
 
 constexpr int kXq = 64, kXk = 32, kXThreads = 128, kXStages = 2;
@@ -285,8 +420,7 @@ cudaError_t attention_views(const T* q, const T* k, const T* v, const uint8_t* m
   return with_head_width(dh, [&](auto width) -> cudaError_t {
     constexpr int DH = decltype(width)::value;
     if constexpr (sizeof(T) == 2) {
-      const dim3 grid((N + kAq - 1) / kAq, H, B);
-      attention_bf16<DH, O><<<grid, kAttnThreads, 0, stream>>>(q, k, v, mask, out, lse, N, M, lq, lk, lv, lo);
+      return launch_attention_bf16<DH, O>(q, k, v, mask, out, lse, B, N, M, H, lq, lk, lv, lo, stream);
     } else {
       const size_t smem = F32Attn<DH>::bytes;
       const cudaError_t err = cudaFuncSetAttribute(attention_f32<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -310,3 +444,13 @@ cudaError_t attention(const T* q, const T* k, const T* v, const uint8_t* mask, O
 }
 
 }  // namespace
+
+// The launches of attention_bf16 (which 0) this library has made since it was
+// loaded or since that count was last reset; with reset, sets the count to 0
+// after reading it.
+extern "C" unsigned long long og_attention_launches(int which, int reset) {
+  if (which != 0) return 0;
+  const unsigned long long launches = attention_launches[0];
+  if (reset) attention_launches[0] = 0;
+  return launches;
+}

@@ -51,7 +51,8 @@ TnPlan plan_of(int is_bf16, int problems, const int* rows, int P, int Q) {
 // x - m, m]), 2 relu_affine (relu, then * scale + shift), 3 residual (x +
 // y), 4 bias_f32, 5 relu; kn takes epilogue 0 only. Output columns from
 // `split` on take w2 and bias2; with kn, rows of w from `k_split` on are rows
-// of w2. n_out a multiple of 64, k of 32, every row stride a multiple of 16 bytes.
+// of w2. n_out a multiple of 64, k of 32, every row stride a multiple of 16
+// bytes; in bf16, split and k_split multiples of 8.
 // Returns the CUDA error code (0 on success).
 extern "C" int og_gemm(int is_bf16, int epilogue, int kn, int rows, int n_out, int k, const void* a,
                        int lda, const void* w, const void* bias, void* out, int ldo, const void* x, int ldx,

@@ -17,13 +17,19 @@
 // f32 FMA rate. In bf16 the bytes bound them, launch by launch: K1's five
 // GEMMs move 143 MB per layer at B=16 (43 us), twice their operation time.
 //
-// bf16: mma.sync m16n8k16 with cp.async double buffering. f32: 3xTF32 on
-// the tensor cores from a three-stage cp.async ring of raw f32 tiles, up to
-// 128 x 128 per CTA of 8 warps (see the f32 section below).
+// bf16: Hopper's wgmma on TMA tiles, persistent CTAs of one producer and two
+// consumer warpgroups that take tiles in turn, an mbarrier ring of k-tiles
+// and an epilogue through shared memory with 16-byte stores (see the bf16
+// section below). What keeps them over their byte bound is the epilogue, not
+// the products or the weight tiles' re-reads from L2: taking out the stores
+// saves the most time, taking out the products or the weight loads little
+// (scripts/bf16_ablations.py, PERF.md). f32: 3xTF32 on the tensor
+// cores from a three-stage cp.async ring of raw f32 tiles, up to 128 x 128 per
+// CTA of 8 warps (see the f32 section below).
 
 #pragma once
 
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -97,80 +103,257 @@ __device__ __forceinline__ void epilogue2(const GemmArgs<T>& p, int r, int c, fl
 
 constexpr int kBK = 32;
 
-// bf16: a BM x BN block per CTA, warps of WM x WN m16n8k16 tiles, the k loop
-// double-buffered with cp.async. The weight tile is staged as stored ([n][k],
-// or [k][n] with KN) and KN reads its fragments with the transposing ldmatrix.
-template <int EPI, int BM, int BN, int WM, int WN, bool KN>
-__global__ void __launch_bounds__((BM / WM) * (BN / WN) * 32) gemm_bf16(GemmArgs<bf16> p) {
-  constexpr int kPad = 8, kThreads = (BM / WM) * (BN / WN) * 32, MI = WM / 16, NI = WN / 8;
-  constexpr int kWRows = KN ? kBK : BN, kWCols = KN ? BN : kBK;
-  __shared__ __align__(16) bf16 As[2][BM][kBK + kPad];
-  __shared__ __align__(16) bf16 Ws[2][kWRows][kWCols + kPad];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int wm = (warp / (BN / WN)) * WM, wn = (warp % (BN / WN)) * WN;
-  float acc[MI][NI][4] = {};
+// ---------------------------------------------------------------- bf16
+// wgmma on TMA tiles (hopper.cuh). A CTA is one producer warpgroup and two
+// consumer warpgroups, persistent over 64 x BN output tiles (in row-major
+// order, so the n-slabs of one row block run side by side and A comes from
+// device memory once where n_out <= BN). The consumers take the CTA's tiles
+// in turn (FlashAttention-3's and CUTLASS's ping-pong): while one runs its
+// epilogue the other's products run, so the epilogue, the larger cost at
+// these byte-bound shapes (PERF.md), overlaps the tensor cores' work. One
+// thread of the producer keeps k-tiles of 64 (128-byte rows, 128-byte
+// swizzle) of A and of the weight in a ring of kStages stages, in the CTA's
+// tile order, each guarded by a `full` mbarrier (TMA bytes landed) and an
+// `empty` one (the consuming warpgroup's warps done with it); rows past the
+// end and k past k arrive as zeros. The weight tile is K-major as torch
+// stores it ([n_out, k]), or MN-major with KN ([k, n_out], wgmma's transposed
+// B). A consumer issues the four k-steps of a stage as m64nBNk16 wgmma into
+// its f32 accumulator and releases the stage once the next stage's products
+// are issued, so the tensor cores always have one group queued.
+//
+// The ring takes up to 200 KB: 5 stages at 64 x 256, 8 at 64 x 128 and
+// 64 x 64. A consumer releases a stage only once the next stage's products
+// are queued, so the ring is deeper than the loads the producer has in
+// flight; with fewer stages the loads' latency showed between k-tiles.
+//
+// The epilogue goes through shared memory: each consumer warpgroup writes 32
+// accumulator columns at a time to its f32 staging tile (row stride 40 floats:
+// two wavefronts per warp, the least for 256 bytes), then each thread takes
+// 8 consecutive columns of a row (the same 8 columns for all its rows of a
+// chunk, so the bias, scale and shift are read once per chunk) and applies
+// the epilogue there, with the rounding points of epilogue2: 16-byte loads of
+// x and 16-byte stores.
 
-  auto load = [&](int stage, int k0) {
-    for (int i = tid; i < BM * kBK / 8; i += kThreads) {
-      const int r = i / (kBK / 8), c = (i % (kBK / 8)) * 8;
-      const bool ok = m0 + r < p.rows;
-      cp_async16(&As[stage][r][c], p.A + static_cast<size_t>(ok ? m0 + r : 0) * p.lda + k0 + c, ok);
-    }
-    for (int i = tid; i < BN * kBK / 8; i += kThreads) {
-      const int r = i / (kWCols / 8), c = (i % (kWCols / 8)) * 8;
-      if constexpr (KN) cp_async16(&Ws[stage][r][c], weight_krow(p, k0 + r) + n0 + c, true);
-      else cp_async16(&Ws[stage][r][c], weight_row(p, n0 + r) + k0 + c, true);
-    }
-    cp_async_commit();
-  };
+constexpr int kGk = 64;  // the k-tile: one 128-byte row of bf16
 
-  const int ktiles = p.k / kBK;
-  load(0, 0);
-  for (int kt = 0; kt < ktiles; ++kt) {
-    const int stage = kt & 1;
-    if (kt + 1 < ktiles) {
-      load(stage ^ 1, (kt + 1) * kBK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+template <int BN>
+struct Bf16Tile {
+  static constexpr int BM = 64, kConsumers = 2, kThreads = 128 * (kConsumers + 1);
+  static constexpr int a_bytes = BM * 2 * kGk, w_bytes = BN * 2 * kGk, stage_bytes = a_bytes + w_bytes;
+  static constexpr int kStages = 204800 / stage_bytes < 8 ? 204800 / stage_bytes : 8;
+  static constexpr int kLd = 40;  // floats per row of a warpgroup's staging tile (32 columns + 8)
+  static constexpr int staging_floats = kConsumers * BM * kLd;
+  // 1024 bytes of slack to align the ring to the swizzle period, the ring,
+  // the staging tiles and the barriers
+  static constexpr size_t bytes = 1024 + kStages * stage_bytes + staging_floats * sizeof(float) + 2 * kStages * 8;
+};
+
+__device__ __forceinline__ void load8(const bf16* src, float (&x)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void store8(bf16* dst, const float (&y)[8]) {
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
+}
+
+// The per-column vectors of columns c .. c + 7: the bias, and the scale and
+// shift of kReluAffine
+struct Columns8 {
+  float bias[8], scale[8], shift[8];
+};
+template <int EPI>
+__device__ __forceinline__ Columns8 columns8(const GemmArgs<bf16>& p, int c) {
+  Columns8 v;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    v.bias[i] = bias_at(p, c + i);
+    if constexpr (EPI == kReluAffine) {
+      v.scale[i] = p.scale[c + i];
+      v.shift[i] = p.shift[c + i];
     }
-    __syncthreads();
+  }
+  return v;
+}
+
+// columns c .. c + 7 of row r, from their f32 sums s (epilogue2's arithmetic)
+template <int EPI>
+__device__ __forceinline__ void epilogue8(const GemmArgs<bf16>& p, const Columns8& v, int r, int c, const float* s) {
+  const float4 s0 = *reinterpret_cast<const float4*>(s), s1 = *reinterpret_cast<const float4*>(s + 4);
+  const float sum[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  float y[8];
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[MI][4], b[NI][2];
+  for (int i = 0; i < 8; ++i) y[i] = sum[i] + v.bias[i];
+  bf16* o = p.out + static_cast<size_t>(r) * p.ldo + c;
+  if constexpr (EPI == kBias) {
+    store8(o, y);
+  } else if constexpr (EPI == kBiasF32) {
+    float4* of = reinterpret_cast<float4*>(reinterpret_cast<float*>(p.out) + static_cast<size_t>(r) * p.ldo + c);
+    of[0] = make_float4(y[0], y[1], y[2], y[3]);
+    of[1] = make_float4(y[4], y[5], y[6], y[7]);
+  } else if constexpr (EPI == kConcat) {
+    float m[8], x[8];
 #pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        ldmatrix_x4(a[mi], &As[stage][wm + mi * 16 + (lane % 16)][kk + (lane / 16) * 8]);
+    for (int i = 0; i < 8; ++i) m[i] = round_to<bf16>(y[i]);
+    load8(p.x + static_cast<size_t>(r) * p.ldx + c, x);
+    store8(o + p.n_out, m);
+    if (p.use_offset) {
 #pragma unroll
-      for (int np = 0; np < NI / 2; ++np) {
-        uint32_t r[4];
-        if constexpr (KN)
-          ldmatrix_x4_trans(r, &Ws[stage][kk + (lane % 8) + ((lane / 8) % 2) * 8][wn + np * 16 + (lane / 16) * 8]);
-        else
-          ldmatrix_x4(r, &Ws[stage][wn + np * 16 + (lane % 8) + (lane / 16) * 8][kk + ((lane / 8) % 2) * 8]);
-        b[2 * np][0] = r[0]; b[2 * np][1] = r[1];
-        b[2 * np + 1][0] = r[2]; b[2 * np + 1][1] = r[3];
+      for (int i = 0; i < 8; ++i) x[i] -= m[i];
+    }
+    store8(o, x);
+  } else if constexpr (EPI == kReluAffine || EPI == kRelu) {
+    // a ReLU that keeps NaN (fmaxf would drop it): a feature-kind element with
+    // no valid key is NaN through the whole layer
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      y[i] = y[i] < 0.f ? 0.f : y[i];
+      if constexpr (EPI == kReluAffine) y[i] = y[i] * v.scale[i] + v.shift[i];
+    }
+    store8(o, y);
+  } else {
+    float x[8];
+    load8(p.x + static_cast<size_t>(r) * p.ldx + c, x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) y[i] += x[i];
+    store8(o, y);
+  }
+}
+
+template <int EPI, bool KN, int BN>
+__global__ void __launch_bounds__(Bf16Tile<BN>::kThreads, 1)
+    gemm_bf16(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+              const __grid_constant__ CUtensorMap map_w2, GemmArgs<bf16> p, int wrows) {
+  using G = Bf16Tile<BN>;
+  extern __shared__ uint8_t gemm_smem[];
+  uint8_t* const a_ring = gemm_smem + ((1024 - (smem_addr(gemm_smem) & 1023)) & 1023);
+  uint8_t* const w_ring = a_ring + G::kStages * G::a_bytes;
+  float* const staging = reinterpret_cast<float*>(w_ring + G::kStages * G::w_bytes);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(staging + G::staging_floats);
+  uint64_t* const empty = full + G::kStages;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int slabs = p.n_out / BN, tiles = (p.rows + G::BM - 1) / G::BM * slabs, ktiles = (p.k + kGk - 1) / kGk;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < G::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // the consuming warpgroup's warps
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // the producer
+    regs_release<40>();
+    if (tid != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = tile / slabs * G::BM, n0 = tile % slabs * BN;
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int k0 = kt * kGk;
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_arrive_tx(&full[stage], G::stage_bytes);
+        tma_load_2d(a_ring + stage * G::a_bytes, &map_a, &full[stage], k0, m0);
+        uint8_t* const ws = w_ring + stage * G::w_bytes;
+        // boxes of 64 x wrows: wrows weight rows (k-rows with KN, 64 columns
+        // each) of W or of W2, at row i of the 64-row block j (an offset of
+        // i * 128 bytes, a whole number of 1024-byte swizzle periods)
+        for (int j = 0; j < BN / 64; ++j)
+          for (int i = 0; i < 64; i += wrows) {
+            uint8_t* const dst = ws + j * 8192 + i * 128;
+            if constexpr (KN) {
+              const int kr = k0 + i;
+              const bool second = p.k_split && kr >= p.k_split;
+              tma_load_2d(dst, second ? &map_w2 : &map_w, &full[stage], n0 + 64 * j, second ? kr - p.k_split : kr);
+            } else {
+              const int c = n0 + 64 * j + i;
+              const bool second = p.split && c >= p.split;
+              tma_load_2d(dst, second ? &map_w2 : &map_w, &full[stage], k0, second ? c - p.split : c);
+            }
+          }
+        if (++stage == G::kStages) stage = 0, phase ^= 1;
       }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
     }
-    __syncthreads();  // this stage is refilled by the next iteration's load
+    return;
   }
 
-  const int g = lane / 4, t = lane % 4;
+  // a consumer warpgroup: the CTA's tiles cw, cw + 2, ..., whose k-tiles sit
+  // at ring positions j ktiles .. j ktiles + ktiles - 1 for the CTA's j-th
+  // tile. The two take turns at their main loops (named barrier 3 + cw, then
+  // the turn passes on 4 - cw when the CTA has a next tile, which is the
+  // other's): a consumer so never waits on a ring position whose stage's
+  // previous fill another consumer has not yet seen, which the mbarriers'
+  // phase parity could not tell apart.
+  regs_acquire<232>();
+  const int cw = wg - 1, g = lane / 4, t = lane % 4;
+  float* const st = staging + cw * 64 * G::kLd;
+  float acc[BN / 2];
+  int pos = cw * ktiles;
+  if (cw == 1) named_arrive(3, 256);  // the first main loop is consumer 0's
+  for (int tile = blockIdx.x + cw * gridDim.x; tile < tiles; tile += G::kConsumers * gridDim.x) {
+    const int m0 = tile / slabs * G::BM, n0 = tile % slabs * BN;
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int prev = -1;
+    named_sync(3 + cw, 256);
+    for (int kt = 0; kt < ktiles; ++kt, ++pos) {
+      const int stage = pos % G::kStages;
+      mbar_wait(&full[stage], (pos / G::kStages) & 1);
+      const uint32_t a = smem_addr(a_ring + stage * G::a_bytes);
+      const uint32_t w = smem_addr(w_ring + stage * G::w_bytes);
+      fence_regs(acc);
+      wgmma_fence();
 #pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + wm + mi * 16 + g + 8 * h;
-        if (r < p.rows)
-          epilogue2<bf16, EPI>(p, r, n0 + wn + ni * 8 + 2 * t, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      for (int kk = 0; kk < kGk / 16; ++kk) {
+        // K-major: k-step kk is 32 bytes into each 128-byte row; MN-major
+        // (KN): 16 k-rows of 128 bytes on, 64-column blocks 8192 bytes apart
+        const uint64_t db = KN ? smem_desc(w + 2048 * kk, 8192, 1024, 128) : smem_desc(w + 32 * kk, 16, 1024, 128);
+        wgmma_ss<BN, KN ? 1 : 0>(acc, smem_desc(a + 32 * kk, 16, 1024, 128), db);
       }
+      wgmma_commit();
+      fence_regs(acc);
+      wgmma_wait<1>();  // the previous stage's products are done
+      if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = stage;
+    }
+    if (tile + static_cast<int>(gridDim.x) < tiles) named_arrive(4 - cw, 256);
+    pos += (G::kConsumers - 1) * ktiles;  // the other consumer's tile
+    // accumulator (j, e): row 16 warp + g (+ 8 for e >= 2), column 8 j + 2 t + (e & 1);
+    // 32 columns at a time, each thread then 8 columns (tid % 4) of rows tid / 4 and 32 + tid / 4.
+    // The column vectors of each chunk are read one chunk ahead (the first
+    // while the last products finish)
+    const int col = tid % 4 * 8, row = tid / 4;
+    Columns8 v = columns8<EPI>(p, n0 + col);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+    for (int c = 0; c < BN / 32; ++c) {
+      Columns8 next = v;
+      if (c + 1 < BN / 32) next = columns8<EPI>(p, n0 + 32 * (c + 1) + col);
+      named_sync(1 + cw, 128);  // this warpgroup is done reading the staging tile
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = 4 * (4 * c + jj);
+        float* s = st + (16 * warp + g) * G::kLd + 8 * jj + 2 * t;
+        *reinterpret_cast<float2*>(s) = make_float2(acc[j], acc[j + 1]);
+        *reinterpret_cast<float2*>(s + 8 * G::kLd) = make_float2(acc[j + 2], acc[j + 3]);
+      }
+      named_sync(1 + cw, 128);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row + 32 * half;
+        if (m0 + r < p.rows) epilogue8<EPI>(p, v, m0 + r, n0 + 32 * c + col, st + r * G::kLd + col);
+      }
+      v = next;
+    }
+  }
 }
 
 // ---------------------------------------------------------------- f32
@@ -369,25 +552,14 @@ __global__ void __launch_bounds__(F32Tile<BM, BN, WM, WN, false, KN, MP>::kThrea
 // The f32 tile shapes
 enum F32TileShape { kTile128x128 = 1, kTile64x64 = 2 };
 
-// The card's SM count, read once
-inline int sm_count() {
-  static const int sms = [] {
-    int device = 0, count = 0;
-    if (cudaGetDevice(&device) != cudaSuccess) return 0;
-    if (cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) return 0;
-    return count;
-  }();
-  return sms;
-}
+// The launches of the GEMM kernels this library made, counted on the host
+// where each kernel is launched; og_gemm_launches reads them
+enum GemmKernel { kGemmF32 = 0, kTnGemmF32 = 1, kGemmBf16 = 2 };
+unsigned long long gemm_launches[3] = {0, 0, 0};
 
-// The launches of the f32 GEMM kernels this library made, counted on the
-// host where each kernel is launched; og_f32_gemm_launches reads them
-enum F32Gemm { kGemmF32 = 0, kTnGemmF32 = 1 };
-unsigned long long f32_gemm_launches[2] = {0, 0};
-
-inline cudaError_t counted_launch(F32Gemm which) {
+inline cudaError_t counted_launch(GemmKernel which) {
   const cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) ++f32_gemm_launches[which];
+  if (err == cudaSuccess) ++gemm_launches[which];
   return err;
 }
 
@@ -414,34 +586,84 @@ inline int f32_tile_rule(int rows, int n_out) {
   return n_out % 128 == 0 && ctas128 >= 2 * sm_count() ? kTile128x128 : kTile64x64;
 }
 
+// The bf16 launch rule, from the three tiles' times at K1's shapes for
+// 16,384, 12,288, 4,096 and 1,024 rows on an H100 (PERF.md): the widest
+// n-slab (A read once per slab) whose tiles give every SM two, one for each
+// consumer, so that one's epilogue overlaps the other's products; else
+// 64 x 64, the most tiles (B=1, 1,024 rows, and the fixture's 4,096 at D=128).
+// K1 at B=16 takes 64 x 256 for n_out 512 and 64 x 128 for n_out 256.
+// Returns the tile's width BN (tiles of 64 x BN).
+inline int bf16_tile_rule(int rows, int n_out) {
+  const int sms = sm_count(), blocks = (rows + 63) / 64;
+  if (n_out % 256 == 0 && blocks * (n_out / 256) >= 2 * sms) return 256;
+  if (n_out % 128 == 0 && blocks * (n_out / 128) >= 2 * sms) return 128;
+  return 64;
+}
+
+// The tensor maps of A ([rows, k], row stride lda) and of W and W2 in their
+// layouts, boxes of 64 x wrows for the weights
+template <int BM, bool KN>
+bool bf16_gemm_maps(const GemmArgs<bf16>& p, int wrows, CUtensorMap* a, CUtensorMap* w, CUtensorMap* w2) {
+  const uint32_t box_a[2] = {kGk, BM}, box_w[2] = {64, static_cast<uint32_t>(wrows)};
+  const uint64_t dims_a[2] = {static_cast<uint64_t>(p.k), static_cast<uint64_t>(p.rows)};
+  const uint64_t stride_a[1] = {static_cast<uint64_t>(p.lda) * 2};
+  if (!bf16_map(a, p.A, 2, dims_a, stride_a, box_a, 128)) return false;
+  // KN: W [k or k_split, n_out], W2 [k - k_split, n_out]; else W [n_out or split, k], W2 [n_out - split, k]
+  const int cut = KN ? p.k_split : p.split, whole = KN ? p.k : p.n_out, inner = KN ? p.n_out : p.k;
+  const uint64_t stride_w[1] = {static_cast<uint64_t>(inner) * 2};
+  const uint64_t dims_w[2] = {static_cast<uint64_t>(inner), static_cast<uint64_t>(cut ? cut : whole)};
+  if (!bf16_map(w, p.W, 2, dims_w, stride_w, box_w, 128)) return false;
+  if (!cut) {
+    *w2 = *w;
+    return true;
+  }
+  const uint64_t dims_w2[2] = {static_cast<uint64_t>(inner), static_cast<uint64_t>(whole - cut)};
+  return bf16_map(w2, p.W2, 2, dims_w2, stride_w, box_w, 128);
+}
+
+template <int EPI, bool KN, int BN>
+cudaError_t launch_gemm_bf16(const GemmArgs<bf16>& p, cudaStream_t stream) {
+  using G = Bf16Tile<BN>;
+  // the stacked weights' cut falls on a box boundary: 64-row boxes where it
+  // can, else 16 (one wgmma k-step), else 8 (one swizzle period)
+  const int cut = KN ? p.k_split : p.split;
+  const int wrows = cut % 64 == 0 ? 64 : cut % 16 == 0 ? 16 : 8;
+  CUtensorMap a, w, w2;
+  if (!bf16_gemm_maps<G::BM, KN>(p, wrows, &a, &w, &w2)) return cudaErrorInvalidValue;
+  auto kernel = gemm_bf16<EPI, KN, BN>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(G::bytes));
+  if (err != cudaSuccess) return err;
+  const int tiles = (p.rows + G::BM - 1) / G::BM * (p.n_out / BN);
+  kernel<<<tiles < sm_count() ? tiles : sm_count(), G::kThreads, G::bytes, stream>>>(a, w, w2, p, wrows);
+  return counted_launch(kGemmBf16);
+}
+
+// The stacked weights' cut (split, or k_split with KN) a multiple of 8 in bf16
 template <typename T, int EPI, bool KN = false>
 cudaError_t gemm(const GemmArgs<T>& p, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    // 128x128 blocks where they fill the card, 64x64 for small batches
-    const int big_blocks = ((p.rows + 127) / 128) * (p.n_out / 128);
-    if (p.n_out % 128 == 0 && big_blocks >= 132) {
-      const dim3 grid((p.rows + 127) / 128, p.n_out / 128);
-      gemm_bf16<EPI, 128, 128, 64, 32, KN><<<grid, 256, 0, stream>>>(p);
-    } else {
-      const dim3 grid((p.rows + 63) / 64, p.n_out / 64);
-      gemm_bf16<EPI, 64, 64, 32, 32, KN><<<grid, 128, 0, stream>>>(p);
+    if (p.split % 8 != 0 || p.k_split % 8 != 0 || p.lda % 8 != 0) return cudaErrorInvalidValue;
+    switch (bf16_tile_rule(p.rows, p.n_out)) {
+      case 256: return launch_gemm_bf16<EPI, KN, 256>(p, stream);
+      case 128: return launch_gemm_bf16<EPI, KN, 128>(p, stream);
     }
+    return launch_gemm_bf16<EPI, KN, 64>(p, stream);
   } else {
     if (f32_tile_rule(p.rows, p.n_out) == kTile128x128)
       return launch_gemm_f32<EPI, KN, 128, 128, 64, 32, 1, 2>(p, stream);
     return launch_gemm_f32<EPI, KN, 64, 64, 32, 32, 3, 1>(p, stream);
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
 
-// The launches of gemm_f32 (which 0) or tn_gemm_f32 (which 1) this library
-// has made since it was loaded or since that count was last reset; with
-// reset, sets the count to 0 after reading it.
-extern "C" unsigned long long og_f32_gemm_launches(int which, int reset) {
-  if (which != kGemmF32 && which != kTnGemmF32) return 0;
-  const unsigned long long launches = f32_gemm_launches[which];
-  if (reset) f32_gemm_launches[which] = 0;
+// The launches of gemm_f32 (which 0), tn_gemm_f32 (which 1) or gemm_bf16
+// (which 2) this library has made since it was loaded or since that count
+// was last reset; with reset, sets the count to 0 after reading it.
+extern "C" unsigned long long og_gemm_launches(int which, int reset) {
+  if (which < kGemmF32 || which > kGemmBf16) return 0;
+  const unsigned long long launches = gemm_launches[which];
+  if (reset) gemm_launches[which] = 0;
   return launches;
 }

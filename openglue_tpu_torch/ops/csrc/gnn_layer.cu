@@ -9,29 +9,33 @@
 //   msg     = T(attn Wo + bo);  cat = [x_q, msg] or [T(x_q - msg), msg]
 //   h1      = T(relu(cat W1 + b1) * a1 + c1)     (eval BatchNorm folded to a1, c1)
 //   out     = T(x_q + (h1 W2 + b2))
-// in bf16 (mma.sync m16n8k16, f32 accumulation) or f32 (every product in
+// in bf16 (wgmma on TMA tiles, f32 accumulation) or f32 (every product in
 // 3xTF32 on the tensor cores: the GEMMs of gemm.cuh and the attention of
 // tf32_tiles.cuh), keeping the TPU kernel's rounding points.
 //
 // What bounds it on the H100: at the serving shape (B=16, N=M=1024, D=256) the
 // layer is 3.9e10 FLOP against 64 MB of activations in and out, so the tensor
-// cores bound it (about 39 us at 989 TFLOP/s bf16, 0.23 ms at 165 TFLOP/s in
-// f32 as 3xTF32, of which the five GEMMs are 0.13 ms).
+// cores bound it as a whole (about 39 us at 989 TFLOP/s bf16, 0.23 ms at 165
+// TFLOP/s in f32 as 3xTF32). Launch by launch, the five bf16 GEMMs are bound by
+// their bytes (143 MB per layer, 43 us) and the attention by its operations
+// and its exps (17 us of products, about as long again on the exp unit).
 //
 // Design: the TPU kernel keeps K/V of the whole key set in VMEM (about 1 MB at
 // M=1024, D=256) and runs one exact softmax pass per query block. An SM has 227
 // KB, so here the layer is six launches on one stream: the k and v projections
 // (one GEMM on stacked weights) and the q projection write to global memory
 // (they stay in the 50 MB L2); a flash-style attention kernel streams K/V
-// tiles through shared memory with an f32 running max and sum (one CTA per
-// batch element, head and 64-query block); the out projection and both FFN
-// products run in the same tiled GEMM kernel, whose epilogue fuses the bias,
-// the concat (with or without the offset), the ReLU and folded BatchNorm, and
-// the residual add with the output cast. The launches are separate because the
-// projections of all keys must exist before any query block attends to them.
-// Loads are double-buffered with cp.async and the products use mma.sync; TMA
-// and wgmma are not used yet, so the kernels reach a fraction of the
-// tensor-core rate.
+// tiles through shared memory with an f32 running max and sum; the out
+// projection and both FFN products run in the same GEMM kernel, whose
+// epilogue fuses the bias, the concat (with or without the offset), the ReLU
+// and folded BatchNorm, and the residual add with the output cast. The
+// launches are separate because the projections of all keys must exist
+// before any query block attends to them. In bf16 both kernels are Hopper's
+// (gemm.cuh, attention.cuh): a producer warp keeps TMA loads in flight in an
+// mbarrier ring, consumer warpgroups issue wgmma; both are persistent, the
+// GEMM with tiles of 64 x 256 at most that two consumers take in turn, the
+// attention with 128 queries per tile in two ping-ponging warpgroups
+// (FlashAttention-3's shape).
 
 #include "attention.cuh"
 #include "gemm.cuh"

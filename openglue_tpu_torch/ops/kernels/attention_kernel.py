@@ -59,6 +59,9 @@ NEG_INF = -1e9
 counter = kernels.LaunchCounter()
 backward_counter = kernels.LaunchCounter()
 lse_counter = kernels.LaunchCounter()
+# the launches of the bf16 forward kernel from every entry (K9, K11 and the
+# layer kernels K1, K4, K7, K8), counted by the C code where it launches it
+bf16_counter = kernels.LibraryLaunchCounter("attention.cuh", "og_attention_launches", 0)
 
 _VOID_P = ctypes.c_void_p
 

@@ -30,10 +30,17 @@ projection); with ``kn`` and ``k_split``, rows of ``w`` from ``k_split`` on
 are rows of ``w2``. ``n_out`` must be a multiple of 64 and ``k`` of 32; any
 number of rows.
 
-Counts: ``counter`` and ``tn_counter`` read the launches of the f32 kernels
-(``gemm_f32``, ``tn_gemm_f32``), which the C code counts where it launches
-them (``gemm.cuh``'s ``og_f32_gemm_launches``), whether this module's
-wrappers or a layer kernel's C entry asked for them.
+In bf16 the kernel is Hopper's: wgmma on tiles that TMA loads (see
+``gemm.cuh``). TMA reads each operand through a tensor map, so ``a``, ``x``
+and the weights must start on a 16-byte boundary with row strides that are
+multiples of 16 bytes, and ``split`` and ``k_split`` must be multiples of 8;
+a call that breaks this raises. A launch rule in ``gemm.cuh`` picks the bf16
+kernel's tile from the shape.
+
+Counts: ``counter``, ``tn_counter`` and ``bf16_counter`` read the launches of
+``gemm_f32``, ``tn_gemm_f32`` and ``gemm_bf16``, which the C code counts
+where it launches them (``gemm.cuh``'s ``og_gemm_launches``), whether this
+module's wrappers or a layer kernel's C entry asked for them.
 """
 
 from __future__ import annotations
@@ -47,8 +54,9 @@ from openglue_tpu_torch.ops import kernels
 
 EPILOGUES = ("bias", "concat", "relu_affine", "residual", "bias_f32", "relu")
 
-counter = kernels.LibraryLaunchCounter("gemm.cuh", "og_f32_gemm_launches", 0)
-tn_counter = kernels.LibraryLaunchCounter("gemm.cuh", "og_f32_gemm_launches", 1)
+counter = kernels.LibraryLaunchCounter("gemm.cuh", "og_gemm_launches", 0)
+tn_counter = kernels.LibraryLaunchCounter("gemm.cuh", "og_gemm_launches", 1)
+bf16_counter = kernels.LibraryLaunchCounter("gemm.cuh", "og_gemm_launches", 2)
 
 _VOID_P = ctypes.c_void_p
 
@@ -133,6 +141,10 @@ def gemm(
     mats = [w] + ([w2] if (split or k_split) else [])
     for t in mats:
         kernels.require(t.device == device and t.dtype == dtype and t.is_contiguous(), "weights: device/type/contiguity")
+    if dtype == torch.bfloat16:  # the TMA boxes of the bf16 kernel
+        kernels.require(all(t.data_ptr() % 16 == 0 for t in mats), "bf16 weights must start on 16-byte boundaries")
+        kernels.require(split % 8 == 0 and k_split % 8 == 0,
+                        f"bf16: split and k_split must be multiples of 8, got {split}, {k_split}")
     if kn:
         n_out = w.shape[1]
         k_rows = w.shape[0] if not k_split else k_split + w2.shape[0]

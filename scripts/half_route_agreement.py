@@ -2,7 +2,7 @@
 route) agrees with the same step through the kernels' plain versions, batch
 by batch, on a CUDA card.
 
-    python3 scripts/half_route_agreement.py --repo DIR [--label NAME] [--seeds 0-10] [--route half]
+    python3 scripts/half_route_agreement.py --repo DIR [--label NAME] [--seeds 0-10] [--route half] [--brief]
     python3 scripts/half_route_agreement.py --repo DIR --smoke-batch FILE [--label NAME] [--route half]
 
 Imports ``openglue_tpu_torch`` and ``chip_smoke.py``'s config and helpers
@@ -16,8 +16,16 @@ f32 after it); that kernel plain on its f32 launches only. It prints one line
 per batch: the loss difference, the relative difference of the unclipped
 gradient norm and the gradient cosine of each run against the plain one,
 and the three parameters whose gradients differ most between the first run
-and the plain one, with their share of the squared difference. Run it for
-two checkouts in one call to compare them.
+and the plain one, with their share of the squared difference. Each batch's
+line also holds the kernel step and the plain step against an f64 step: the
+same weights and batch through the composed path (``use_pallas=False``, no
+bf16 chain) with every floating tensor in f64 (``Tensor.float()`` keeps an
+f64 tensor f64 for that step), which says which of the two is nearer exact
+arithmetic. The last line counts the batches on which the kernel step
+leaves ``chip_smoke.py``'s bars against the plain step (loss 1e-3, gradient
+norm 1%, cosine 0.999, BatchNorm statistics 1e-3). ``--brief`` runs the
+kernel, plain and f64 steps only. Run it for two checkouts in one call to
+compare them.
 
 With ``--smoke-batch``, the batch is instead the one that ``chip_smoke.py``'s
 routes phase draws when its GEMM phase takes the generator that the later
@@ -32,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -62,6 +71,7 @@ def main() -> int:
     parser.add_argument("--seeds", default="0-10")
     parser.add_argument("--smoke-batch", type=Path, default=None)
     parser.add_argument("--route", choices=("half", "message"), default="half")
+    parser.add_argument("--brief", action="store_true", help="the kernel, plain and f64 steps only")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("half_route_agreement: no CUDA card is available", file=sys.stderr)
@@ -86,6 +96,14 @@ def main() -> int:
 
     def state():
         model = SuperGlue(cfg, device="cuda", train_route=args.route)
+        model.load_state_dict(base.state_dict())
+        return create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
+
+    cfg64 = superglue_config_from({"superglue": dict(cs.SUPERGLUE_SECTION, use_pallas=False, chain_dtype=None)},
+                                  cs.DESCRIPTOR_DIM, cs.SIDE_INFO_DIM)
+
+    def state64():
+        model = SuperGlue(cfg64, device="cuda").double()
         model.load_state_dict(base.state_dict())
         return create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
 
@@ -121,8 +139,10 @@ def main() -> int:
             return (ref if "z" in from_plain else out)[0], *(ref if "attn" in from_plain else out)[1:]
         return [(glk, kernel_name, forward)]
 
-    if args.route == "half":
+    if args.route == "half" and not args.brief:
         variants += (("K8 bf16, z plain", mixed(("z",))), ("K8 bf16, attn and lse plain", mixed(("attn",))))
+    if args.brief:
+        variants = variants[:2]
     label = args.label or str(repo)
     n, batch = cs.MAX_KEYPOINTS, cs.BATCH_SIZE
     if args.smoke_batch is not None:
@@ -137,22 +157,29 @@ def main() -> int:
             counts = lambda: torch.randint(n // 2, n + 1, (batch,), generator=gen, device="cuda").tolist()
             pairs = cs.make_request(SyntheticHomographyPairs, gen, batch, n, counts(), counts())
             batches.append((f"seed {seed}", pairs))
+    outside = []
     for what, pairs in batches:
-        runs = {}
-        grads = {}
+        runs, grads, stats = {}, {}, {}
         for variant, swap in variants:
             st = state()
             with swapped(swap):
                 metrics = step(st, pairs)
             runs[variant] = (metrics, cs.flat_grads(st.model))
             grads[variant] = {k: p.grad.double() for k, p in st.model.named_parameters() if p.grad is not None}
-        ref, g_ref = runs["plain"]
+            stats[variant] = [b.double() for k, b in st.model.named_buffers() if "running" in k]
+        st = state64()
+        with f64_floats():
+            metrics = step(st, to_f64(pairs))
+        runs["f64"] = (metrics, cs.flat_grads(st.model))
         parts = []
         for variant in (variant for variant, _ in variants if variant != "plain"):
-            m, g = runs[variant]
-            parts.append(f"{variant}: loss {abs(m['total_loss'].item() - ref['total_loss'].item()):.2e}, norm "
-                         f"{abs(m['grad_norm'].item() / ref['grad_norm'].item() - 1):.2e}, cosine "
-                         f"{(g @ g_ref / (g.norm() * g_ref.norm())).item():.6f}")
+            parts.append(f"{variant}: " + distance(runs[variant], runs["plain"]))
+        for variant in ("kernels", "plain"):
+            parts.append(f"{variant} against f64: " + distance(runs[variant], runs["f64"]))
+        bars = distance_values(runs["kernels"], runs["plain"])
+        stat = max((x - y).abs().max().item() for x, y in zip(stats["kernels"], stats["plain"]))
+        if not (bars[0] <= 1e-3 and bars[1] <= 0.01 and bars[2] >= 0.999 and stat <= 1e-3):
+            outside.append(what)
         diff = {k: (grads["kernels"][k] - grads["plain"][k]).pow(2).sum().item() for k in grads["plain"]}
         total = sum(diff.values()) or 1.0
         top = sorted(diff, key=diff.get, reverse=True)[:3]
@@ -161,7 +188,47 @@ def main() -> int:
         print(f"[{label}] {what}, route {args.route}, against the plain step: " + "; ".join(parts), flush=True)
         if first_bf16:
             print(f"[{label}] {what}, the first bf16 layer: " + z_report(glk, *first_bf16.pop("args")), flush=True)
+    print(f"[{label}] route {args.route}: {len(outside)} of {len(batches)} batches leave the bars (kernels against "
+          f"plain: loss 1e-3, norm 1%, cosine 0.999, stats 1e-3)" + (f": {', '.join(outside)}" if outside else ""),
+          flush=True)
     return 0
+
+
+def distance_values(run, ref):
+    """(|loss difference|, relative difference of the gradient norms, gradient
+    cosine) of two steps' (metrics, flat gradient)."""
+    (m, g), (m_ref, g_ref) = run, ref
+    g, g_ref = g.double(), g_ref.double()
+    return (abs(m["total_loss"].item() - m_ref["total_loss"].item()),
+            abs(m["grad_norm"].item() / m_ref["grad_norm"].item() - 1),
+            (g @ g_ref / (g.norm() * g_ref.norm())).item())
+
+
+def distance(run, ref) -> str:
+    loss, norm, cos = distance_values(run, ref)
+    return f"loss {loss:.2e}, norm {norm:.2e}, cosine {cos:.6f}"
+
+
+@contextlib.contextmanager
+def f64_floats():
+    """``Tensor.float()`` leaves an f64 tensor in f64 (the model casts its
+    scores and statistics with it), so that a step of an f64 model on an f64
+    batch stays f64 throughout."""
+    float32 = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **kw: self if self.dtype == torch.float64 else float32(self, *a, **kw)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = float32
+
+
+def to_f64(x):
+    """A copy of a batch (dataclasses of tensors) with its floating tensors in f64."""
+    if torch.is_tensor(x):
+        return x.double() if x.is_floating_point() else x
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: to_f64(getattr(x, f.name)) for f in dataclasses.fields(x) if f.init})
+    return x
 
 
 def clone(args):

@@ -6,19 +6,27 @@ the port on a CUDA card.
 Imports ``openglue_tpu_torch`` from the checkout DIR (its kernels build into
 DIR/build/kernels) and prints one JSON line: the card (``nvidia-smi`` name and
 power limit); each case's time in ms as the median of ``--rounds`` rounds of
-20 back-to-back calls timed with CUDA events (the GEMMs alone: queued while
-the card is held busy, so that the events time the card; every round
-listed); the device
-time by kernel of one f32 ``message`` layer (K4 + K5, torch.profiler), which
-splits the layer into its GEMM, attention and reduction launches; and the
-registers and spill bytes per thread that ``ptxas -v`` reports for the
-attention kernels and the dense GEMMs of DIR's sources.
+20 back-to-back calls, queued while the card is held busy and timed with
+CUDA events (every round listed); the device time by kernel of one f32
+``message`` layer (K4 + K5, torch.profiler), which splits the layer into its
+GEMM, attention and reduction launches; the registers and spill bytes per
+thread that ``ptxas -v`` reports for the attention kernels and the dense
+GEMMs of DIR's sources; the flagship matcher serving a B=16 and a B=1
+request at N=1024 (median host ms of 5 runs, pairs/s and the device busy ms
+of one run, ``chip_smoke.py``'s model, requests and profile); and the host's
+time per call of K1 and K9 at B=1 (where the bf16 kernels encode their TMA
+tensor maps).
 
 The cases, at the shapes of ``chip_smoke.py``: K1 B=16 N=1024 D=256; K4, K5,
-K8 B=12 N=1024 D=256; K6 (linear) B=16 N=1024; each in bf16 and f32; K9, K10
-bf16 at B=12 N=1024 and B=4 N=2048 (H=4, heads of width 64); and, where the
-checkout has ``ops/kernels/gemm_kernel.py``, the f32 GEMM and weight-gradient
-GEMM alone at the ``message`` step's shapes (12,288 rows, D=256).
+K8 B=12 N=1024 D=256; K6 (linear) B=16 N=1024; each in bf16 and f32; K9, K10,
+K11 bf16 at B=12 N=1024 and B=4 N=2048 (H=4, heads of width 64), each beside
+``scaled_dot_product_attention`` on the same inputs and mask (for K10 its
+forward and backward less its forward); K1's parts alone at B=16: its
+attention on K1's operand layout beside the same library call, and its five
+bf16 GEMMs, each beside ``F.linear``; and, where the checkout has
+``ops/kernels/gemm_kernel.py``, the f32 GEMM and weight-gradient GEMM alone at
+the ``message`` step's shapes (12,288 rows, D=256). (``bf16_ablations.py``
+times the bf16 GEMM at each of its tiles.)
 
 To compare two checkouts on one card, run it in one session in the order
 A, B, B, A.
@@ -34,6 +42,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -41,30 +50,13 @@ import torch
 # the sources ptxas reports on (those the checkout has), and the kernels
 PTXAS_SOURCES = ("gnn_layer", "message_forward", "message_backward", "train_half", "attention", "attention_backward",
                  "gemm")
-PTXAS_KERNELS = ("attention_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16", "gemm_f32", "tn_gemm_f32")
+PTXAS_KERNELS = ("attention_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16", "gemm_f32", "tn_gemm_f32", "gemm_bf16")
 
 
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def rounds_ms(fn, rounds: int, iters: int = 20):
-    """Every round's mean device time of ``fn`` in ms over ``iters`` calls."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(rounds):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return times
 
 
 def kernel_cases(gen):
@@ -110,6 +102,7 @@ def kernel_cases(gen):
             glk.train_half_forward(mq, mkv, m, w, w1, b1, heads, False, dt))
 
     dt = torch.bfloat16
+    F = torch.nn.functional
     for batch, n in ((12, 1024), (4, 2048)):
         def heads_of():
             return r(batch, n, dim).to(dt).view(batch, n, heads, 64).transpose(1, 2)
@@ -118,9 +111,139 @@ def kernel_cases(gen):
         amask = ragged(batch, n, n // 2)
         out, alse = ak.attention_forward(q, k, v, amask)
         cases[f"K9 B={batch} N={n}"] = lambda q=q, k=k, v=v, m=amask: ak.attention_forward(q, k, v, m)
+        cases[f"K11 B={batch} N={n}"] = lambda q=q, k=k, v=v, m=amask: ak.attention_lse_forward(q, k, v, m)
         cases[f"K10 B={batch} N={n}"] = (
             lambda q=q, k=k, v=v, m=amask, g=g, o=out, l=alse: ak.attention_backward(q, k, v, m, g, o, l))
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        sdpa = lambda q=lq, k=lk, v=lv, m=amask[:, None, None, :]: F.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+        def sdpa_both(sdpa=sdpa, g=g, ts=(lq, lk, lv)):
+            with torch.enable_grad():
+                for t in ts:
+                    t.grad = None
+                sdpa().backward(g)
+
+        cases[f"library SDPA B={batch} N={n}"] = sdpa
+        cases[f"library SDPA forward+backward B={batch} N={n}"] = sdpa_both
+    cases.update(k1_part_cases(gen))
     return cases
+
+
+# K1's five bf16 GEMMs at D=256: (name, n_out / D, k / D, epilogue)
+K1_GEMMS = (("kv", 2, 1, "bias"), ("q", 1, 1, "bias"), ("out+concat", 1, 1, "concat"),
+            ("ffn1", 2, 2, "relu_affine"), ("ffn2", 1, 2, "residual"))
+
+
+def k1_part_cases(gen, batch=16, n=1024, dim=256, heads=4):
+    """K1's attention and its five GEMMs alone at the serving shape (bf16),
+    each beside one PyTorch call for the same function: the attention on
+    K1's layout (q a [B, N, D] buffer, k and v the column blocks of one
+    [B, M, 2D] buffer) with a ragged key mask, beside
+    ``scaled_dot_product_attention`` on the same views and mask; each GEMM
+    beside ``F.linear``. None of the GEMMs where the checkout has no
+    gemm_kernel module."""
+    from openglue_tpu_torch.ops.kernels import attention_kernel as ak
+
+    F, dev, dt, dh = torch.nn.functional, torch.device("cuda"), torch.bfloat16, dim // heads
+    r = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device=dev) * scale
+    q = r(batch, n, dim).to(dt).view(batch, n, heads, dh).transpose(1, 2)
+    kv = r(batch, n, 2 * dim).to(dt)
+    k = kv[..., :dim].view(batch, n, heads, dh).transpose(1, 2)
+    v = kv[..., dim:].view(batch, n, heads, dh).transpose(1, 2)
+    counts = torch.randint(n // 4, n + 1, (batch,), generator=gen, device=dev)
+    mask = torch.arange(n, device=dev)[None] < counts[:, None]
+    m4 = mask[:, None, None, :]
+    cases = {
+        f"K1 attention B={batch} N={n}": lambda: ak.attention_forward(q, k, v, mask, False),
+        f"library SDPA K1 attention B={batch} N={n}": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m4),
+    }
+    try:
+        from openglue_tpu_torch.ops.kernels import gemm_kernel as gk
+    except ImportError:
+        return cases
+    rows = batch * n
+    for name, n_mul, k_mul, epilogue in K1_GEMMS:
+        n_out, kk = n_mul * dim, k_mul * dim
+        a, w, b = r(rows, kk).to(dt), r(n_out, kk, scale=kk**-0.5).to(dt), r(n_out)
+        x, sc, sh = r(rows, n_out).to(dt), 1.0 + 0.1 * r(n_out), 0.1 * r(n_out)
+        kw = dict(a=a, w=w, bias=b, epilogue=epilogue, x=x, scale=sc, shift=sh)
+        cases[f"gemm_bf16 K1 {name} {rows}x{n_out}x{kk}"] = lambda kw=kw: gk.gemm(**kw)
+        cases[f"library F.linear K1 {name}"] = lambda a=a, w=w, b=b.to(dt): F.linear(a, w, b)
+    return cases
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """The host's time to issue one call of ``fn``, in microseconds: ``calls``
+    calls queued while the card is held busy (``torch.cuda._sleep``), so that
+    no call waits for the card."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - start
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def host_cases(gen):
+    """K1 bf16 at B=1 N=1024 (one request's layer) and K1's attention alone at
+    B=1: the host's time per call, where the tensor maps are encoded."""
+    from openglue_tpu_torch.ops.kernels import attention_kernel as ak
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+
+    dev, dim, heads, dt = torch.device("cuda"), 256, 4, torch.bfloat16
+    r = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device=dev) * scale
+    d2 = 2 * dim
+    lw = glk.PropagationWeights(
+        r(dim, dim, scale=dim**-0.5).to(dt), r(dim), r(dim, dim, scale=dim**-0.5).to(dt), r(dim),
+        r(dim, dim, scale=dim**-0.5).to(dt), r(dim), r(dim, dim, scale=dim**-0.5).to(dt), r(dim),
+        r(d2, d2, scale=d2**-0.5).to(dt), r(d2), 1.0 + 0.1 * r(d2), 0.1 * r(d2),
+        r(dim, d2, scale=d2**-0.5).to(dt), r(dim),
+    )
+    xq, xkv = r(1, 1024, dim).to(dt), r(1, 1024, dim).to(dt)
+    mask = torch.arange(1024, device=dev)[None] < 700
+    q, k, v = (r(1, 1024, dim).to(dt).view(1, 1024, heads, 64).transpose(1, 2) for _ in range(3))
+    return {
+        "K1 B=1 N=1024 host us per call": host_us(lambda: glk.fused_attention_propagation(xq, xkv, mask, lw, heads)),
+        "K9 B=1 N=1024 host us per call": host_us(lambda: ak.attention_forward(q, k, v, mask)),
+    }
+
+
+def serve_cases(repo: Path, gen):
+    """(name, pairs, seconds, busy ms) of the flagship matcher (``chip_smoke.py``'s
+    config, random weights from seed 0) on a B=16 and a B=1 request at
+    N=1024: the median host time of 5 runs and the device busy time of one."""
+    import chip_smoke as cs
+    from openglue_tpu_torch.cli.common import superglue_config_from
+    from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
+    from openglue_tpu_torch.models.matching import decode_from_output
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.train.step import superglue_inputs
+
+    cfg = superglue_config_from({"superglue": cs.SUPERGLUE_SECTION}, cs.DESCRIPTOR_DIM, cs.SIDE_INFO_DIM)
+    model = SuperGlue(cfg, device="cuda", generator=torch.Generator().manual_seed(0)).eval()
+    counts = lambda b: torch.randint(512, 1025, (b,), generator=gen, device="cuda").tolist()
+    out = {}
+    for name, batch in (("serve B=16 N=1024", 16), ("serve B=1 N=1024", 1)):
+        pairs = cs.make_request(SyntheticHomographyPairs, gen, batch, 1024, counts(batch), counts(batch))
+        inputs = superglue_inputs(pairs)
+        run = lambda: cs.serve(model, decode_from_output, inputs)
+        for _ in range(3):
+            run()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - start)
+        busy, _ = cs.device_profile(run)
+        ms = statistics.median(times) * 1e3
+        out[name] = {"ms": ms, "pairs_per_s": batch / ms * 1e3, "busy_ms": busy, "runs_ms": [t * 1e3 for t in times]}
+    return out
 
 
 def gemm_cases(gen):
@@ -261,13 +384,16 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     torch.backends.cuda.matmul.allow_tf32 = False
     with torch.no_grad():
-        times = {name: rounds_ms(fn, args.rounds) for name, fn in kernel_cases(gen).items()}
+        times = {name: device_rounds_ms(fn, args.rounds) for name, fn in kernel_cases(gen).items()}
         times.update({name: device_rounds_ms(fn, args.rounds) for name, fn in gemm_cases(gen).items()})
         profile = layer_profile(gen)
+        host = host_cases(gen)
+    with torch.inference_mode():
+        serving = serve_cases(repo, gen)
     print(json.dumps({
         "label": args.label or str(repo), "card": card_line(),
         "ms": {name: statistics.median(t) for name, t in times.items()},
-        "f32_message_layer_profile": profile,
+        "f32_message_layer_profile": profile, "serve": serving, "host_us": host,
         "rounds_ms": times, "ptxas": ptxas_usage(repo),
     }), flush=True)
     return 0

@@ -130,3 +130,22 @@ def test_bf16_rounding_sites_match_jax_kernel():
     want = ak.attention_backward_plain(tq.float(), tk.float(), tv.float(), _t(mask), g.float())
     for a, b in zip(grads, want):  # against the same operands in f32: the roundings of P, dS and the result
         assert (a.float() - b).abs().max() <= 2.0**-6 * b.abs().max()
+
+
+@pytest.mark.parametrize("n,m,counts", CASES, ids=IDS)
+def test_bf16_forward_matches_jax_kernel(n, m, counts):
+    """The wrapper's forward for bf16 operands (the plain version on the
+    CPU), with and without the LSE, against the JAX kernel's bf16 output:
+    bf16 out, the same bits either way, the same LSE as the f32 forward of
+    the same operands, and within one bf16 rounding of the largest entry."""
+    q, k, v, mask = _case(n, m, counts, seed=7)
+    tq, tk, tv = (_t(x).bfloat16() for x in (q, k, v))
+    out, lse = ak.attention_forward(tq, tk, tv, _t(mask))
+    bare, none = ak.attention_forward(tq, tk, tv, _t(mask), False)
+    assert out.dtype == torch.bfloat16 and none is None and torch.equal(out, bare)
+    _, lse32 = ak.attention_forward(tq.float(), tk.float(), tv.float(), _t(mask))
+    torch.testing.assert_close(lse, lse32, atol=1e-5, rtol=0)
+    jq, jk, jv = (_j(x).astype(jnp.bfloat16) for x in (q, k, v))
+    ref = np.asarray(jax_attention(jq, jk, jv, _j(mask)).astype(jnp.float32))
+    live = slice(None) if counts is None else np.asarray(counts) > 0  # the JAX kernel pads a masked key set
+    np.testing.assert_allclose(out.float().numpy()[live], ref[live], atol=2.0**-7 * np.abs(ref).max())

@@ -2,7 +2,8 @@
 and in int8, the Sinkhorn forward and adjoint, the message forward and
 backward, the attention forward and backward on heads, with and without the
 LSE's cotangent, the train-mode layer half, the dense GEMMs of the layer
-kernels on their own) against their plain PyTorch
+kernels on their own, and the Hopper (wgmma and TMA) bf16 GEMM at each of
+its tiles and bf16 attention at each of its instances) against their plain PyTorch
 versions on a card, and the ring schedule's block merge against attention over
 the whole key set.
 
@@ -920,12 +921,16 @@ def test_tn_gemm_kernel_matches_plain_and_is_deterministic(dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_layer_kernels_count_the_gemms_they_launch(dtype):
-    """The C code counts each f32 GEMM where it launches it: an f32 K1 layer
-    launches 5 gemm_f32, K6 6, K4 3, K5 5 and one tn_gemm_f32, K8 4; a bf16
-    layer none."""
+    """The C code counts each GEMM and bf16 attention where it launches it: an
+    f32 K1 layer launches 5 gemm_f32, K6 6, K4 3, K5 5 and one tn_gemm_f32,
+    K8 4, and no gemm_bf16; a bf16 layer as many gemm_bf16 and no f32 GEMM
+    (and K1, K4, K8 one bf16 attention, K5 none: its attention passes are the
+    backward's). Counts are (gemm_f32, gemm_bf16, tn_gemm_f32)."""
     dev = _cuda()
-    counts = lambda: (gk.counter.count, gk.tn_counter.count)
+    counts = lambda: (gk.counter.count, gk.bf16_counter.count, gk.tn_counter.count)
     f32 = dtype == torch.float32
+    gemms = lambda n, tn=0: (n * f32, n * (not f32), tn)
+    attention = ak.bf16_counter.count
 
     def launched(fn):
         before = counts()
@@ -935,15 +940,16 @@ def test_layer_kernels_count_the_gemms_they_launch(dtype):
 
     w, x_q, x_kv, mask = _layer_case(dev, dtype, counts=(200, 257))
     with torch.no_grad():
-        assert launched(lambda: glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, False)) == (5 * f32, 0)
-        assert launched(lambda: glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, False, "linear")) == (6 * f32, 0)
+        assert launched(lambda: glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, False)) == gemms(5)
+        assert launched(lambda: glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, False, "linear")) == gemms(6)
     x_q, x_kv, mask, mw, g = _message_case(dev, dtype)
     out = []
-    assert launched(lambda: out.extend(glk.message_forward(x_q, x_kv, mask, mw, 4, dtype))) == (3 * f32, 0)
-    assert launched(lambda: glk.message_backward(x_q, x_kv, mask, mw, g, out[1], out[2], 4, dtype)) == (5 * f32, f32)
+    assert launched(lambda: out.extend(glk.message_forward(x_q, x_kv, mask, mw, 4, dtype))) == gemms(3)
+    assert launched(lambda: glk.message_backward(x_q, x_kv, mask, mw, g, out[1], out[2], 4, dtype)) == gemms(5, f32)
     w1 = torch.randn(512, 512, device=dev) * 512**-0.5
     b1 = torch.zeros(512, device=dev)
-    assert launched(lambda: glk.train_half_forward(x_q, x_kv, mask, mw, w1, b1, 4, False, dtype)) == (4 * f32, 0)
+    assert launched(lambda: glk.train_half_forward(x_q, x_kv, mask, mw, w1, b1, 4, False, dtype)) == gemms(4)
+    assert ak.bf16_counter.count - attention == 3 * (not f32)  # K1, K4, K8
 
 
 @pytest.mark.cuda
@@ -956,3 +962,120 @@ def test_gemm_kernel_refuses_what_it_does_not_take():
         gk.gemm(a, torch.randn(96, 64, device=dev), epilogue="relu", kn=True)
     with pytest.raises(ValueError, match="multiples of 64"):
         gk.tn_gemm([torch.randn(37, 96, device=dev)], [torch.randn(37, 64, device=dev)])
+
+
+# ----------------------------------------------------------- the Hopper bf16 kernels
+
+HOPPER_GEMM_ROWS = (1, 63, 1000, 1024, 16384 + 17)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", gk.EPILOGUES)
+def test_hopper_bf16_gemm_matches_plain_at_every_tile(epilogue):
+    """The bf16 GEMM (wgmma on TMA tiles) with each epilogue at rows {1, 63,
+    1000, 1024, 16401}, for n_out x k in {256 x 256, 512 x 160 (k a multiple
+    of 32 only)}, with the stacked weight (split) and, for the bias epilogue,
+    the kn form with and without k_split (a cut of 256, and of 48 and 8 inside
+    a k-tile); two runs bit-equal; each call counts one gemm_bf16 launch. The
+    launch rule takes every tile on the way: on 132 SMs, 64 x 256 at 16,401
+    rows and n_out 512, 64 x 128 at 16,401 rows and n_out 256, 64 x 64 at
+    1,024 rows and fewer."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(11)
+    r = lambda *s, scale=1.0: torch.randn(*s, generator=gen, device=dev) * scale
+    for rows in HOPPER_GEMM_ROWS:
+        cases = {}
+        for n_out, k in ((256, 256), (512, 160)):
+            c = _gemm_case(dev, torch.bfloat16, rows, n_out, k, seed=rows)
+            cases[f"{n_out}x{k}"] = dict(a=c["a"], w=c["w"], bias=c["b"], epilogue=epilogue, x=c["x"],
+                                         scale=c["scale"], shift=c["shift"], use_offset=rows % 2 == 1)
+            w2, b2 = r(n_out // 2, k, scale=k**-0.5).bfloat16(), r(n_out // 2)
+            cases[f"{n_out}x{k} split"] = dict(cases[f"{n_out}x{k}"], w=c["w"][: n_out // 2].contiguous(),
+                                               bias=c["b"][: n_out // 2].contiguous(), w2=w2, bias2=b2,
+                                               split=n_out // 2)
+        if epilogue == "bias":
+            a, wk = r(rows, 512).bfloat16(), r(512, 256, scale=512**-0.5).bfloat16()
+            cases["kn"] = dict(a=a, w=wk, bias=None, kn=True)
+            for cut in (256, 48, 8):
+                cases[f"kn k_split {cut}"] = dict(a=a, w=wk[:cut].contiguous(), bias=None, kn=True,
+                                                  w2=wk[cut:].contiguous(), k_split=cut)
+        for name, kw in cases.items():
+            ref = gk.gemm_plain(**kw)
+            n_out = ref.shape[1] // (2 if epilogue == "concat" else 1)
+            before = gk.bf16_counter.count
+            out, again = gk.gemm(**kw), gk.gemm(**kw)
+            torch.cuda.synchronize()
+            assert gk.bf16_counter.count == before + 2
+            assert torch.equal(out, again), (name, rows)
+            assert out.dtype == ref.dtype and out.shape == ref.shape
+            _gemm_close(out, ref, torch.bfloat16, f"{epilogue} {name} rows={rows} n_out={n_out}")
+
+
+@pytest.mark.cuda
+def test_hopper_bf16_gemm_refuses_cuts_off_its_boxes():
+    dev = _cuda()
+    a, w = torch.randn(100, 128, device=dev).bfloat16(), torch.randn(128, 128, device=dev).bfloat16()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        gk.gemm(a, w[:4].contiguous(), None, kn=True, w2=w[4:].contiguous(), k_split=4)
+    off = torch.randn(128 * 128 + 4, device=dev).bfloat16()[4:].view(128, 128)  # 8 bytes past a boundary
+    with pytest.raises(ValueError, match="16-byte boundaries"):
+        gk.gemm(a, off)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        gk.gemm(torch.randn(100, 136, device=dev).bfloat16()[:, 4:], w)
+
+
+def _hopper_attention_case(dev, dh, n, m, layout, seed):
+    """bf16 q [3, 4, n, dh], k and v [3, 4, m, dh] in ``layout``: "heads" (the
+    transposed views of [B, L, H*dh] projections, K9/K11) or "columns" (k and
+    v the column blocks of one [B, M, 2D] buffer, as K1, K4 and K8 pass
+    them); a ragged key mask with one fully masked element (index 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch, heads = 3, 4
+    dim = heads * dh
+    r = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()
+    split = lambda x, length: x.view(batch, length, heads, dh).transpose(1, 2)
+    q = split(r(batch, n, dim), n)
+    if layout == "heads":
+        k, v = split(r(batch, m, dim), m), split(r(batch, m, dim), m)
+    else:
+        kv = r(batch, m, 2 * dim)
+        k, v = split(kv[..., :dim], m), split(kv[..., dim:], m)
+    counts = torch.randint(max(1, m // 2), m + 1, (batch,), generator=gen, device=dev)
+    counts[1] = 0
+    return q, k, v, torch.arange(m, device=dev)[None] < counts[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("layout", ["heads", "columns"])
+def test_hopper_bf16_attention_matches_plain(dh, layout):
+    """The bf16 attention (wgmma, TMA ring, two consumer warpgroups) with M
+    below one key tile (77), not a multiple of 128 (200) and over several
+    tiles (1000), ragged N (1, 100, 300), one element with every key masked
+    (the uniform average over its M keys), with and without the mask, with
+    and without the LSE; two runs bit-equal. (Its f32-out instance runs
+    inside the int8 layer, test_int8_layer_kernel_matches_plain.)"""
+    dev = _cuda()
+    for n, m in ((1, 77), (100, 200), (300, 1000), (129, 128)):
+        q, k, v, mask = _hopper_attention_case(dev, dh, n, m, layout, seed=n + m)
+        live = mask.any(dim=1)
+        for kv_mask in (mask, None):
+            before = ak.bf16_counter.count
+            out, lse = ak.attention_forward(q, k, v, kv_mask, True)
+            again, lse_again = ak.attention_forward(q, k, v, kv_mask, True)
+            bare, none = ak.attention_forward(q, k, v, kv_mask, False)
+            ref, ref_lse = ak.attention_forward_plain(q, k, v, kv_mask, True)
+            torch.cuda.synchronize()
+            what = f"dh={dh} {layout} n={n} m={m} mask={kv_mask is not None}"
+            assert ak.bf16_counter.count == before + 3, what
+            assert none is None and out.dtype == torch.bfloat16, what
+            assert torch.equal(out, again) and torch.equal(lse, lse_again) and torch.equal(out, bare), what
+            # one or two bf16 ulps of the largest output (P rounds against the running max)
+            tol = 2.0**-7 * ref.float().abs().max().item()
+            assert (out.float() - ref.float()).abs().max().item() <= tol, what
+            rows = live if kv_mask is not None else torch.ones_like(live)
+            assert (lse - ref_lse)[rows].abs().max().item() <= 1e-4, what
+            if kv_mask is not None:  # every key masked: the average of the M keys
+                mean = v[1].float().mean(dim=1, keepdim=True).expand_as(out[1])
+                assert (out[1].float() - mean).abs().max().item() <= tol, what
+                assert bool((lse[1] < -1e8).all()), what

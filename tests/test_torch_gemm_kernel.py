@@ -154,3 +154,24 @@ def test_layer_gemm_counts():
     gk.tn_counter.reset()
     assert (gk.counter.count, gk.tn_counter.count) == (0, 0)
     assert kernels._libs == loaded
+
+
+def test_bf16_gemm_counts():
+    """The bf16 GEMM is counted by the C code too (``bf16_counter``, from the
+    same libraries), and so is the bf16 attention (``attention.cuh``: the
+    layer kernels that attend and the attention entry); both read 0 before
+    the libraries are loaded. A CPU call takes the plain version and counts
+    nothing."""
+    from openglue_tpu_torch.ops.kernels import attention_kernel as ak
+
+    assert gk.bf16_counter.header == "gemm.cuh" and gk.bf16_counter.which == 2
+    assert kernels.libraries_including("attention.cuh") == (
+        "gnn_layer", "message_forward", "gnn_layer_int8", "attention", "train_half")
+    loaded = dict(kernels._libs)
+    gk.bf16_counter.reset()
+    ak.bf16_counter.reset()
+    assert (gk.bf16_counter.count, ak.bf16_counter.count) == (0, 0)
+    assert kernels._libs == loaded
+    a, w = torch.randn(5, 64).bfloat16(), torch.randn(64, 64).bfloat16()
+    assert torch.equal(gk.gemm(a, w), gk.gemm_plain(a, w))
+    assert gk.bf16_counter.count == 0 and kernels._libs == loaded
