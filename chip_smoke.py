@@ -18,7 +18,9 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    and the int8 layer (K7: its four modes) at B=16, N=1024; the train-mode
    layer half (K8; bf16 and f32, with and without use_offset) and the
    attention forward and backward on heads (K9, K10; bf16 and f32, a ragged
-   mask with one fully masked element, two runs of K10 compared bit for bit)
+   mask with one fully masked element, two runs of K10 compared bit for bit,
+   the bf16 backward's two wgmma passes counted per call, and K10 bf16 again
+   at N=1000, M=777 with and without the LSE's cotangent)
    at B=12, N=1024, K9 and K10 also at B=4, N=2048, with the time of
    ``scaled_dot_product_attention`` on the same inputs beside them; the
    streaming Sinkhorn forward (K2s) past the fused kernel's columns (B=1,
@@ -57,7 +59,8 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    timed steps with the launch counts checked per step, a profile, and a
    small f32 step held against the composed path; the f32 GEMMs that K4 and
    K5 launch are counted too, by the C code where it launches them (272
-   gemm_f32 and 34 tn_gemm_f32 per step). Then the same step on the
+   gemm_f32 and 34 tn_gemm_f32 per step), and so are the bf16 attention
+   backward's passes (two per bf16 K5 launch: 4 per step). Then the same step on the
    model's two other training routes, ``train_route="composed"`` (K9, K10)
    and ``"half"`` (K8, K5): one step held against the plain versions, timed
    steps with the launch counts checked, a profile, and a small f32 step held
@@ -66,7 +69,8 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    then one step of examples/pretrain_e2e_fixture.yaml as written (bf16
    compute and chain, SIFT D=128 with heads of width 32, B=2 N=2048, 9
    stages), whose Sinkhorn backward takes the autograd route past the adjoint
-   kernel's columns: the same step in f32 compute held against its plain
+   kernel's columns and whose 36 bf16 K5 launch 72 bf16 attention backward
+   passes: the same step in f32 compute held against its plain
    step, the bf16 step's distance from the plain f32 step held to the plain
    bf16 step's, and timed. Every training phase prints its device busy time
    (kernel rows of the profile only);
@@ -716,9 +720,13 @@ def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4, 
     fwd = lambda: ak.attention_forward(q, k, v, mask)
     (out, lse), (ref, ref_lse) = fwd(), ak.attention_forward_plain(q, k, v, mask)
     bwd = lambda: ak.attention_backward(q, k, v, mask, g, out, lse)
+    passes = ak.bf16_backward_counter.count
     grads, again, ref_grads = bwd(), bwd(), ak.attention_backward_plain(q, k, v, mask, g)
     torch.cuda.synchronize()
+    passes = ak.bf16_backward_counter.count - passes
     check(all(torch.equal(a, b) for a, b in zip(grads, again)), f"K10 {name}: two runs differ")
+    # the bf16 backward is two launches (pass A, pass B) of the wgmma passes
+    check(passes == (4 if dtype == torch.bfloat16 else 0), f"K10 {name}: {passes} bf16 pass launches for two calls")
     # f32: summation order only; bf16: the online softmax rounds P against the
     # running max, one or two ulps (2^-8 relative) of the largest output
     f_err = (out.float() - ref.float()).abs().max().item()
@@ -769,7 +777,45 @@ def attention_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4, 
     res["K10"]["max_rel_err"] = max(rel)
     print(f"  K9 {name} lse_max_abs_err={lse_err:.3e} on live elements; K10 {name} relative errors (dq, dk, dv): "
           + ", ".join(f"{x:.2e}" for x in rel) + "; two runs equal", flush=True)
+    if dtype == torch.bfloat16:
+        res["K10"].update(bf16_pass_launches=passes, ragged=ragged_backward_check(ak, heads, dh))
     return res
+
+
+def ragged_backward_check(ak, heads, dh, n=1000, m=777):
+    """K10 bf16 at N=1000, M=777 (neither a multiple of a tile) with a
+    ragged mask and one fully masked element, with and without the LSE's
+    cotangent: kernel vs plain at K10's bars, two runs bit for bit, two
+    launches of the passes per call. Its own generator, so that later phases
+    draw the data they drew before this check existed."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    batch, dim = 3, heads * dh
+
+    def r(length):
+        return torch.randn(batch, length, dim, generator=gen, device=dev).bfloat16().view(
+            batch, length, heads, dh).transpose(1, 2)
+
+    q, k, v, g = r(n), r(m), r(m), r(n)
+    counts = torch.randint(m // 2, m + 1, (batch,), generator=gen, device=dev)
+    counts[1] = 0
+    mask = torch.arange(m, device=dev)[None] < counts[:, None]
+    out, lse = ak.attention_forward(q, k, v, mask)
+    rel = []
+    for g_lse in (None, torch.randn(batch, heads, n, generator=gen, device=dev)):
+        before = ak.bf16_backward_counter.count
+        grads = ak.attention_backward(q, k, v, mask, g, out, lse, g_lse)
+        again = ak.attention_backward(q, k, v, mask, g, out, lse, g_lse)
+        ref = ak.attention_backward_plain(q, k, v, mask, g, g_lse=g_lse)
+        torch.cuda.synchronize()
+        what = f"K10 bf16 N={n} M={m} dh={dh} g_lse={g_lse is not None}"
+        check(ak.bf16_backward_counter.count - before == 4, f"{what}: not two pass launches per call")
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)), f"{what}: two runs differ")
+        rel += [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item() for a, b in zip(grads, ref)]
+        check(max(rel) <= 2.0**-6, f"{what}: relative errors {rel} above {2.0**-6}")
+    print(f"  K10 bf16 B={batch} N={n} M={m} dh={dh} (one element fully masked): relative errors (dq, dk, dv; "
+          "then with g_lse) " + ", ".join(f"{x:.2e}" for x in rel) + "; two runs equal", flush=True)
+    return dict(max_rel_err=max(rel))
 
 
 def lse_phase(ak, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, heads=4, dh=64):
@@ -1248,6 +1294,7 @@ def train_phase(gen, card, device="cuda"):
     from openglue_tpu_torch.cli.common import loss_config_from, optimizer_from, superglue_config_from
     from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
     from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import attention_kernel as ak
     from openglue_tpu_torch.ops.kernels import gemm_kernel as gk
     from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
     from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
@@ -1289,11 +1336,13 @@ def train_phase(gen, card, device="cuda"):
     # the main training path, its counts from 0
     counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter,
                 "K4": glk.message_counter, "K5": glk.message_bwd_counter,
-                "gemm_f32": gk.counter, "tn_gemm_f32": gk.tn_counter}
+                "gemm_f32": gk.counter, "tn_gemm_f32": gk.tn_counter, "attn_bwd_bf16": ak.bf16_backward_counter}
     layers = 2 * cfg.num_stages * 2  # self + cross per stage, both images
-    # the chain is f32 after the first layer: 34 f32 layers, 8 + 1 f32 GEMMs each (K4, K5)
+    # the chain is f32 after the first layer: 34 f32 layers, 8 + 1 f32 GEMMs
+    # each (K4, K5); the 2 bf16 K5 launches run the two bf16 attention passes each
     expected = {"K1": 0, "K2": 1, "K3": 1, "K4": layers, "K5": layers,
-                "gemm_f32": 8 * F32_MESSAGE_LAYERS, "tn_gemm_f32": F32_MESSAGE_LAYERS}
+                "gemm_f32": 8 * F32_MESSAGE_LAYERS, "tn_gemm_f32": F32_MESSAGE_LAYERS,
+                "attn_bwd_bf16": 2 * (layers - F32_MESSAGE_LAYERS)}
     for counter in counters.values():
         counter.reset()
     torch.cuda.reset_peak_memory_stats()
@@ -1378,11 +1427,14 @@ def routes_phase(gen, card, device="cuda"):
     small = make_request(SyntheticHomographyPairs, gen, 2, 256, [256, 180], [200, 256])
     counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter, "K4": glk.message_counter,
                 "K5": glk.message_bwd_counter, "K8": glk.half_counter, "K9": ak.counter,
-                "K10": ak.backward_counter, "gemm_f32": gk.counter, "tn_gemm_f32": gk.tn_counter}
+                "K10": ak.backward_counter, "gemm_f32": gk.counter, "tn_gemm_f32": gk.tn_counter,
+                "attn_bwd_bf16": ak.bf16_backward_counter}
     layers = 2 * SUPERGLUE_SECTION["attention_gnn"]["num_stages"] * 2  # self + cross per stage, both images
     f32 = F32_MESSAGE_LAYERS  # composed: the projections are cuBLAS; half: K8 4 GEMMs, K5 5 + 1 tn
+    # composed attends in f32 throughout (K10 f32); half's 2 bf16 K5 run the bf16 passes
     per_step = {"composed": {"K9": layers, "K10": layers},
-                "half": {"K8": layers, "K5": layers, "gemm_f32": 9 * f32, "tn_gemm_f32": f32}}
+                "half": {"K8": layers, "K5": layers, "gemm_f32": 9 * f32, "tn_gemm_f32": f32,
+                         "attn_bwd_bf16": 2 * (layers - f32)}}
     launches = {}
     for route, kernels_of_route in per_step.items():
         state = fresh(SUPERGLUE_SECTION, route)
@@ -1451,7 +1503,8 @@ def routes_phase(gen, card, device="cuda"):
     m_remat, peak_remat = peak_of(lambda: step(remat, batch))
     launches["remat"] = {k: c.count for k, c in counters.items()}
     expected = {name: 0 for name in counters}
-    expected.update(K2=1, K3=1, K4=layers, K5=layers, gemm_f32=8 * f32, tn_gemm_f32=f32)
+    expected.update(K2=1, K3=1, K4=layers, K5=layers, gemm_f32=8 * f32, tn_gemm_f32=f32,
+                    attn_bwd_bf16=2 * (layers - f32))
     check(plain_counts == expected, f"message step: launches {plain_counts}, expected {expected}")
     expected["K4"] = 2 * layers  # each layer's forward runs again in the backward pass
     expected["gemm_f32"] = 11 * f32
@@ -1597,6 +1650,7 @@ def pretrain_phase(gen, card, device="cuda"):
     from openglue_tpu_torch.cli.common import loss_config_from, optimizer_from, superglue_config_from
     from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
     from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import attention_kernel as ak
     from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
     from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
     from openglue_tpu_torch.train.state import create_train_state
@@ -1617,9 +1671,12 @@ def pretrain_phase(gen, card, device="cuda"):
     batch = make_request(SyntheticHomographyPairs, gen, PRETRAIN_BATCH, n, counts(), counts(),
                          descriptor_dim=SIFT_DESCRIPTOR_DIM)
     counters = {"K1": glk.counter, "K2": sk.counter, "K2s": sk.stream_counter, "K3": sk.adjoint_counter,
-                "K4": glk.message_counter, "K5": glk.message_bwd_counter, "autograd_sinkhorn": sk.autograd_counter}
+                "K4": glk.message_counter, "K5": glk.message_bwd_counter, "autograd_sinkhorn": sk.autograd_counter,
+                "attn_bwd_bf16": ak.bf16_backward_counter}
     layers = 2 * cfg.num_stages * 2
-    expected = dict({k: 0 for k in counters}, K2=1, K4=layers, K5=layers, autograd_sinkhorn=1)
+    # every K5 launch is bf16 here: two bf16 attention passes each
+    expected = dict({k: 0 for k in counters}, K2=1, K4=layers, K5=layers, autograd_sinkhorn=1,
+                    attn_bwd_bf16=2 * layers)
     state = fresh()
     for c in counters.values():
         c.reset()
@@ -1875,7 +1932,8 @@ def main() -> int:
              source=csrc + "message_backward.cu", replaces=pallas + "gnn_layer_kernel.py:627",
              launches=train["K5"], **k45[torch.bfloat16]["K5"], library_ms=None,
              f32=dict(k45[torch.float32]["K5"], library_ms=None),
-             dh32=dh32(k45_32[torch.bfloat16]["K5"], k45_32[torch.float32]["K5"]), pretrain_launches=pretrain["K5"]),
+             dh32=dh32(k45_32[torch.bfloat16]["K5"], k45_32[torch.float32]["K5"]), pretrain_launches=pretrain["K5"],
+             bf16_pass_launches=train["attn_bwd_bf16"], pretrain_bf16_pass_launches=pretrain["attn_bwd_bf16"]),
         *[dict(name=f"gnn_layer_features {kind} (bf16, B=16 N=M=1024 D=256 H=4)", route="cuda",
                source=csrc + "gnn_layer_features.cu", replaces=pallas + "gnn_layer_kernel.py:117",
                launches=other[kind], **k6[(kind, torch.bfloat16)], library_ms=None,
@@ -1900,7 +1958,9 @@ def main() -> int:
                **k910[(torch.float32, 1024)][kname], bf16=k910[(torch.bfloat16, 1024)][kname],
                n2048_f32=k910[(torch.float32, 2048)][kname], n2048_bf16=k910[(torch.bfloat16, 2048)][kname],
                dh32=dh32(k910_32[torch.bfloat16][kname], k910_32[torch.float32][kname]),
-               **({"ring_train_launches": rings["train"]["K10"]} if kname == "K10" else {}))
+               **({"ring_train_launches": rings["train"]["K10"],
+                   "bf16_pass_launches": k910[(torch.bfloat16, 1024)]["K10"]["bf16_pass_launches"]}
+                  if kname == "K10" else {}))
           for kname, what, line in (("K9", "attention", 38), ("K10", "attention_backward", 251))],
         # the ring's projections are f32 too
         dict(name="attention_lse (f32, B=12 H=4 N=M=1024 dh=64)", route="cuda", source=csrc + "attention.cu",

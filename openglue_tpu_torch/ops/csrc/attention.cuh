@@ -45,7 +45,7 @@ constexpr int kAq = 64, kAk = 64, kAttnThreads = 128;
 // here (PERF.md), and is not done.
 
 constexpr int kHq = 128, kHk = 128, kHStages = 3, kHThreads = 384;
-constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DH>
 struct Bf16Attn {
@@ -57,19 +57,6 @@ struct Bf16Attn {
   static constexpr size_t bytes =
       1024 + 2 * q_bytes + 2 * kHStages * kv_bytes + kHStages * kHk * sizeof(float) + (4 + 2 * kHStages) * 8;
 };
-
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// d += A . V for one 16-key step of P V (A: P's bf16 fragments)
-template <int DH>
-__device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2], const uint32_t (&a)[4], uint64_t v) {
-  if constexpr (DH == 64) wgmma_rs_n64(d, a, v);
-  else wgmma_rs_n32(d, a, v);
-}
 
 // The online softmax of one tile's scores s (entry (j, e): row 16 warp + g,
 // + 8 for e >= 2, key 8 j + 2 t + (e & 1)) with its additive mask ma (log2
@@ -259,23 +246,13 @@ __global__ void __launch_bounds__(kHThreads, 1)
 // each is launched; og_attention_launches reads them
 unsigned long long attention_launches[1] = {0};
 
-// The tensor map of a [B, H, L, DH] bf16 operand: 128-row boxes of one head
-template <int DH>
-bool head_map(CUtensorMap* map, const bf16* base, int B, int H, int L, HeadLayout l) {
-  const uint64_t dims[4] = {DH, static_cast<uint64_t>(L), static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
-  const uint64_t strides[3] = {static_cast<uint64_t>(l.row) * 2, static_cast<uint64_t>(l.head) * 2,
-                               static_cast<uint64_t>(l.batch) * 2};
-  const uint32_t box[4] = {DH, kHq, 1, 1};
-  return bf16_map(map, base, 4, dims, strides, box, 2 * DH);
-}
-
 template <int DH, typename O>
 cudaError_t launch_attention_bf16(const bf16* q, const bf16* k, const bf16* v, const uint8_t* mask, O* out,
                                   float* lse, int B, int N, int M, int H, HeadLayout lq, HeadLayout lk,
                                   HeadLayout lv, HeadLayout lo, cudaStream_t stream) {
-  static_assert(kHq == kHk, "one box shape for Q, K and V");
   CUtensorMap mq, mk, mv;
-  if (!head_map<DH>(&mq, q, B, H, N, lq) || !head_map<DH>(&mk, k, B, H, M, lk) || !head_map<DH>(&mv, v, B, H, M, lv))
+  if (!head_map<DH>(&mq, q, B, H, N, lq, kHq) || !head_map<DH>(&mk, k, B, H, M, lk, kHk) ||
+      !head_map<DH>(&mv, v, B, H, M, lv, kHk))
     return cudaErrorInvalidValue;
   const size_t smem = Bf16Attn<DH>::bytes;
   const cudaError_t err = cudaFuncSetAttribute(attention_bf16<DH, O>, cudaFuncAttributeMaxDynamicSharedMemorySize,

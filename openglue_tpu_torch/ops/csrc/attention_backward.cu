@@ -34,7 +34,10 @@
 // output in pass A's prologue, P comes from the saved LSE, and S and dP are
 // recomputed in each pass (7 N x M x dh products per head against the TPU
 // kernel's 5). Every sum stays inside one CTA: no atomics, equal bits on two
-// runs. Operands are read through their strides, as in the forward.
+// runs. Operands are read through their strides, as in the forward. bf16:
+// both passes are wgmma on TMA tiles, a producer warp and two consumer
+// warpgroups per CTA, persistent over 128-row blocks, P and dS fed to their
+// products from registers (attention_backward.cuh); f32: 3xTF32 mma.sync.
 
 #include "attention_backward.cuh"
 

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) primitives shared by the bf16 GEMM (gemm.cuh) and the bf16
-// attention (attention.cuh): tensor maps for the Tensor Memory Accelerator
-// (TMA) built on the host, TMA tile loads into shared memory that complete on
-// an mbarrier, the mbarrier ring's waits and arrivals, wgmma (warpgroup
-// matrix multiply-accumulate, bf16 in, f32 accumulate) with its shared-memory
-// descriptors, named barriers and register reallocation between warpgroups.
+// attention forward and backward (attention.cuh, attention_backward.cuh):
+// tensor maps for the Tensor Memory Accelerator (TMA) built on the host, TMA
+// tile loads into shared memory that complete on an mbarrier, the mbarrier
+// ring's waits and arrivals, wgmma (warpgroup matrix multiply-accumulate,
+// bf16 in, f32 accumulate) with its shared-memory descriptors, named
+// barriers, register reallocation between warpgroups, and what the attention
+// kernels share (the tensor map of a head, exp2).
 //
 // Shared-memory tiles are written by TMA with a 128-byte (64-byte for rows of
 // 64 bytes) swizzle and read by wgmma through descriptors of the same
@@ -316,6 +318,37 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t
   if constexpr (N == 64) wgmma_ss_n64<TB>(d, a, b);
   else if constexpr (N == 128) wgmma_ss_n128<TB>(d, a, b);
   else wgmma_ss_n256<TB>(d, a, b);
+}
+
+// d += A . B for one 16-deep step of a product into a head of width DH (32
+// or 64): A a score tile's bf16 fragments in registers (P or dS), B a 16-row
+// step of a head-wide operand tile (V, K, Q or g) stored MN-major at v
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2], const uint32_t (&a)[4], uint64_t v) {
+  if constexpr (DH == 64) wgmma_rs_n64(d, a, v);
+  else wgmma_rs_n32(d, a, v);
+}
+
+// ---------------------------------------------------------------- attention operands
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x, one MUFU op (the attention kernels' exps, their logits in log2 units)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The tensor map of a [B, H, L, DH] bf16 attention operand given by its
+// HeadLayout: boxes of `rows` rows of one head, in the swizzle of its row
+template <int DH>
+bool head_map(CUtensorMap* map, const bf16* base, int B, int H, int L, HeadLayout l, int rows) {
+  const uint64_t dims[4] = {DH, static_cast<uint64_t>(L), static_cast<uint64_t>(H), static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {static_cast<uint64_t>(l.row) * 2, static_cast<uint64_t>(l.head) * 2,
+                               static_cast<uint64_t>(l.batch) * 2};
+  const uint32_t box[4] = {DH, static_cast<uint32_t>(rows), 1, 1};
+  return bf16_map(map, base, 4, dims, strides, box, 2 * DH);
 }
 
 }  // namespace

@@ -29,12 +29,12 @@
 // * recompute q and k+v with the forward's GEMMs; dattn = g Wo, dx_q and
 //   dx_kv take the weights as stored ([out, in]) through the GEMM's KN mode;
 // * attention backward in two passes (attention_backward.cuh). Pass A takes
-//   one 64-query block per CTA (and head): in f32 it takes rowsum(dP o P)
-//   from the saved attn as rowsum(dattn o attn); in bf16, where attn is
-//   rounded, a first sweep over the key tiles sums it. Then it recomputes P
-//   and dP, forms dS and accumulates dQ in registers. Pass B takes one 64-key
-//   block per CTA: it sweeps the query tiles with the saved LSE and pass A's
-//   row sums and accumulates dK and dV in registers. S and dP are recomputed
+//   a block of queries (and head): in f32 it takes rowsum(dP o P) from the
+//   saved attn as rowsum(dattn o attn); in bf16, where attn is rounded, a
+//   first sweep over the key tiles sums it. Then it recomputes P and dP,
+//   forms dS and accumulates dQ in registers. Pass B takes a block of keys:
+//   it sweeps the query tiles with the saved LSE and pass A's row sums and
+//   accumulates dK and dV in registers. S and dP are recomputed
 //   in each pass (7 N x M x dh products per head in f32, 9 in bf16, against
 //   the TPU kernel's 5); that keeps every sum inside one CTA. In an element
 //   with every key masked the TPU kernel's f32 LSE sits at -1e9 and has lost
@@ -46,9 +46,10 @@
 //   over the B*N or B*M rows) into per-split f32 partials, summed in a fixed
 //   order by a second kernel; the bias gradients are column sums done the
 //   same way.
-// bf16 uses mma.sync with cp.async double buffering. In f32 every product
-// runs in 3xTF32 on the tensor cores: the attention passes on hi/lo tiles
-// split once per tile (tf32_tiles.cuh), the five dense GEMMs (gemm.cuh) and
+// bf16 runs wgmma on TMA tiles: the dense GEMMs (gemm.cuh) and both attention
+// passes, each a producer warp and two consumer warpgroups, persistent. In
+// f32 every product runs in 3xTF32 on the tensor cores: the attention passes
+// on hi/lo tiles split once per tile (tf32_tiles.cuh), the five dense GEMMs (gemm.cuh) and
 // the weight gradients (tn_gemm.cuh) on raw f32 tiles from a three-stage
 // cp.async ring, split per fragment. The dense products are 22 N D^2 of the
 // 22 N D^2 + 10 N M D FLOP: a third at this shape.

@@ -62,6 +62,9 @@ lse_counter = kernels.LaunchCounter()
 # the launches of the bf16 forward kernel from every entry (K9, K11 and the
 # layer kernels K1, K4, K7, K8), counted by the C code where it launches it
 bf16_counter = kernels.LibraryLaunchCounter("attention.cuh", "og_attention_launches", 0)
+# the launches of the bf16 backward passes (two per backward: pass A, then
+# pass B) from every entry (K10 and K5's bf16 attention), counted by the C code
+bf16_backward_counter = kernels.LibraryLaunchCounter("attention_backward.cuh", "og_attention_backward_launches", 0)
 
 _VOID_P = ctypes.c_void_p
 

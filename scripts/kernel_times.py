@@ -7,9 +7,11 @@ Imports ``openglue_tpu_torch`` from the checkout DIR (its kernels build into
 DIR/build/kernels) and prints one JSON line: the card (``nvidia-smi`` name and
 power limit); each case's time in ms as the median of ``--rounds`` rounds of
 20 back-to-back calls, queued while the card is held busy and timed with
-CUDA events (every round listed); the device time by kernel of one f32
-``message`` layer (K4 + K5, torch.profiler), which splits the layer into its
-GEMM, attention and reduction launches; the registers and spill bytes per
+CUDA events (every round listed); the device time by kernel
+(torch.profiler) of one f32 ``message`` layer (K4 + K5), which splits the
+layer into its GEMM, attention and reduction launches, and of K10 and K5 in
+bf16, which split the attention backward into its passes; the registers and
+spill bytes per
 thread that ``ptxas -v`` reports for the attention kernels and the dense
 GEMMs of DIR's sources; the flagship matcher serving a B=16 and a B=1
 request at N=1024 (median host ms of 5 runs, pairs/s and the device busy ms
@@ -18,10 +20,11 @@ time per call of K1 and K9 at B=1 (where the bf16 kernels encode their TMA
 tensor maps).
 
 The cases, at the shapes of ``chip_smoke.py``: K1 B=16 N=1024 D=256; K4, K5,
-K8 B=12 N=1024 D=256; K6 (linear) B=16 N=1024; each in bf16 and f32; K9, K10,
-K11 bf16 at B=12 N=1024 and B=4 N=2048 (H=4, heads of width 64), each beside
-``scaled_dot_product_attention`` on the same inputs and mask (for K10 its
-forward and backward less its forward); K1's parts alone at B=16: its
+K8 B=12 N=1024 D=256; K6 (linear) B=16 N=1024; each in bf16 and f32; K5 bf16
+at D=128; K9, K10, K11 bf16 at B=12 N=1024 and B=4 N=2048 (H=4, heads of
+width 64), K9 and K10 also at B=12 with heads of width 32 and in f32, each
+beside ``scaled_dot_product_attention`` on the same inputs and mask (for K10
+its forward and backward less its forward); K1's parts alone at B=16: its
 attention on K1's operand layout beside the same library call, and its five
 bf16 GEMMs, each beside ``F.linear``; and, where the checkout has
 ``ops/kernels/gemm_kernel.py``, the f32 GEMM and weight-gradient GEMM alone at
@@ -48,6 +51,8 @@ from pathlib import Path
 import torch
 
 # the sources ptxas reports on (those the checkout has), and the kernels
+# (the bf16 backward passes keep their names from the mma.sync design to the
+# wgmma one, so one call reports both checkouts' passes)
 PTXAS_SOURCES = ("gnn_layer", "message_forward", "message_backward", "train_half", "attention", "attention_backward",
                  "gemm")
 PTXAS_KERNELS = ("attention_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16", "gemm_f32", "tn_gemm_f32", "gemm_bf16")
@@ -101,18 +106,29 @@ def kernel_cases(gen):
         cases[f"K8 B=12 N=1024{tag}"] = lambda mq=mq, mkv=mkv, m=mmask, w=w, w1=w1, b1=b1, dt=dt: (
             glk.train_half_forward(mq, mkv, m, w, w1, b1, heads, False, dt))
 
-    dt = torch.bfloat16
+    # K5 bf16 at D=128 (4 heads of width 32: the SIFT width of the pretraining fixture)
+    dim32 = 128
+    w = glk.MessageWeights(*[r(dim32, dim32, scale=dim32**-0.5) if i % 2 == 0 else r(dim32) for i in range(8)])
+    mq, mkv, mg = (r(12, 1024, dim32).bfloat16() for _ in range(3))
+    mmask = ragged(12, 1024, 512)
+    _, attn, lse = glk.message_forward(mq, mkv, mmask, w, heads, torch.bfloat16)
+    cases["K5 B=12 N=1024 D=128"] = lambda: glk.message_backward(mq, mkv, mmask, w, mg, attn, lse, heads, torch.bfloat16)
+
     F = torch.nn.functional
-    for batch, n in ((12, 1024), (4, 2048)):
+    # (batch, n, head width, type, tag): K9 and K10 in bf16 at both shapes
+    # and dh=32, and in f32 at B=12 (K11 bf16 at both shapes)
+    for batch, n, dh, dt, tag in ((12, 1024, 64, torch.bfloat16, ""), (4, 2048, 64, torch.bfloat16, ""),
+                                  (12, 1024, 32, torch.bfloat16, " dh=32"), (12, 1024, 64, torch.float32, " f32")):
         def heads_of():
-            return r(batch, n, dim).to(dt).view(batch, n, heads, 64).transpose(1, 2)
+            return r(batch, n, heads * dh).to(dt).view(batch, n, heads, dh).transpose(1, 2)
 
         q, k, v, g = heads_of(), heads_of(), heads_of(), heads_of()
         amask = ragged(batch, n, n // 2)
         out, alse = ak.attention_forward(q, k, v, amask)
-        cases[f"K9 B={batch} N={n}"] = lambda q=q, k=k, v=v, m=amask: ak.attention_forward(q, k, v, m)
-        cases[f"K11 B={batch} N={n}"] = lambda q=q, k=k, v=v, m=amask: ak.attention_lse_forward(q, k, v, m)
-        cases[f"K10 B={batch} N={n}"] = (
+        cases[f"K9 B={batch} N={n}{tag}"] = lambda q=q, k=k, v=v, m=amask: ak.attention_forward(q, k, v, m)
+        if not tag:
+            cases[f"K11 B={batch} N={n}"] = lambda q=q, k=k, v=v, m=amask: ak.attention_lse_forward(q, k, v, m)
+        cases[f"K10 B={batch} N={n}{tag}"] = (
             lambda q=q, k=k, v=v, m=amask, g=g, o=out, l=alse: ak.attention_backward(q, k, v, m, g, o, l))
         lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
         sdpa = lambda q=lq, k=lk, v=lv, m=amask[:, None, None, :]: F.scaled_dot_product_attention(q, k, v, attn_mask=m)
@@ -123,8 +139,8 @@ def kernel_cases(gen):
                     t.grad = None
                 sdpa().backward(g)
 
-        cases[f"library SDPA B={batch} N={n}"] = sdpa
-        cases[f"library SDPA forward+backward B={batch} N={n}"] = sdpa_both
+        cases[f"library SDPA B={batch} N={n}{tag}"] = sdpa
+        cases[f"library SDPA forward+backward B={batch} N={n}{tag}"] = sdpa_both
     cases.update(k1_part_cases(gen))
     return cases
 
@@ -294,29 +310,16 @@ def device_rounds_ms(fn, rounds: int, calls: int = 20):
     return times
 
 
-def layer_profile(gen):
-    """Device ms per call of each kernel of one f32 message layer (K4 + K5
-    at B=12 N=1024 D=256), from torch.profiler over 10 calls."""
+def kernel_profile(fn, calls: int = 10):
+    """{kernel: {ms_per_call, launches_per_call}} of ``fn``'s device work,
+    from torch.profiler over ``calls`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
-    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
-
-    dev, dim, heads, dt = torch.device("cuda"), 256, 4, torch.float32
-    r = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device=dev) * scale
-    w = glk.MessageWeights(*[r(dim, dim, scale=dim**-0.5) if i % 2 == 0 else r(dim) for i in range(8)])
-    mq, mkv, mg = r(12, 1024, dim), r(12, 1024, dim), r(12, 1024, dim)
-    mask = torch.arange(1024, device=dev)[None] < torch.randint(512, 1025, (12,), generator=gen, device=dev)[:, None]
-
-    def layer():
-        _, attn, lse = glk.message_forward(mq, mkv, mask, w, heads, dt)
-        glk.message_backward(mq, mkv, mask, w, mg, attn, lse, heads, dt)
-
-    layer()
+    fn()
     torch.cuda.synchronize()
-    calls = 10
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
-            layer()
+            fn()
         torch.cuda.synchronize()
     rows = {}
     for event in prof.key_averages():
@@ -324,8 +327,38 @@ def layer_profile(gen):
         if ms <= 0 or event.key.startswith(("Memcpy", "Memset")):
             continue
         name = event.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
-        rows[name] = {"ms_per_layer": ms / calls, "launches_per_layer": event.count / calls}
+        rows[name] = {"ms_per_call": ms / calls, "launches_per_call": event.count / calls}
     return rows
+
+
+def profiles(gen):
+    """Device ms per call by kernel of one f32 message layer (K4 + K5 at B=12
+    N=1024 D=256), which splits it into its GEMM, attention and reduction
+    launches, and of K10 bf16 and K5 bf16 (B=12 N=1024, D=256), which split
+    the bf16 attention backward into its two passes and what surrounds them."""
+    from openglue_tpu_torch.ops.kernels import attention_kernel as ak
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+
+    dev, dim, heads = torch.device("cuda"), 256, 4
+    r = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device=dev) * scale
+    mask = torch.arange(1024, device=dev)[None] < torch.randint(512, 1025, (12,), generator=gen, device=dev)[:, None]
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        w = glk.MessageWeights(*[r(dim, dim, scale=dim**-0.5) if i % 2 == 0 else r(dim) for i in range(8)])
+        mq, mkv, mg = (r(12, 1024, dim).to(dt) for _ in range(3))
+        _, attn, lse = glk.message_forward(mq, mkv, mask, w, heads, dt)
+
+        def bwd():
+            return glk.message_backward(mq, mkv, mask, w, mg, attn, lse, heads, dt)
+
+        if dt == torch.float32:
+            out["f32 message layer"] = kernel_profile(lambda: (glk.message_forward(mq, mkv, mask, w, heads, dt), bwd()))
+        else:
+            out["K5 bf16"] = kernel_profile(bwd)
+    q, k, v, g = (r(12, 1024, dim).bfloat16().view(12, 1024, heads, 64).transpose(1, 2) for _ in range(4))
+    o, lse = ak.attention_forward(q, k, v, mask)
+    out["K10 bf16"] = kernel_profile(lambda: ak.attention_backward(q, k, v, mask, g, o, lse))
+    return out
 
 
 def ptxas_usage(repo: Path):
@@ -386,14 +419,14 @@ def main() -> int:
     with torch.no_grad():
         times = {name: device_rounds_ms(fn, args.rounds) for name, fn in kernel_cases(gen).items()}
         times.update({name: device_rounds_ms(fn, args.rounds) for name, fn in gemm_cases(gen).items()})
-        profile = layer_profile(gen)
+        profile = profiles(gen)
         host = host_cases(gen)
     with torch.inference_mode():
         serving = serve_cases(repo, gen)
     print(json.dumps({
         "label": args.label or str(repo), "card": card_line(),
         "ms": {name: statistics.median(t) for name, t in times.items()},
-        "f32_message_layer_profile": profile, "serve": serving, "host_us": host,
+        "profiles": profile, "serve": serving, "host_us": host,
         "rounds_ms": times, "ptxas": ptxas_usage(repo),
     }), flush=True)
     return 0

@@ -13,6 +13,7 @@ import torch
 
 from openglue_tpu.ops.pallas.attention_kernel import masked_softmax_attention as jax_attention
 from openglue_tpu_torch.ops import attention as attn_ops
+from openglue_tpu_torch.ops import kernels
 from openglue_tpu_torch.ops.kernels import attention_kernel as ak
 
 # (N, M, valid key counts of the two batch elements or None). The last case
@@ -149,3 +150,25 @@ def test_bf16_forward_matches_jax_kernel(n, m, counts):
     ref = np.asarray(jax_attention(jq, jk, jv, _j(mask)).astype(jnp.float32))
     live = slice(None) if counts is None else np.asarray(counts) > 0  # the JAX kernel pads a masked key set
     np.testing.assert_allclose(out.float().numpy()[live], ref[live], atol=2.0**-7 * np.abs(ref).max())
+
+
+def test_bf16_backward_passes_are_counted_by_the_c_code():
+    """The bf16 backward passes (two per backward, from K10 and from K5's bf16
+    attention) are counted by the C code where it launches them, in exactly
+    the libraries whose source includes attention_backward.cuh. Before the
+    libraries are loaded the count reads 0, reading or resetting it builds
+    nothing, and a CPU backward takes the plain version and counts nothing."""
+    counter = ak.bf16_backward_counter
+    assert (counter.header, counter.symbol, counter.which) == (
+        "attention_backward.cuh", "og_attention_backward_launches", 0)
+    assert kernels.libraries_including("attention_backward.cuh") == ("message_backward", "attention_backward")
+    loaded = dict(kernels._libs)
+    counter.reset()
+    assert counter.count == 0 and kernels._libs == loaded
+    q, k, v, mask = (_t(x) for x in _case(40, 24, (24, 10)))
+    g = torch.randn(q.shape).bfloat16()
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    out, lse = ak.attention_forward(q, k, v, mask)
+    grads = ak.attention_backward(q, k, v, mask, g, out, lse)
+    assert all(torch.equal(a, b) for a, b in zip(grads, ak.attention_backward_plain(q, k, v, mask, g)))
+    assert counter.count == 0 and kernels._libs == loaded

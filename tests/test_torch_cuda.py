@@ -1079,3 +1079,37 @@ def test_hopper_bf16_attention_matches_plain(dh, layout):
                 mean = v[1].float().mean(dim=1, keepdim=True).expand_as(out[1])
                 assert (out[1].float() - mean).abs().max().item() <= tol, what
                 assert bool((lse[1] < -1e8).all()), what
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("layout", ["heads", "columns"])
+def test_hopper_bf16_attention_backward_matches_plain(dh, layout):
+    """The bf16 attention backward (K10; its two passes, wgmma on TMA tiles,
+    are K5's bf16 attention too) with M below one key tile (77), at one tile
+    (128), not a multiple of 128 (200, 777) and over several tiles (1000),
+    ragged N (1, 100, 300, 129, 1000), one element with every key masked,
+    with and without the mask, with and without the LSE's cotangent: K10's
+    bars of 2^-6 of the largest entry, two runs bit-equal, two launches of
+    the passes per call."""
+    dev = _cuda()
+    for n, m in ((1, 77), (100, 200), (300, 1000), (129, 128), (1000, 777)):
+        q, k, v, mask = _hopper_attention_case(dev, dh, n, m, layout, seed=n + m)
+        gen = torch.Generator(device=dev).manual_seed(n)
+        g = torch.randn(3, n, 4 * dh, generator=gen, device=dev).bfloat16().view(3, n, 4, dh).transpose(1, 2)
+        g_lse = torch.randn(q.shape[:3], generator=gen, device=dev)
+        for kv_mask in (mask, None):
+            out, lse = ak.attention_forward(q, k, v, kv_mask)
+            for cot in (None, g_lse):
+                before = ak.bf16_backward_counter.count
+                grads = ak.attention_backward(q, k, v, kv_mask, g, out, lse, cot)
+                again = ak.attention_backward(q, k, v, kv_mask, g, out, lse, cot)
+                ref = ak.attention_backward_plain(q, k, v, kv_mask, g, g_lse=cot)
+                torch.cuda.synchronize()
+                what = f"dh={dh} {layout} n={n} m={m} mask={kv_mask is not None} g_lse={cot is not None}"
+                assert ak.bf16_backward_counter.count == before + 4, what
+                for name, a, b, c in zip(("dq", "dk", "dv"), grads, again, ref):
+                    assert a.dtype == torch.bfloat16 and torch.equal(a, b), f"{what} {name}"
+                    _close(a, c, torch.bfloat16, f"{what} {name}")
+                if kv_mask is not None and cot is not None:  # every key masked: dq = dk = 0
+                    assert not grads[0][1].any() and not grads[1][1].any(), what
