@@ -12,7 +12,9 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    and its bound: the eval layer (K1) and the Sinkhorn forward (K2) at the
    serving shapes, and K1's attention core alone at B=16 on K1's operand
    layout beside ``scaled_dot_product_attention`` with the same mask; the
-   Sinkhorn adjoint (K3) and the message forward and
+   Sinkhorn adjoint (K3) (K2 and K3 each after a line with the launch plan
+   the C code made, held against its Python mirror and against the SMs it
+   must fill, and run twice, bit for bit) and the message forward and
    backward (K4, K5; bf16 and f32) at the training shape B=12, N=1024; the
    feature-kind layer (K6: linear, FAVOR-relu, FAVOR-softmax; bf16 and f32)
    and the int8 layer (K7: its four modes) at B=16, N=1024; the train-mode
@@ -378,6 +380,31 @@ def int8_layer_phase(glk, gli8, mode, gen, batch=16, n=1024, dim=256, heads=4):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, rel_norm_err=rel)
 
 
+# the SMs the Sinkhorn kernels' plan must use at least, by batch: one
+# element over more than one cluster of 8, the card filled where the batch
+# allows it
+PLAN_LEAST_SMS = {1: 16, 4: 100, 12: 100, 16: 100}
+
+
+def plan_line(sk, name, batch, rows, cols, k_dtype, adjoint=False):
+    """Print the launch plan the C code makes for a Sinkhorn kernel (K2, or
+    K3 with ``adjoint``), check it against the Python mirror and against the
+    SMs it must fill."""
+    plan, caps, sms = sk.kernel_plan(batch, rows, cols, k_dtype, adjoint)
+    mirror = sk.launch_plan(batch, rows, cols, k_dtype, sms, caps)
+    in_flight = plan.slots * plan.ctas
+    print(f"{name} plan: {plan.ctas} CTAs per element ({plan.groups} cluster(s) of {plan.cs}"
+          f"{', cooperative' if plan.cooperative else ''}), {plan.slots} element(s) in flight on {in_flight} SMs, "
+          f"{plan.waves} group(s) in turn; per CTA {plan.rows} rows: {plan.smem_rows} in shared memory, "
+          f"{plan.spill_rows} in device memory; on-chip K "
+          f"{plan.on_chip_bytes(cols, k_dtype)} bytes, {plan.smem_bytes} bytes of shared memory; "
+          f"workspace {plan.workspace_bytes} bytes; clusters the card holds {caps}, {sms} SMs", flush=True)
+    check(plan == mirror, f"{name}: the C plan {plan} is not the Python mirror's {mirror}")
+    check(plan.spill_rows == 0, f"{name}: K does not stay on chip")
+    check(in_flight >= PLAN_LEAST_SMS.get(batch, 1), f"{name}: {in_flight} SMs in flight")
+    return plan
+
+
 def sinkhorn_phase(sk, batch, n, gen, iters=20):
     """K2 on a padded, masked OT matrix at a serving shape: kernel vs plain."""
     dev = torch.device("cuda")
@@ -391,9 +418,12 @@ def sinkhorn_phase(sk, batch, n, gen, iters=20):
     M_pad = sk.build_padded_otp_matrix(scores, dust, 1.0, mask0, mask1, rows, cp)
     la, lb, _ = sk.otp_marginals(batch, n, n, mask0, mask1, dev)
     la, lb = sk.padded_marginals(la, lb, rows, cp)
+    plan_line(sk, f"K2 B={batch} N={n}", batch, rows, cp, k_dtype)
     u = sk.sinkhorn_scale(M_pad, la, lb, iters, k_dtype)
+    again = sk.sinkhorn_scale(M_pad, la, lb, iters, k_dtype)
     ref = sk.sinkhorn_scale_plain(M_pad, la, lb, iters, k_dtype)
     torch.cuda.synchronize()
+    check(torch.equal(u, again), f"K2 B={batch} N={n}: two runs differ")
     live = la > -1e8  # masked rows sit near -1e9, where one f32 ulp is 64
     err = (u - ref).abs()[live].max().item()
     check(err <= 1e-3, f"K2 B={batch} N={n}: max error {err} on live rows")
@@ -423,10 +453,13 @@ def adjoint_phase(sk, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, iters=20):
     g[:, :, : n + 1] = torch.randn(batch, rows, n + 1, generator=gen, device=dev) * valid
     rmax = M_pad.amax(dim=2)
     args = (M_pad, la, lb, rmax, g.sum(2), g.sum(1), iters)
+    plan_line(sk, f"K3 B={batch} N={n}", batch, rows, cp, torch.float32, adjoint=True)
     K = torch.exp(M_pad - rmax[:, :, None])
-    dm = [g - K * torch.bmm(P.transpose(1, 2), Q)
-          for P, Q in (sk.sinkhorn_adjoint(*args), sk.sinkhorn_adjoint_plain(*args))]
+    factors = sk.sinkhorn_adjoint(*args)
+    again = sk.sinkhorn_adjoint(*args)
+    dm = [g - K * torch.bmm(P.transpose(1, 2), Q) for P, Q in (factors, sk.sinkhorn_adjoint_plain(*args))]
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(factors, again)), f"K3 B={batch} N={n}: two runs differ")
     live = torch.zeros_like(g, dtype=torch.bool)
     live[:, :, : n + 1] = valid
     err = (dm[0] - dm[1]).abs()[live].max().item()

@@ -12,172 +12,97 @@
 //   out_i = log_a_i - rmax_i - log(max((K v)_i, 1e-30))
 // with a = exp(log_a), b = exp(log_b). Arithmetic is f32; bf16 is storage only.
 //
-// What bounds it on the H100: every iteration reads all of K once (4.2 MB
-// f32 per element at N=1024, 8.4 MB bf16 at N=2048), so it is a
-// bandwidth-bound streaming recursion with a grid-wide dependency between
-// iterations (each v needs every row's u).
+// What bounds it on the H100: the work that must be done is one read of M
+// (4.2 MB f32 per element at N=1024, 16.9 MB at N=2048) and 4 FMAs per entry
+// of K per iteration, so its bound is the bytes of M. A kernel that keeps K in
+// device memory reads all of it again in every iteration (67.7 MB at B=16
+// N=1024 f32: past the 50 MB L2), and each iteration waits on every row of
+// its element before the next can start (each v needs every row's u).
 //
-// Design: the TPU kernels ran the grid in order and paired elements to hide
-// matvec latency; neither carries over. Here a cluster of 8 CTAs owns one
-// batch element and loops over all iterations: each CTA takes every 8th
-// stripe of rows, and the one dependency between iterations (every v needs
-// the column sums of all rows) is met through distributed shared memory and
-// one cluster barrier per iteration. K stays in L2 where it fits. B elements
-// fill 8*B of the 132 SMs (128 at the serving batch of 16, 8 for a single
-// pair); a single pair's latency is bounded by 8 SMs' load rate.
-// Each iteration is ONE pass over K: a warp takes two rows at a time, holds
-// its slices in registers, reduces y = K_i . v across the warp, forms u_i and
-// accumulates u_i K_i into per-lane column sums in registers; the warps'
-// sums meet in shared memory, the CTAs' sums in the cluster. That holds a
-// row in registers and 11 column vectors in shared memory, so it takes at
-// most 1536 columns with f32 K and 4096 with bf16 K.
+// Design (sinkhorn_rows.cuh): K never goes to device memory where the card
+// has room for it. The launch plan spreads each element over P CTAs, enough
+// that each CTA's stripe of rows fits its shared memory; the CTAs of an
+// element form one cluster (up to 16) or several clusters of 2-16 that meet
+// behind a barrier of their own in a cooperative launch. Elements past what
+// the card holds at once wait for SMs (one cluster) or are taken in turn
+// (several). Each iteration reads the stripe twice from shared memory (rows
+// pass: u; columns pass: this CTA's column sums) and exchanges C floats:
+// reduce-scatter and gather by stores into distributed shared memory, plus
+// one trip through L2 where an element spans clusters.
 //
-// Beyond those, the streaming variant (og_sinkhorn_scale_streaming, the
-// counterpart of _blocked_scale_kernel) runs the same recursion with K read
-// from device memory in every half-iteration: a warp per row forms u (rows
-// pass); blocks of 256 columns sum u_i K_ij over splits of 64 rows into
-// partials (columns pass); a last launch adds the partials in a fixed order
-// and forms v. Three launches per iteration, any column count, no atomics.
+// Beyond the fused kernel's columns (1536 with f32 K, 4096 with bf16 K), the
+// streaming variant (og_sinkhorn_scale_streaming, the counterpart of
+// _blocked_scale_kernel) runs the same recursion with K read from device
+// memory in every half-iteration: a warp per row forms u (rows pass); blocks
+// of 256 columns sum u_i K_ij over splits of 64 rows into partials (columns
+// pass); a last launch adds the partials in a fixed order and forms v. Three
+// launches per iteration, any column count, no atomics.
 
 #include "sinkhorn_rows.cuh"
 
 namespace {
 
-template <typename KT, int NC>
-__global__ void __launch_bounds__(kThreads)
+template <typename KT>
+__global__ void __launch_bounds__(kStripeThreads, 1)
 sinkhorn_scale_kernel(const float* __restrict__ M, const float* __restrict__ log_a,
-                      const float* __restrict__ log_b, KT* __restrict__ K,
-                      float* __restrict__ u_out, int R, int C, int num_iters) {
-  constexpr int V = Store<KT>::kVec;
-  extern __shared__ float smem[];
-  float* v_hat = smem;               // [C]
-  float* partial = smem + C;         // [kWarps][C]
-  float* cta_sum = smem + (1 + kWarps) * C;  // [2][C], double-buffered by iteration
-
+                      const float* __restrict__ log_b, float* __restrict__ u_out, void* workspace,
+                      const Shape shape, int num_iters) {
+  extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int b = blockIdx.x / kCluster;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const size_t off = static_cast<size_t>(b) * R * C;
-  M += off; K += off; log_a += static_cast<size_t>(b) * R;
-  log_b += static_cast<size_t>(b) * C; u_out += static_cast<size_t>(b) * R;
-  // this CTA's rows: rank*kWarps + warp + s*kCluster*kWarps, s = 0, 1, ...
-  const int first = rank * kWarps + warp;
-  constexpr int kStride = kCluster * kWarps;
-
-  // rmax and K = exp(M - rmax); rmax parks in u_out until the end
-  for (int i = first; i < R; i += kStride) {
-    const float* mrow = M + static_cast<size_t>(i) * C;
-    float mx = -INFINITY;
-    for (int j = lane * 4; j < C; j += 128) {
-      float4 x = *reinterpret_cast<const float4*>(mrow + j);
-      mx = fmaxf(mx, fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w)));
-    }
-    mx = warp_max(mx);
-    if (lane == 0) u_out[i] = mx;
-    KT* krow = K + static_cast<size_t>(i) * C;
-    for (int j = lane * V; j < C; j += 32 * V) {
-      float e[V];
-#pragma unroll
-      for (int q = 0; q < V; ++q) e[q] = expf(mrow[j + q] - mx);
-      Store<KT>::pack_store(krow + j, e);
-    }
-  }
-  for (int j = threadIdx.x; j < C; j += kThreads) v_hat[j] = 1.f;
-  __syncthreads();
-
-  uint4 k0[NC], k1[NC];
-  for (int it = 0; it < num_iters - 1; ++it) {
-    float r[NC][V];
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < V; ++e) r[c][e] = 0.f;
-
-    // two rows per step, so each lane has two rows' loads in flight
-    for (int i = first; i < R; i += 2 * kStride) {
-      const int i1 = i + kStride;
-      load_row<KT, NC>(K + static_cast<size_t>(i) * C, true, C, lane, k0);
-      load_row<KT, NC>(K + static_cast<size_t>(i1) * C, i1 < R, C, lane, k1);
-      const float y0 = warp_sum(lane_dot<KT, NC>(k0, v_hat, C, lane));
-      const float y1 = warp_sum(lane_dot<KT, NC>(k1, v_hat, C, lane));
-      accumulate<KT, NC>(k0, expf(log_a[i]) / fmaxf(y0, kTiny), r);
-      if (i1 < R) accumulate<KT, NC>(k1, expf(log_a[i1]) / fmaxf(y1, kTiny), r);
-    }
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = (c * 32 + lane) * V;
-      if (col < C) {
-#pragma unroll
-        for (int e = 0; e < V; ++e) partial[warp * C + col + e] = r[c][e];
-      }
-    }
+  Stripe<KT> st(smem, shape, workspace, cluster);
+  const int R = shape.R, C = shape.C;
+  st.init(cluster);
+  for (int b = st.slot; b < shape.B; b += st.nslots) {
+    const float* Mb = M + static_cast<size_t>(b) * R * C;
+    const float* la = log_a + static_cast<size_t>(b) * R;
+    const float* lb = log_b + static_cast<size_t>(b) * C;
+    float* ub = u_out + static_cast<size_t>(b) * R;
+    st.begin(R, shape.rows);
+    st.row_max(Mb);
+    for (int lr = threadIdx.x; lr < st.n; lr += kStripeThreads) st.rowa[lr] = expf(la[st.r0 + lr]);
+    for (int j = threadIdx.x; j < C; j += kStripeThreads) st.vec[j] = 1.f;
     __syncthreads();
-    float* mine = cta_sum + (it & 1) * C;
-    for (int j = threadIdx.x; j < C; j += kThreads) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += partial[w * C + j];
-      mine[j] = s;
-    }
-    // every CTA's column sums of this iteration are complete after this
-    // barrier; the buffer is rewritten two iterations later, after the next
-    // barrier, which no CTA passes before all have read it
-    cluster.sync();
-    for (int j = threadIdx.x; j < C; j += kThreads) {
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < kCluster; ++q) s += cluster.map_shared_rank(mine, q)[j];
-      v_hat[j] = expf(log_b[j]) / fmaxf(s, kTiny);
-    }
+    st.load_k(Mb);
     __syncthreads();
+    for (int it = 0; it + 1 < num_iters; ++it) {
+      st.rows_pass([&](int lr, float y) { st.coef[lr] = st.rowa[lr] / fmaxf(y, kTiny); });
+      st.cols_pass();
+      st.exchange(
+          [&](int j) {
+            const float4 l = *reinterpret_cast<const float4*>(lb + 4 * j);
+            return make_float4(expf(l.x), expf(l.y), expf(l.z), expf(l.w));
+          },
+          [&](int j, float4 s, float4 bj) {
+            return make_float4(bj.x / fmaxf(s.x, kTiny), bj.y / fmaxf(s.y, kTiny), bj.z / fmaxf(s.z, kTiny),
+                               bj.w / fmaxf(s.w, kTiny));
+          });
+    }
+    st.rows_pass([&](int lr, float y) {
+      ub[st.r0 + lr] = la[st.r0 + lr] - st.rowm[lr] - logf(fmaxf(y, kTiny));
+    });
   }
-
-  for (int i = first; i < R; i += kStride) {
-    load_row<KT, NC>(K + static_cast<size_t>(i) * C, true, C, lane, k0);
-    const float y = warp_sum(lane_dot<KT, NC>(k0, v_hat, C, lane));
-    if (lane == 0) u_out[i] = log_a[i] - u_out[i] - logf(fmaxf(y, kTiny));
-  }
-  cluster.sync();  // no CTA leaves while another may still read its shared memory
+  cluster.sync();  // no CTA leaves while a peer's store to it may be in flight
 }
 
-template <typename KT, int NC>
-cudaError_t launch(const float* M, const float* la, const float* lb, void* K, float* u,
-                   int B, int R, int C, int num_iters, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(3 + kWarps) * C * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(sinkhorn_scale_kernel<KT, NC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <typename KT>
+cudaError_t plan_for(int B, int R, int C, Plan* plan, int* caps, int* sms) {
+  static int cache[8][6] = {};
+  const cudaError_t err = cluster_caps(sinkhorn_scale_kernel<KT>, caps, sms, cache);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(B * kCluster);
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = smem;
-  config.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, sinkhorn_scale_kernel<KT, NC>, M, la, lb,
-                           static_cast<KT*>(K), u, R, C, num_iters);
+  *plan = make_plan(B, R, C, static_cast<int>(sizeof(KT)), *sms, caps);
+  return plan->ctas > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+template <typename KT>
+cudaError_t fused(const float* M, const float* la, const float* lb, float* u, void* ws, int B, int R, int C,
+                  int num_iters, cudaStream_t s) {
+  Plan p;
+  int caps[5], sms = 0;
+  const cudaError_t err = plan_for<KT>(B, R, C, &p, caps, &sms);
   if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const Shape shape = {B, R, C, p.ctas, p.groups, p.rows, p.smem_rows, p.exchange_bytes};
+  return launch_planned(p, sinkhorn_scale_kernel<KT>, ws, s, M, la, lb, u, ws, shape, num_iters);
 }
-
-template <typename KT, int NC = 1>
-cudaError_t dispatch(int nc, const float* M, const float* la, const float* lb, void* K,
-                     float* u, int B, int R, int C, int num_iters, cudaStream_t stream) {
-  if constexpr (NC > 16) {
-    return cudaErrorInvalidValue;
-  } else {
-    if (nc == NC) return launch<KT, NC>(M, la, lb, K, u, B, R, C, num_iters, stream);
-    return dispatch<KT, NC + 1>(nc, M, la, lb, K, u, B, R, C, num_iters, stream);
-  }
-}
-
 
 // ---------------------------------------------------------------- streaming
 
@@ -301,25 +226,36 @@ cudaError_t streaming(const float* M, const float* la, const float* lb, KT* K, f
 }
 }  // namespace
 
-// k_is_bf16: K's storage type. M [B, R, C] f32 with C a multiple of 8;
-// log_a [B, R], log_b [B, C] f32; K [B, R, C] scratch; u [B, R] f32 out.
-// Returns the CUDA error code of the launch (0 on success).
-extern "C" int og_sinkhorn_scale(int k_is_bf16, const void* M, const void* log_a,
-                                 const void* log_b, void* K, void* u, int B, int R, int C,
-                                 int num_iters, void* stream) {
+// The fused kernel's launch plan for B elements of R x C with K in bf16 or
+// f32: out [17] ints (cluster size, clusters per element, CTAs per element,
+// elements in flight, waves, grid, rows per CTA in all / in shared memory /
+// in device memory, shared bytes per CTA, cooperative, SMs, then the
+// clusters of 1..16 CTAs the card holds at once); bytes [2] (the exchange's
+// and the whole workspace's). Returns a CUDA error code.
+extern "C" int og_sinkhorn_plan(int k_is_bf16, int B, int R, int C, int* out, long long* bytes) {
+  Plan p;
+  int caps[5], sms = 0;
+  const cudaError_t err = k_is_bf16 ? plan_for<__nv_bfloat16>(B, R, C, &p, caps, &sms)
+                                    : plan_for<float>(B, R, C, &p, caps, &sms);
+  if (err != cudaSuccess) return err;
+  plan_report(p, caps, sms, out, bytes);
+  return cudaSuccess;
+}
+
+// k_is_bf16: K's storage type. M [B, R, C] f32 with C a multiple of 8; log_a [B, R], log_b [B, C] f32; u [B, R]
+// f32 out; workspace: og_sinkhorn_plan's bytes[1] (null where 0). Returns
+// the CUDA error code of the launch (0 on success).
+extern "C" int og_sinkhorn_scale(int k_is_bf16, const void* M, const void* log_a, const void* log_b, void* u,
+                                 void* workspace, int B, int R, int C, int num_iters, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* m = static_cast<const float*>(M);
   const float* la = static_cast<const float*>(log_a);
   const float* lb = static_cast<const float*>(log_b);
   float* uo = static_cast<float*>(u);
   if (B == 0 || R == 0) return cudaSuccess;
-  if (k_is_bf16) {
-    const int nc = (C + 32 * 8 - 1) / (32 * 8);
-    return dispatch<__nv_bfloat16>(nc, m, la, lb, K, uo, B, R, C, num_iters, s);
-  }
-  const int nc = (C + 32 * 4 - 1) / (32 * 4);
-  if (nc > 12) return cudaErrorInvalidValue;
-  return dispatch<float>(nc, m, la, lb, K, uo, B, R, C, num_iters, s);
+  if (C % 8 != 0 || num_iters < 1) return cudaErrorInvalidValue;
+  if (k_is_bf16) return fused<__nv_bfloat16>(m, la, lb, uo, workspace, B, R, C, num_iters, s);
+  return fused<float>(m, la, lb, uo, workspace, B, R, C, num_iters, s);
 }
 
 // Bytes of workspace og_sinkhorn_scale_streaming needs.

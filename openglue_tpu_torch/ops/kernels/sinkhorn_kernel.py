@@ -6,39 +6,43 @@ templated on K's storage type, replaces the three TPU kernels
 ``_sinkhorn_kernel_pair`` (:128), ``_sinkhorn_kernel`` (:56) and
 ``_blocked_scale_kernel`` (:315). Per batch element it runs
 
-    rmax = max_j M_ij;  K = exp(M - rmax)   (written once, f32 or bf16)
+    rmax = max_j M_ij;  K = exp(M - rmax)   (formed once, f32 or bf16)
     v̂ = 1;  T-1 times:  û = a ⊘ max(K v̂, 1e-30),  v̂ = b ⊘ max(Kᵀ û, 1e-30)
     u = log_a - rmax - log(max(K v̂, 1e-30))
 
-with a = exp(log_a), b = exp(log_b), each iteration one pass over K. The
-kernel holds K's rows in registers and its column sums in shared memory, so
-it takes at most 1536 columns with f32 K and 4096 with bf16 K
-(``FUSED_MAX_COLS``); beyond that a streaming variant of the same kernel
-source (counted by ``stream_counter``), the counterpart of
-``_blocked_scale_kernel``, reads K from device memory in every
-half-iteration. The padded cost matrix, the marginals, the final
+with a = exp(log_a), b = exp(log_b). The kernel holds K on chip across the
+iterations: a launch plan (``launch_plan``, the mirror of the C plan in
+``ops/csrc/sinkhorn_rows.cuh``) spreads each element over enough CTAs that
+each one's stripe of rows fits its shared memory, and fills the card where
+the batch allows it. The fused kernel takes at most 1536 columns with f32 K
+and 4096 with bf16 K (``FUSED_MAX_COLS``); beyond that a
+streaming variant of the same kernel source (counted by ``stream_counter``),
+the counterpart of ``_blocked_scale_kernel``, reads K from device memory in
+every half-iteration. The padded cost matrix, the marginals, the final
 column-stabilized half-iteration and the log_P assembly stay in torch, as
 they stay in XLA in the JAX package.
 
 The backward is the port of ``_sinkhorn_vjp_kernel_path`` (:670). A second
 kernel (``ops/csrc/sinkhorn_adjoint.cu``, replacing
-``_sinkhorn_adjoint_factors_kernel`` :548) replays the T iterations and runs
-the adjoint recursion, emitting rank-2T factors P ``[B, 2T, R]`` and Q
-``[B, 2T, C]``; the torch glue around it zeroes the cotangent on masked
-entries and forms ``dM = g - exp(M - rmax) o (P^T Q)``. Masked entries get
-no gradient. The adjoint kernel holds a row of K in registers, so it takes at
-most ``ADJOINT_MAX_COLS`` columns; beyond that the backward is the VJP of the
-plain log-domain loop (``ops/sinkhorn.py::log_optimal_transport``) through
-autograd, as the JAX package sends shapes its adjoint kernel cannot hold to
-the XLA VJP of the same loop (``sinkhorn_kernel.py:790-801``). The route is
-chosen from the shape (``backward_route``) before anything runs, and
-``autograd_counter`` counts the backwards that took the autograd route.
+``_sinkhorn_adjoint_factors_kernel`` :548), on the same engine and plan,
+replays the T iterations and runs the adjoint recursion, emitting rank-2T
+factors P ``[B, 2T, R]`` and Q ``[B, 2T, C]``; the torch glue around it
+zeroes the cotangent on masked entries and forms
+``dM = g - exp(M - rmax) o (P^T Q)``. Masked entries get no gradient. The
+adjoint kernel takes at most ``ADJOINT_MAX_COLS`` columns; beyond that the
+backward is the VJP of the plain log-domain loop
+(``ops/sinkhorn.py::log_optimal_transport``) through autograd, as the JAX
+package sends shapes its adjoint kernel cannot hold to the XLA VJP of the
+same loop (``sinkhorn_kernel.py:790-801``). The route is chosen from the
+shape (``backward_route``) before anything runs, and ``autograd_counter``
+counts the backwards that took the autograd route.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,9 +64,150 @@ stream_counter = kernels.LaunchCounter()
 adjoint_counter = kernels.LaunchCounter()
 autograd_counter = kernels.LaunchCounter()  # backwards on the autograd route: no kernel
 
-# the column limits of the fused forward kernel, by K's storage type: a
-# warp's row of K in registers, the column sums in shared memory
+# the column limits of the fused forward kernel, by K's storage type; past
+# them ``sinkhorn_scale`` runs the streaming kernel
 FUSED_MAX_COLS = {torch.float32: 1536, torch.bfloat16: 4096}
+
+# ---- the launch plan: a mirror of ``make_plan`` in ops/csrc/sinkhorn_rows.cuh
+SMEM_LIMIT = 232448  # the shared memory one block may opt into on the H100
+# clusters of 1, 2, 4, 8, 16 CTAs (one per SM at the full shared memory) an
+# H100 holds at once, as cudaOccupancyMaxActiveClusters reports them for the
+# fused kernel (NVIDIA H100 80GB HBM3), and its SM count
+H100_CLUSTER_CAPS = (132, 66, 30, 15, 7)
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How the fused kernel or the adjoint lays B elements of R x C out on
+    the card: ``cs`` CTAs per cluster, ``groups`` clusters and ``ctas`` CTAs
+    per element, ``slots`` elements in flight, taken in ``waves`` groups,
+    ``grid`` CTAs launched; a CTA's ``rows`` in shared memory
+    (``smem_rows``) and, past the card's room, in device memory
+    (``spill_rows``); ``cooperative`` where an element spans clusters."""
+
+    cs: int
+    groups: int
+    ctas: int
+    slots: int
+    waves: int
+    grid: int
+    rows: int
+    smem_rows: int
+    spill_rows: int
+    smem_bytes: int
+    cooperative: int
+    exchange_bytes: int
+    workspace_bytes: int
+
+    def on_chip_bytes(self, cols: int, k_dtype: torch.dtype) -> int:
+        """Bytes of K one CTA holds in shared memory."""
+        return self.smem_rows * cols * _K_BYTES[k_dtype]
+
+    def rows_of(self, part: int, num_rows: int) -> range:
+        """The rows of an element that its CTA ``part`` owns."""
+        return range(min(part * self.rows, num_rows), min((part + 1) * self.rows, num_rows))
+
+
+_K_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+
+
+def _fixed_smem_bytes(cols: int) -> int:
+    # the vector, the receive buffer (with up to 16 float4 of rounding), two mbarriers
+    return 4 * cols + (4 * cols + 16 * 16) + 16
+
+
+def _smem_rows_for(rows: int, cols: int, kbytes: int) -> int:
+    room = SMEM_LIMIT - _fixed_smem_bytes(cols) - 12 * rows
+    return 0 if room <= 0 else min(room // (cols * kbytes), rows)
+
+
+def launch_plan(
+    batch: int, num_rows: int, num_cols: int, k_dtype: torch.dtype,
+    sms: int = H100_SMS, caps: Sequence[int] = H100_CLUSTER_CAPS,
+) -> Optional[LaunchPlan]:
+    """The plan the C code makes for ``batch`` elements of ``num_rows`` x
+    ``num_cols`` with K in ``k_dtype`` on a card of ``sms`` SMs that holds
+    ``caps[i]`` clusters of 2**i CTAs at once; None where it places none."""
+    kb = _K_BYTES[k_dtype]
+    on_chip = SMEM_LIMIT // (num_cols * kb) + 1
+    while on_chip > 1 and _smem_rows_for(on_chip, num_cols, kb) < on_chip:
+        on_chip -= 1
+    p_min = -(-num_rows // on_chip)
+    log_cs = next((i for i in range(5) if 2**i >= p_min and caps[i] > 0), None)
+    if log_cs is not None:
+        # one cluster per element: widen it while the card has room for every element
+        while log_cs < 4 and batch * 2 ** (log_cs + 1) <= sms and caps[log_cs + 1] > 0:
+            log_cs += 1
+        cs = ctas = 2**log_cs
+        groups = 1
+        slots = min(batch, caps[log_cs])
+        grid = batch * ctas
+    else:
+        # several clusters per element, all resident at once (cooperative): of
+        # the cluster sizes 16, 8, 4, 2, the one that spills the fewest rows,
+        # then takes the fewest waves, then fills the most SMs, then needs the
+        # fewest clusters
+        best = None
+        for i in (4, 3, 2, 1):
+            c, cap = 2**i, caps[i] * 2**i
+            if cap == 0:
+                continue
+            g = -(-p_min // c)
+            if g * c > cap:
+                g = cap // c  # past the card's on-chip room: the rest spills
+            n_ctas = g * c
+            n_slots = min(cap // n_ctas, batch)
+            n_rows = -(-num_rows // n_ctas)
+            key = (n_rows if n_rows > on_chip else 0, -(-batch // n_slots), -n_slots * n_ctas, g)
+            if best is None or key < best[0]:
+                best = (key, c, g, n_ctas, n_slots)
+        if best is None:
+            return None
+        _, cs, groups, ctas, slots = best
+        grid = slots * ctas
+    if ctas == 0 or slots == 0:
+        return None
+    rows = -(-num_rows // ctas)
+    smem_rows = _smem_rows_for(rows, num_cols, kb)
+    smem_bytes = smem_rows * num_cols * kb + _fixed_smem_bytes(num_cols) + 12 * rows
+    if smem_bytes > SMEM_LIMIT:
+        return None
+    # two buffers of every cluster's sums, a float and the exchange's number per 8 bytes
+    exchange = 2 * slots * groups * num_cols * 8 if groups > 1 else 0
+    return LaunchPlan(
+        cs=cs, groups=groups, ctas=ctas, slots=slots, waves=-(-batch // slots), grid=grid, rows=rows,
+        smem_rows=smem_rows, spill_rows=rows - smem_rows, smem_bytes=smem_bytes,
+        cooperative=int(groups > 1), exchange_bytes=exchange,
+        workspace_bytes=exchange + grid * (rows - smem_rows) * num_cols * kb,
+    )
+
+
+_plans: Dict[tuple, tuple] = {}
+
+
+def kernel_plan(batch: int, num_rows: int, num_cols: int, k_dtype: torch.dtype, adjoint: bool = False):
+    """(plan, caps, sms) as the C code makes it on the current card for the
+    fused forward (or, with ``adjoint``, the adjoint kernel): the plan it
+    launches, the clusters of 1..16 CTAs the card holds at once and its SM
+    count. Raises where the plan places nothing."""
+    key = (adjoint, batch, num_rows, num_cols, k_dtype, torch.cuda.current_device())
+    found = _plans.get(key)
+    if found is not None:
+        return found
+    out = (ctypes.c_int * 17)()
+    nbytes = (ctypes.c_longlong * 2)()
+    if adjoint:
+        fn = kernels.entry_point(
+            "sinkhorn_adjoint", "og_sinkhorn_adjoint_plan", [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
+        status = fn(batch, num_rows, num_cols, out, nbytes)
+    else:
+        fn = kernels.entry_point("sinkhorn", "og_sinkhorn_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+        status = fn(int(k_dtype == torch.bfloat16), batch, num_rows, num_cols, out, nbytes)
+    kernels.check(status, f"the Sinkhorn launch plan for B={batch} R={num_rows} C={num_cols}")
+    plan = LaunchPlan(*out[:11], exchange_bytes=nbytes[0], workspace_bytes=nbytes[1])
+    found = _plans[key] = (plan, tuple(out[12:17]), out[11])
+    return found
 
 
 def _round_up(x: int, m: int) -> int:
@@ -191,9 +336,9 @@ def sinkhorn_scale(
     kernels.require(num_iters >= 1, "num_iters must be >= 1")
     kernels.require(not torch.is_grad_enabled() or not M_pad.requires_grad,
                     "the Sinkhorn kernel is forward only")
-    K = torch.empty(batch, rows, cols, dtype=k_dtype, device=M_pad.device)
     u = torch.empty(batch, rows, dtype=torch.float32, device=M_pad.device)
     if cols > FUSED_MAX_COLS[k_dtype]:
+        K = torch.empty(batch, rows, cols, dtype=k_dtype, device=M_pad.device)
         size = kernels.entry_point(
             "sinkhorn", "og_sinkhorn_scale_streaming_workspace", [ctypes.c_int] * 3, ctypes.c_size_t
         )(batch, rows, cols)
@@ -210,18 +355,27 @@ def sinkhorn_scale(
         kernels.check(status, "og_sinkhorn_scale_streaming")
         stream_counter.add()
         return u
+    # K stays on chip: the workspace holds only the exchange between clusters
+    # (and rows past the card's on-chip room, where the plan spills any)
+    workspace = _workspace(kernel_plan(batch, rows, cols, k_dtype)[0], M_pad.device)
     fn = kernels.entry_point(
         "sinkhorn", "og_sinkhorn_scale",
         [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
     status = fn(
-        int(k_dtype == torch.bfloat16), M_pad.data_ptr(), la.data_ptr(), lb.data_ptr(),
-        K.data_ptr(), u.data_ptr(), batch, rows, cols, num_iters,
+        int(k_dtype == torch.bfloat16), M_pad.data_ptr(), la.data_ptr(), lb.data_ptr(), u.data_ptr(),
+        workspace.data_ptr() if workspace is not None else None, batch, rows, cols, num_iters,
         kernels.stream_handle(M_pad.device),
     )
     kernels.check(status, "og_sinkhorn_scale")
     counter.add()
     return u
+
+
+def _workspace(plan: LaunchPlan, device: torch.device) -> Optional[torch.Tensor]:
+    if plan.workspace_bytes == 0:
+        return None
+    return torch.empty(plan.workspace_bytes, dtype=torch.uint8, device=device)
 
 
 def final_half_iteration(
@@ -300,7 +454,7 @@ def sinkhorn_adjoint_plain(
     return P, Q
 
 
-ADJOINT_MAX_COLS = 1536  # registers hold a row of f32 K per warp, as in K2's f32 path
+ADJOINT_MAX_COLS = 1536  # as K2's f32 path: past it the autograd route
 
 
 def sinkhorn_adjoint(
@@ -332,18 +486,19 @@ def sinkhorn_adjoint(
     )
     kernels.require(num_iters >= 1, "num_iters must be >= 1")
     T = num_iters
-    K = torch.empty(batch, rows, cols, dtype=torch.float32, device=device)
     hist = torch.empty(batch, T, 2 * rows + 2 * cols, dtype=torch.float32, device=device)
     P = torch.empty(batch, 2 * T, rows, dtype=torch.float32, device=device)
     Q = torch.empty(batch, 2 * T, cols, dtype=torch.float32, device=device)
+    workspace = _workspace(kernel_plan(batch, rows, cols, torch.float32, adjoint=True)[0], device)
     fn = kernels.entry_point(
         "sinkhorn_adjoint", "og_sinkhorn_adjoint",
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
     status = fn(
         M_pad.data_ptr(), la.data_ptr(), lb.data_ptr(), rmax.data_ptr(), g_rowsum.data_ptr(),
-        g_colsum.data_ptr(), K.data_ptr(), hist.data_ptr(), P.data_ptr(), Q.data_ptr(),
-        batch, rows, cols, T, kernels.stream_handle(device),
+        g_colsum.data_ptr(), hist.data_ptr(), P.data_ptr(), Q.data_ptr(),
+        workspace.data_ptr() if workspace is not None else None, batch, rows, cols, T,
+        kernels.stream_handle(device),
     )
     kernels.check(status, "og_sinkhorn_adjoint")
     adjoint_counter.add()

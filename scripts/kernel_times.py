@@ -26,7 +26,9 @@ width 64), K9 and K10 also at B=12 with heads of width 32 and in f32, each
 beside ``scaled_dot_product_attention`` on the same inputs and mask (for K10
 its forward and backward less its forward); K1's parts alone at B=16: its
 attention on K1's operand layout beside the same library call, and its five
-bf16 GEMMs, each beside ``F.linear``; and, where the checkout has
+bf16 GEMMs, each beside ``F.linear``; K2 with f32 K at B=16, B=1 and B=12
+N=1024 and with bf16 K at B=4 N=2048, and K3 at B=12 N=1024 T=20 (padded,
+masked OT matrices); and, where the checkout has
 ``ops/kernels/gemm_kernel.py``, the f32 GEMM and weight-gradient GEMM alone at
 the ``message`` step's shapes (12,288 rows, D=256). (``bf16_ablations.py``
 times the bf16 GEMM at each of its tiles.)
@@ -142,6 +144,38 @@ def kernel_cases(gen):
         cases[f"library SDPA B={batch} N={n}{tag}"] = sdpa
         cases[f"library SDPA forward+backward B={batch} N={n}{tag}"] = sdpa_both
     cases.update(k1_part_cases(gen))
+    cases.update(sinkhorn_cases(gen))
+    return cases
+
+
+def sinkhorn_cases(gen):
+    """K2 at chip_smoke.py's serving and training shapes (f32 K B=16, B=1 and
+    B=12 N=1024, bf16 K B=4 N=2048) and K3 at the training shape (B=12
+    N=1024 T=20), on padded, masked OT matrices, through the wrappers'
+    public functions (``sinkhorn_scale``, ``sinkhorn_adjoint``)."""
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+
+    dev = torch.device("cuda")
+
+    def ot(batch, n):
+        scores = torch.randn(batch, n, n, generator=gen, device=dev) * 4
+        mask0 = torch.rand(batch, n, generator=gen, device=dev) > 0.1
+        mask1 = torch.rand(batch, n, generator=gen, device=dev) > 0.1
+        rows, cp = n + 1, sk._round_up(n + 1, sk.COL_ALIGN)
+        M = sk.build_padded_otp_matrix(scores, torch.tensor(1.0, device=dev), 1.0, mask0, mask1, rows, cp)
+        la, lb, _ = sk.otp_marginals(batch, n, n, mask0, mask1, dev)
+        return (M, *sk.padded_marginals(la, lb, rows, cp)), sk.valid_pairs(batch, n, n, mask0, mask1, dev)
+
+    cases = {}
+    for batch, n in ((16, 1024), (1, 1024), (4, 2048), (12, 1024)):
+        (M, la, lb), _ = ot(batch, n)
+        kd = sk.k_storage_dtype(n + 1, n + 1)
+        cases[f"K2 {str(kd)[6:]} B={batch} N={n}"] = lambda M=M, la=la, lb=lb, kd=kd: sk.sinkhorn_scale(M, la, lb, 20, kd)
+    (M, la, lb), valid = ot(12, 1024)
+    g = torch.zeros_like(M)
+    g[:, :, :1025] = torch.randn(12, 1025, 1025, generator=gen, device=dev) * valid
+    args = (M, la, lb, M.amax(dim=2), g.sum(2), g.sum(1), 20)
+    cases["K3 B=12 N=1024 T=20"] = lambda: sk.sinkhorn_adjoint(*args)
     return cases
 
 

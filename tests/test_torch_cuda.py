@@ -375,6 +375,126 @@ def test_adjoint_kernel_raises_beyond_its_column_limit():
         sk.sinkhorn_adjoint(M_pad, vec_r, vec_c, vec_r, vec_r, vec_c, 3)
 
 
+# ----------------------------------------------------------- the on-chip Sinkhorn at every branch of its plan
+
+
+def _ot_case(dev, batch, m, n, seed, masked=()):
+    """Padded M, la, lb and the masks of a random OT problem; the elements in
+    ``masked`` have every keypoint masked."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    scores = torch.randn(batch, m, n, generator=gen, device=dev) * 3
+    mask0 = torch.rand(batch, m, generator=gen, device=dev) > 0.2
+    mask1 = torch.rand(batch, n, generator=gen, device=dev) > 0.2
+    for b in masked:
+        mask0[b] = False
+        mask1[b] = False
+    rows, cp = m + 1, sk._round_up(n + 1, sk.COL_ALIGN)
+    M_pad = sk.build_padded_otp_matrix(scores, torch.tensor(1.0, device=dev), 1.0, mask0, mask1, rows, cp)
+    la, lb, _ = sk.otp_marginals(batch, m, n, mask0, mask1, dev)
+    la, lb = sk.padded_marginals(la, lb, rows, cp)
+    return M_pad, la, lb, mask0, mask1
+
+
+# (batch, m, n, K's storage, masked elements): an element over several
+# clusters; more than one wave; fewer rows than CTAs; a stripe at a CTA's
+# shared-memory budget and one row past it; a fully masked element; bf16 K at
+# the fused kernel's 4096 columns
+PLAN_SHAPES = [
+    (1, 2048, 2048, torch.bfloat16, ()),
+    (20, 1024, 1024, torch.float32, ()),
+    (1, 8, 300, torch.float32, ()),
+    (2, 863, 1031, torch.float32, ()),
+    (2, 864, 1031, torch.float32, ()),
+    (3, 300, 277, torch.float32, (1,)),
+    (1, 1023, 4095, torch.bfloat16, ()),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,m,n,k_dtype,masked", PLAN_SHAPES)
+def test_on_chip_sinkhorn_matches_plain_at_every_branch_of_its_plan(batch, m, n, k_dtype, masked):
+    dev = _cuda()
+    M_pad, la, lb, _, _ = _ot_case(dev, batch, m, n, 20, masked)
+    plan, caps, sms = sk.kernel_plan(batch, *M_pad.shape[1:], k_dtype)
+    assert plan == sk.launch_plan(batch, *M_pad.shape[1:], k_dtype, sms, caps)  # the mirror is the C plan
+    assert plan.spill_rows == 0
+    before = sk.counter.count
+    u = sk.sinkhorn_scale(M_pad, la, lb, 20, k_dtype)
+    again = sk.sinkhorn_scale(M_pad, la, lb, 20, k_dtype)
+    ref = sk.sinkhorn_scale_plain(M_pad, la, lb, 20, k_dtype)
+    torch.cuda.synchronize()
+    assert sk.counter.count == before + 2
+    assert torch.equal(u, again)  # fixed summation order
+    live = la > -1e8
+    # the same f32 recursion and storage rounding; summation order differs
+    torch.testing.assert_close(u[live], ref[live], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_on_chip_sinkhorn_spills_rows_past_the_cards_shared_memory():
+    """A bf16 K larger than the card's shared memory (one element of 4000 x
+    4096, 32.8 MB): the rows past each CTA's shared memory go to the
+    workspace, and the result still matches the plain version, bit-equal
+    across runs."""
+    dev = _cuda()
+    M_pad, la, lb, _, _ = _ot_case(dev, 1, 3999, 4095, 24)
+    plan, caps, sms = sk.kernel_plan(1, *M_pad.shape[1:], torch.bfloat16)
+    assert plan == sk.launch_plan(1, *M_pad.shape[1:], torch.bfloat16, sms, caps)
+    assert plan.spill_rows > 0
+    u = sk.sinkhorn_scale(M_pad, la, lb, 20, torch.bfloat16)
+    again = sk.sinkhorn_scale(M_pad, la, lb, 20, torch.bfloat16)
+    ref = sk.sinkhorn_scale_plain(M_pad, la, lb, 20, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(u, again)
+    live = la > -1e8
+    torch.testing.assert_close(u[live], ref[live], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,m,n,masked", [
+    (1, 1536, 1535, ()),  # an element over several clusters
+    (20, 1024, 1024, ()),  # more than one wave
+    (1, 8, 300, ()),  # fewer rows than CTAs
+    (2, 864, 1031, ()),  # one row past a CTA's shared-memory budget
+    (3, 300, 277, (1,)),  # a fully masked element
+])
+def test_on_chip_sinkhorn_adjoint_matches_plain_at_every_branch_of_its_plan(batch, m, n, masked):
+    dev = _cuda()
+    M_pad, la, lb, mask0, mask1 = _ot_case(dev, batch, m, n, 21, masked)
+    plan, caps, sms = sk.kernel_plan(batch, *M_pad.shape[1:], torch.float32, adjoint=True)
+    assert plan == sk.launch_plan(batch, *M_pad.shape[1:], torch.float32, sms, caps)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    valid = sk.valid_pairs(batch, m, n, mask0, mask1, dev)
+    g_pad = torch.zeros_like(M_pad)
+    g_pad[:, :, : n + 1] = torch.randn(batch, m + 1, n + 1, generator=gen, device=dev) * valid
+    args = (M_pad, la, lb, M_pad.amax(dim=2), g_pad.sum(2), g_pad.sum(1), 20)
+    (P, Q), (P2, Q2) = sk.sinkhorn_adjoint(*args), sk.sinkhorn_adjoint(*args)
+    P_ref, Q_ref = sk.sinkhorn_adjoint_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(P, P2) and torch.equal(Q, Q2)
+    prod = torch.bmm(P.transpose(1, 2), Q)[:, :, : n + 1]
+    prod_ref = torch.bmm(P_ref.transpose(1, 2), Q_ref)[:, :, : n + 1]
+    scale = max(prod_ref[valid].abs().max().item(), 1e-30)
+    torch.testing.assert_close(prod[valid], prod_ref[valid], atol=1e-4 * scale, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_dtype,batch,n", [(torch.float32, 16, 1024), (torch.bfloat16, 4, 2048)])
+def test_fused_sinkhorn_keeps_k_off_device_memory(k_dtype, batch, n):
+    """The fused forward allocates no [B, R, C] K: its peak allocation stays
+    under half of K's bytes."""
+    dev = _cuda()
+    M_pad, la, lb, _, _ = _ot_case(dev, batch, n, n, 23)
+    sk.sinkhorn_scale(M_pad, la, lb, 20, k_dtype)  # builds and plans outside the window
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sk.sinkhorn_scale(M_pad, la, lb, 20, k_dtype)
+    torch.cuda.synchronize()
+    k_bytes = M_pad.numel() * torch.empty(0, dtype=k_dtype).element_size()
+    assert torch.cuda.max_memory_allocated() - base < k_bytes // 2
+
+
 # ----------------------------------------------------------- attention on heads
 
 
