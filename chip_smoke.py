@@ -296,7 +296,9 @@ def layer_inputs(dtype, gen, batch, n, dim):
 
 
 def feature_layer_phase(glk, sample_projection, kind, dtype, gen, batch=16, n=1024, dim=256, heads=4):
-    """K6 at the serving shape with ragged key masks: kernel vs plain."""
+    """K6 at the serving shape with ragged key masks: kernel vs plain, two
+    runs bit-equal, the layer's GEMMs and attention part by device time, and
+    the attention part's launch plan."""
     w = layer_weights(glk, dtype, gen, dim)
     x_q, x_kv, mask = layer_inputs(dtype, gen, batch, n, dim)
     dh = dim // heads
@@ -314,6 +316,13 @@ def feature_layer_phase(glk, sample_projection, kind, dtype, gen, batch=16, n=10
     check(err <= tol, f"K6 {kind} {dtype}: max error {err} above {tol}")
     ms = device_ms(run, 20)
     plain_ms = device_ms(plain, 5)
+    parts = device_profile(run, top=64)[1]
+    gemm_ms = sum(ms for ms, name, _ in parts if name.startswith("gemm"))
+    attention_ms = sum(ms for ms, name, _ in parts if not name.startswith("gemm"))
+    launches = sum(count for *_, count in parts)
+    plan, sms = glk.kernel_feature_plan(batch, heads, n, n, feats, dh, dtype == torch.bfloat16, kind)
+    mirror = glk.feature_plan(batch, heads, n, n, feats, dh, dtype == torch.bfloat16, kind, sms)
+    check(plan == mirror, f"K6 {kind} {dtype}: the C plan {plan} is not the Python mirror's {mirror}")
     elt = x_q.element_size()
     # the work the function needs: the six dense products; per head the FAVOR
     # projection of queries and keys, the aggregate kf^T v and the key sum, all
@@ -328,8 +337,13 @@ def feature_layer_phase(glk, sample_projection, kind, dtype, gen, batch=16, n=10
     bms, by = max(t_op, t_bytes) * 1e3, ("operations" if t_op >= t_bytes else "bytes")
     print(f"K6 gnn_layer_features {kind} F={feats} {str(dtype)[6:]} B={batch} N=M={n} D={dim} H={heads}: "
           f"max_abs_err={err:.3e} (bar {tol:.3e}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bound {bms:.4f} ms ({by}), two runs equal", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+          f"bound {bms:.4f} ms ({by}), two runs equal; by torch.profiler: GEMMs {gemm_ms:.4f} ms + attention "
+          f"part {attention_ms:.4f} ms in {launches} launches; plan: {plan.cluster} CTAs per (element, head), "
+          f"{plan.chunks_per_cta} 64-key chunks and {plan.query_tiles_per_cta} query tiles of "
+          f"{glk.query_rows(dtype == torch.bfloat16)} each, keys resident {bool(plan.resident)}, "
+          f"{plan.smem_bytes} B shared memory, {sms} SMs", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, gemms_ms=gemm_ms,
+                attention_ms=attention_ms, launches_per_layer=launches)
 
 
 INT8_MODES = {"int8": (False, False), "int8_static": (True, False), "int8_attn": (False, True),

@@ -26,7 +26,10 @@ a per-channel affine. The plain version keeps the kernel's rounding points:
 * h1 = ReLU in f32, then the BN affine, then a cast;
 * out = (x_q in f32 + update) cast to x_q's type.
 
-Forward only: the wrapper raises when a gradient is required.
+Forward only: the wrapper raises when a gradient is required. The feature
+kernel's launch plan (CTAs per (element, head), key and query runs, shared
+memory) is mirrored here by ``feature_plan``, which the CPU tests hold at
+every shape the wrapper takes and the card tests hold against the C plan.
 
 The training path runs the attention half alone, with a gradient
 (``fused_attention_message``, port of the JAX function of that name :1189):
@@ -60,6 +63,12 @@ FAVOR_EPS = 1e-8
 FEATURE_KINDS = ("linear", "favor_relu", "favor_softmax")
 ATTENTION_KINDS = ("softmax",) + FEATURE_KINDS
 MAX_FEATURES = 256  # the widest feature map the feature kernel takes
+# the feature kernel's attention part (ops/csrc/gnn_layer_features.cu)
+FEATURE_WARPS = 8  # warps of a CTA
+KEY_CHUNK = 64  # keys a CTA stages at a time
+MAX_CLUSTER_CTAS = 8  # CTAs per (element, head): a portable cluster
+SMEM_CAP = 232448  # the shared memory one block may opt into on the H100
+H100_SMS = 132
 
 counter = kernels.LaunchCounter()
 feature_counter = kernels.LaunchCounter()
@@ -200,6 +209,138 @@ def layer_plain(
 _VOID_P = ctypes.c_void_p
 
 
+class FeaturePlan(NamedTuple):
+    """How the feature kernel's attention part spreads over the card:
+    ``cluster`` CTAs per (element, head), ``key_groups`` warps per feature
+    tile of 16 (each takes every key_groups-th 16-key group of a chunk),
+    ``tiles_per_warp`` feature tiles per warp, 64-key chunks and query tiles
+    (``query_rows``) per CTA, whether FAVOR-softmax keeps its keys resident
+    between its two sweeps, and a CTA's shared memory."""
+
+    cluster: int
+    key_groups: int
+    tiles_per_warp: int
+    chunks_per_cta: int
+    query_tiles_per_cta: int
+    resident: int
+    smem_bytes: int
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def query_rows(is_bf16) -> int:
+    """Rows of the query tile a warp of the feature kernel takes at once."""
+    return 32 if is_bf16 else 16
+
+
+def feature_smem_bytes(num_features, head_dim, is_bf16, kind, key_groups, tiles_per_warp, chunks, resident) -> int:
+    """A CTA's shared memory (mirror of ``make_layout``): T(proj) for FAVOR,
+    ksum, the CTAs' maxes, the mask weight of each of the CTA's ``chunks``
+    64-key chunks; the stage of 64-key chunks (rings of raw f32 keys
+    and of v, three v buffers in bf16 and two in f32, one raw buffer fewer
+    for FAVOR; T(k dh^-1/4) for FAVOR; diag), whose room later holds the key groups' partial KV + ksum and then
+    each warp's two query tiles; the resident keys of FAVOR-softmax
+    (T(k dh^-1/4) and diag of every chunk); then the query side's KV
+    (bf16 hi + lo planes, or f32), whose room first holds the raw projection
+    and, with two feature tiles per warp, the second tile's stage."""
+    esz, ld = (2, head_dim + 8) if is_bf16 else (4, head_dim + 4)
+    e4 = (num_features * head_dim + num_features) // 4
+    head = (0 if kind == "linear" else _align16(num_features * ld * esz)) + _align16(num_features * 4) + 64
+    head += chunks * KEY_CHUNK * 4
+    raw_bytes, v_bytes = KEY_CHUNK * (head_dim + 4) * 4, KEY_CHUNK * ld * esz
+    stages = 3 if is_bf16 else 2
+    stage = (stages if kind == "linear" else stages - 1) * raw_bytes + (0 if kind == "linear" else v_bytes)
+    stage += stages * v_bytes + KEY_CHUNK * 4
+    queries = FEATURE_WARPS * 2 * query_rows(is_bf16) * ld * esz
+    part = key_groups * e4 * 16
+    keys = chunks * KEY_CHUNK * (ld * esz + 4) if resident else 0
+    room = max(2 * num_features * ld * 2 if is_bf16 else num_features * ld * 4, num_features * head_dim * 4)
+    if tiles_per_warp == 2:
+        room = max(room, stage)
+    return head + max(stage, queries, part) + keys + room
+
+
+def feature_plan(batch, heads, n, m, num_features, head_dim, is_bf16, kind, sms=H100_SMS) -> FeaturePlan:
+    """The plan of ``make_feature_plan`` in ``gnn_layer_features.cu``: the
+    largest power of two C <= 8 of CTAs per (element, head) that keeps at
+    most one CTA per SM, and no more CTAs than 64-key chunks or 64-query
+    runs; FAVOR-softmax keeps its keys resident where they fit."""
+    tiles = num_features // 16
+    key_groups = 1 if tiles >= FEATURE_WARPS else min(4, FEATURE_WARPS // tiles)
+    tiles_per_warp = 2 if tiles > FEATURE_WARPS else 1
+    cluster = 1
+    while cluster < MAX_CLUSTER_CTAS and 2 * batch * heads * cluster <= sms and cluster * KEY_CHUNK < max(m, n):
+        cluster *= 2
+    chunks_per_cta = -(-(-(-m // KEY_CHUNK)) // cluster)
+    query_tiles_per_cta = -(-(-(-n // query_rows(is_bf16))) // cluster)
+    args = (num_features, head_dim, is_bf16, kind, key_groups, tiles_per_warp, chunks_per_cta)
+    smem, resident = feature_smem_bytes(*args, False), 0
+    if kind == "favor_softmax" and feature_smem_bytes(*args, True) <= SMEM_CAP:
+        smem, resident = feature_smem_bytes(*args, True), 1
+    return FeaturePlan(cluster, key_groups, tiles_per_warp, chunks_per_cta, query_tiles_per_cta, resident, smem)
+
+
+def kernel_feature_plan(batch, heads, n, m, num_features, head_dim, is_bf16, kind):
+    """(FeaturePlan, SM count) as the C code computes it on the current card
+    (``og_gnn_layer_features_plan``; builds the kernels on first use)."""
+    fn = kernels.entry_point(
+        "gnn_layer_features", "og_gnn_layer_features_plan", [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    )
+    out = (ctypes.c_int * 8)()
+    status = fn(int(is_bf16), batch, n, m, heads * head_dim, heads, num_features, FEATURE_KINDS.index(kind), out)
+    kernels.check(status, "og_gnn_layer_features_plan")
+    return FeaturePlan(*out[:7]), out[7]
+
+
+def check_layer_args(x_q, x_kv, kv_mask, w: PropagationWeights, num_heads, attention_kind, projection):
+    """Raise ValueError unless the layer kernels take these arguments (their
+    devices already checked to be one); returns (head_dim, num_features)."""
+    batch, n, dim = x_q.shape
+    m = x_kv.shape[1]
+    dtype = w.wq.dtype
+    device = x_q.device
+    kernels.require(dtype in (torch.float32, torch.bfloat16), f"compute type {dtype}")
+    kernels.require(
+        x_q.dtype == x_kv.dtype == dtype,
+        f"the kernel takes x in its compute type {dtype}, got {x_q.dtype}/{x_kv.dtype}",
+    )
+    kernels.require(x_kv.shape[0] == batch and x_kv.shape[2] == dim, "x_kv shape")
+    head_dim = kernels.require_heads(dim, num_heads)
+    kernels.require(m >= 1, "empty key set")
+    kernels.require(x_q.is_contiguous() and x_kv.is_contiguous(), "x_q and x_kv must be contiguous")
+    mats = (w.wq, w.wk, w.wv, w.wo, w.w1, w.w2)
+    vecs = (w.bq, w.bk, w.bv, w.bo, w.b1, w.a1, w.c1, w.b2)
+    shapes = [(dim, dim)] * 4 + [(2 * dim, 2 * dim), (dim, 2 * dim)]
+    for t, shape in zip(mats, shapes):
+        kernels.require(t.shape == shape and t.dtype == dtype, f"weight {tuple(t.shape)} {t.dtype}")
+    for t in (*mats, *vecs):
+        kernels.require(t.device == device and t.is_contiguous(), "weights: device/contiguity")
+    for t, size in zip(vecs, (dim,) * 4 + (2 * dim,) * 3 + (dim,)):
+        kernels.require(t.shape == (size,) and t.dtype == torch.float32, "bias/affine vectors")
+    if kv_mask is not None:
+        kernels.require(kv_mask.shape == (batch, m) and kv_mask.dtype == torch.bool, "kv_mask")
+        kernels.require(kv_mask.device == device, "kv_mask device")
+    if torch.is_grad_enabled():
+        kernels.require(
+            not any(t.requires_grad for t in (x_q, x_kv, *mats, *vecs)),
+            "the layer kernel is forward only (run under torch.no_grad())",
+        )
+    num_features = head_dim
+    if attention_kind in ("favor_relu", "favor_softmax"):
+        kernels.require(
+            projection.dim() == 2 and projection.shape[1] == head_dim and projection.device == device,
+            f"projection must be [F, {head_dim}] on the inputs' device",
+        )
+        num_features = projection.shape[0]
+        kernels.require(
+            num_features % 16 == 0 and 16 <= num_features <= MAX_FEATURES,
+            f"the kernel takes a multiple of 16 features up to {MAX_FEATURES}, got {num_features}",
+        )
+    return head_dim, num_features
+
+
 def fused_attention_propagation(
     x_q: torch.Tensor,
     x_kv: torch.Tensor,
@@ -228,32 +369,9 @@ def fused_attention_propagation(
     dtype = w.wq.dtype
     device = x_q.device
     kernels.require(x_q.is_cuda and x_kv.device == device, "x_q and x_kv must share a CUDA device")
-    kernels.require(dtype in (torch.float32, torch.bfloat16), f"compute type {dtype}")
-    kernels.require(
-        x_q.dtype == x_kv.dtype == dtype,
-        f"the kernel takes x in its compute type {dtype}, got {x_q.dtype}/{x_kv.dtype}",
-    )
-    kernels.require(x_kv.shape[0] == batch and x_kv.shape[2] == dim, "x_kv shape")
-    head_dim = kernels.require_heads(dim, num_heads)
-    kernels.require(m >= 1, "empty key set")
-    kernels.require(x_q.is_contiguous() and x_kv.is_contiguous(), "x_q and x_kv must be contiguous")
+    _, num_features = check_layer_args(x_q, x_kv, kv_mask, w, num_heads, attention_kind, projection)
     mats = (w.wq, w.wk, w.wv, w.wo, w.w1, w.w2)
     vecs = (w.bq, w.bk, w.bv, w.bo, w.b1, w.a1, w.c1, w.b2)
-    shapes = [(dim, dim)] * 4 + [(2 * dim, 2 * dim), (dim, 2 * dim)]
-    for t, shape in zip(mats, shapes):
-        kernels.require(t.shape == shape and t.dtype == dtype, f"weight {tuple(t.shape)} {t.dtype}")
-    for t in (*mats, *vecs):
-        kernels.require(t.device == device and t.is_contiguous(), "weights: device/contiguity")
-    for t, size in zip(vecs, (dim,) * 4 + (2 * dim,) * 3 + (dim,)):
-        kernels.require(t.shape == (size,) and t.dtype == torch.float32, "bias/affine vectors")
-    if kv_mask is not None:
-        kernels.require(kv_mask.shape == (batch, m) and kv_mask.dtype == torch.bool, "kv_mask")
-        kernels.require(kv_mask.device == device, "kv_mask device")
-    if torch.is_grad_enabled():
-        kernels.require(
-            not any(t.requires_grad for t in (x_q, x_kv, *mats, *vecs)),
-            "the layer kernel is forward only (run under torch.no_grad())",
-        )
     out = torch.empty(batch, n, dim, dtype=dtype, device=device)
     mask = None if kv_mask is None else kv_mask.contiguous().view(torch.uint8)
     mask_ptr = None if mask is None else mask.data_ptr()
@@ -274,19 +392,7 @@ def fused_attention_propagation(
         kernels.check(status, "og_gnn_layer")
         counter.add()
         return out
-    num_features = head_dim
-    proj = None
-    if favor:
-        kernels.require(
-            projection.dim() == 2 and projection.shape[1] == head_dim and projection.device == device,
-            f"projection must be [F, {head_dim}] on the inputs' device",
-        )
-        num_features = projection.shape[0]
-        kernels.require(
-            num_features % 16 == 0 and 16 <= num_features <= MAX_FEATURES,
-            f"the kernel takes a multiple of 16 features up to {MAX_FEATURES}, got {num_features}",
-        )
-        proj = projection.detach().float().contiguous()
+    proj = projection.detach().float().contiguous() if favor else None
     shape_args = (is_bf16, batch, n, m, dim, num_heads, num_features)
     size = kernels.entry_point(
         "gnn_layer_features", "og_gnn_layer_features_workspace", [ctypes.c_int] * 7, ctypes.c_size_t

@@ -1,6 +1,7 @@
 """What bounds the bf16 GEMM and the bf16 attention: each kernel timed again
-with one part of its work taken out, on a CUDA card; and the bf16 GEMM at
-each of its tiles.
+with one part of its work taken out, on a CUDA card; the bf16 GEMM at each
+of its tiles; and K6's FAVOR-softmax with its keys staged again in its
+second sweep.
 
     python3 scripts/bf16_ablations.py --repo DIR [--only NAME ...]
 
@@ -28,6 +29,16 @@ rule decides). Its line has K1's five GEMMs at 16,384 rows (B=16), 12,288
 (B=12), 4,096 (the pretraining fixture's B=2 N=2048, D=128) and 1,024
 (B=1): the measurements the rule is set from. The unedited rule's line
 comes first. Every tile variant is checked against the plain version.
+
+The K6 variant (``k6: ...``) makes the feature kernel's launch plan
+(``gnn_layer_features.cu``'s ``make_feature_plan``) never keep FAVOR-softmax's
+keys resident in shared memory between its two key sweeps, so that the second
+sweep stages and converts them again, as it does where they do not fit. Its
+line, and the unedited copy's before it, has the K6 FAVOR-softmax layer at
+B=16 N=M=1024, D=256 (F=128) and D=128 (F=64), in bf16 and in f32, with
+ragged key masks, and each
+case's plan (``resident`` 1 or 0, read from the C code). Both copies are
+checked against the plain version: the variant computes the same function.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ ATTENTION = "openglue_tpu_torch/ops/csrc/attention.cuh"
 ATTN_BWD = "openglue_tpu_torch/ops/csrc/attention_backward.cuh"
 GEMM = "openglue_tpu_torch/ops/csrc/gemm.cuh"
 MESSAGE_BWD = "openglue_tpu_torch/ops/csrc/message_backward.cu"
+FEATURES = "openglue_tpu_torch/ops/csrc/gnn_layer_features.cu"
 
 # pass B: dS^T formed before dV's products are issued, both issued together
 DS_FIRST = ("""      // dV += T(P^T) g, issued before dS^T is formed
@@ -262,6 +274,11 @@ ABLATIONS = {
     "backward: pass B forms dS^T before issuing dV's products": ("bwd", [(ATTN_BWD, *DS_FIRST)]),
     "backward: pass A waits for dQ's products under the next tile's S": ("bwd", [(ATTN_BWD, *e) for e in DQ_LATER]),
 }
+# K6: FAVOR-softmax's keys are never kept resident (same function)
+K6_VARIANTS = {
+    "k6: FAVOR-softmax keys staged in both sweeps": [(FEATURES, "    if (R.total <= kSmemCap) {",
+                                                      "    if (R.total < 0) {")],
+}
 # the bf16 GEMM's tiles: the launch rule returns one tile's width first
 RULE = "  const int sms = sm_count(), blocks = (rows + 63) / 64;\n"
 TILES = {
@@ -275,8 +292,8 @@ sys.path.insert(0, sys.argv[2])  # chip_smoke.py of the checkout
 sys.path.insert(0, sys.argv[1])  # the edited package, ahead of the checkout's
 import chip_smoke as cs
 from openglue_tpu_torch.ops import kernels
-kernels.SOURCES = (("attention", "attention_backward", "message_forward", "message_backward") if sys.argv[4] == "bwd"
-                   else ("attention", "gemm", "gnn_layer"))
+kernels.SOURCES = {"bwd": ("attention", "attention_backward", "message_forward", "message_backward"),
+                   "k6": ("gemm", "gnn_layer_features")}.get(sys.argv[4], ("attention", "gemm", "gnn_layer"))
 kernels.build_all()
 from openglue_tpu_torch.ops.kernels import attention_kernel as ak, gemm_kernel as gk, gnn_layer_kernel as glk
 check = sys.argv[3] == "check"
@@ -319,6 +336,23 @@ with torch.no_grad():
             _, attn, lse = glk.message_forward(xq, xkv, mask, w, 4, torch.bfloat16)
             out[f"K5 B=12 D={dim}"] = cs.device_ms(
                 lambda: glk.message_backward(xq, xkv, mask, w, g, attn, lse, 4, torch.bfloat16))
+        print(json.dumps(out))
+        sys.exit(0)
+    if sys.argv[4] == "k6":  # the FAVOR-softmax layer at B=16 N=M=1024, D=256 (F=128) and D=128 (F=64)
+        from openglue_tpu_torch.ops.attention import sample_orthogonal_random_matrix
+        for dtype, dim in ((torch.bfloat16, 256), (torch.float32, 256), (torch.bfloat16, 128), (torch.float32, 128)):
+            tag, is_bf16, dh = f"{str(dtype)[6:]} D={dim}", dtype == torch.bfloat16, dim // 4
+            w = cs.layer_weights(glk, dtype, gen, dim)
+            xq, xkv, mask = cs.layer_inputs(dtype, gen, 16, 1024, dim)
+            proj = sample_orthogonal_random_matrix(gen, 2 * dh, dh)
+            run = lambda: glk.fused_attention_propagation(xq, xkv, mask, w, 4, False, "favor_softmax", proj)
+            if check:
+                o, ref = run(), glk.layer_plain(xq, xkv, mask, w, 4, False, "favor_softmax", proj)
+                tol = 2.0**-7 * ref.float().abs().max() if is_bf16 else 1e-3
+                assert (o.float() - ref.float()).abs().max() <= tol
+            out[f"K6 favor_softmax {tag} resident"] = glk.kernel_feature_plan(16, 4, 1024, 1024, 2 * dh, dh, is_bf16,
+                                                                              "favor_softmax")[0].resident
+            out[f"K6 favor_softmax {tag}"] = cs.device_ms(run)
         print(json.dumps(out))
         sys.exit(0)
     if sys.argv[4] == "tiles":
@@ -374,6 +408,9 @@ def main() -> int:
             runs += [(first, [], kind, "check")]
             runs += [(name, edits, kind, "time") for name, (shapes, edits) in ABLATIONS.items()
                      if wanted(name) and shapes == kind]
+    if any(wanted(name) for name in K6_VARIANTS):
+        runs += [("unedited k6", [], "k6", "check")]
+        runs += [(name, edits, "k6", "check") for name, edits in K6_VARIANTS.items() if wanted(name)]
     if any(wanted(name) for name in TILES):
         runs += [("the launch rule", [], "tiles", "check")]
         runs += [(name, [edit], "tiles", "check") for name, edit in TILES.items() if wanted(name)]

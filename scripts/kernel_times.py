@@ -9,10 +9,10 @@ power limit); each case's time in ms as the median of ``--rounds`` rounds of
 20 back-to-back calls, queued while the card is held busy and timed with
 CUDA events (every round listed); the device time by kernel
 (torch.profiler) of one f32 ``message`` layer (K4 + K5), which splits the
-layer into its GEMM, attention and reduction launches, and of K10 and K5 in
-bf16, which split the attention backward into its passes; the registers and
-spill bytes per
-thread that ``ptxas -v`` reports for the attention kernels and the dense
+layer into its GEMM, attention and reduction launches, of K10 and K5 in
+bf16, which split the attention backward into its passes, and of K6 (each
+kind, bf16 and f32), which splits the layer into its GEMMs and its attention
+part; the registers and spill bytes per thread that ``ptxas -v`` reports for the attention kernels and the dense
 GEMMs of DIR's sources; the flagship matcher serving a B=16 and a B=1
 request at N=1024 (median host ms of 5 runs, pairs/s and the device busy ms
 of one run, ``chip_smoke.py``'s model, requests and profile); and the host's
@@ -20,8 +20,9 @@ time per call of K1 and K9 at B=1 (where the bf16 kernels encode their TMA
 tensor maps).
 
 The cases, at the shapes of ``chip_smoke.py``: K1 B=16 N=1024 D=256; K4, K5,
-K8 B=12 N=1024 D=256; K6 (linear) B=16 N=1024; each in bf16 and f32; K5 bf16
-at D=128; K9, K10, K11 bf16 at B=12 N=1024 and B=4 N=2048 (H=4, heads of
+K8 B=12 N=1024 D=256; K6 (linear, favor_relu and favor_softmax with F=128)
+B=16 N=1024; each in bf16 and f32; K6 bf16 at D=128 (F=64); K5 bf16 at
+D=128; K9, K10, K11 bf16 at B=12 N=1024 and B=4 N=2048 (H=4, heads of
 width 64), K9 and K10 also at B=12 with heads of width 32 and in f32, each
 beside ``scaled_dot_product_attention`` on the same inputs and mask (for K10
 its forward and backward less its forward); K1's parts alone at B=16: its
@@ -54,10 +55,12 @@ import torch
 
 # the sources ptxas reports on (those the checkout has), and the kernels
 # (the bf16 backward passes keep their names from the mma.sync design to the
-# wgmma one, so one call reports both checkouts' passes)
-PTXAS_SOURCES = ("gnn_layer", "message_forward", "message_backward", "train_half", "attention", "attention_backward",
-                 "gemm")
-PTXAS_KERNELS = ("attention_bf16", "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16", "gemm_f32", "tn_gemm_f32", "gemm_bf16")
+# wgmma one, so one call reports both checkouts' passes; K6's attention part
+# is listed under its one-launch name and its three earlier kernels' names)
+PTXAS_SOURCES = ("gnn_layer", "gnn_layer_features", "message_forward", "message_backward", "train_half",
+                 "attention", "attention_backward", "gemm")
+PTXAS_KERNELS = ("feature_attention", "key_features_kernel", "aggregate_kernel", "query_kernel", "attention_bf16",
+                 "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16", "gemm_f32", "tn_gemm_f32", "gemm_bf16")
 
 
 def card_line() -> str:
@@ -67,6 +70,7 @@ def card_line() -> str:
 
 
 def kernel_cases(gen):
+    from openglue_tpu_torch.ops.attention import sample_orthogonal_random_matrix
     from openglue_tpu_torch.ops.kernels import attention_kernel as ak
     from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
 
@@ -83,18 +87,15 @@ def kernel_cases(gen):
     dim, heads = 256, 4
     d2 = 2 * dim
     for dt, tag in ((torch.bfloat16, ""), (torch.float32, " f32")):
-        lw = glk.PropagationWeights(
-            r(dim, dim, scale=dim**-0.5).to(dt), r(dim), r(dim, dim, scale=dim**-0.5).to(dt), r(dim),
-            r(dim, dim, scale=dim**-0.5).to(dt), r(dim), r(dim, dim, scale=dim**-0.5).to(dt), r(dim),
-            r(d2, d2, scale=d2**-0.5).to(dt), r(d2), 1.0 + 0.1 * r(d2), 0.1 * r(d2),
-            r(dim, d2, scale=d2**-0.5).to(dt), r(dim),
-        )
+        lw = layer_weights(gen, dim, dt)
         xq, xkv, mask = r(16, 1024, dim).to(dt), r(16, 1024, dim).to(dt), ragged(16, 1024, 256)
         cases[f"K1 B=16 N=1024{tag}"] = (
             lambda xq=xq, xkv=xkv, mask=mask, lw=lw: glk.fused_attention_propagation(xq, xkv, mask, lw, heads))
-        cases[f"K6 linear B=16 N=1024{tag}"] = (
-            lambda xq=xq, xkv=xkv, mask=mask, lw=lw: glk.fused_attention_propagation(xq, xkv, mask, lw, heads,
-                                                                                     False, "linear"))
+        for kind in glk.FEATURE_KINDS:
+            proj = None if kind == "linear" else sample_orthogonal_random_matrix(gen, 128, 64)
+            cases[f"K6 {kind} B=16 N=1024{tag}"] = (
+                lambda xq=xq, xkv=xkv, mask=mask, lw=lw, kind=kind, proj=proj: glk.fused_attention_propagation(
+                    xq, xkv, mask, lw, heads, False, kind, proj))
 
         w = glk.MessageWeights(*[r(dim, dim, scale=dim**-0.5) if i % 2 == 0 else r(dim) for i in range(8)])
         mq, mkv, mg = r(12, 1024, dim).to(dt), r(12, 1024, dim).to(dt), r(12, 1024, dim).to(dt)
@@ -108,6 +109,7 @@ def kernel_cases(gen):
         cases[f"K8 B=12 N=1024{tag}"] = lambda mq=mq, mkv=mkv, m=mmask, w=w, w1=w1, b1=b1, dt=dt: (
             glk.train_half_forward(mq, mkv, m, w, w1, b1, heads, False, dt))
 
+    cases.update(k6_d128_cases(gen))
     # K5 bf16 at D=128 (4 heads of width 32: the SIFT width of the pretraining fixture)
     dim32 = 128
     w = glk.MessageWeights(*[r(dim32, dim32, scale=dim32**-0.5) if i % 2 == 0 else r(dim32) for i in range(8)])
@@ -145,6 +147,45 @@ def kernel_cases(gen):
         cases[f"library SDPA forward+backward B={batch} N={n}{tag}"] = sdpa_both
     cases.update(k1_part_cases(gen))
     cases.update(sinkhorn_cases(gen))
+    return cases
+
+
+def layer_weights(gen, dim, dt):
+    """Random K1 / K6 layer weights at width ``dim`` in compute type ``dt``."""
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+
+    r = lambda *shape, scale=1.0: torch.randn(*shape, generator=gen, device="cuda") * scale
+    d2 = 2 * dim
+    return glk.PropagationWeights(
+        r(dim, dim, scale=dim**-0.5).to(dt), r(dim), r(dim, dim, scale=dim**-0.5).to(dt), r(dim),
+        r(dim, dim, scale=dim**-0.5).to(dt), r(dim), r(dim, dim, scale=dim**-0.5).to(dt), r(dim),
+        r(d2, d2, scale=d2**-0.5).to(dt), r(d2), 1.0 + 0.1 * r(d2), 0.1 * r(d2),
+        r(dim, d2, scale=d2**-0.5).to(dt), r(dim),
+    )
+
+
+def k6_inputs(gen, kind, dt, batch=16, n=1024, dim=256, heads=4):
+    """K6's arguments at chip_smoke.py's shape (a ragged key mask with valid
+    counts in [N/4, N]; F = 2 dh for the FAVOR kinds, dh for linear)."""
+    from openglue_tpu_torch.ops.attention import sample_orthogonal_random_matrix
+
+    dev, dh = torch.device("cuda"), dim // heads
+    xq = torch.randn(batch, n, dim, generator=gen, device=dev).to(dt)
+    xkv = torch.randn(batch, n, dim, generator=gen, device=dev).to(dt)
+    counts = torch.randint(n // 4, n + 1, (batch,), generator=gen, device=dev)
+    mask = torch.arange(n, device=dev)[None] < counts[:, None]
+    proj = None if kind == "linear" else sample_orthogonal_random_matrix(gen, 2 * dh, dh)
+    return xq, xkv, mask, layer_weights(gen, dim, dt), heads, False, kind, proj
+
+
+def k6_d128_cases(gen):
+    """K6 bf16 at D=128 (4 heads of width 32, F = 64 for the FAVOR kinds)."""
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+
+    cases = {}
+    for kind in glk.FEATURE_KINDS:
+        args = k6_inputs(gen, kind, torch.bfloat16, dim=128)
+        cases[f"K6 {kind} B=16 N=1024 D=128"] = lambda args=args: glk.fused_attention_propagation(*args)
     return cases
 
 
@@ -392,6 +433,11 @@ def profiles(gen):
     q, k, v, g = (r(12, 1024, dim).bfloat16().view(12, 1024, heads, 64).transpose(1, 2) for _ in range(4))
     o, lse = ak.attention_forward(q, k, v, mask)
     out["K10 bf16"] = kernel_profile(lambda: ak.attention_backward(q, k, v, mask, g, o, lse))
+    # K6 launch by launch (its GEMMs and its attention part) at B=16 N=1024 D=256, F=128 for FAVOR
+    for kind in glk.FEATURE_KINDS:
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            args = k6_inputs(gen, kind, dt)
+            out[f"K6 {kind} {tag}"] = kernel_profile(lambda args=args: glk.fused_attention_propagation(*args))
     return out
 
 

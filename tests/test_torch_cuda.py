@@ -112,6 +112,129 @@ def test_feature_layer_kernel_fully_masked_element_is_nan(kind):
     assert torch.isfinite(out[0]).all() and torch.isnan(out[1]).all()
 
 
+def _feature_case(dev, dtype, batch, n, m, dim, counts, seed=3):
+    """Weights, x_q [batch, n, D], x_kv [batch, m, D] and a key mask of ``counts``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    d2 = 2 * dim
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    w = glk.PropagationWeights(
+        r(dim, dim, scale=dim**-0.5).to(dtype), r(dim), r(dim, dim, scale=dim**-0.5).to(dtype), r(dim),
+        r(dim, dim, scale=dim**-0.5).to(dtype), r(dim), r(dim, dim, scale=dim**-0.5).to(dtype), r(dim),
+        r(d2, d2, scale=d2**-0.5).to(dtype), r(d2), 1.0 + 0.1 * r(d2), 0.1 * r(d2),
+        r(dim, d2, scale=d2**-0.5).to(dtype), r(dim),
+    )
+    mask = torch.arange(m, device=dev)[None] < torch.tensor(counts, device=dev)[:, None]
+    return w, r(batch, n, dim).to(dtype), r(batch, m, dim).to(dtype), mask
+
+
+def _feature_atol(dtype, ref):
+    # f32: summation order only; bf16: two ulps of the largest output
+    # (rounding flips of q, v, the features and the aggregate's operands)
+    return 1e-4 if dtype == torch.float32 else 2.0**-7 * ref.float().abs().max().item()
+
+
+# (kind, head width, F, batch, N, M, valid counts): every head width, F from 16
+# to 256, one key, a ragged 700, 1024 and 2048 keys, N != M, and an element
+# with no valid key beside one with all of them
+FEATURE_SHAPES = [
+    ("linear", 64, 64, 2, 300, 1024, (1024, 517)),
+    ("linear", 32, 32, 2, 1024, 700, (700, 0)),
+    ("favor_relu", 64, 128, 2, 1024, 2048, (2048, 1300)),
+    ("favor_relu", 32, 16, 1, 700, 1, (1,)),
+    ("favor_relu", 64, 256, 2, 128, 700, (350, 700)),
+    ("favor_softmax", 64, 128, 2, 1024, 1024, (1024, 301)),
+    ("favor_softmax", 32, 64, 3, 2048, 700, (700, 0, 64)),
+    ("favor_softmax", 64, 16, 1, 1, 1024, (1000,)),
+    ("favor_softmax", 32, 256, 2, 300, 2048, (2048, 1)),
+    ("favor_relu", 32, 48, 2, 333, 1025, (1025, 64)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,dh,num_features,batch,n,m,counts", FEATURE_SHAPES)
+def test_feature_layer_kernel_matches_plain_at_every_shape(dtype, kind, dh, num_features, batch, n, m, counts):
+    """K6 against its plain version at the shapes its plan branches on, two
+    runs bit-equal, an element with no valid key NaN, the others finite."""
+    _check_feature_layer(_cuda(), dtype, kind, dh, num_features, batch, n, m, counts)
+
+
+def _check_feature_layer(dev, dtype, kind, dh, num_features, batch, n, m, counts):
+    w, x_q, x_kv, mask = _feature_case(dev, dtype, batch, n, m, 4 * dh, counts)
+    proj = None
+    if kind != "linear":
+        proj = sample_orthogonal_random_matrix(torch.Generator().manual_seed(7), num_features, dh, device=dev)
+    with torch.no_grad():
+        out = glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, True, kind, proj)
+        again = glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, True, kind, proj)
+        ref = glk.layer_plain(x_q, x_kv, mask, w, 4, True, kind, proj)
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(out.view(bits), again.view(bits))  # a fixed summation order: equal bits, NaN included
+    dead = torch.tensor([c == 0 for c in counts], device=dev)
+    assert out[dead].isnan().all() and ref[dead].isnan().all()
+    live, live_ref = out[~dead].float(), ref[~dead].float()
+    assert torch.isfinite(live).all()
+    torch.testing.assert_close(live, live_ref, atol=_feature_atol(dtype, live_ref), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,num_features", [(torch.bfloat16, 256), (torch.float32, 128)])
+def test_favor_softmax_stages_its_keys_again_where_they_do_not_stay(dtype, num_features):
+    """FAVOR-softmax at B=16 N=M=1024 with heads of width 64 where a CTA has
+    no room to keep its keys from the first sweep (bf16 F=256, f32 F=128):
+    the second sweep stages and converts them again. Against the plain
+    version, two runs bit-equal, a fully masked element NaN."""
+    dev = _cuda()
+    plan, sms = glk.kernel_feature_plan(16, 4, 1024, 1024, num_features, 64, dtype == torch.bfloat16, "favor_softmax")
+    assert plan.resident == 0
+    assert plan == glk.feature_plan(16, 4, 1024, 1024, num_features, 64, dtype == torch.bfloat16, "favor_softmax", sms)
+    counts = (1024, 0, 1, 64, 65, 300, 511, 512, 513, 700, 777, 900, 1000, 1023, 1024, 128)
+    _check_feature_layer(dev, dtype, "favor_softmax", 64, num_features, 16, 1024, 1024, counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_favor_softmax_key_stabilizer_ignores_masked_keys(dtype):
+    """The largest ph of the key set sits on masked keys (their x_kv scaled
+    by 8): the stabilizer is the max over the valid keys only, and a wrong
+    one would drown every valid key's exp under the 1e-8 eps."""
+    dev = _cuda()
+    dh, num_features, m = 64, 128, 700
+    w, x_q, x_kv, mask = _feature_case(dev, dtype, 2, 500, m, 4 * dh, (400, 650))
+    x_kv = torch.where(mask[..., None], x_kv, 8 * x_kv).contiguous()
+    proj = sample_orthogonal_random_matrix(torch.Generator().manual_seed(7), num_features, dh, device=dev)
+    k = glk._dense_f32(x_kv, w.wk, w.bk).view(2, m, 4, dh).transpose(1, 2)
+    ph = torch.matmul((k * dh**-0.25).to(dtype).float(), proj.to(dtype).float().t()).amax(-1)  # [B, H, M]
+    valid = mask[:, None, :]
+    assert (ph.masked_fill(valid, -1e9).amax(-1) > ph.masked_fill(~valid, -1e9).amax(-1) + 20).all()
+    with torch.no_grad():
+        out = glk.fused_attention_propagation(x_q, x_kv, mask, w, 4, False, "favor_softmax", proj)
+        ref = glk.layer_plain(x_q, x_kv, mask, w, 4, False, "favor_softmax", proj)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=_feature_atol(dtype, ref), rtol=0)
+
+
+@pytest.mark.cuda
+def test_feature_kernel_plan_matches_its_python_mirror():
+    """The C plan of K6's attention part (og_gnn_layer_features_plan) equals
+    glk.feature_plan at the serving shapes and at the card tests' shapes."""
+    _cuda()
+    shapes = [(16, 4, 1024, 1024, 128, 64), (16, 4, 1024, 1024, 64, 64), (1, 4, 1024, 700, 128, 64),
+              (4, 4, 2048, 2048, 64, 32), (1, 4, 4352, 4352, 128, 64), (2, 4, 300, 1024, 256, 64),
+              (1, 4, 700, 1, 16, 32), (3, 4, 2048, 700, 64, 32)]
+    for batch, heads, n, m, num_features, dh in shapes:
+        for is_bf16 in (True, False):
+            for kind in glk.FEATURE_KINDS:
+                f = dh if kind == "linear" else num_features
+                plan, sms = glk.kernel_feature_plan(batch, heads, n, m, f, dh, is_bf16, kind)
+                assert plan == glk.feature_plan(batch, heads, n, m, f, dh, is_bf16, kind, sms), (
+                    batch, heads, n, m, f, dh, is_bf16, kind)
+
+
 @pytest.mark.cuda
 def test_new_layer_kernels_take_no_mask_and_two_heads():
     """kv_mask=None, D=128 (two heads), one batch element, short unaligned sets."""
