@@ -17,7 +17,9 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    must fill, and run twice, bit for bit) and the message forward and
    backward (K4, K5; bf16 and f32) at the training shape B=12, N=1024; the
    feature-kind layer (K6: linear, FAVOR-relu, FAVOR-softmax; bf16 and f32)
-   and the int8 layer (K7: its four modes) at B=16, N=1024; the train-mode
+   and the int8 layer (K7: its four modes, each with its launches per
+   layer against its C plan and the plan's mirror, its GEMM and attention
+   shares and ``torch._int_mm`` on its six s8 products) at B=16, N=1024; the train-mode
    layer half (K8; bf16 and f32, with and without use_offset) and the
    attention forward and backward on heads (K9, K10; bf16 and f32, a ragged
    mask with one fully masked element, two runs of K10 compared bit for bit,
@@ -360,7 +362,11 @@ def int8_layer_phase(glk, gli8, mode, gen, batch=16, n=1024, dim=256, heads=4):
     integer products and their dequantization are exact; the attention's
     summation order (and, in bf16, its rounding of P) flips single int8
     roundings downstream, so the bar is on the relative norm, and the largest
-    single difference is reported."""
+    single difference is reported. Also: the launches of one layer (counted by
+    the C code) against the C plan, the C plan against its Python mirror, the
+    layer's GEMM and attention shares by torch.profiler device time, and
+    ``torch._int_mm`` (s8 x s8 -> s32, no epilogue) on the layer's six
+    products, the GEMM share's library yardstick (the port never calls it)."""
     static, quant_attention = INT8_MODES[mode]
     qw = gli8.quantize_propagation_weights(layer_weights(glk, torch.float32, gen, dim))
     x_q, x_kv, mask = layer_inputs(torch.bfloat16, gen, batch, n, dim)
@@ -388,10 +394,41 @@ def int8_layer_phase(glk, gli8, mode, gen, batch=16, n=1024, dim=256, heads=4):
     nbytes = 3 * batch * n * dim * 2 + 10 * dim * dim + batch * n
     t_bytes = nbytes / PEAK_BYTES
     bms, by = max(t_op, t_bytes) * 1e3, ("operations" if t_op >= t_bytes else "bytes")
+    # one layer's launches by the C code's counts, against its plan and the plan's mirror
+    gli8.launch_counter.reset()
+    gli8.memset_counter.reset()
+    run()
+    torch.cuda.synchronize()
+    launched = (gli8.launch_counter.count, gli8.memset_counter.count)
+    plan, sms = gli8.kernel_int8_plan(batch, n, n, dim, heads, quant_attention, static)
+    mirror = gli8.int8_plan(batch, n, n, dim, heads, quant_attention, static, sms)
+    check(plan == mirror, f"K7 {mode}: the C plan {plan} is not the Python mirror's {mirror}")
+    check(launched == (plan.launches, plan.memsets), f"K7 {mode}: {launched} launches, the plan's "
+          f"{(plan.launches, plan.memsets)}")
+    parts = device_profile(run, top=64)[1]
+    gemm_ms = sum(t for t, name, _ in parts if name.startswith("gemm_s8"))
+    attention_ms = sum(t for t, name, _ in parts if name.startswith("attention"))
+    other_ms = sum(t for t, name, _ in parts if not name.startswith(("gemm_s8", "attention")))
+    # torch._int_mm on the six products (q, k, v, out: D x D; ffn1 2D x 2D; ffn2 D x 2D)
+    rows, dev, lib_gen = batch * n, torch.device("cuda"), torch.Generator(device="cuda").manual_seed(12)
+    library_ms = 0.0
+    for n_out, k in ((dim, dim),) * 4 + ((2 * dim, 2 * dim), (dim, 2 * dim)):
+        a = torch.randint(-127, 128, (rows, k), generator=lib_gen, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n_out, k), generator=lib_gen, device=dev, dtype=torch.int8)
+        library_ms += device_ms(lambda a=a, w=w: torch._int_mm(a, w.t()), 20)
     print(f"K7 gnn_layer_int8 {mode} bf16-x B={batch} N=M={n} D={dim} H={heads}: max_abs_err={err:.3e}, "
           f"relative norm {rel:.3e} (bar {bar}), entries equal {exact:.4f}; kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), two runs equal", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, rel_norm_err=rel)
+    print(f"  K7 {mode} D={dim}: {launched[0]} launches and {launched[1]} memset(s) per layer (C count); by "
+          f"torch.profiler: GEMMs {gemm_ms:.4f} ms + attention {attention_ms:.4f} ms + quantize {other_ms:.4f} ms; "
+          f"library (torch._int_mm on the six s8 products, no epilogue) {library_ms:.4f} ms; plan: {plan.tile_rows}-row "
+          f"GEMM tiles on {plan.kv_ctas} (kv) / {plan.q_ctas} (q) persistent CTAs, {plan.attention_ctas} attention "
+          f"CTAs, shared memory kv {plan.smem_kv} q {plan.smem_q} out {plan.smem_out} ffn1 {plan.smem_ffn1} "
+          f"ffn2 {plan.smem_ffn2} attention {plan.smem_attention} B, workspace "
+          f"{gli8.workspace_bytes(batch, n, n, dim, quant_attention, static)} B, {sms} SMs", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, rel_norm_err=rel,
+                library_ms=library_ms, gemms_ms=gemm_ms, attention_ms=attention_ms,
+                launches_per_layer=launched[0])
 
 
 # the SMs the Sinkhorn kernels' plan must use at least, by batch: one
@@ -1988,13 +2025,11 @@ def main() -> int:
                dh32=dh32(k6_32[(kind, torch.bfloat16)], k6_32[(kind, torch.float32)])) for kind in glk.FEATURE_KINDS],
         dict(name="gnn_layer_int8 int8 (bf16 x, B=16 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "gnn_layer_int8.cu", replaces=pallas + "gnn_layer_int8.py:129",
-             launches=other["int8"], **k7["int8"], library_ms=None,
-             int8_static=dict(k7["int8_static"], library_ms=None),
-             int8_attn=dict(k7["int8_attn"], library_ms=None), dh32=dh32(k7_32["int8"])),
+             launches=other["int8"], **k7["int8"], int8_static=k7["int8_static"], int8_attn=k7["int8_attn"],
+             dh32=dh32(k7_32["int8"])),
         dict(name="gnn_layer_int8 int8_static_attn (bf16 x, B=16 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "gnn_layer_int8.cu", replaces=pallas + "gnn_layer_int8.py:129",
-             launches=other["int8_static_attn"], **k7["int8_static_attn"], library_ms=None,
-             dh32=dh32(k7_32["int8_static_attn"])),
+             launches=other["int8_static_attn"], **k7["int8_static_attn"], dh32=dh32(k7_32["int8_static_attn"])),
         dict(name="train_half (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda", source=csrc + "train_half.cu",
              replaces=pallas + "gnn_layer_kernel.py:587", launches=routes["half"]["K8"],
              **k8[torch.bfloat16], library_ms=None, f32=dict(k8[torch.float32], library_ms=None),

@@ -17,9 +17,6 @@
 
 namespace {
 
-// the tiles of K7's int8 attention (gnn_layer_int8.cu): 4 warps, 64 queries, 64 keys
-constexpr int kAq = 64, kAk = 64, kAttnThreads = 128;
-
 // ---------------------------------------------------------------- bf16
 // wgmma on TMA tiles (hopper.cuh), in the shape of FlashAttention-3. A CTA
 // is a producer warp and two consumer warpgroups of 64 query rows, persistent

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) primitives shared by the bf16 GEMM (gemm.cuh) and the bf16
-// attention forward and backward (attention.cuh, attention_backward.cuh):
+// Hopper (sm_90a) primitives shared by the bf16 GEMM (gemm.cuh), the bf16
+// attention forward and backward (attention.cuh, attention_backward.cuh) and
+// the int8 layer's s8 products (gnn_layer_int8.cu):
 // tensor maps for the Tensor Memory Accelerator (TMA) built on the host, TMA
 // tile loads into shared memory that complete on an mbarrier, the mbarrier
 // ring's waits and arrivals, wgmma (warpgroup matrix multiply-accumulate,
@@ -327,6 +328,196 @@ template <int DH>
 __device__ __forceinline__ void wgmma_pv(float (&d)[DH / 2], const uint32_t (&a)[4], uint64_t v) {
   if constexpr (DH == 64) wgmma_rs_n64(d, a, v);
   else wgmma_rs_n32(d, a, v);
+}
+
+// ---------------------------------------------------------------- s8 (K7, gnn_layer_int8.cu)
+// The int8 layer's products run wgmma's s8 x s8 -> s32 form, m64nNk32. An
+// 8-bit wgmma has no transpose: both operands are K-major in shared memory
+// (weights [out, in], activations [rows, k], K [keys, dh], V^T [dh, keys]),
+// and the instruction takes no scale or transpose immediates. A k-step of 32
+// bytes has the shared-memory geometry of a bf16 k16 step, so the swizzled
+// K-major descriptors of the bf16 kernels carry over with byte-wise advances
+// (32 bytes per k-step); the card test of the descriptors holds one product
+// against torch._int_mm. The s32 accumulator has the f32 one's register layout
+// (entry 4j + e: row 16 warp + g + 8 (e >> 1), column 8 j + 2 t + (e & 1)),
+// and the register A operand of the RS form holds, in each warp's 16 rows, the
+// mma.sync m16n8k32 fragment: register 0 row g, k 4t .. 4t + 3; register 1 row
+// g + 8; registers 2 and 3 the same at k + 16.
+
+// A tiled tensor map of `dtype` elements (the int8 layer's operands: bytes,
+// and the bf16 or f32 rows it quantizes), as bf16_map with strides in bytes,
+// dims and box in elements, and swizzle_bytes 128, 64, 32 or 0 (none).
+inline bool typed_map(CUtensorMap* map, CUtensorMapDataType dtype, const void* base, int rank, const uint64_t* dims,
+                      const uint64_t* strides, const uint32_t* box, int swizzle_bytes) {
+  if (rank < 2 || rank > 4) return false;
+  // the key's swizzle field carries the type too
+  MapKey key{base, {}, {}, {}, rank, swizzle_bytes + 1000 * static_cast<int>(dtype)};
+  uint64_t hash = reinterpret_cast<uintptr_t>(base) ^ static_cast<uint64_t>(rank * 131 + key.swizzle_bytes);
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    if (i > 0) key.strides[i - 1] = strides[i - 1];
+    hash = hash * 1000003u ^ dims[i] ^ (static_cast<uint64_t>(box[i]) << 40) ^ (i > 0 ? strides[i - 1] << 20 : 0);
+  }
+  struct Entry {
+    MapKey key;
+    CUtensorMap map;
+    bool valid;
+  };
+  static thread_local Entry cache[64] = {};
+  Entry& slot = cache[(hash ^ (hash >> 29)) % 64];
+  if (slot.valid && slot.key == key) {
+    *map = slot.map;
+    return true;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t d[4], s[3];
+  cuuint32_t b[4], e[4];
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    e[i] = 1;
+    if (i > 0) s[i - 1] = strides[i - 1];
+  }
+  const CUtensorMapSwizzle swizzle = swizzle_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : swizzle_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : swizzle_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                           : CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (encode(map, dtype, rank, const_cast<void*>(base), d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  slot = {key, *map, true};
+  return true;
+}
+
+// A K-major shared-memory descriptor for a tile of rows `swizzle_bytes` (128,
+// 64 or 32) bytes wide in that swizzle, 8-row groups `sbo` bytes apart
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, uint32_t sbo, int swizzle_bytes) {
+  const uint64_t layout = swizzle_bytes == 128 ? 1 : swizzle_bytes == 64 ? 2 : 3;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands written by threads)
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+template <int N> __device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d (64 x 64, s32) += A (64 x 32, s8, smem) . B (32 x 64, s8, smem), both K-major
+__device__ __forceinline__ void wgmma_s8_ss_n64(int (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 128, s32) += A (64 x 32, s8, smem) . B (32 x 128, s8, smem), both K-major
+__device__ __forceinline__ void wgmma_s8_ss_n128(int (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 256, s32) += A (64 x 32, s8, smem) . B (32 x 256, s8, smem), both K-major
+__device__ __forceinline__ void wgmma_s8_ss_n256(int (&d)[128], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 32, s32) += A (64 x 32, s8 fragments in registers) . B (32 x 32, s8, smem, K-major)
+__device__ __forceinline__ void wgmma_s8_rs_n32(int (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x 64, s32) += A (64 x 32, s8 fragments in registers) . B (32 x 64, s8, smem, K-major)
+__device__ __forceinline__ void wgmma_s8_rs_n64(int (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A . B for an s8 B of N rows (64, 128 or 256) read from shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_s8_ss(int (&d)[N / 2], uint64_t a, uint64_t b) {
+  if constexpr (N == 64) wgmma_s8_ss_n64(d, a, b);
+  else if constexpr (N == 128) wgmma_s8_ss_n128(d, a, b);
+  else wgmma_s8_ss_n256(d, a, b);
+}
+
+// d += P . V for a head of width DH (32 or 64): P's s8 fragments in
+// registers, V^T [DH][32 keys] K-major in shared memory
+template <int DH>
+__device__ __forceinline__ void wgmma_s8_pv(int (&d)[DH / 2], const uint32_t (&a)[4], uint64_t v) {
+  if constexpr (DH == 64) wgmma_s8_rs_n64(d, a, v);
+  else wgmma_s8_rs_n32(d, a, v);
 }
 
 // ---------------------------------------------------------------- attention operands

@@ -1,7 +1,7 @@
 """Time the attending layer kernels and the dense GEMMs of one checkout of
 the port on a CUDA card.
 
-    python3 scripts/kernel_times.py --repo DIR [--label NAME] [--rounds 7]
+    python3 scripts/kernel_times.py --repo DIR [--label NAME] [--rounds 7] [--only TEXT ...]
 
 Imports ``openglue_tpu_torch`` from the checkout DIR (its kernels build into
 DIR/build/kernels) and prints one JSON line: the card (``nvidia-smi`` name and
@@ -22,7 +22,10 @@ tensor maps).
 The cases, at the shapes of ``chip_smoke.py``: K1 B=16 N=1024 D=256; K4, K5,
 K8 B=12 N=1024 D=256; K6 (linear, favor_relu and favor_softmax with F=128)
 B=16 N=1024; each in bf16 and f32; K6 bf16 at D=128 (F=64); K5 bf16 at
-D=128; K9, K10, K11 bf16 at B=12 N=1024 and B=4 N=2048 (H=4, heads of
+D=128; K7 (the int8 layer) in its four modes at B=16 N=1024 D=256 with bf16 x
+(static scales calibrated as ``chip_smoke.py`` calibrates them), int8 and
+int8_static_attn at D=128, beside ``torch._int_mm`` on each of its six s8
+products; K9, K10, K11 bf16 at B=12 N=1024 and B=4 N=2048 (H=4, heads of
 width 64), K9 and K10 also at B=12 with heads of width 32 and in f32, each
 beside ``scaled_dot_product_attention`` on the same inputs and mask (for K10
 its forward and backward less its forward); K1's parts alone at B=16: its
@@ -35,7 +38,9 @@ the ``message`` step's shapes (12,288 rows, D=256). (``bf16_ablations.py``
 times the bf16 GEMM at each of its tiles.)
 
 To compare two checkouts on one card, run it in one session in the order
-A, B, B, A.
+A, B, B, A. ``--only`` keeps the cases and profiles whose names hold one of
+the given texts (``--only K7 _int_mm`` for the int8 layer), the ptxas report
+of gnn_layer_int8 alone, and no serving or host readings.
 """
 
 from __future__ import annotations
@@ -57,10 +62,11 @@ import torch
 # (the bf16 backward passes keep their names from the mma.sync design to the
 # wgmma one, so one call reports both checkouts' passes; K6's attention part
 # is listed under its one-launch name and its three earlier kernels' names)
-PTXAS_SOURCES = ("gnn_layer", "gnn_layer_features", "message_forward", "message_backward", "train_half",
-                 "attention", "attention_backward", "gemm")
+PTXAS_SOURCES = ("gnn_layer", "gnn_layer_features", "gnn_layer_int8", "message_forward", "message_backward",
+                 "train_half", "attention", "attention_backward", "gemm")
 PTXAS_KERNELS = ("feature_attention", "key_features_kernel", "aggregate_kernel", "query_kernel", "attention_bf16",
-                 "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16", "gemm_f32", "tn_gemm_f32", "gemm_bf16")
+                 "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16", "gemm_f32", "tn_gemm_f32", "gemm_bf16", "gemm_s8",
+                 "attention_s8", "quant_")
 
 
 def card_line() -> str:
@@ -146,6 +152,7 @@ def kernel_cases(gen):
         cases[f"library SDPA B={batch} N={n}{tag}"] = sdpa
         cases[f"library SDPA forward+backward B={batch} N={n}{tag}"] = sdpa_both
     cases.update(k1_part_cases(gen))
+    cases.update(k7_cases(gen))
     cases.update(sinkhorn_cases(gen))
     return cases
 
@@ -186,6 +193,57 @@ def k6_d128_cases(gen):
     for kind in glk.FEATURE_KINDS:
         args = k6_inputs(gen, kind, torch.bfloat16, dim=128)
         cases[f"K6 {kind} B=16 N=1024 D=128"] = lambda args=args: glk.fused_attention_propagation(*args)
+    return cases
+
+
+# K7's modes as (static scales, int8 attention), as chip_smoke.py's INT8_MODES
+K7_MODES = {"int8": (False, False), "int8_static": (True, False), "int8_attn": (False, True),
+            "int8_static_attn": (True, True)}
+# K7's six s8 products at D=256: (name, n_out / D, k / D)
+K7_PRODUCTS = (("q", 1, 1), ("k", 1, 1), ("v", 1, 1), ("out", 1, 1), ("ffn1", 2, 2), ("ffn2", 1, 2))
+
+
+def k7_inputs(gen, mode, batch=16, n=1024, dim=256, heads=4):
+    """K7's arguments at chip_smoke.py's shape: bf16 x, a ragged key mask
+    (valid counts in [N/4, N]), int8 weights quantized from random f32 ones
+    and, for the static modes, scales calibrated as ``int8_layer_phase``
+    calibrates them (the plain version's absmax x 1.1 / 127)."""
+    from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
+
+    dev = torch.device("cuda")
+    static, quant_attention = K7_MODES[mode]
+    qw = gli8.quantize_propagation_weights(layer_weights(gen, dim, torch.float32))
+    xq = torch.randn(batch, n, dim, generator=gen, device=dev).bfloat16()
+    xkv = torch.randn(batch, n, dim, generator=gen, device=dev).bfloat16()
+    counts = torch.randint(n // 4, n + 1, (batch,), generator=gen, device=dev)
+    mask = torch.arange(n, device=dev)[None] < counts[:, None]
+    scales = None
+    if static:
+        absmax = gli8.reference_activation_absmax(xq, xkv, mask, qw, heads, quant_attention=quant_attention)
+        scales = absmax * (1.1 / 127.0) + 1e-12
+    return (xq, xkv, mask, qw, heads), dict(act_scales=scales, quant_attention=quant_attention)
+
+
+def k7_cases(gen, rows=16 * 1024, dim=256):
+    """K7's four modes at B=16 N=M=1024 D=256, int8 and int8_static_attn at
+    D=128, and ``torch._int_mm`` (s8 x s8 -> s32, the bare product with no
+    dequantization or epilogue) on each of K7's six products at B=16
+    N=1024, the library yardstick of its GEMM share (the port never calls
+    it)."""
+    from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
+
+    cases = {}
+    for mode, d in [(m, 256) for m in K7_MODES] + [("int8", 128), ("int8_static_attn", 128)]:
+        args, kw = k7_inputs(gen, mode, dim=d)
+        tag = "" if d == 256 else f" D={d}"
+        cases[f"K7 {mode} B=16 N=1024{tag}"] = lambda args=args, kw=kw: gli8.fused_attention_propagation_int8(
+            *args, **kw)
+    dev = torch.device("cuda")
+    for name, n_mul, k_mul in K7_PRODUCTS:
+        n_out, k = n_mul * dim, k_mul * dim
+        a = torch.randint(-127, 128, (rows, k), generator=gen, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (n_out, k), generator=gen, device=dev, dtype=torch.int8)
+        cases[f"library _int_mm K7 {name} {rows}x{n_out}x{k}"] = lambda a=a, w=w: torch._int_mm(a, w.t())
     return cases
 
 
@@ -438,12 +496,19 @@ def profiles(gen):
         for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             args = k6_inputs(gen, kind, dt)
             out[f"K6 {kind} {tag}"] = kernel_profile(lambda args=args: glk.fused_attention_propagation(*args))
+    # K7 launch by launch in each mode (B=16 N=1024 D=256, bf16 x)
+    from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
+
+    for mode in K7_MODES:
+        args, kw = k7_inputs(gen, mode)
+        out[f"K7 {mode}"] = kernel_profile(lambda args=args, kw=kw: gli8.fused_attention_propagation_int8(*args, **kw))
     return out
 
 
-def ptxas_usage(repo: Path):
+def ptxas_usage(repo: Path, sources=None):
     """{source: {kernel: (registers, spill store bytes, spill load bytes)}}
-    for the attention kernels and the dense GEMMs, from ``nvcc -Xptxas -v``."""
+    for the attention kernels and the dense GEMMs, from ``nvcc -Xptxas -v``,
+    of ``sources`` (default PTXAS_SOURCES)."""
     from openglue_tpu_torch.ops import kernels
 
     nvcc, cxxfilt = kernels._nvcc(), shutil.which("c++filt")
@@ -452,7 +517,7 @@ def ptxas_usage(repo: Path):
     procs = {name: subprocess.Popen([nvcc, *flags, "-Xptxas", "-v", "-cubin", "-o", f"{scratch}/{name}.cubin",
                                      str(csrc / f"{name}.cu")],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name in PTXAS_SOURCES if (csrc / f"{name}.cu").exists()}
+             for name in (sources or PTXAS_SOURCES) if (csrc / f"{name}.cu").exists()}
     usage = {}
     for name, proc in procs.items():
         out, _ = proc.communicate()
@@ -485,6 +550,7 @@ def main() -> int:
     parser.add_argument("--label", default=None)
     parser.add_argument("--rounds", type=int, default=7)
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--only", nargs="*", default=None, help="keep the cases whose names hold one of these")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA card is available", file=sys.stderr)
@@ -496,18 +562,21 @@ def main() -> int:
     kernels.build_all()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     torch.backends.cuda.matmul.allow_tf32 = False
+    keep = (lambda name: True) if args.only is None else (lambda name: any(o in name for o in args.only))
     with torch.no_grad():
-        times = {name: device_rounds_ms(fn, args.rounds) for name, fn in kernel_cases(gen).items()}
-        times.update({name: device_rounds_ms(fn, args.rounds) for name, fn in gemm_cases(gen).items()})
-        profile = profiles(gen)
-        host = host_cases(gen)
-    with torch.inference_mode():
-        serving = serve_cases(repo, gen)
+        cases = {**kernel_cases(gen), **gemm_cases(gen)}
+        times = {name: device_rounds_ms(fn, args.rounds) for name, fn in cases.items() if keep(name)}
+        profile = {name: rows for name, rows in profiles(gen).items() if keep(name)}
+        host = host_cases(gen) if args.only is None else {}
+    serving = {}
+    if args.only is None:
+        with torch.inference_mode():
+            serving = serve_cases(repo, gen)
     print(json.dumps({
         "label": args.label or str(repo), "card": card_line(),
         "ms": {name: statistics.median(t) for name, t in times.items()},
         "profiles": profile, "serve": serving, "host_us": host,
-        "rounds_ms": times, "ptxas": ptxas_usage(repo),
+        "rounds_ms": times, "ptxas": ptxas_usage(repo, None if args.only is None else ("gnn_layer_int8",)),
     }), flush=True)
     return 0
 

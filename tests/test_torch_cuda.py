@@ -871,6 +871,101 @@ def test_layer_kernels_take_heads_of_width_32(dtype):
         torch.testing.assert_close(out.float(), ref.float(), atol=atol(ref), rtol=0, msg=lambda m: f"{kind}: {m}")
 
 
+def _int8_case(dev, mode, batch, n, m, dim=256, counts=None, seed=5):
+    """K7's arguments at a shape: random weights quantized per channel, bf16
+    x, a key mask of valid ``counts`` (default: all keys), and for the static
+    modes scales calibrated as chip_smoke.py calibrates them."""
+    static, quant_attention = MODES[mode]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w, _, _, _ = _layer_case(dev, torch.float32, dim=dim, seed=seed)
+    qw = gli8.quantize_propagation_weights(w)
+    x_q = torch.randn(batch, n, dim, generator=gen, device=dev).bfloat16()
+    x_kv = torch.randn(batch, m, dim, generator=gen, device=dev).bfloat16()
+    counts = torch.tensor(counts if counts is not None else [m] * batch, device=dev)
+    mask = torch.arange(m, device=dev)[None] < counts[:, None]
+    scales = None
+    if static:
+        absmax = gli8.reference_activation_absmax(x_q, x_kv, mask, qw, 4, quant_attention=quant_attention)
+        scales = absmax * (1.1 / 127.0) + 1e-12
+    return (x_q, x_kv, mask, qw, 4), dict(act_scales=scales, quant_attention=quant_attention)
+
+
+def _int8_agrees(out, ref, quant_attention):
+    """test_int8_layer_kernel_matches_plain's bars: the relative norm, and
+    most entries within two ulps of the largest output."""
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    assert rel < (1e-3 if quant_attention else 0.015), rel
+    close = (out.float() - ref.float()).abs() <= 2.0**-7 * ref.float().abs().max()
+    assert close.float().mean().item() > 0.99
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("batch,n,m,counts", [
+    (3, 100, 77, (77, 40, 0)),      # rows not a multiple of 64, M not of 32, one element all masked
+    (2, 129, 33, (33, 1)),          # a 64-row tile across two elements, one valid key
+    (1, 1024, 1024, None),          # a single pair at the serving length
+])
+def test_int8_layer_kernel_takes_ragged_shapes(mode, batch, n, m, counts):
+    """Row counts that are not a multiple of the 64-row tile, key counts that
+    are not a multiple of V^T's 32-key blocks (its padding is written 0), an
+    element with every key masked, and B=1 N=M=1024: the kernel against its
+    plain version at the D=256 test's bars, two runs bit-equal."""
+    dev = _cuda()
+    args, kw = _int8_case(dev, mode, batch, n, m, counts=counts)
+    with torch.no_grad():
+        out = gli8.fused_attention_propagation_int8(*args, **kw)
+        again = gli8.fused_attention_propagation_int8(*args, **kw)
+        ref = gli8.layer_int8_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    assert torch.isfinite(out.float()).all()
+    _int8_agrees(out, ref, kw["quant_attention"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", list(MODES))
+@pytest.mark.parametrize("dim", [256, 128])
+def test_int8_layer_plan_and_launches_match_the_python_mirror(mode, dim):
+    """The C plan and workspace equal their Python mirrors at the serving and
+    test shapes; one layer makes the plan's launches (6, or 7 and one memset
+    with dynamic int8 attention), counted by the C code."""
+    dev = _cuda()
+    static, quant_attention = MODES[mode]
+    for batch, n, m in ((16, 1024, 1024), (1, 1024, 1024), (3, 100, 77), (4, 2048, 2048), (2, 300, 257)):
+        plan, sms = gli8.kernel_int8_plan(batch, n, m, dim, 4, quant_attention, static)
+        assert plan == gli8.int8_plan(batch, n, m, dim, 4, quant_attention, static, sms), (batch, n, m)
+        assert max(plan[6:]) <= gli8.SMEM_CAP
+        size = gli8.kernel_workspace_bytes(batch, n, m, dim, 4, quant_attention, static)
+        assert size == gli8.workspace_bytes(batch, n, m, dim, quant_attention, static), (batch, n, m)
+    args, kw = _int8_case(dev, mode, 2, 300, 257, dim=dim)
+    with torch.no_grad():
+        gli8.fused_attention_propagation_int8(*args, **kw)  # built and warm
+        torch.cuda.synchronize()
+        gli8.launch_counter.reset()
+        gli8.memset_counter.reset()
+        gli8.fused_attention_propagation_int8(*args, **kw)
+    torch.cuda.synchronize()
+    plan, _ = gli8.kernel_int8_plan(2, 300, 257, dim, 4, quant_attention, static)
+    assert (gli8.launch_counter.count, gli8.memset_counter.count) == (plan.launches, plan.memsets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [64, 128])
+@pytest.mark.parametrize("n", [64, 128, 256])
+def test_s8_wgmma_descriptors_match_int_mm(k, n):
+    """One 64 x n x k s8 product by the layer's s8 wgmma on TMA tiles, with
+    its swizzled descriptors advanced 32 bytes per k-step (128-byte swizzle at
+    k = 128, 64-byte at k = 64), bit-equal to torch._int_mm."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    a = torch.randint(-127, 128, (64, k), generator=gen, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=gen, device=dev, dtype=torch.int8)
+    out = gli8.s8_wgmma_probe(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch._int_mm(a, b.t()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["int8", "int8_static_attn"])
 def test_int8_layer_kernel_takes_heads_of_width_32(mode):
