@@ -78,7 +78,21 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    step, the bf16 step's distance from the plain f32 step held to the plain
    bf16 step's, and timed. Every training phase prints its device busy time
    (kernel rows of the profile only);
-6. keypoint-axis context parallelism (``ring_axis``): the ring's block
+6. the cached-feature trainer (``trainer_phase``): ``cli.train_cached.main``
+   as a user runs it, with configs/config_cached_sp_magicleap.yaml (B=12,
+   max 1024 keypoints, buckets 256/512/1024 grouped, 4 loader threads) and
+   an override, on the MegaDepth-format fixture at
+   examples/train_e2e_fixture.yaml's generator arguments, its h5 files held
+   in memory (the card machine has no h5py): the warm-up at every bucket,
+   80 steps with the launches of every step checked (36 K4 + 36 K5 + 1 K2 +
+   1 K3, no autograd-route Sinkhorn backward), a validation sweep (36 K1 + 1
+   K2 per batch), a checkpoint; the step's time, the device's busy time and
+   idle share, the loader's wait, the batches per bucket; the first step of
+   each bucket from a copy of the state, kernels against plain (the run's
+   bf16 chain by its distance from the plain f32 step, an f32 chain at the
+   training bars); a restore that resumes bit for bit, and a resume through
+   ``--checkpoint``;
+7. keypoint-axis context parallelism (``ring_axis``): the ring's block
    attention with the LSE (K11) at B=12 N=1024 and B=4 N=2048, bf16 and f32,
    against its plain version with the library call's time beside it; the
    block merge of the ring (K11 on 4 key blocks of a B=12 N=1024 request,
@@ -99,10 +113,13 @@ device record. f32 matmuls run in full f32 (TF32 off) on every plain path.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
 import json
+import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1343,6 +1360,12 @@ def device_profile(fn, top: int = 5):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return kernel_rows(prof, top)
+
+
+def kernel_rows(prof, top: int = 5):
+    """(device ms of the kernels, the ``top`` kernels as (ms, name, calls))
+    of a finished torch.profiler run, as ``device_profile`` reads them."""
     rows = []
     for event in prof.key_averages():
         ms = getattr(event, "self_device_time_total", 0.0) / 1e3
@@ -1813,6 +1836,530 @@ def pretrain_phase(gen, card, device="cuda"):
     return launches
 
 
+# examples/train_e2e_fixture.yaml's generator arguments (its header)
+TRAINER_FIXTURE = dict(scenes=8, images_per_scene=12, points_per_scene=2600, image_size=(640, 480),
+                       descriptor_dim=256, keep_fraction_range=(0.3, 1.0), seed=7)
+# one epoch long enough for the bucket schedule to reach the 512 bucket (its
+# first such batch is the 71st of the seeded sampler's stream on this fixture)
+TRAINER_STEPS = 80
+# training steps [first, last) run back to back without a synchronize: the
+# first window under the host clock alone (the rate), the second under
+# torch.profiler and the host clock (the busy time and the idle share, both
+# from its own steps; the profiler's host cost is in its wall time)
+TRAINER_TIMED, TRAINER_PROFILED = (10, 15), (20, 25)
+
+
+# a bf16 K4 or K5 launch in the trainer: its outputs' distance from the f32
+# computation on the same inputs at most this many times the plain bf16
+# version's, plus one bf16 rounding
+HELD_RATIO, HELD_SLACK = 1.5, 2.0**-8
+MESSAGE_OUTPUTS = ("msg", "attn", "lse")
+MESSAGE_GRADIENTS = ("dx_q", "dx_kv", "dWq", "dbq", "dWk", "dbk", "dWv", "dbv", "dWo", "dbo")
+
+
+def relative_distances(got, ref, names, norm=torch.linalg.vector_norm, order=2):
+    """Each output's distance from the reference (the L2 norm, or with
+    ``order=inf`` the largest entry) over the reference's; a bias gradient's
+    over its weight gradient's too (dbk is zero up to cancellation)."""
+    size = lambda t: norm(t.double(), ord=order).item()
+    out = {}
+    for i, (name, a, b) in enumerate(zip(names, got, ref)):
+        scale = size(b)
+        if name.startswith("db"):
+            scale = max(scale, size(ref[i - 1]))
+        out[name] = size(a.double() - b.double()) / scale
+    return out
+
+
+class HeldMessageKernels:
+    """K4 and K5 as a model launches them. Each bf16 launch is held against
+    the f32 computation of the same function on the same inputs (the plain
+    versions in f32; K5's from the f32 forward's attn and LSE): every
+    output's relative distance from it at most HELD_RATIO times the plain
+    bf16 version's, plus HELD_SLACK. Each launch's largest entry-wise
+    difference from the plain version in its own type, over the plain
+    output's largest entry (message_phase's measure), is kept as well; the
+    f32 launches only have that, since an f32 twin of the step holds their
+    instantiation at train_phase's bars."""
+
+    def __init__(self, glk):
+        self.glk, self.forward_kernel, self.backward_kernel = glk, glk.message_forward, glk.message_backward
+        self.launches, self.worst = collections.Counter(), collections.defaultdict(float)
+
+    def entries(self):
+        return ((self.glk, "message_forward", self.forward), (self.glk, "message_backward", self.backward))
+
+    def _held(self, kname, dtype, n, got, plain, f32, names):
+        name = str(dtype)[6:]
+        key = (kname, name)
+        diff = max(relative_distances(got, plain, names, order=math.inf).values())
+        self.worst[key + ("vs plain",)] = max(self.worst[key + ("vs plain",)], diff)
+        if f32 is not None:
+            d_kernel, d_plain = relative_distances(got, f32, names), relative_distances(plain, f32, names)
+            ratio = max(d_kernel[k] / (d_plain[k] + HELD_SLACK) for k in names)
+            self.worst[key + ("ratio",)] = max(self.worst[key + ("ratio",)], ratio)
+            failed = [k for k in names if d_kernel[k] > HELD_RATIO * d_plain[k] + HELD_SLACK]
+            check(not failed, f"{kname} {name} launch {self.launches[key]} at N={n}: distance from f32 "
+                  + ", ".join(f"{k} kernel {d_kernel[k]:.3e} plain {d_plain[k]:.3e}" for k in failed)
+                  + f" (bar {HELD_RATIO} x plain + {HELD_SLACK})")
+        self.launches[key] += 1
+
+    def forward(self, x_q, x_kv, mask, w, heads, dtype):
+        out = self.forward_kernel(x_q, x_kv, mask, w, heads, dtype)
+        plain = self.glk.message_forward_plain(x_q, x_kv, mask, w, heads, dtype)
+        f32 = None
+        if dtype == torch.bfloat16:
+            f32 = self.glk.message_forward_plain(x_q.float(), x_kv.float(), mask, w, heads, torch.float32)
+        self._held("K4", dtype, x_q.shape[1], out, plain, f32, MESSAGE_OUTPUTS)
+        return out
+
+    def backward(self, x_q, x_kv, mask, w, g, attn, lse, heads, dtype):
+        dxq, dxkv, dw = self.backward_kernel(x_q, x_kv, mask, w, g, attn, lse, heads, dtype)
+        ref = self.glk.message_backward_plain(x_q, x_kv, mask, w, g, attn, lse, heads, dtype)
+        f32 = None
+        if dtype == torch.bfloat16:
+            xq32, xkv32 = x_q.float(), x_kv.float()
+            _, attn32, lse32 = self.glk.message_forward_plain(xq32, xkv32, mask, w, heads, torch.float32)
+            f32 = self.glk.message_backward_plain(xq32, xkv32, mask, w, g.float(), attn32, lse32, heads,
+                                                  torch.float32)
+            f32 = [*f32[:2], *f32[2]]
+        self._held("K5", dtype, x_q.shape[1], [dxq, dxkv, *dw], [*ref[:2], *ref[2]], f32, MESSAGE_GRADIENTS)
+        return dxq, dxkv, dw
+
+    def line(self):
+        return "; ".join(f"{k} {t}: {self.launches[(k, t)]} launches, worst "
+                         + ", ".join(f"{w} {v:.3e}" for (k2, t2, w), v in self.worst.items() if (k2, t2) == (k, t))
+                         for k, t in sorted(self.launches))
+
+
+class MemoryH5:
+    """The h5 files of ``openglue_tpu_torch.data.io`` held in memory, keyed by
+    path, with io's semantics (a dataset ``data``, or the file's one dataset,
+    unless a key is given): the card machine has no h5py."""
+
+    def __init__(self):
+        self.files = {}
+
+    def save_h5(self, path, array, key="data", compression=None, compression_opts=None):
+        import numpy as np
+
+        self.files[str(Path(path).resolve())] = {key: np.array(array)}
+
+    def _dataset(self, path, key):
+        try:
+            datasets = self.files[str(Path(path).resolve())]
+        except KeyError:
+            raise FileNotFoundError(path) from None
+        if key is not None:
+            return datasets[key]
+        if "data" in datasets:
+            return datasets["data"]
+        if len(datasets) != 1:
+            raise ValueError(f"{path}: ambiguous h5 keys {list(datasets)}, pass key=")
+        return next(iter(datasets.values()))
+
+    def load_h5(self, path, key=None):
+        import numpy as np
+
+        return np.array(self._dataset(path, key))
+
+    def h5_dataset_shape(self, path, key=None):
+        return tuple(self._dataset(path, key).shape)
+
+    def nbytes(self) -> int:
+        return sum(a.nbytes for datasets in self.files.values() for a in datasets.values())
+
+
+@contextlib.contextmanager
+def replaced(*entries):
+    """Set ``(owner, name, value)`` attributes for the block, then restore them."""
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in entries]
+    for owner, name, value in entries:
+        setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        for owner, name, value in saved:
+            setattr(owner, name, value)
+
+
+class TrainerProbe:
+    """What the trainer phase reads from inside ``cli.train_cached.main``,
+    through wrappers of the functions main looks up at call time: every train
+    and eval step (launches, host time, bucket; a copy of the state and the
+    batch of the first step of each bucket and phase), the warm-up, the
+    validation sweep and each wait on a loader's ``next()``. Outside the two
+    windows (TRAINER_TIMED, TRAINER_PROFILED) every train step is
+    synchronized and timed alone."""
+
+    def __init__(self, counters, train_expected, eval_expected):
+        self.counters, self.train_expected, self.eval_expected = counters, train_expected, eval_expected
+        self.phase = "train"
+        self.step_ms, self.gap_ms, self.waits = [], [], {"train": [], "eval": []}
+        self.buckets = {"warm-up": {}, "train": {}, "eval": {}}
+        self.first = {}  # (phase, N) -> (state copy, batch)
+        self.train_steps = 0
+        self.windows = {}
+        self.eval_seconds = self.eval_metrics = None
+        self.eval_ms = []
+        self._last_end = None
+
+    def counts(self):
+        return {k: c.count for k, c in self.counters.items()}
+
+    def _checked(self, fn, expected, what):
+        before = self.counts()
+        out = fn()
+        delta = {k: v - before[k] for k, v in self.counts().items()}
+        check(delta == expected, f"trainer {what}: launches {delta}, expected {expected}")
+        return out
+
+    def make_train_step(self, real_make_train_step, clone_train_state):
+        def make(loss_config):
+            step = real_make_train_step(loss_config)
+
+            def probed(state, batch):
+                n = batch.side0.keypoints.shape[1]
+                phase = self.phase
+                self.buckets[phase][n] = self.buckets[phase].get(n, 0) + 1
+                if (phase, n) not in self.first:
+                    torch.cuda.synchronize()
+                    self.first[(phase, n)] = (clone_train_state(state), batch)
+                if phase != "train":
+                    return self._checked(lambda: step(state, batch), self.train_expected, f"{phase} step N={n}")
+                i = self.train_steps
+                self.train_steps += 1
+                window = next((w for w in (TRAINER_TIMED, TRAINER_PROFILED) if w[0] <= i < w[1]), None)
+                if window is not None and i == window[0]:
+                    torch.cuda.synchronize()
+                    record = self.windows[window] = {"steps": window[1] - window[0]}
+                    if window == TRAINER_PROFILED:
+                        from torch.profiler import ProfilerActivity, profile
+
+                        record["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                        record["prof"].start()
+                    record["start"] = time.perf_counter()
+                start = time.perf_counter()
+                if self._last_end is not None and window is None:
+                    self.gap_ms.append((start - self._last_end) * 1e3)
+                metrics = self._checked(lambda: step(state, batch), self.train_expected, f"train step {i} N={n}")
+                if window is None or i == window[1] - 1:
+                    torch.cuda.synchronize()
+                end = time.perf_counter()
+                if window is None:
+                    self.step_ms.append(((end - start) * 1e3, n))
+                elif i == window[1] - 1:
+                    record = self.windows[window]
+                    if "prof" in record:
+                        record["prof"].stop()
+                    record["wall_ms"] = (end - record["start"]) * 1e3
+                self._last_end = end
+                return metrics
+
+            return probed
+
+        return make
+
+    def make_eval_step(self, real_make_eval_step):
+        def make(match_threshold):
+            step = real_make_eval_step(match_threshold)
+
+            def probed(state, batch):
+                n = batch.side0.keypoints.shape[1]
+                self.buckets["eval"][n] = self.buckets["eval"].get(n, 0) + 1
+                start = time.perf_counter()
+                out = self._checked(lambda: step(state, batch), self.eval_expected, f"eval batch N={n}")
+                torch.cuda.synchronize()
+                self.eval_ms.append((time.perf_counter() - start) * 1e3)
+                return out
+
+            return probed
+
+        return make
+
+    def warm_up(self, real_warm_up):
+        def probed(*args, **kwargs):
+            self.phase = "warm-up"
+            try:
+                return real_warm_up(*args, **kwargs)
+            finally:
+                self.phase = "train"
+
+        return probed
+
+    def evaluate(self, real_evaluate):
+        def probed(*args, **kwargs):
+            self.phase = "eval"
+            start = time.perf_counter()
+            try:
+                self.eval_metrics = real_evaluate(*args, **kwargs)
+            finally:
+                self.phase = "train"
+            self.eval_seconds = time.perf_counter() - start
+            self._last_end = None  # the sweep is not a gap between steps
+            return self.eval_metrics
+
+        return probed
+
+    def loader_iter(self, real_iter):
+        probe = self
+
+        def probed(loader):
+            it = real_iter(loader)
+            while True:
+                start = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                probe.waits["eval" if probe.phase == "eval" else "train"].append((time.perf_counter() - start) * 1e3)
+                yield batch
+
+        return probed
+
+
+def sync_sites(fn):
+    """The host synchronizations that ``fn`` makes (torch.cuda's sync debug
+    mode), counted by the innermost line of the port that made each."""
+    import traceback
+    import warnings
+
+    sites = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack() if "openglue_tpu_torch" in f.filename]
+        where = (f"{frames[-1].filename.split('openglue_tpu_torch/')[-1]}:{frames[-1].lineno}"
+                 if frames else f"{Path(filename).name}:{lineno}")
+        sites[where] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sites
+
+
+def trainer_phase(card, repo: Path, device="cuda"):
+    """The port's cached-feature trainer end to end: ``cli.train_cached.main``
+    on the MegaDepth-format fixture at examples/train_e2e_fixture.yaml's
+    generator arguments, with configs/config_cached_sp_magicleap.yaml (the
+    flagship: D=256, 9 stages, B=12, max 1024 keypoints, buckets 256/512/1024
+    grouped) and an override naming the fixture, the card's one process
+    (device_descriptor_cache 0), one epoch of TRAINER_STEPS steps and a
+    validation sweep of 48 pairs. data.io's three h5 functions are an
+    in-memory store (``MemoryH5``); the pairs lists, configs, logging
+    directory and checkpoints are files. Checks: 36 K4 + 36 K5 + 1 K2 + 1 K3
+    per train step and no autograd-route Sinkhorn backward, 36 K1 + 1 K2 per
+    eval batch; the first step of each bucket (warm-up and training) from a
+    copy of the state, kernels against plain: in the run's bf16 chain every
+    bf16 K4 and K5 launch by its distance from the f32 computation on its
+    inputs (``HeldMessageKernels``) and the step by its distance from the
+    plain f32 step (pretrain_phase's rule), in an f32 chain at train_phase's
+    bars; a
+    restore from the checkpoint equal to the trained state, whose next two
+    steps on one batch give bit-equal losses; and a resume through the entry
+    point (``--checkpoint``). Returns the launches of the run by kernel."""
+    import tempfile
+
+    import yaml
+
+    from openglue_tpu_torch.cli import common, train_cached
+    from openglue_tpu_torch.data import fixture, io
+    from openglue_tpu_torch.data import loader as loader_mod
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.train import checkpoint, loop
+    from openglue_tpu_torch.train import step as step_mod
+    from openglue_tpu_torch.train.state import clone_train_state, create_train_state
+
+    store = MemoryH5()
+    work = Path(tempfile.mkdtemp(prefix="trainer-"))
+    h5_store = ((io, "save_h5", store.save_h5), (io, "load_h5", store.load_h5),
+                (io, "h5_dataset_shape", store.h5_dataset_shape))
+    try:
+        with replaced(*h5_store):
+            print("trainer: openglue_tpu_torch.data.io's save_h5, load_h5 and h5_dataset_shape replaced by an "
+                  "in-memory store for this phase (no h5py on this machine); everything else is files under "
+                  f"{work}", flush=True)
+            root = work / "megadepth"
+            start = time.perf_counter()
+            stats = fixture.generate_megadepth_fixture(root, **TRAINER_FIXTURE)
+            print(f"trainer fixture: {len(stats['scenes'])} scenes, {stats['pairs']} pairs, "
+                  f"{len(store.files)} h5 files, {store.nbytes() / 2**20:.1f} MiB in memory, "
+                  f"{time.perf_counter() - start:.1f} s", flush=True)
+            override = {
+                "data": {"root_path": str(root), "features_dir": "SyntheticSphere_640_480",
+                         "train_list_path": "assets/megadepth_train.txt",
+                         "val_list_path": "assets/megadepth_valid.txt",
+                         "device_descriptor_cache": 0, "dataloader_workers": 4,
+                         # the fixture's images are 640x480, smaller than the flagship's 960x720
+                         "target_size": [640, 480], "val_max_pairs_per_scene": 24},
+                "logging": {"root_path": str(work / "logs")},
+                "train": {"epochs": 1, "steps_per_epoch": TRAINER_STEPS},
+            }
+            (work / "override.yaml").write_text(yaml.safe_dump(override))
+            base = repo / "configs" / "config_cached_sp_magicleap.yaml"
+            argv = ["--config", str(base), "--config_override", str(work / "override.yaml"), "--device", device]
+            config = common.load_merged_config(str(base), str(work / "override.yaml"))
+            counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter,
+                        "K4": glk.message_counter, "K5": glk.message_bwd_counter,
+                        "autograd_sinkhorn": sk.autograd_counter}
+            layers = 2 * int(config.get("superglue.attention_gnn.num_stages")) * 2
+            train_expected = {"K1": 0, "K2": 1, "K3": 1, "K4": layers, "K5": layers, "autograd_sinkhorn": 0}
+            eval_expected = {"K1": layers, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "autograd_sinkhorn": 0}
+            probe = TrainerProbe(counters, train_expected, eval_expected)
+            real_step = step_mod.make_train_step
+            probes = ((step_mod, "make_train_step", probe.make_train_step(real_step, clone_train_state)),
+                      (step_mod, "make_eval_step", probe.make_eval_step(step_mod.make_eval_step)),
+                      (loop, "warm_up_buckets", probe.warm_up(loop.warm_up_buckets)),
+                      (loop, "evaluate", probe.evaluate(loop.evaluate)),
+                      (loader_mod.DataLoader, "__iter__", probe.loader_iter(loader_mod.DataLoader.__iter__)))
+            for counter in counters.values():
+                counter.reset()
+            start = time.perf_counter()
+            with replaced(*probes):
+                state = train_cached.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - start
+            launches = {k: c.count for k, c in counters.items()}
+
+            # ---- the readings of the run
+            check(state.step == TRAINER_STEPS, f"trainer: state.step {state.step}, expected {TRAINER_STEPS}")
+            check(probe.train_steps == TRAINER_STEPS and set(probe.windows) == {TRAINER_TIMED, TRAINER_PROFILED},
+                  f"trainer: the probe saw {probe.train_steps} of {TRAINER_STEPS} train steps: main() no longer "
+                  f"looks up make_train_step in train.step when it runs")
+            step_ms = statistics.median(ms for ms, _ in probe.step_ms)
+            by_bucket = {n: statistics.median(ms for ms, m in probe.step_ms if m == n)
+                         for n in sorted({m for _, m in probe.step_ms})}
+            timed, profiled = probe.windows[TRAINER_TIMED], probe.windows[TRAINER_PROFILED]
+            busy, kernels_by_time = kernel_rows(profiled["prof"], top=6)
+            per_step = timed["wall_ms"] / timed["steps"]
+            profiled_step = profiled["wall_ms"] / profiled["steps"]
+            busy_step = "not measured" if busy is None else f"{busy / profiled['steps']:.3f}"
+            idle = "not measured" if busy is None else f"{1 - busy / profiled['wall_ms']:.3f}"
+            waits = probe.waits["train"]
+            batch = int(config.get("data.batch_size"))
+            buckets = "/".join(str(b) for b in config.get("data.buckets"))
+            print(f"trainer B={batch} buckets {buckets} grouped: {probe.train_steps} steps in {run_s:.1f} s "
+                  f"(main() whole: fixture files, warm-up, steps, validation, checkpoint); step "
+                  f"{step_ms:.3f} ms (median of {len(probe.step_ms)} synchronized steps; by bucket "
+                  f"{json.dumps({n: round(v, 3) for n, v in by_bucket.items()})}), {batch / step_ms * 1e3:.2f} "
+                  f"pairs/s; steps {TRAINER_TIMED[0]}-{TRAINER_TIMED[1] - 1} back to back: {per_step:.3f} ms per "
+                  f"step, {batch / per_step * 1e3:.2f} pairs/s; steps {TRAINER_PROFILED[0]}-"
+                  f"{TRAINER_PROFILED[1] - 1} back to back under the profiler: {profiled_step:.3f} ms per step, "
+                  f"device busy {busy_step} ms per step, idle share {idle} (both of these steps); loader next() "
+                  f"wait median {statistics.median(waits):.3f} ms "
+                  f"(max {max(waits):.3f}, {len(waits)} batches); host time between synchronized steps median "
+                  f"{statistics.median(probe.gap_ms):.3f} ms; batches per bucket: train "
+                  f"{json.dumps(probe.buckets['train'])}, warm-up {json.dumps(probe.buckets['warm-up'])}, eval "
+                  f"{json.dumps(probe.buckets['eval'])}; launches per train step {json.dumps(train_expected)}, "
+                  f"per eval batch {json.dumps(eval_expected)} [{card}]", flush=True)
+            print(f"  device time by kernel, trainer steps {TRAINER_PROFILED[0]}-{TRAINER_PROFILED[1] - 1}: "
+                  + "; ".join(f"{kname} {ms:.3f} ms ({calls} calls)" for ms, kname, calls in kernels_by_time),
+                  flush=True)
+            metrics = probe.eval_metrics
+            check(metrics is not None and all(math.isfinite(v) for v in metrics.values()),
+                  f"trainer validation: {metrics}")
+            print(f"trainer validation: {sum(probe.buckets['eval'].values())} batches, "
+                  f"{probe.eval_seconds:.2f} s (eval steps median {statistics.median(probe.eval_ms):.3f} ms, "
+                  f"loader wait median {statistics.median(probe.waits['eval']):.3f} ms), "
+                  f"{json.dumps(metrics)} [{card}]", flush=True)
+
+            # ---- the first step of each bucket, kernels against plain. The
+            # run's chain is bf16, which the kernels and the plain versions
+            # round differently, each as validly: every bf16 K4 and K5 launch
+            # of the step is held against the f32 computation on its inputs
+            # (HeldMessageKernels), and the step as pretrain_phase
+            # holds bf16 compute, by its gradient's distance from the plain
+            # f32 step (at most BF16_DISTANCE_RATIO times the plain bf16
+            # step's); the same state and batch in an f32 chain, kernels
+            # against plain, at train_phase's bars.
+            def twin(saved, **changes):
+                model = SuperGlue(dataclasses.replace(saved.model.config, **changes), device=device)
+                model.load_state_dict(saved.model.state_dict())
+                return create_train_state(model, optimizer=common.optimizer_from(config, model.parameters()))
+
+            step = real_step(common.loss_config_from(config))
+            for (phase, n), (saved, first_batch) in sorted(probe.first.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+                name = f"trainer first {phase} step N={n}"
+                kernel, plain = clone_train_state(saved), clone_train_state(saved)
+                kernel32, plain32 = twin(saved, chain_dtype=None), twin(saved, chain_dtype=None)
+                held = HeldMessageKernels(glk)
+                with replaced(*held.entries()):
+                    m_kernel = step(kernel, first_batch)
+                check(sum(v for (k, _), v in held.launches.items() if k == "K4") == layers
+                      and sum(v for (k, _), v in held.launches.items() if k == "K5") == layers
+                      and held.launches[("K4", "bfloat16")] > 0 and held.launches[("K5", "bfloat16")] > 0,
+                      f"{name}: held launches {dict(held.launches)}")
+                print(f"{name} bf16 chain, each launch on its inputs: largest difference from the plain "
+                      f"version in its type over the plain's largest entry ('vs plain'); bf16 launches: "
+                      f"distance from f32 over the plain bf16 version's plus {HELD_SLACK} ('ratio', bar "
+                      f"{HELD_RATIO}): {held.line()}", flush=True)
+                m_kernel32 = step(kernel32, first_batch)
+                with plain_versions(glk, sk):
+                    m_plain, m_plain32 = step(plain, first_batch), step(plain32, first_batch)
+                torch.cuda.synchronize()
+                compare_steps(kernel32.model, plain32.model, m_kernel32, m_plain32,
+                              f"{name} f32 chain, kernels vs plain",
+                              loss_tol=1e-3, norm_tol=0.01, cos_min=0.999, stats_tol=1e-3)
+                d = step_distance(kernel.model, plain.model, m_kernel, m_plain)
+                d_kernel = step_distance(kernel.model, plain32.model, m_kernel, m_plain32)
+                d_plain = step_distance(plain.model, plain32.model, m_plain, m_plain32)
+                print(f"{name} bf16 chain (the run's): kernels vs plain loss |diff| {d['loss']:.3e}, gradient "
+                      f"distance {d['grad']:.3e}, cosine {d['cosine']:.6f}; against the plain f32 step: kernels "
+                      f"{d_kernel['grad']:.3e} (cosine {d_kernel['cosine']:.6f}), plain {d_plain['grad']:.3e} "
+                      f"(cosine {d_plain['cosine']:.6f}), ratio {d_kernel['grad'] / d_plain['grad']:.3f} "
+                      f"(bar {BF16_DISTANCE_RATIO})", flush=True)
+                check(d_kernel["grad"] <= BF16_DISTANCE_RATIO * d_plain["grad"],
+                      f"{name} bf16 chain: the kernels' gradient lies {d_kernel['grad']:.3e} from the f32 step, "
+                      f"more than {BF16_DISTANCE_RATIO} times the plain path's {d_plain['grad']:.3e}")
+                del kernel, plain, kernel32, plain32
+            check({n for phase, n in probe.first if phase == "warm-up"} == {256, 512, 1024},
+                  f"trainer warm-up buckets {sorted(probe.first)}")
+
+            # ---- the checkpoint, a restore and a resume
+            ckpt_dir = next((work / "logs").glob("*/*/checkpoints"))
+            path = checkpoint.checkpoint_path(ckpt_dir, checkpoint.latest_step(ckpt_dir))
+            model = SuperGlue(state.model.config, device=device, generator=torch.Generator().manual_seed(5))
+            restored = checkpoint.restore_train_state(
+                ckpt_dir, create_train_state(model, optimizer=common.optimizer_from(config, model.parameters())))
+            check(restored.step == state.step, f"trainer restore: step {restored.step} vs {state.step}")
+            trained = state.model.state_dict()
+            check(all(torch.equal(v, trained[k]) for k, v in restored.model.state_dict().items()),
+                  "trainer restore: the model differs from the trained one")
+            _, resume_batch = probe.first[max(k for k in probe.first if k[0] == "train")]
+            copy_ = clone_train_state(state)
+            losses = [(step(copy_, resume_batch)["total_loss"], step(restored, resume_batch)["total_loss"])
+                      for _ in range(2)]
+            check(all(torch.equal(a, b) for a, b in losses), f"trainer resume: losses {losses}")
+            print(f"trainer checkpoint {path} ({path.stat().st_size / 2**20:.1f} MiB): restored state equal to "
+                  f"the trained one; two steps from each on one batch: total loss "
+                  f"{', '.join(f'{a.item():.6f}' for a, _ in losses)}, bit-equal", flush=True)
+            # ---- the host synchronizations inside one train step and one eval step
+            eval_step = step_mod.make_eval_step(float(config.get("inference.match_threshold", 0.2)))
+            for what, fn in (("train step", lambda: step(copy_, resume_batch)),
+                             ("eval step", lambda: eval_step(copy_, resume_batch))):
+                sites = sync_sites(fn)
+                print(f"trainer {what} N={resume_batch.side0.keypoints.shape[1]}: {sum(sites.values())} host "
+                      f"synchronizations ({', '.join(f'{n} at {w}' for w, n in sites.most_common())})", flush=True)
+            resume_override = dict(override, train={"epochs": 1, "steps_per_epoch": 2})
+            (work / "resume.yaml").write_text(yaml.safe_dump(resume_override))
+            resumed = train_cached.main(["--config", str(base), "--config_override", str(work / "resume.yaml"),
+                                         "--checkpoint", str(ckpt_dir), "--device", device])
+            check(resumed.step == state.step + 2, f"trainer --checkpoint: step {resumed.step}")
+            print(f"trainer resume through --checkpoint: step {state.step} -> {resumed.step}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -1974,6 +2521,7 @@ def main() -> int:
     train = train_phase(gen, card)
     routes = routes_phase(gen, card)
     pretrain = pretrain_phase(gen, card)
+    trainer = trainer_phase(card, repo)
     rings = ring_phase(gen, card, model, ring_requests)
 
     n1024 = sum(d[1] for name, *_, d in results if "N=1024" in name)
@@ -1991,10 +2539,11 @@ def main() -> int:
              replaces="openglue_tpu/ops/pallas/gnn_layer_kernel.py:117", launches=launches["layer"],
              **k1[torch.bfloat16], library_ms=None,
              f32=dict(k1[torch.float32], library_ms=None),
-             dh32=dh32(k1_32[torch.bfloat16], k1_32[torch.float32]), sift_launches=wider[sift]["K1"]),
+             dh32=dh32(k1_32[torch.bfloat16], k1_32[torch.float32]), sift_launches=wider[sift]["K1"],
+             trainer_launches=trainer["K1"]),
         dict(name="sinkhorn_scale (f32 K, B=16 N=1024)", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:128", launches=n1024,
-             train_launches=train["K2"],
+             train_launches=train["K2"], trainer_launches=trainer["K2"],
              **{k: v for k, v in k2[(16, 1024)].items() if k != "k_dtype"}, library_ms=None,
              single_pair=dict({k: v for k, v in k2[(1, 1024)].items() if k != "k_dtype"},
                               replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:56")),
@@ -2006,18 +2555,21 @@ def main() -> int:
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315",
              launches=sum(d["K2s"] for d in wider.values()), **k2s, library_ms=None),
         dict(name="sinkhorn_adjoint (f32 K, B=12 N=1024 T=20)", route="cuda", source=csrc + "sinkhorn_adjoint.cu",
-             replaces=pallas + "sinkhorn_kernel.py:548", launches=train["K3"], **k3, library_ms=None),
+             replaces=pallas + "sinkhorn_kernel.py:548", launches=train["K3"], trainer_launches=trainer["K3"],
+             **k3, library_ms=None),
         dict(name="message_forward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_forward.cu", replaces=pallas + "gnn_layer_kernel.py:557",
              launches=train["K4"], **k45[torch.bfloat16]["K4"], library_ms=None,
              f32=dict(k45[torch.float32]["K4"], library_ms=None),
-             dh32=dh32(k45_32[torch.bfloat16]["K4"], k45_32[torch.float32]["K4"]), pretrain_launches=pretrain["K4"]),
+             dh32=dh32(k45_32[torch.bfloat16]["K4"], k45_32[torch.float32]["K4"]), pretrain_launches=pretrain["K4"],
+             trainer_launches=trainer["K4"]),
         dict(name="message_backward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_backward.cu", replaces=pallas + "gnn_layer_kernel.py:627",
              launches=train["K5"], **k45[torch.bfloat16]["K5"], library_ms=None,
              f32=dict(k45[torch.float32]["K5"], library_ms=None),
              dh32=dh32(k45_32[torch.bfloat16]["K5"], k45_32[torch.float32]["K5"]), pretrain_launches=pretrain["K5"],
-             bf16_pass_launches=train["attn_bwd_bf16"], pretrain_bf16_pass_launches=pretrain["attn_bwd_bf16"]),
+             bf16_pass_launches=train["attn_bwd_bf16"], pretrain_bf16_pass_launches=pretrain["attn_bwd_bf16"],
+             trainer_launches=trainer["K5"]),
         *[dict(name=f"gnn_layer_features {kind} (bf16, B=16 N=M=1024 D=256 H=4)", route="cuda",
                source=csrc + "gnn_layer_features.cu", replaces=pallas + "gnn_layer_kernel.py:117",
                launches=other[kind], **k6[(kind, torch.bfloat16)], library_ms=None,

@@ -1,19 +1,56 @@
-"""Shared CLI plumbing (port of ``openglue_tpu/cli/common.py``:
-``superglue_config_from``, ``loss_config_from``, the FAVOR redraw interval of
-``loop_config_from`` and the optimizer the cached trainer builds from the
-``train`` section). It takes plain dicts, so no YAML
-reader is needed."""
+"""Shared CLI plumbing (port of ``openglue_tpu/cli/common.py``; reference
+train.py:22-66, utils/train_utils.py:13-30): config loading and merging, the
+experiment's name and logging directory with its config snapshots, and the
+model, loss, optimizer and loop settings built from a config's sections.
+Each takes a ``Config`` or a plain dict. The data-parallel mesh
+(``build_mesh_and_sharding``) waits for ROADMAP.md module 10a."""
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+from pathlib import Path
 from typing import Any, Iterable, Mapping, Optional
 
 import torch
 
+from openglue_tpu_torch.core.config import Config, load_config, merge_configs, save_config
 from openglue_tpu_torch.models.superglue import SuperGlueConfig
-from openglue_tpu_torch.train.state import ClippedAdam, make_optimizer, make_warmup_optimizer
+from openglue_tpu_torch.parallel.distributed import is_main_process
+from openglue_tpu_torch.train.loop import TrainLoopConfig
+from openglue_tpu_torch.train.state import ClippedAdam, Schedule, make_lr_schedule, make_optimizer, make_warmup_optimizer
 from openglue_tpu_torch.train.step import LossConfig
+
+
+def load_merged_config(base_path: str, override_path: Optional[str] = None) -> Config:
+    """Base YAML + optional override merged (reference train.py:22-27)."""
+    base = load_config(base_path)
+    if override_path:
+        return merge_configs(base, load_config(override_path))
+    return base
+
+
+def experiment_name(config: Config, features_config: Optional[Config]) -> str:
+    """`{features}__attn_{...}__laf_{...}__{timestamp}` (reference train.py:33-38)."""
+    features = features_config["name"] if features_config else "cached"
+    attention = config.get("superglue.attention_gnn.attention", "softmax")
+    laf = config.get("superglue.laf_to_sideinfo_method", "none")
+    stamp = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+    return f"{features}__attn_{attention}__laf_{laf}__{stamp}"
+
+
+def prepare_logging_directory(config: Config, features_config: Optional[Config] = None) -> Path:
+    """The experiment's directory, made with snapshots of the configs by the
+    main process (reference utils/train_utils.py:13-30)."""
+    root = Path(config.get("logging.root_path", "logs"))
+    name = config.get("logging.name", "default")
+    log_dir = root / name / experiment_name(config, features_config)
+    if is_main_process():
+        log_dir.mkdir(parents=True, exist_ok=True)
+        save_config(config, log_dir / "config.yaml")
+        if features_config is not None:
+            save_config(features_config, log_dir / "features_config.yaml")
+    return log_dir
 
 
 def superglue_config_from(
@@ -64,3 +101,35 @@ def optimizer_from(config: Mapping[str, Any], params: Iterable[torch.Tensor]) ->
     if warmup_steps > 0:
         return make_warmup_optimizer(params, warmup_steps=warmup_steps, **kw)
     return make_optimizer(params, **kw)
+
+
+def loop_config_from(
+    config: Mapping[str, Any], log_dir: Optional[Path], lr_schedule: Optional[Schedule] = None
+) -> TrainLoopConfig:
+    """TrainLoopConfig from a config's ``train``, ``logging`` and
+    ``evaluation`` sections. ``lr_schedule`` is the optimizer's schedule
+    (``ClippedAdam.schedule``), logged as the learning rate; by default the
+    one ``optimizer_from`` builds from the same config."""
+    config = Config(config)
+    train = config.get("train", {})
+    ev = config.get("evaluation", {}) or {}
+    return TrainLoopConfig(
+        steps_per_epoch=int(train.get("steps_per_epoch", 1000)),
+        max_epochs=int(train.get("epochs", 1)),
+        log_every_n_steps=int(config.get("logging.train_logs_steps", 50)),
+        favor_redraw_interval=favor_redraw_interval(config),
+        checkpoint_dir=str(log_dir / "checkpoints") if log_dir else None,
+        log_dir=str(log_dir / "tb") if log_dir else None,
+        eval_threshold=float(ev.get("epipolar_dist_threshold", 5e-4)),
+        pose_auc_thresholds=tuple(ev.get("camera_auc_thresholds", (5.0, 10.0, 20.0))),
+        ransac_thresh_px=float(ev.get("camera_auc_ransac_inliers_threshold", 1.0)),
+        wandb_enabled=bool(config.get("logging.wandb", False)),
+        wandb_project=str(config.get("logging.wandb_project", "superglue")),
+        wandb_run_name=log_dir.name if log_dir else None,
+        config_snapshot=config.to_dict(),
+        lr_schedule=lr_schedule or make_lr_schedule(
+            learning_rate=float(train.get("lr", 1e-4)),
+            gamma=float(train.get("scheduler_gamma", 0.999994)),
+            warmup_steps=int(train.get("warmup_steps", 0)),
+        ),
+    )

@@ -4,7 +4,7 @@ a fixed-size padded tensor plus a ``[B, N]`` bool validity mask."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -71,3 +71,19 @@ class PairBatch:
     side0: KeypointSet
     side1: KeypointSet
     transformation: Optional[Transformation] = None
+
+
+def map_tensors(batch: PairBatch, fn: Callable[[torch.Tensor], torch.Tensor]) -> PairBatch:
+    """The batch with ``fn`` applied to each of its tensors (a missing field
+    of the transformation stays None)."""
+
+    def side(s: KeypointSet) -> KeypointSet:
+        return KeypointSet(*(fn(getattr(s, f.name)) for f in dataclasses.fields(s)))
+
+    tf = batch.transformation
+    if tf is not None:
+        tf = Transformation(tf.kind, *(
+            None if getattr(tf, f.name) is None else fn(getattr(tf, f.name))
+            for f in dataclasses.fields(tf)[1:]
+        ))
+    return PairBatch(side(batch.side0), side(batch.side1), tf)

@@ -46,6 +46,12 @@ def initialize(
     return True
 
 
+def is_main_process() -> bool:
+    """Rank 0 of ``torch.distributed`` when it is initialized, else the one
+    process: the process that writes logs, configs and checkpoints."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def barrier() -> None:
     """Every process of the job meets here."""
     if dist.is_initialized():

@@ -8,6 +8,7 @@ exponential learning-rate decay, optionally after a linear warmup.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Callable, Iterable, Optional, Sequence
 
@@ -127,3 +128,16 @@ def create_train_state(
     if optimizer is None:
         optimizer = make_optimizer(model.parameters(), learning_rate, gamma, gradient_clip)
     return TrainState(model=model, optimizer=optimizer)
+
+
+def clone_train_state(state: TrainState) -> TrainState:
+    """An independent copy of ``state``: the model deep-copied, and an
+    optimizer over the copy's parameters with the same moments, schedule
+    count and step. (``copy.deepcopy`` of the state would not do: the
+    scheduler's hook on ``Adam.step`` keeps a reference to the original
+    optimizer, so the copy's updates would land on the original.)"""
+    model = copy.deepcopy(state.model)
+    optimizer = ClippedAdam(model.parameters(), state.optimizer.schedule, state.optimizer.gradient_clip)
+    optimizer.adam.load_state_dict(copy.deepcopy(state.optimizer.adam.state_dict()))
+    optimizer.scheduler.load_state_dict(state.optimizer.scheduler.state_dict())
+    return TrainState(model=model, optimizer=optimizer, step=state.step)
