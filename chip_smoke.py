@@ -92,7 +92,18 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    bf16 chain by its distance from the plain f32 step, an f32 chain at the
    training bars); a restore that resumes bit for bit, and a resume through
    ``--checkpoint``;
-7. keypoint-axis context parallelism (``ring_axis``): the ring's block
+7. the serving and evaluation entry points (``serving_cli_phase``) at the
+   SIFT serving shape (configs/features/sift_opencv.yaml: D=128, up to 2048
+   keypoints, the CLI's 960x720 target) with the flagship matcher section:
+   ``cli.extract_features.main`` over fixture images and warped copies,
+   ``cli.inference`` (``initialize_matcher`` -> ``precompile`` ->
+   ``run_inference`` per pair: each stage's host time, the bucket, 36 K1 + 1
+   K2, the host synchronizations, the forward against the plain versions;
+   the matches after MAGSAC against the known homography; ``main`` with its
+   files; a request in the 512 bucket; an ``int8_static`` matcher through
+   K7), and ``cli.evaluate.main`` on the trainer phase's experiment, its
+   metrics against those of fit's validation;
+8. keypoint-axis context parallelism (``ring_axis``): the ring's block
    attention with the LSE (K11) at B=12 N=1024 and B=4 N=2048, bf16 and f32,
    against its plain version with the library call's time beside it; the
    block merge of the ring (K11 on 4 key blocks of a B=12 N=1024 request,
@@ -123,6 +134,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1969,6 +1981,11 @@ class MemoryH5:
     def nbytes(self) -> int:
         return sum(a.nbytes for datasets in self.files.values() for a in datasets.values())
 
+    def entries(self, io):
+        """``replaced`` entries that route data.io's h5 functions here."""
+        return ((io, "save_h5", self.save_h5), (io, "load_h5", self.load_h5),
+                (io, "h5_dataset_shape", self.h5_dataset_shape))
+
 
 @contextlib.contextmanager
 def replaced(*entries):
@@ -2002,6 +2019,7 @@ class TrainerProbe:
         self.windows = {}
         self.eval_seconds = self.eval_metrics = None
         self.eval_ms = []
+        self.eval_batches = []  # batch_key of each eval batch, in order
         self._last_end = None
 
     def counts(self):
@@ -2067,6 +2085,7 @@ class TrainerProbe:
             def probed(state, batch):
                 n = batch.side0.keypoints.shape[1]
                 self.buckets["eval"][n] = self.buckets["eval"].get(n, 0) + 1
+                self.eval_batches.append(batch_key(batch))
                 start = time.perf_counter()
                 out = self._checked(lambda: step(state, batch), self.eval_expected, f"eval batch N={n}")
                 torch.cuda.synchronize()
@@ -2118,6 +2137,14 @@ class TrainerProbe:
         return probed
 
 
+def batch_key(batch):
+    """A batch's shape and its pairs, in order: (N, each pair's relative
+    pose as bytes)."""
+    tf = batch.transformation
+    poses = torch.cat([tf.R.flatten(1), tf.T], 1).cpu().numpy()
+    return batch.side0.keypoints.shape[1], tuple(row.tobytes() for row in poses)
+
+
 def sync_sites(fn):
     """The host synchronizations that ``fn`` makes (torch.cuda's sync debug
     mode), counted by the innermost line of the port that made each."""
@@ -2145,7 +2172,7 @@ def sync_sites(fn):
     return sites
 
 
-def trainer_phase(card, repo: Path, device="cuda"):
+def trainer_phase(card, repo: Path, store: "MemoryH5", work: Path, device="cuda"):
     """The port's cached-feature trainer end to end: ``cli.train_cached.main``
     on the MegaDepth-format fixture at examples/train_e2e_fixture.yaml's
     generator arguments, with configs/config_cached_sp_magicleap.yaml (the
@@ -2164,9 +2191,12 @@ def trainer_phase(card, repo: Path, device="cuda"):
     bars; a
     restore from the checkpoint equal to the trained state, whose next two
     steps on one batch give bit-equal losses; and a resume through the entry
-    point (``--checkpoint``). Returns the launches of the run by kernel."""
-    import tempfile
-
+    point (``--checkpoint``). ``store`` holds the h5 files and ``work`` the
+    other files; both outlive the phase (the serving phase evaluates the
+    trained experiment on the same fixture). Returns the launches of the run
+    by kernel and what the serving phase reads: the experiment's directory,
+    its checkpoint step, and the metrics and batches (``batch_key``) of
+    fit's validation sweep."""
     import yaml
 
     from openglue_tpu_torch.cli import common, train_cached
@@ -2179,185 +2209,637 @@ def trainer_phase(card, repo: Path, device="cuda"):
     from openglue_tpu_torch.train import step as step_mod
     from openglue_tpu_torch.train.state import clone_train_state, create_train_state
 
-    store = MemoryH5()
-    work = Path(tempfile.mkdtemp(prefix="trainer-"))
-    h5_store = ((io, "save_h5", store.save_h5), (io, "load_h5", store.load_h5),
-                (io, "h5_dataset_shape", store.h5_dataset_shape))
-    try:
-        with replaced(*h5_store):
-            print("trainer: openglue_tpu_torch.data.io's save_h5, load_h5 and h5_dataset_shape replaced by an "
-                  "in-memory store for this phase (no h5py on this machine); everything else is files under "
-                  f"{work}", flush=True)
-            root = work / "megadepth"
-            start = time.perf_counter()
-            stats = fixture.generate_megadepth_fixture(root, **TRAINER_FIXTURE)
-            print(f"trainer fixture: {len(stats['scenes'])} scenes, {stats['pairs']} pairs, "
-                  f"{len(store.files)} h5 files, {store.nbytes() / 2**20:.1f} MiB in memory, "
-                  f"{time.perf_counter() - start:.1f} s", flush=True)
-            override = {
-                "data": {"root_path": str(root), "features_dir": "SyntheticSphere_640_480",
-                         "train_list_path": "assets/megadepth_train.txt",
-                         "val_list_path": "assets/megadepth_valid.txt",
-                         "device_descriptor_cache": 0, "dataloader_workers": 4,
-                         # the fixture's images are 640x480, smaller than the flagship's 960x720
-                         "target_size": [640, 480], "val_max_pairs_per_scene": 24},
-                "logging": {"root_path": str(work / "logs")},
-                "train": {"epochs": 1, "steps_per_epoch": TRAINER_STEPS},
-            }
-            (work / "override.yaml").write_text(yaml.safe_dump(override))
-            base = repo / "configs" / "config_cached_sp_magicleap.yaml"
-            argv = ["--config", str(base), "--config_override", str(work / "override.yaml"), "--device", device]
-            config = common.load_merged_config(str(base), str(work / "override.yaml"))
-            counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter,
-                        "K4": glk.message_counter, "K5": glk.message_bwd_counter,
-                        "autograd_sinkhorn": sk.autograd_counter}
-            layers = 2 * int(config.get("superglue.attention_gnn.num_stages")) * 2
-            train_expected = {"K1": 0, "K2": 1, "K3": 1, "K4": layers, "K5": layers, "autograd_sinkhorn": 0}
-            eval_expected = {"K1": layers, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "autograd_sinkhorn": 0}
-            probe = TrainerProbe(counters, train_expected, eval_expected)
-            real_step = step_mod.make_train_step
-            probes = ((step_mod, "make_train_step", probe.make_train_step(real_step, clone_train_state)),
-                      (step_mod, "make_eval_step", probe.make_eval_step(step_mod.make_eval_step)),
-                      (loop, "warm_up_buckets", probe.warm_up(loop.warm_up_buckets)),
-                      (loop, "evaluate", probe.evaluate(loop.evaluate)),
-                      (loader_mod.DataLoader, "__iter__", probe.loader_iter(loader_mod.DataLoader.__iter__)))
-            for counter in counters.values():
-                counter.reset()
-            start = time.perf_counter()
-            with replaced(*probes):
-                state = train_cached.main(argv)
+    with replaced(*store.entries(io)):
+        print("trainer: openglue_tpu_torch.data.io's save_h5, load_h5 and h5_dataset_shape replaced by an "
+              "in-memory store for this phase (no h5py on this machine); everything else is files under "
+              f"{work}", flush=True)
+        root = work / "megadepth"
+        start = time.perf_counter()
+        stats = fixture.generate_megadepth_fixture(root, **TRAINER_FIXTURE)
+        print(f"trainer fixture: {len(stats['scenes'])} scenes, {stats['pairs']} pairs, "
+              f"{len(store.files)} h5 files, {store.nbytes() / 2**20:.1f} MiB in memory, "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+        override = {
+            "data": {"root_path": str(root), "features_dir": "SyntheticSphere_640_480",
+                     "train_list_path": "assets/megadepth_train.txt",
+                     "val_list_path": "assets/megadepth_valid.txt",
+                     "device_descriptor_cache": 0, "dataloader_workers": 4,
+                     # the fixture's images are 640x480, smaller than the flagship's 960x720
+                     "target_size": [640, 480], "val_max_pairs_per_scene": 24},
+            "logging": {"root_path": str(work / "logs")},
+            "train": {"epochs": 1, "steps_per_epoch": TRAINER_STEPS},
+        }
+        (work / "override.yaml").write_text(yaml.safe_dump(override))
+        base = repo / "configs" / "config_cached_sp_magicleap.yaml"
+        argv = ["--config", str(base), "--config_override", str(work / "override.yaml"), "--device", device]
+        config = common.load_merged_config(str(base), str(work / "override.yaml"))
+        counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter,
+                    "K4": glk.message_counter, "K5": glk.message_bwd_counter,
+                    "autograd_sinkhorn": sk.autograd_counter}
+        layers = 2 * int(config.get("superglue.attention_gnn.num_stages")) * 2
+        train_expected = {"K1": 0, "K2": 1, "K3": 1, "K4": layers, "K5": layers, "autograd_sinkhorn": 0}
+        eval_expected = {"K1": layers, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "autograd_sinkhorn": 0}
+        probe = TrainerProbe(counters, train_expected, eval_expected)
+        real_step = step_mod.make_train_step
+        probes = ((step_mod, "make_train_step", probe.make_train_step(real_step, clone_train_state)),
+                  (step_mod, "make_eval_step", probe.make_eval_step(step_mod.make_eval_step)),
+                  (loop, "warm_up_buckets", probe.warm_up(loop.warm_up_buckets)),
+                  (loop, "evaluate", probe.evaluate(loop.evaluate)),
+                  (loader_mod.DataLoader, "__iter__", probe.loader_iter(loader_mod.DataLoader.__iter__)))
+        for counter in counters.values():
+            counter.reset()
+        start = time.perf_counter()
+        with replaced(*probes):
+            state = train_cached.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - start
+        launches = {k: c.count for k, c in counters.items()}
+
+        # ---- the readings of the run
+        check(state.step == TRAINER_STEPS, f"trainer: state.step {state.step}, expected {TRAINER_STEPS}")
+        check(probe.train_steps == TRAINER_STEPS and set(probe.windows) == {TRAINER_TIMED, TRAINER_PROFILED},
+              f"trainer: the probe saw {probe.train_steps} of {TRAINER_STEPS} train steps: main() no longer "
+              f"looks up make_train_step in train.step when it runs")
+        step_ms = statistics.median(ms for ms, _ in probe.step_ms)
+        by_bucket = {n: statistics.median(ms for ms, m in probe.step_ms if m == n)
+                     for n in sorted({m for _, m in probe.step_ms})}
+        timed, profiled = probe.windows[TRAINER_TIMED], probe.windows[TRAINER_PROFILED]
+        busy, kernels_by_time = kernel_rows(profiled["prof"], top=6)
+        per_step = timed["wall_ms"] / timed["steps"]
+        profiled_step = profiled["wall_ms"] / profiled["steps"]
+        busy_step = "not measured" if busy is None else f"{busy / profiled['steps']:.3f}"
+        idle = "not measured" if busy is None else f"{1 - busy / profiled['wall_ms']:.3f}"
+        waits = probe.waits["train"]
+        batch = int(config.get("data.batch_size"))
+        buckets = "/".join(str(b) for b in config.get("data.buckets"))
+        print(f"trainer B={batch} buckets {buckets} grouped: {probe.train_steps} steps in {run_s:.1f} s "
+              f"(main() whole: fixture files, warm-up, steps, validation, checkpoint); step "
+              f"{step_ms:.3f} ms (median of {len(probe.step_ms)} synchronized steps; by bucket "
+              f"{json.dumps({n: round(v, 3) for n, v in by_bucket.items()})}), {batch / step_ms * 1e3:.2f} "
+              f"pairs/s; steps {TRAINER_TIMED[0]}-{TRAINER_TIMED[1] - 1} back to back: {per_step:.3f} ms per "
+              f"step, {batch / per_step * 1e3:.2f} pairs/s; steps {TRAINER_PROFILED[0]}-"
+              f"{TRAINER_PROFILED[1] - 1} back to back under the profiler: {profiled_step:.3f} ms per step, "
+              f"device busy {busy_step} ms per step, idle share {idle} (both of these steps); loader next() "
+              f"wait median {statistics.median(waits):.3f} ms "
+              f"(max {max(waits):.3f}, {len(waits)} batches); host time between synchronized steps median "
+              f"{statistics.median(probe.gap_ms):.3f} ms; batches per bucket: train "
+              f"{json.dumps(probe.buckets['train'])}, warm-up {json.dumps(probe.buckets['warm-up'])}, eval "
+              f"{json.dumps(probe.buckets['eval'])}; launches per train step {json.dumps(train_expected)}, "
+              f"per eval batch {json.dumps(eval_expected)} [{card}]", flush=True)
+        print(f"  device time by kernel, trainer steps {TRAINER_PROFILED[0]}-{TRAINER_PROFILED[1] - 1}: "
+              + "; ".join(f"{kname} {ms:.3f} ms ({calls} calls)" for ms, kname, calls in kernels_by_time),
+              flush=True)
+        metrics = probe.eval_metrics
+        check(metrics is not None and all(math.isfinite(v) for v in metrics.values()),
+              f"trainer validation: {metrics}")
+        print(f"trainer validation: {sum(probe.buckets['eval'].values())} batches, "
+              f"{probe.eval_seconds:.2f} s (eval steps median {statistics.median(probe.eval_ms):.3f} ms, "
+              f"loader wait median {statistics.median(probe.waits['eval']):.3f} ms), "
+              f"{json.dumps(metrics)} [{card}]", flush=True)
+
+        # ---- the first step of each bucket, kernels against plain. The
+        # run's chain is bf16, which the kernels and the plain versions
+        # round differently, each as validly: every bf16 K4 and K5 launch
+        # of the step is held against the f32 computation on its inputs
+        # (HeldMessageKernels), and the step as pretrain_phase
+        # holds bf16 compute, by its gradient's distance from the plain
+        # f32 step (at most BF16_DISTANCE_RATIO times the plain bf16
+        # step's); the same state and batch in an f32 chain, kernels
+        # against plain, at train_phase's bars.
+        def twin(saved, **changes):
+            model = SuperGlue(dataclasses.replace(saved.model.config, **changes), device=device)
+            model.load_state_dict(saved.model.state_dict())
+            return create_train_state(model, optimizer=common.optimizer_from(config, model.parameters()))
+
+        step = real_step(common.loss_config_from(config))
+        for (phase, n), (saved, first_batch) in sorted(probe.first.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+            name = f"trainer first {phase} step N={n}"
+            kernel, plain = clone_train_state(saved), clone_train_state(saved)
+            kernel32, plain32 = twin(saved, chain_dtype=None), twin(saved, chain_dtype=None)
+            held = HeldMessageKernels(glk)
+            with replaced(*held.entries()):
+                m_kernel = step(kernel, first_batch)
+            check(sum(v for (k, _), v in held.launches.items() if k == "K4") == layers
+                  and sum(v for (k, _), v in held.launches.items() if k == "K5") == layers
+                  and held.launches[("K4", "bfloat16")] > 0 and held.launches[("K5", "bfloat16")] > 0,
+                  f"{name}: held launches {dict(held.launches)}")
+            print(f"{name} bf16 chain, each launch on its inputs: largest difference from the plain "
+                  f"version in its type over the plain's largest entry ('vs plain'); bf16 launches: "
+                  f"distance from f32 over the plain bf16 version's plus {HELD_SLACK} ('ratio', bar "
+                  f"{HELD_RATIO}): {held.line()}", flush=True)
+            m_kernel32 = step(kernel32, first_batch)
+            with plain_versions(glk, sk):
+                m_plain, m_plain32 = step(plain, first_batch), step(plain32, first_batch)
             torch.cuda.synchronize()
-            run_s = time.perf_counter() - start
-            launches = {k: c.count for k, c in counters.items()}
+            compare_steps(kernel32.model, plain32.model, m_kernel32, m_plain32,
+                          f"{name} f32 chain, kernels vs plain",
+                          loss_tol=1e-3, norm_tol=0.01, cos_min=0.999, stats_tol=1e-3)
+            d = step_distance(kernel.model, plain.model, m_kernel, m_plain)
+            d_kernel = step_distance(kernel.model, plain32.model, m_kernel, m_plain32)
+            d_plain = step_distance(plain.model, plain32.model, m_plain, m_plain32)
+            print(f"{name} bf16 chain (the run's): kernels vs plain loss |diff| {d['loss']:.3e}, gradient "
+                  f"distance {d['grad']:.3e}, cosine {d['cosine']:.6f}; against the plain f32 step: kernels "
+                  f"{d_kernel['grad']:.3e} (cosine {d_kernel['cosine']:.6f}), plain {d_plain['grad']:.3e} "
+                  f"(cosine {d_plain['cosine']:.6f}), ratio {d_kernel['grad'] / d_plain['grad']:.3f} "
+                  f"(bar {BF16_DISTANCE_RATIO})", flush=True)
+            check(d_kernel["grad"] <= BF16_DISTANCE_RATIO * d_plain["grad"],
+                  f"{name} bf16 chain: the kernels' gradient lies {d_kernel['grad']:.3e} from the f32 step, "
+                  f"more than {BF16_DISTANCE_RATIO} times the plain path's {d_plain['grad']:.3e}")
+            del kernel, plain, kernel32, plain32
+        check({n for phase, n in probe.first if phase == "warm-up"} == {256, 512, 1024},
+              f"trainer warm-up buckets {sorted(probe.first)}")
 
-            # ---- the readings of the run
-            check(state.step == TRAINER_STEPS, f"trainer: state.step {state.step}, expected {TRAINER_STEPS}")
-            check(probe.train_steps == TRAINER_STEPS and set(probe.windows) == {TRAINER_TIMED, TRAINER_PROFILED},
-                  f"trainer: the probe saw {probe.train_steps} of {TRAINER_STEPS} train steps: main() no longer "
-                  f"looks up make_train_step in train.step when it runs")
-            step_ms = statistics.median(ms for ms, _ in probe.step_ms)
-            by_bucket = {n: statistics.median(ms for ms, m in probe.step_ms if m == n)
-                         for n in sorted({m for _, m in probe.step_ms})}
-            timed, profiled = probe.windows[TRAINER_TIMED], probe.windows[TRAINER_PROFILED]
-            busy, kernels_by_time = kernel_rows(profiled["prof"], top=6)
-            per_step = timed["wall_ms"] / timed["steps"]
-            profiled_step = profiled["wall_ms"] / profiled["steps"]
-            busy_step = "not measured" if busy is None else f"{busy / profiled['steps']:.3f}"
-            idle = "not measured" if busy is None else f"{1 - busy / profiled['wall_ms']:.3f}"
-            waits = probe.waits["train"]
-            batch = int(config.get("data.batch_size"))
-            buckets = "/".join(str(b) for b in config.get("data.buckets"))
-            print(f"trainer B={batch} buckets {buckets} grouped: {probe.train_steps} steps in {run_s:.1f} s "
-                  f"(main() whole: fixture files, warm-up, steps, validation, checkpoint); step "
-                  f"{step_ms:.3f} ms (median of {len(probe.step_ms)} synchronized steps; by bucket "
-                  f"{json.dumps({n: round(v, 3) for n, v in by_bucket.items()})}), {batch / step_ms * 1e3:.2f} "
-                  f"pairs/s; steps {TRAINER_TIMED[0]}-{TRAINER_TIMED[1] - 1} back to back: {per_step:.3f} ms per "
-                  f"step, {batch / per_step * 1e3:.2f} pairs/s; steps {TRAINER_PROFILED[0]}-"
-                  f"{TRAINER_PROFILED[1] - 1} back to back under the profiler: {profiled_step:.3f} ms per step, "
-                  f"device busy {busy_step} ms per step, idle share {idle} (both of these steps); loader next() "
-                  f"wait median {statistics.median(waits):.3f} ms "
-                  f"(max {max(waits):.3f}, {len(waits)} batches); host time between synchronized steps median "
-                  f"{statistics.median(probe.gap_ms):.3f} ms; batches per bucket: train "
-                  f"{json.dumps(probe.buckets['train'])}, warm-up {json.dumps(probe.buckets['warm-up'])}, eval "
-                  f"{json.dumps(probe.buckets['eval'])}; launches per train step {json.dumps(train_expected)}, "
-                  f"per eval batch {json.dumps(eval_expected)} [{card}]", flush=True)
-            print(f"  device time by kernel, trainer steps {TRAINER_PROFILED[0]}-{TRAINER_PROFILED[1] - 1}: "
-                  + "; ".join(f"{kname} {ms:.3f} ms ({calls} calls)" for ms, kname, calls in kernels_by_time),
-                  flush=True)
-            metrics = probe.eval_metrics
-            check(metrics is not None and all(math.isfinite(v) for v in metrics.values()),
-                  f"trainer validation: {metrics}")
-            print(f"trainer validation: {sum(probe.buckets['eval'].values())} batches, "
-                  f"{probe.eval_seconds:.2f} s (eval steps median {statistics.median(probe.eval_ms):.3f} ms, "
-                  f"loader wait median {statistics.median(probe.waits['eval']):.3f} ms), "
-                  f"{json.dumps(metrics)} [{card}]", flush=True)
+        # ---- the checkpoint, a restore and a resume
+        ckpt_dir = next((work / "logs").glob("*/*/checkpoints"))
+        path = checkpoint.checkpoint_path(ckpt_dir, checkpoint.latest_step(ckpt_dir))
+        model = SuperGlue(state.model.config, device=device, generator=torch.Generator().manual_seed(5))
+        restored = checkpoint.restore_train_state(
+            ckpt_dir, create_train_state(model, optimizer=common.optimizer_from(config, model.parameters())))
+        check(restored.step == state.step, f"trainer restore: step {restored.step} vs {state.step}")
+        trained = state.model.state_dict()
+        check(all(torch.equal(v, trained[k]) for k, v in restored.model.state_dict().items()),
+              "trainer restore: the model differs from the trained one")
+        _, resume_batch = probe.first[max(k for k in probe.first if k[0] == "train")]
+        copy_ = clone_train_state(state)
+        losses = [(step(copy_, resume_batch)["total_loss"], step(restored, resume_batch)["total_loss"])
+                  for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in losses), f"trainer resume: losses {losses}")
+        print(f"trainer checkpoint {path} ({path.stat().st_size / 2**20:.1f} MiB): restored state equal to "
+              f"the trained one; two steps from each on one batch: total loss "
+              f"{', '.join(f'{a.item():.6f}' for a, _ in losses)}, bit-equal", flush=True)
+        # ---- the host synchronizations inside one train step and one eval step
+        eval_step = step_mod.make_eval_step(float(config.get("inference.match_threshold", 0.2)))
+        for what, fn in (("train step", lambda: step(copy_, resume_batch)),
+                         ("eval step", lambda: eval_step(copy_, resume_batch))):
+            sites = sync_sites(fn)
+            print(f"trainer {what} N={resume_batch.side0.keypoints.shape[1]}: {sum(sites.values())} host "
+                  f"synchronizations ({', '.join(f'{n} at {w}' for w, n in sites.most_common())})", flush=True)
+        resume_override = dict(override, train={"epochs": 1, "steps_per_epoch": 2})
+        (work / "resume.yaml").write_text(yaml.safe_dump(resume_override))
+        resumed = train_cached.main(["--config", str(base), "--config_override", str(work / "resume.yaml"),
+                                     "--checkpoint", str(ckpt_dir), "--device", device])
+        check(resumed.step == state.step + 2, f"trainer --checkpoint: step {resumed.step}")
+        print(f"trainer resume through --checkpoint: step {state.step} -> {resumed.step}", flush=True)
+    return launches, dict(experiment=ckpt_dir.parent, step=int(state.step), eval_metrics=metrics,
+                          eval_batches=probe.eval_batches)
 
-            # ---- the first step of each bucket, kernels against plain. The
-            # run's chain is bf16, which the kernels and the plain versions
-            # round differently, each as validly: every bf16 K4 and K5 launch
-            # of the step is held against the f32 computation on its inputs
-            # (HeldMessageKernels), and the step as pretrain_phase
-            # holds bf16 compute, by its gradient's distance from the plain
-            # f32 step (at most BF16_DISTANCE_RATIO times the plain bf16
-            # step's); the same state and batch in an f32 chain, kernels
-            # against plain, at train_phase's bars.
-            def twin(saved, **changes):
-                model = SuperGlue(dataclasses.replace(saved.model.config, **changes), device=device)
-                model.load_state_dict(saved.model.state_dict())
-                return create_train_state(model, optimizer=common.optimizer_from(config, model.parameters()))
 
-            step = real_step(common.loss_config_from(config))
-            for (phase, n), (saved, first_batch) in sorted(probe.first.items(), key=lambda kv: (kv[0][1], kv[0][0])):
-                name = f"trainer first {phase} step N={n}"
-                kernel, plain = clone_train_state(saved), clone_train_state(saved)
-                kernel32, plain32 = twin(saved, chain_dtype=None), twin(saved, chain_dtype=None)
-                held = HeldMessageKernels(glk)
-                with replaced(*held.entries()):
-                    m_kernel = step(kernel, first_batch)
-                check(sum(v for (k, _), v in held.launches.items() if k == "K4") == layers
-                      and sum(v for (k, _), v in held.launches.items() if k == "K5") == layers
-                      and held.launches[("K4", "bfloat16")] > 0 and held.launches[("K5", "bfloat16")] > 0,
-                      f"{name}: held launches {dict(held.launches)}")
-                print(f"{name} bf16 chain, each launch on its inputs: largest difference from the plain "
-                      f"version in its type over the plain's largest entry ('vs plain'); bf16 launches: "
-                      f"distance from f32 over the plain bf16 version's plus {HELD_SLACK} ('ratio', bar "
-                      f"{HELD_RATIO}): {held.line()}", flush=True)
-                m_kernel32 = step(kernel32, first_batch)
-                with plain_versions(glk, sk):
-                    m_plain, m_plain32 = step(plain, first_batch), step(plain32, first_batch)
+# the serving phase (serving_cli_phase): generate_image_fixture's 1280x1024
+# images, each beside a copy warped by a known mild homography, through the
+# port's extract_features, inference and evaluate entry points
+SERVING_IMAGES = 4
+SERVING_BUCKETS = [512, 1024, 2048]
+SERVING_SMALL_TARGET = (240, 180)  # about 400 keypoints a side: the 512 bucket
+GEOMETRY_MIN_MATCHES, GEOMETRY_MAX_PX = 8, 3.0
+EVAL_METRIC_TOL = 1e-3  # evaluate's metrics against fit's on other batches (1e-6 on the same)
+
+
+def serving_homography(i, size=(1280, 1024)):
+    """Pair i's homography (image pixels to the warped copy's): a rotation of
+    5 degrees (alternating in sign) and scale 0.95 about the centre, a
+    perspective term of about 1e-5 and a shift of about 20 px."""
+    import numpy as np
+
+    w, h = size
+    angle = np.deg2rad(5.0 if i % 2 == 0 else -5.0)
+    c, s = 0.95 * np.cos(angle), 0.95 * np.sin(angle)
+    to_centre = np.array([[1.0, 0, -w / 2], [0, 1, -h / 2], [0, 0, 1]])
+    shape = np.array([[c, -s, 0], [s, c, 0], [1e-5, -5e-6, 1]])
+    back = np.array([[1.0, 0, w / 2 + 20 - 3 * i], [0, 1, h / 2 - 15 + 5 * i], [0, 0, 1]])
+    return back @ shape @ to_centre
+
+
+def reprojection_px(kpts0, kpts1, H, scale):
+    """|H(k0) - k1| in the resized images' pixels: H of the full-size images
+    conjugated by the resize (``cv2.resize`` maps pixel centres: x' = s (x +
+    0.5) - 0.5)."""
+    import numpy as np
+
+    S = np.array([[scale, 0, 0.5 * scale - 0.5], [0, scale, 0.5 * scale - 0.5], [0, 0, 1]])
+    p = np.c_[kpts0, np.ones(len(kpts0))] @ (S @ H @ np.linalg.inv(S)).T
+    return np.linalg.norm(p[:, :2] / p[:, 2:] - kpts1, axis=1)
+
+
+class ServingProbe:
+    """What the serving phase reads from inside ``run_inference``, through
+    wrappers of what it looks up at call time: the host time of each stage
+    (read, resize, SIFT detect and describe, NMS, the rest of the
+    extractor: keypoints to arrays, top-k, LAFs and pad; prepare and copy,
+    forward, decode, the rest of ``match_images``: the copy back; MAGSAC),
+    with the card synchronized after each stage that queues device work so
+    that its time holds that work; each forward's inputs, output and
+    launches; MAGSAC's matches before and after."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.reset()
+
+    def reset(self):
+        self.ms = collections.defaultdict(float)
+        self.forwards, self.magsac = [], []
+
+    def counts(self):
+        return {k: c.count for k, c in self.counters.items()}
+
+    def timed(self, stage, fn, sync=False):
+        def run(*args, **kwargs):
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
                 torch.cuda.synchronize()
-                compare_steps(kernel32.model, plain32.model, m_kernel32, m_plain32,
-                              f"{name} f32 chain, kernels vs plain",
-                              loss_tol=1e-3, norm_tol=0.01, cos_min=0.999, stats_tol=1e-3)
-                d = step_distance(kernel.model, plain.model, m_kernel, m_plain)
-                d_kernel = step_distance(kernel.model, plain32.model, m_kernel, m_plain32)
-                d_plain = step_distance(plain.model, plain32.model, m_plain, m_plain32)
-                print(f"{name} bf16 chain (the run's): kernels vs plain loss |diff| {d['loss']:.3e}, gradient "
-                      f"distance {d['grad']:.3e}, cosine {d['cosine']:.6f}; against the plain f32 step: kernels "
-                      f"{d_kernel['grad']:.3e} (cosine {d_kernel['cosine']:.6f}), plain {d_plain['grad']:.3e} "
-                      f"(cosine {d_plain['cosine']:.6f}), ratio {d_kernel['grad'] / d_plain['grad']:.3f} "
-                      f"(bar {BF16_DISTANCE_RATIO})", flush=True)
-                check(d_kernel["grad"] <= BF16_DISTANCE_RATIO * d_plain["grad"],
-                      f"{name} bf16 chain: the kernels' gradient lies {d_kernel['grad']:.3e} from the f32 step, "
-                      f"more than {BF16_DISTANCE_RATIO} times the plain path's {d_plain['grad']:.3e}")
-                del kernel, plain, kernel32, plain32
-            check({n for phase, n in probe.first if phase == "warm-up"} == {256, 512, 1024},
-                  f"trainer warm-up buckets {sorted(probe.first)}")
+            self.ms[stage] += (time.perf_counter() - start) * 1e3
+            return out
 
-            # ---- the checkpoint, a restore and a resume
-            ckpt_dir = next((work / "logs").glob("*/*/checkpoints"))
-            path = checkpoint.checkpoint_path(ckpt_dir, checkpoint.latest_step(ckpt_dir))
-            model = SuperGlue(state.model.config, device=device, generator=torch.Generator().manual_seed(5))
-            restored = checkpoint.restore_train_state(
-                ckpt_dir, create_train_state(model, optimizer=common.optimizer_from(config, model.parameters())))
-            check(restored.step == state.step, f"trainer restore: step {restored.step} vs {state.step}")
-            trained = state.model.state_dict()
-            check(all(torch.equal(v, trained[k]) for k, v in restored.model.state_dict().items()),
-                  "trainer restore: the model differs from the trained one")
-            _, resume_batch = probe.first[max(k for k in probe.first if k[0] == "train")]
-            copy_ = clone_train_state(state)
-            losses = [(step(copy_, resume_batch)["total_loss"], step(restored, resume_batch)["total_loss"])
-                      for _ in range(2)]
-            check(all(torch.equal(a, b) for a, b in losses), f"trainer resume: losses {losses}")
-            print(f"trainer checkpoint {path} ({path.stat().st_size / 2**20:.1f} MiB): restored state equal to "
-                  f"the trained one; two steps from each on one batch: total loss "
-                  f"{', '.join(f'{a.item():.6f}' for a, _ in losses)}, bit-equal", flush=True)
-            # ---- the host synchronizations inside one train step and one eval step
-            eval_step = step_mod.make_eval_step(float(config.get("inference.match_threshold", 0.2)))
-            for what, fn in (("train step", lambda: step(copy_, resume_batch)),
-                             ("eval step", lambda: eval_step(copy_, resume_batch))):
-                sites = sync_sites(fn)
-                print(f"trainer {what} N={resume_batch.side0.keypoints.shape[1]}: {sum(sites.values())} host "
-                      f"synchronizations ({', '.join(f'{n} at {w}' for w, n in sites.most_common())})", flush=True)
-            resume_override = dict(override, train={"epochs": 1, "steps_per_epoch": 2})
-            (work / "resume.yaml").write_text(yaml.safe_dump(resume_override))
-            resumed = train_cached.main(["--config", str(base), "--config_override", str(work / "resume.yaml"),
-                                         "--checkpoint", str(ckpt_dir), "--device", device])
-            check(resumed.step == state.step + 2, f"trainer --checkpoint: step {resumed.step}")
-            print(f"trainer resume through --checkpoint: step {state.step} -> {resumed.step}", flush=True)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return launches
+        return run
+
+    def magsac_filter(self, fn):
+        def run(kpts0, kpts1):
+            start = time.perf_counter()
+            inliers = fn(kpts0, kpts1)
+            self.ms["magsac"] += (time.perf_counter() - start) * 1e3
+            self.magsac.append((len(kpts0), int(inliers.sum())))
+            return inliers
+
+        return run
+
+    def forward(self, fn):
+        def run(**kw):
+            before = self.counts()
+            start = time.perf_counter()
+            out = fn(**kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - start) * 1e3
+            self.ms["forward"] += wall
+            self.forwards.append(dict(kw=kw, out=out, wall_ms=wall,
+                                      launches={k: v - before[k] for k, v in self.counts().items()}))
+            return out
+
+        return run
+
+    def entries(self, inference, opencv_features, io, matcher):
+        class Detector:  # the cv2 detector, timed
+            def __init__(self, inner, probe):
+                self.inner, self.probe = inner, probe
+
+            def detectAndCompute(self, image, mask):
+                return self.probe.timed("detect", self.inner.detectAndCompute)(image, mask)
+
+        extractor = type(matcher.extractor)
+        return ((io, "read_grayscale", self.timed("read", io.read_grayscale)),
+                (io, "aspect_preserving_resize", self.timed("resize", io.aspect_preserving_resize)),
+                (matcher.extractor, "features", Detector(matcher.extractor.features, self)),
+                (opencv_features, "nms_keypoints", self.timed("nms", opencv_features.nms_keypoints)),
+                (extractor, "detect_and_compute", self.timed("extractor", extractor.detect_and_compute)),
+                (inference, "prepare_features_output", self.timed("prepare", inference.prepare_features_output,
+                                                                  sync=True)),
+                (matcher.model, "forward", self.forward(matcher.model.forward)),
+                (inference, "decode_from_output", self.timed("decode", inference.decode_from_output, sync=True)),
+                (matcher, "match_images", self.timed("match_images", matcher.match_images)),
+                (inference, "magsac_inlier_filter", self.magsac_filter(inference.magsac_inlier_filter)))
+
+    def stages(self):
+        ms = self.ms
+        return {"read": ms["read"], "resize": ms["resize"], "SIFT detect and describe": ms["detect"],
+                "NMS": ms["nms"], "keypoints to arrays, top-k, LAFs and pad": ms["extractor"] - ms["detect"] - ms["nms"],
+                "prepare and copy": ms["prepare"], "forward": ms["forward"], "decode": ms["decode"],
+                "copy back and the rest": ms["match_images"] - ms["resize"] - ms["extractor"] - ms["prepare"]
+                - ms["forward"] - ms["decode"], "MAGSAC": ms["magsac"]}
+
+
+def serving_cli_phase(card, repo: Path, store: MemoryH5, work: Path, trained, device="cuda"):
+    """The port's serving and evaluation entry points on the card, at the
+    SIFT serving shape (configs/features/sift_opencv.yaml: OpenCV SIFT,
+    D=128, up to 2048 keypoints, RootSIFT; the CLI's 960x720 target) with
+    the flagship ``superglue:`` section and seeded random weights:
+    ``cli.extract_features.main`` over SERVING_IMAGES fixture images and
+    their warped copies (h5 files in ``store``); an experiment
+    (config.yaml with inference buckets 512/1024/2048 at threshold 0.2,
+    features_config.yaml, checkpoints/0.pt); ``initialize_matcher`` ->
+    ``precompile`` -> ``run_inference`` on every pair, each request's stage
+    times, bucket, launches (36 K1 + 1 K2), host synchronizations, and its
+    forward held against the plain versions on its own inputs (``compare``);
+    the geometry of the matches at threshold 0 after MAGSAC against the
+    known homography; ``main`` once with --output and --visualize; a request
+    in the 512 bucket; an ``int8_static`` matcher (refused before its first
+    pair calibrates it, then 36 K7 launches of 6 kernels each and no K1,
+    held against the int8 plain path and the bf16 matcher); and
+    ``cli.evaluate.main`` on the trainer phase's experiment and fixture at
+    the checkpoint of fit's validation (36 K1 + 1 K2 per batch), its
+    metrics against fit's. Returns the launches of the phase by kernel."""
+    import numpy as np
+    import yaml
+
+    from openglue_tpu_torch.cli import evaluate, extract_features, inference
+    from openglue_tpu_torch.cli.common import superglue_config_from
+    from openglue_tpu_torch.core.config import load_config
+    from openglue_tpu_torch.data import fixture, io
+    from openglue_tpu_torch.features import opencv_features
+    from openglue_tpu_torch.models.matching import decode_from_output
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.train import step as step_mod
+    from openglue_tpu_torch.train.checkpoint import save_train_state
+    from openglue_tpu_torch.train.state import create_train_state
+
+    import cv2
+
+    phase_start = time.perf_counter()
+    root = work / "serving"
+    counters = {"K1": glk.counter, "K2": sk.counter, "K2s": sk.stream_counter, "K7": gli8.counter,
+                "K7_kernels": gli8.launch_counter}
+    layers = 2 * SUPERGLUE_SECTION["attention_gnn"]["num_stages"] * 2
+    bf16_expected = {"K1": layers, "K2": 1, "K2s": 0, "K7": 0, "K7_kernels": 0}
+    launches = collections.Counter()
+
+    # ---- images: the fixture and a warped copy of each
+    images = root / "images"
+    fixture.generate_image_fixture(images, num_images=SERVING_IMAGES, image_size=(1280, 1024), seed=0)
+    pairs = []
+    for i in range(SERVING_IMAGES):
+        a = images / f"img{i:04d}.jpg"
+        b = images / f"img{i:04d}_warped.png"
+        H = serving_homography(i)
+        cv2.imwrite(str(b), cv2.warpPerspective(io.read_grayscale(a), H, (1280, 1024)))
+        pairs.append((a, b, H))
+
+    with replaced(*store.entries(io)):
+        # ---- extraction through the cacher's entry point
+        sift_yaml = repo / "configs" / "features" / "sift_opencv.yaml"
+        saved = []
+
+        def timed_save(out_dir, base, lafs, scores, descriptors, size):
+            save_outputs(out_dir, base, lafs, scores, descriptors, size)
+            saved.append((base, lafs.shape[0], descriptors.shape[1], tuple(size), time.perf_counter()))
+
+        save_outputs = extract_features.save_outputs
+        start = time.perf_counter()
+        with replaced((extract_features, "save_outputs", timed_save)):
+            extract_features.main(["--features_config", str(sift_yaml), "--data_dir", str(images),
+                                   "--output_dir", str(root / "features")])
+        handshake = root / "features" / "OPENCV_SIFT_960_720" / "config.yaml"
+        features_config = load_config(sift_yaml)
+        check(handshake.is_file() and load_config(handshake) == features_config,
+              f"extract_features: the handshake {handshake} is missing or differs from {sift_yaml}")
+        check(len(saved) == 2 * SERVING_IMAGES, f"extract_features: {len(saved)} images extracted")
+        max_k = int(features_config["parameters"]["max_keypoints"])
+        times = np.diff([start] + [t for *_, t in saved]) * 1e3
+        for (base, n, d, size, _), ms in zip(saved, times):
+            check(0 < n <= max_k and d == SIFT_DESCRIPTOR_DIM, f"extract_features {base}: {n} keypoints, D={d}")
+        print("serving_cli extract_features (OPENCV_SIFT, 960x720 target, max 2048): "
+              + "; ".join(f"{base} {w}x{h} {n} keypoints D={d} {ms:.1f} ms" for (base, n, d, (w, h), _), ms
+                          in zip(saved, times))
+              + f"; handshake {handshake.name} written [{card}]", flush=True)
+
+        # ---- the experiment: flagship matcher section, SIFT features, a seeded initialization
+        exp = root / "experiment"
+        exp.mkdir(parents=True)
+        config = {"superglue": SUPERGLUE_SECTION, "inference": {"match_threshold": MATCH_THRESHOLD,
+                                                                 "buckets": SERVING_BUCKETS}}
+        (exp / "config.yaml").write_text(yaml.safe_dump(config))
+        shutil.copy(sift_yaml, exp / "features_config.yaml")
+        cfg = superglue_config_from(config, SIFT_DESCRIPTOR_DIM, SIDE_INFO_DIM)
+        init = SuperGlue(cfg, device=device, generator=torch.Generator().manual_seed(0))
+        save_train_state(exp / "checkpoints", create_train_state(init), step=0)
+        del init
+
+        # ---- serving: initialize_matcher -> precompile -> run_inference on every pair
+        matcher = inference.initialize_matcher(exp, device=device)
+        check(matcher.buckets == tuple(SERVING_BUCKETS) and matcher.match_threshold == MATCH_THRESHOLD,
+              f"initialize_matcher: buckets {matcher.buckets}, threshold {matcher.match_threshold}")
+        start = time.perf_counter()
+        matcher.precompile(matcher.buckets)
+        precompile_s = time.perf_counter() - start
+        probe = ServingProbe(counters)
+
+        def request(m, a, b, name, expected, ransac=True):
+            """One probed run_inference: (result, probe readings)."""
+            probe.reset()
+            with replaced(*probe.entries(inference, opencv_features, io, m)):
+                start = time.perf_counter()
+                result = inference.run_inference(m, a, b, ransac=ransac)
+                total = (time.perf_counter() - start) * 1e3
+            fwd = probe.forwards[-1]
+            check(fwd["launches"] == expected, f"{name}: launches {fwd['launches']}, expected {expected}")
+            launches.update(fwd["launches"])
+            n = m._last_num_keypoints  # K2's K storage at this shape (f32 or bf16: two kernel rows)
+            launches[f"K2 {sk.k_storage_dtype(n + 1, n + 1)}"] += fwd["launches"]["K2"]
+            return result, dict(total_ms=total, stages=probe.stages(), forward=fwd, forwards=list(probe.forwards),
+                                magsac=probe.magsac[-1] if probe.magsac else None, bucket=m._last_num_keypoints)
+
+        def stage_line(m, r):
+            """The stages' host ms, and the forward's device ms on the same
+            inputs (``device_ms``: CUDA events, one call queued behind a busy
+            card: the host takes longer to queue a forward than the device to
+            run it, so several calls would time the host)."""
+            with torch.no_grad():
+                device = device_ms(lambda: m.model(**r["forward"]["kw"]), calls=1)
+            return (", ".join(f"{k} {v:.2f}" for k, v in r["stages"].items())
+                    + f" ms (forward device {device:.3f} ms); request {r['total_ms']:.1f} ms with the card "
+                    f"synchronized after each device stage, the card busy {device / r['total_ms']:.4f} of it")
+
+        # the served chain is bf16 (int8 for the int8_static matcher), which
+        # the kernels and the plain versions round differently, each as
+        # validly: at random weights the assignment is nearly flat (top-two
+        # margins under 1e-3 nats), so the decode at threshold 0 flips with
+        # the rounding. compare's bars hold the same request on an f32 twin
+        # (chain_dtype None, no quantize, the same weights); the served
+        # forward is held to log_P within LOG_P_NATS of its plain path, and
+        # its decode's disagreement with the plain f32 path to at most
+        # BF16_DISTANCE_RATIO times its plain path's, or to compare's
+        # 1 - DECODE_AGREEMENT where that is larger
+        twin = SuperGlue(dataclasses.replace(matcher.model.config, chain_dtype=None, quantize=None),
+                         device=device).eval()
+        twin.load_state_dict(matcher.model.state_dict())
+
+        def held(m, fwd, name):
+            """(the plain path's output, the readings)"""
+            kw = fwd["kw"]
+            with torch.no_grad():
+                out32 = twin(**kw)
+                with plain_versions(glk, sk, gli8):
+                    ref32, ref = twin(**kw), m.model(**kw)
+            nats, stats = compare(decode_from_output, out32, ref32, kw, f"{name} f32 twin")
+            got = decode_readings(decode_from_output, fwd["out"], ref, kw)
+            d_kernel = 1 - decode_readings(decode_from_output, fwd["out"], ref32, kw)["matches@0"]
+            d_plain = 1 - decode_readings(decode_from_output, ref, ref32, kw)["matches@0"]
+            bar = max(BF16_DISTANCE_RATIO * d_plain, 1 - DECODE_AGREEMENT)
+            check(got["nats_max"] <= LOG_P_NATS and d_kernel <= bar,
+                  f"{name}: vs its plain path {got}; decode disagreement with the plain f32 path {d_kernel} "
+                  f"(kernels) vs {d_plain} (plain), bar {bar}")
+            return ref, (f"vs plain path {got['nats_max']:.3e} nats, decode {got['matches@0']:.4f} at threshold 0, row "
+                    f"argmax {got['row_argmax']:.4f}; decode disagreement with the plain f32 path {d_kernel:.4f} "
+                    f"(its plain path {d_plain:.4f}; bar {bar:.4f}); f32 twin vs its plain path {nats:.3e} nats, decode "
+                    f"{json.dumps(stats)}")
+
+        def latency_ms(m, a, b, repeats=3):
+            times = []
+            for _ in range(repeats):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                inference.run_inference(m, a, b)
+                times.append((time.perf_counter() - start) * 1e3)
+            return statistics.median(times)
+
+        bf16_out = {}
+        for i, (a, b, _) in enumerate(pairs):
+            name = f"serving_cli pair {i} ({a.name}, {b.name})"
+            result, r = request(matcher, a, b, name, bf16_expected)
+            fwd = r["forward"]
+            bf16_out[i] = fwd
+            largest = fwd["out"]["decode_max0"].exp().max().item()
+            before, after = r["magsac"] or (0, 0)
+            print(f"{name}: bucket {r['bucket']} (valid {int(fwd['kw']['mask0'].sum())}/"
+                  f"{int(fwd['kw']['mask1'].sum())}); {stage_line(matcher, r)}; not synchronized: "
+                  f"{latency_ms(matcher, a, b):.1f} ms (median of 3); launches {json.dumps(fwd['launches'])}; matches "
+                  f"at threshold {matcher.match_threshold}: {before} before MAGSAC, {after} after (largest confidence "
+                  f"{largest:.3e}); {held(matcher, fwd, name)[1]} [{card}]", flush=True)
+        a, b, _ = pairs[0]
+        sites = sync_sites(lambda: inference.run_inference(matcher, a, b))
+        print(f"serving_cli run_inference: {sum(sites.values())} host synchronizations per request "
+              f"({', '.join(f'{n} at {w}' for w, n in sites.most_common())}); precompile (kernels built, a "
+              f"forward at N={'/'.join(map(str, SERVING_BUCKETS))}) {precompile_s:.2f} s [{card}]", flush=True)
+
+        # the cache and the server extract the same features from one image
+        lafs, _, desc, mask, _ = matcher.extract(io.read_grayscale(a))
+        cached = root / "features" / "OPENCV_SIFT_960_720" / f"{a.stem}_descriptors.h5"
+        check(np.array_equal(io.load_h5(cached), desc[mask]), "the cached and the served descriptors differ")
+
+        # ---- geometry: the mutual nearest neighbours (threshold 0) after MAGSAC
+        geo = inference.initialize_matcher(exp, match_threshold=0.0, device=device)
+        for i, (a, b, H) in enumerate(pairs):
+            name = f"serving_cli geometry pair {i}"
+            result, r = request(geo, a, b, name, bf16_expected)
+            before, after = r["magsac"]
+            scale = geo.target_size[0] / 1280  # 1280x1024 images, 960 wide at the 960x720 target
+            error = reprojection_px(result["keypoints0"], result["keypoints1"], H, scale)
+            median = float(np.median(error)) if len(error) else float("inf")
+            print(f"{name}: threshold 0: {before} matches before MAGSAC, {after} after (MAGSAC "
+                  f"{r['stages']['MAGSAC']:.2f} ms, request {r['total_ms']:.1f} ms), reprojection error under "
+                  f"the known homography median {median:.3f} px, within 3 px {float(np.mean(error < 3)):.3f} "
+                  f"(bars: at least {GEOMETRY_MIN_MATCHES} matches, median under {GEOMETRY_MAX_PX} px) [{card}]",
+                  flush=True)
+            check(after >= GEOMETRY_MIN_MATCHES and median < GEOMETRY_MAX_PX,
+                  f"{name}: {after} matches after MAGSAC, median reprojection error {median} px")
+
+        # ---- the command line once, with its files
+        a, b, _ = pairs[0]
+        before = {k: c.count for k, c in counters.items()}
+        out = inference.main(["--experiment", str(exp), "--image0", str(a), "--image1", str(b), "--match_threshold",
+                              "0", "--output", str(root / "matches.npz"), "--visualize", str(root / "matches.png"),
+                              "--device", device])
+        delta = {k: c.count - before[k] for k, c in counters.items()}
+        check(delta == bf16_expected, f"inference.main: launches {delta}, expected {bf16_expected}")
+        launches.update(delta)
+        n = bf16_out[0]["kw"]["kpts0"].shape[1]  # pair 0's bucket
+        launches[f"K2 {sk.k_storage_dtype(n + 1, n + 1)}"] += delta["K2"]
+        saved_npz = np.load(root / "matches.npz")
+        drawing = cv2.imread(str(root / "matches.png"))
+        check(len(saved_npz["keypoints0"]) == len(out["keypoints0"]) >= GEOMETRY_MIN_MATCHES
+              and drawing is not None and drawing.shape == (768, 1920, 3),
+              f"inference.main: {len(saved_npz['keypoints0'])} saved matches, drawing "
+              f"{None if drawing is None else drawing.shape}")
+        print(f"serving_cli inference.main --match_threshold 0 --output --visualize: {len(out['keypoints0'])} "
+              f"matches saved, drawing {drawing.shape[1]}x{drawing.shape[0]}", flush=True)
+
+        # ---- a request in a smaller bucket
+        small = inference.initialize_matcher(exp, target_size=SERVING_SMALL_TARGET, device=device)
+        a, b, _ = pairs[1]
+        name = f"serving_cli pair 1 at target {SERVING_SMALL_TARGET[0]}x{SERVING_SMALL_TARGET[1]}"
+        _, r = request(small, a, b, name, bf16_expected)
+        fwd = r["forward"]
+        check(r["bucket"] < SERVING_BUCKETS[-1], f"{name}: bucket {r['bucket']}")
+        print(f"{name}: bucket {r['bucket']} (valid {int(fwd['kw']['mask0'].sum())}/{int(fwd['kw']['mask1'].sum())}); "
+              f"{stage_line(small, r)}; launches {json.dumps(fwd['launches'])}; {held(small, fwd, name)[1]} [{card}]",
+              flush=True)
+        del small, geo
+
+        # ---- int8_static: calibrated by its first pair, then static scales
+        exp8 = root / "experiment_int8_static"
+        shutil.copytree(exp, exp8)
+        config8 = dict(config, superglue=dict(SUPERGLUE_SECTION, quantize="int8_static"))
+        (exp8 / "config.yaml").write_text(yaml.safe_dump(config8))
+        q = inference.initialize_matcher(exp8, device=device)
+        try:
+            q.precompile(q.buckets)
+            refused = None
+        except RuntimeError as err:
+            refused = str(err)
+        check(refused is not None and "uncalibrated" in refused and not q.model.int8_calibration.calibrated,
+              f"int8_static: precompile before calibration: {refused!r}")
+        int8_expected = {"K1": 0, "K2": 1, "K2s": 0, "K7": layers, "K7_kernels": 6 * layers}
+        for i, (a, b, _) in enumerate(pairs):
+            name = f"serving_cli int8_static pair {i}"
+            _, r = request(q, a, b, name, int8_expected)
+            fwd = r["forward"]
+            if i == 0:
+                check(q.model.int8_calibration.calibrated and len(r["forwards"]) == 2,
+                      f"{name}: the first pair did not calibrate ({len(r['forwards'])} forwards)")
+                print(f"{name}: calibration pass launches {json.dumps(r['forwards'][0]['launches'])}", flush=True)
+                q.precompile(q.buckets)
+            # the row argmax against the bf16 matcher: at these nearly flat
+            # assignments the int8 rounding flips rows as the bf16 one does,
+            # so the kernels' disagreement is held to at most
+            # BF16_DISTANCE_RATIO times the plain int8 path's with the plain
+            # bf16 path, or to 1 - INT8_ROW_ARGMAX where that is larger
+            ref, line = held(q, fwd, name)
+            with torch.no_grad(), plain_versions(glk, sk):
+                bf16_plain = matcher.model(**fwd["kw"])
+            vs_bf16 = decode_readings(decode_from_output, fwd["out"], bf16_out[i]["out"], fwd["kw"])
+            plain_rows = decode_readings(decode_from_output, ref, bf16_plain, fwd["kw"])["row_argmax"]
+            bar = max(BF16_DISTANCE_RATIO * (1 - plain_rows), 1 - INT8_ROW_ARGMAX)
+            check(1 - vs_bf16["row_argmax"] <= bar,
+                  f"{name}: vs the bf16 matcher {vs_bf16}; row argmax disagreement {1 - vs_bf16['row_argmax']}, "
+                  f"plain int8 vs plain bf16 {1 - plain_rows}, bar {bar}")
+            print(f"{name}: bucket {r['bucket']}; {stage_line(q, r)}; launches {json.dumps(fwd['launches'])} "
+                  f"({fwd['launches']['K7_kernels'] // layers} kernels per layer); vs the bf16 matcher "
+                  f"{json.dumps(vs_bf16)}: row argmax disagreement {1 - vs_bf16['row_argmax']:.4f} (plain int8 vs "
+                  f"plain bf16 {1 - plain_rows:.4f}; bar {bar:.4f}); {line} [{card}]", flush=True)
+        del q, matcher, twin
+
+        # ---- evaluation of the trainer phase's experiment at the step fit validated
+        eval_expected = {"K1": layers, "K2": 1, "K2s": 0, "K7": 0, "K7_kernels": 0}
+        eval_batches = []
+        real_make_eval_step = step_mod.make_eval_step
+
+        def make_eval_step(match_threshold):
+            step = real_make_eval_step(match_threshold)
+
+            def counted(state, batch):
+                before = {k: c.count for k, c in counters.items()}
+                out = step(state, batch)
+                delta = {k: c.count - before[k] for k, c in counters.items()}
+                check(delta == eval_expected, f"evaluate batch: launches {delta}, expected {eval_expected}")
+                launches.update(delta)
+                n = batch.side0.keypoints.shape[1]
+                launches[f"K2 {sk.k_storage_dtype(n + 1, n + 1)}"] += delta["K2"]
+                eval_batches.append(batch_key(batch))
+                return out
+
+            return counted
+
+        start = time.perf_counter()
+        with replaced((step_mod, "make_eval_step", make_eval_step)):
+            metrics = evaluate.main(["--experiment", str(trained["experiment"]), "--checkpoint_step",
+                                     str(trained["step"]), "--device", device])
+        eval_s = time.perf_counter() - start
+        fit_metrics = trained["eval_metrics"]
+        # fit's validation groups the pairs by bucket, the CLI takes them in
+        # order: when every pair fell in one bucket the batches are the same
+        same = eval_batches == trained["eval_batches"]
+        tol = 1e-6 if same else EVAL_METRIC_TOL
+        diffs = {k: abs(metrics[k] - fit_metrics[k]) for k in metrics if not k.startswith("AUC")}
+        print(f"serving_cli evaluate --checkpoint_step {trained['step']}: {len(eval_batches)} batches (N "
+              f"{'/'.join(str(n) for n, _ in eval_batches)}, {sum(len(k) for _, k in eval_batches)} pairs), "
+              f"{eval_s:.2f} s, launches per batch {json.dumps(eval_expected)}; {json.dumps(metrics)}; fit's "
+              f"validation of the same state: {json.dumps(fit_metrics)}; the batches "
+              f"{'are the same (shape, pairs, order)' if same else 'differ: fit groups its pairs by bucket'}; "
+              f"|diff| {json.dumps(diffs)} (bar {tol}) [{card}]", flush=True)
+        check(set(metrics) == set(fit_metrics) and all(d <= tol for d in diffs.values()),
+              f"evaluate: {metrics} against fit's {fit_metrics} (bar {tol})")
+    print(f"serving_cli phase: {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return dict(launches)
 
 
 def main() -> int:
@@ -2521,7 +3003,12 @@ def main() -> int:
     train = train_phase(gen, card)
     routes = routes_phase(gen, card)
     pretrain = pretrain_phase(gen, card)
-    trainer = trainer_phase(card, repo)
+    store, work = MemoryH5(), Path(tempfile.mkdtemp(prefix="chip-smoke-"))
+    try:
+        trainer, trained = trainer_phase(card, repo, store, work)
+        serving_cli = serving_cli_phase(card, repo, store, work, trained)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     rings = ring_phase(gen, card, model, ring_requests)
 
     n1024 = sum(d[1] for name, *_, d in results if "N=1024" in name)
@@ -2540,17 +3027,18 @@ def main() -> int:
              **k1[torch.bfloat16], library_ms=None,
              f32=dict(k1[torch.float32], library_ms=None),
              dh32=dh32(k1_32[torch.bfloat16], k1_32[torch.float32]), sift_launches=wider[sift]["K1"],
-             trainer_launches=trainer["K1"]),
+             trainer_launches=trainer["K1"], serving_cli_launches=serving_cli["K1"]),
         dict(name="sinkhorn_scale (f32 K, B=16 N=1024)", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:128", launches=n1024,
              train_launches=train["K2"], trainer_launches=trainer["K2"],
+             serving_cli_launches=serving_cli.get("K2 torch.float32", 0),
              **{k: v for k, v in k2[(16, 1024)].items() if k != "k_dtype"}, library_ms=None,
              single_pair=dict({k: v for k, v in k2[(1, 1024)].items() if k != "k_dtype"},
                               replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:56")),
         dict(name="sinkhorn_scale (bf16 K, B=4 N=2048)", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315", launches=n2048,
              **{k: v for k, v in k2[(4, 2048)].items() if k != "k_dtype"}, library_ms=None,
-             pretrain_launches=pretrain["K2"]),
+             pretrain_launches=pretrain["K2"], serving_cli_launches=serving_cli.get("K2 torch.bfloat16", 0)),
         dict(name=f"sinkhorn_scale streaming (bf16 K, B=1 N={WIDE_KEYPOINTS})", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315",
              launches=sum(d["K2s"] for d in wider.values()), **k2s, library_ms=None),
@@ -2578,7 +3066,7 @@ def main() -> int:
         dict(name="gnn_layer_int8 int8 (bf16 x, B=16 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "gnn_layer_int8.cu", replaces=pallas + "gnn_layer_int8.py:129",
              launches=other["int8"], **k7["int8"], int8_static=k7["int8_static"], int8_attn=k7["int8_attn"],
-             dh32=dh32(k7_32["int8"])),
+             dh32=dh32(k7_32["int8"]), int8_static_serving_cli_launches=serving_cli["K7"]),
         dict(name="gnn_layer_int8 int8_static_attn (bf16 x, B=16 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "gnn_layer_int8.cu", replaces=pallas + "gnn_layer_int8.py:129",
              launches=other["int8_static_attn"], **k7["int8_static_attn"], dh32=dh32(k7_32["int8_static_attn"])),

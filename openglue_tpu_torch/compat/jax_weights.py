@@ -7,7 +7,10 @@ returns the port's ``state_dict``, named after the reference torch keys. Dense
 kernels ``[in, out]`` become 1x1-conv weights ``[out, in, 1]``; BatchNorm
 scale/bias/mean/var become weight/bias/running_mean/running_var; a layer's
 FAVOR projection becomes its ``mha.projection`` buffer and its calibration
-vector its ``act_absmax`` buffer. ``jax_variables_from_state_dict`` is the
+vector its ``act_absmax`` buffer; a model that serves an ``int8_static*``
+mode is marked calibrated (``int8_calibration``) exactly when the variables
+hold the ``int8_calib`` collection, as the JAX package tells a calibrated
+matcher. ``jax_variables_from_state_dict`` is the
 inverse, and ``superglue_grads_from_jax`` maps a gradient tree of the JAX
 parameters onto the port's parameter names with the same transposes.
 ``load_npz_tree`` reads the JAX package's weight files (``save_weights``:
@@ -24,7 +27,7 @@ from typing import Any, Dict, List, Mapping, Tuple
 import numpy as np
 import torch
 
-from openglue_tpu_torch.models.superglue import SuperGlueConfig
+from openglue_tpu_torch.models.superglue import SuperGlueConfig, static_int8
 
 # (port name, JAX collection, JAX path, layout): "dense" is a kernel
 # [in, out] <-> weight [out, in, 1]; "column" is [D] <-> [D, 1]; "same" is as is
@@ -122,6 +125,8 @@ def superglue_state_dict_from_jax(
         if value is None:
             raise KeyError(f"JAX variables miss {collection}/{'/'.join(path)} (port {name})")
         sd[name] = _to_port(value, layout)
+    if static_int8(config):
+        sd["int8_calibration._extra_state"] = {"calibrated": "int8_calib" in variables}
     return sd
 
 

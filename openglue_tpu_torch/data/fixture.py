@@ -1,7 +1,9 @@
-"""Synthetic MegaDepth-format dataset with real multi-view geometry (port of
-``generate_megadepth_fixture`` of ``openglue_tpu/data/fixture.py``).
+"""Synthetic MegaDepth-format dataset with real multi-view geometry, and a
+folder of textured synthetic images (port of ``generate_megadepth_fixture``
+and ``generate_image_fixture`` of ``openglue_tpu/data/fixture.py``; at one
+seed the images are byte-equal to the JAX package's).
 
-It writes the on-disk contract the cached-feature trainer reads (reference
+``generate_megadepth_fixture`` writes the on-disk contract the cached-feature trainer reads (reference
 data/megadepth_dataset.py:90-99 pairs.txt lines, depth h5 maps under
 ``phoenix/S6/zl548/MegaDepth_v1/<scene>/dense0/depths``, the per-image
 ``*_lafs/_scores/_descriptors/_size.h5`` feature files and the extractor's
@@ -67,6 +69,45 @@ def _render_depth(
     X = C[None, None, :] + s[..., None] * d_w
     z_cam = (X @ R.T + t)[..., 2]
     return np.where(np.isfinite(s), z_cam, 0.0).astype(np.float32)
+
+
+def generate_image_fixture(
+    root,
+    num_images: int = 64,
+    image_size: Tuple[int, int] = (1280, 1024),
+    seed: int = 0,
+) -> dict:
+    """Write a folder of textured synthetic grayscale images — the
+    homography-pretraining fixture (HomographyPairsDataset consumes any image
+    folder; reference data/oxford_paris_dataset.py:27-66 only needs files).
+
+    Texture = smoothed random low-frequency field + random high-contrast
+    rectangles/discs, so corner detectors (SuperPoint) find stable keypoints.
+    ``image_size`` should exceed target_size + warp_offset (the dataset crops
+    warped views inside the frame)."""
+    import cv2
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    w, h = image_size
+    for i in range(num_images):
+        base = rng.random((h // 8, w // 8)).astype(np.float32)
+        img = cv2.resize(base, (w, h), interpolation=cv2.INTER_CUBIC)
+        img = 0.3 + 0.4 * (img - img.min()) / max(float(np.ptp(img)), 1e-6)
+        for _ in range(rng.integers(40, 80)):
+            shade = float(rng.uniform(0.0, 1.0))
+            x, y = int(rng.integers(0, w - 8)), int(rng.integers(0, h - 8))
+            sw, sh = int(rng.integers(8, w // 6)), int(rng.integers(8, h // 6))
+            if rng.random() < 0.5:
+                cv2.rectangle(img, (x, y), (min(x + sw, w - 1), min(y + sh, h - 1)),
+                              shade, thickness=-1)
+            else:
+                cv2.circle(img, (x + sw // 2, y + sh // 2), max(4, sw // 3),
+                           shade, thickness=-1)
+        img8 = np.clip(img * 255.0, 0, 255).astype(np.uint8)
+        cv2.imwrite(str(root / f"img{i:04d}.jpg"), img8)
+    return {"num_images": num_images, "image_size": list(image_size)}
 
 
 def generate_megadepth_fixture(

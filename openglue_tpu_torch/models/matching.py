@@ -31,11 +31,10 @@ def assignment_stats(
     are this rank's rows, ``mask1`` [B, M] every column; the row statistics
     are this rank's, the column argmax global row indices."""
     inner = scores[:, :-1, :-1]
-    neg_inf = inner.new_tensor(float("-inf"))
     if mask1 is not None:
-        inner = torch.where(mask1[:, None, :], inner, neg_inf)
+        inner = torch.where(mask1[:, None, :], inner, float("-inf"))
     if mask0 is not None:
-        inner = torch.where(mask0[:, :, None], inner, neg_inf)
+        inner = torch.where(mask0[:, :, None], inner, float("-inf"))
     max0 = inner.amax(dim=2)
     indices0 = inner.argmax(dim=2)
     indices1 = inner.argmax(dim=1)
@@ -62,23 +61,23 @@ def decode_matches_from_stats(
     mutual0 = arange0 == torch.gather(indices1, 1, indices0)
     mutual1 = arange1 == torch.gather(indices0, 1, indices1)
 
-    zero = max0.new_tensor(0.0)
-    mscores0 = torch.where(mutual0, torch.exp(max0), zero)
-    mscores1 = torch.where(mutual1, torch.gather(mscores0, 1, indices1), zero)
+    # Python scalars, not tensors made from them: a scalar tensor made on the
+    # card is a copy that waits for the host
+    mscores0 = torch.where(mutual0, torch.exp(max0), 0.0)
+    mscores1 = torch.where(mutual1, torch.gather(mscores0, 1, indices1), 0.0)
 
     valid0 = mutual0 & (mscores0 > match_threshold)
     valid1 = mutual1 & torch.gather(valid0, 1, indices1)
     if mask0 is not None:
         valid0 = valid0 & mask0
-        mscores0 = torch.where(mask0, mscores0, zero)
+        mscores0 = torch.where(mask0, mscores0, 0.0)
     if mask1 is not None:
         valid1 = valid1 & mask1
-        mscores1 = torch.where(mask1, mscores1, zero)
+        mscores1 = torch.where(mask1, mscores1, 0.0)
 
-    minus_one = indices0.new_tensor(-1)
     return {
-        "matches0": torch.where(valid0, indices0, minus_one),
-        "matches1": torch.where(valid1, indices1, minus_one),
+        "matches0": torch.where(valid0, indices0, -1),
+        "matches1": torch.where(valid1, indices1, -1),
         "matching_scores0": mscores0,
         "matching_scores1": mscores1,
     }

@@ -19,7 +19,9 @@ ends in the message backward kernel) or ``"composed"`` (the composed modules
 with the standalone attention kernels); ``remat`` checkpoints every GNN layer
 in training, on each route. ``quantize`` without ``use_pallas`` or with another attention
 kind cannot run: the model warns and serves the unquantized path. The
-``int8_static*`` modes serve only after ``calibrate``. On CPU tensors the kernels'
+``int8_static*`` modes serve only after ``calibrate``, which sets the model's
+``int8_calibration.calibrated`` flag (a host flag that the state dict
+carries, so that a restored model tells whether it was calibrated). On CPU tensors the kernels'
 plain versions run instead. In training mode every ``MaskedBatchNorm``
 normalizes with the batch statistics of the valid keypoints and updates its
 running statistics, as the JAX package's ``mutable=["batch_stats"]`` does.
@@ -126,6 +128,32 @@ class SuperGlueConfig:
         )
 
 
+def static_int8(config: SuperGlueConfig) -> bool:
+    """Whether the model's layers serve an ``int8_static*`` mode, and so hold
+    a calibration (``quantize`` runs only on the fused softmax path)."""
+    return bool(
+        config.quantize and config.quantize.startswith("int8_static") and config.use_pallas
+        and config.attention == "softmax" and config.ring_axis is None
+    )
+
+
+class CalibrationState(nn.Module):
+    """Whether the ``int8_static*`` layers hold a calibration: a host flag
+    that ``SuperGlue.calibrate`` sets, carried by the state dict as this
+    module's extra state (``int8_calibration._extra_state``) and read without
+    touching the device."""
+
+    def __init__(self):
+        super().__init__()
+        self.calibrated = False
+
+    def get_extra_state(self) -> Dict[str, bool]:
+        return {"calibrated": self.calibrated}
+
+    def set_extra_state(self, state: Mapping[str, Any]) -> None:
+        self.calibrated = bool(state["calibrated"])
+
+
 def normalize_keypoints(kpts: torch.Tensor, image_size: torch.Tensor) -> torch.Tensor:
     """Pixel coordinates [B, N, 2] -> [-1, 1]; image_size [2] or [B, 2] as
     (width, height)."""
@@ -169,6 +197,8 @@ class SuperGlue(nn.Module):
             config.use_pallas, config.attention, config.favor_num_features, config.quantize,
             generator, bool(config.remat), train_route, self.ring_group,
         )
+        if static_int8(config):
+            self.int8_calibration = CalibrationState()
         self.linear_proj = Conv1x1(dim, dim, dtype)
         if config.residual:
             self.mix_coefs = nn.Parameter(torch.zeros(dim, 1))
@@ -187,7 +217,8 @@ class SuperGlue(nn.Module):
         that serves through the dynamic int8 path while every layer records
         the running max of its activation sites into its ``act_absmax``
         buffer. Call it on representative inputs, once or several times,
-        before serving. Returns the pass's output."""
+        before serving; it sets ``int8_calibration.calibrated``. Returns the
+        pass's output."""
         layers = [layer.module for layer in self.attention_gnn.layers]
         if not any(layer.static_quantize for layer in layers):
             raise ValueError(f"quantize={self.config.quantize!r} has nothing to calibrate")
@@ -197,7 +228,9 @@ class SuperGlue(nn.Module):
             layer.calibrating = True
         try:
             with torch.no_grad():
-                return self(**inputs)
+                out = self(**inputs)
+            self.int8_calibration.calibrated = True
+            return out
         finally:
             for layer in layers:
                 layer.calibrating = False

@@ -253,7 +253,7 @@ def build_padded_otp_matrix(
     if mask1 is not None:
         mask1_pad = torch.nn.functional.pad(mask1, (0, cp - n))[:, None, :]
         valid_col = valid_col & (mask1_pad | (col_ids == n))
-    return torch.where(valid_row & valid_col, vals, vals.new_tensor(NEG_INF))
+    return torch.where(valid_row & valid_col, vals, NEG_INF)
 
 
 def otp_marginals(
@@ -274,12 +274,11 @@ def otp_marginals(
     count0 = mask0.sum(dim=1).to(f32)
     count1 = mask1.sum(dim=1).to(f32)
     norm = -torch.log(torch.clamp(count0 + count1, min=1.0))
-    neg = torch.tensor(NEG_INF, dtype=f32, device=device)
     log_a = torch.cat(
-        [torch.where(mask0, norm[:, None], neg),
+        [torch.where(mask0, norm[:, None], NEG_INF),
          (norm + torch.log(torch.clamp(count1, min=1.0)))[:, None]], dim=1)
     log_b = torch.cat(
-        [torch.where(mask1, norm[:, None], neg),
+        [torch.where(mask1, norm[:, None], NEG_INF),
          (norm + torch.log(torch.clamp(count0, min=1.0)))[:, None]], dim=1)
     return log_a, log_b, norm
 

@@ -54,18 +54,41 @@ def latest_step(directory) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_train_state(directory, state: TrainState, step: Optional[int] = None) -> TrainState:
-    """Load a checkpoint (the latest unless ``step``) into ``state`` in
-    place, onto the devices its model is on, and return it."""
+def _load(directory, step: Optional[int]):
+    """(path, payload) of the checkpoint at ``step``, the latest by default."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
-    payload = torch.load(checkpoint_path(directory, step), map_location="cpu", weights_only=True)
+    path = checkpoint_path(directory, step)
+    return path, torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore_train_state(directory, state: TrainState, step: Optional[int] = None) -> TrainState:
+    """Load a checkpoint (the latest unless ``step``) into ``state`` in
+    place, onto the devices its model is on, and return it."""
+    _, payload = _load(directory, step)
     state.model.load_state_dict(payload["model"])
     state.optimizer.adam.load_state_dict(payload["optimizer"])
     state.optimizer.scheduler.load_state_dict(payload["scheduler"])
     state.step = int(payload["step"])
     return state
+
+
+def restore_model(directory, model: torch.nn.Module, step: Optional[int] = None) -> int:
+    """Load the model's part of a checkpoint (the latest unless ``step``)
+    into ``model`` in place, which is all a server needs; returns the
+    checkpoint's step. Every parameter and statistic must be there. The
+    calibration of an ``int8_static*`` model (its ``act_absmax`` buffers and
+    ``int8_calibration`` flag) may be absent, as it is from a model that did
+    not quantize: the model then stays uncalibrated, as in the JAX package,
+    whose calibration is a collection of its own."""
+    path, payload = _load(directory, step)
+    missing, unexpected = model.load_state_dict(payload["model"], strict=False)
+    missing = [k for k in missing if not k.endswith((".act_absmax", "int8_calibration._extra_state"))]
+    if missing or unexpected:
+        raise RuntimeError(f"checkpoint {path} does not fit the model: "
+                           f"missing {missing}, unexpected {unexpected}")
+    return int(payload["step"])
 
 
 def save_weights(path, model: torch.nn.Module) -> None:

@@ -1451,3 +1451,83 @@ def test_hopper_bf16_attention_backward_matches_plain(dh, layout):
                     _close(a, c, torch.bfloat16, f"{what} {name}")
                 if kv_mask is not None and cot is not None:  # every key masked: dq = dk = 0
                     assert not grads[0][1].any() and not grads[1][1].any(), what
+
+
+# ---------------------------------------------------------------- serving entry
+
+
+def _serving_pair(tmp_path):
+    """A fixture image and a copy warped by a mild homography, grayscale."""
+    import cv2
+    import numpy as np
+
+    from openglue_tpu_torch.data.fixture import generate_image_fixture
+
+    generate_image_fixture(tmp_path, num_images=1, image_size=(640, 512), seed=2)
+    image = cv2.imread(str(tmp_path / "img0000.jpg"), cv2.IMREAD_GRAYSCALE)
+    H = np.array([[0.96, -0.06, 12.0], [0.06, 0.96, -8.0], [1e-5, -5e-6, 1.0]])
+    return image, cv2.warpPerspective(image, H, (640, 512))
+
+
+def _serving_matcher(**superglue):
+    """The flagship matcher section at the SIFT width (D=128, heads of width
+    32), seeded random weights, 512 keypoints a side."""
+    from openglue_tpu_torch.cli.inference import OpenGlueMatcher
+    from openglue_tpu_torch.core.config import Config
+
+    section = {"positional_encoding": {"hidden_layers_sizes": [32, 64, 128]},
+               "attention_gnn": {"num_stages": 9, "num_heads": 4, "attention": "softmax"},
+               "otp": {"num_iters": 20}, "residual": True, "use_pallas": True, "chain_dtype": "bfloat16",
+               **superglue}
+    features = {"name": "OPENCV_SIFT", "descriptor_dim": 128, "parameters": {"max_keypoints": 512}}
+    return OpenGlueMatcher(Config({"superglue": section, "inference": {"match_threshold": 0.0}}),
+                           Config(features), target_size=(480, 360), device="cuda")
+
+
+@pytest.mark.cuda
+def test_matcher_serves_through_the_kernels_as_its_plain_path(tmp_path, monkeypatch):
+    """``match_images`` on the card, 36 K1 + 1 K2 launches, against the same
+    matcher with the kernels' plain versions: log-P within 0.05 nats and the
+    decode agreeing on at least 99% of the keypoints (chip_smoke.py's
+    ``compare`` bars)."""
+    import numpy as np
+
+    _cuda()
+    image0, image1 = _serving_pair(tmp_path)
+    matcher = _serving_matcher()
+    assert all(matcher.extract(image)[3].all() for image in (image0, image1))  # 512 valid keypoints a side
+    before = (glk.counter.count, sk.counter.count)
+    out = matcher.match_images(image0, image1)
+    assert (glk.counter.count - before[0], sk.counter.count - before[1]) == (36, 1)
+    monkeypatch.setattr(glk, "fused_attention_propagation", glk.layer_plain)
+    monkeypatch.setattr(sk, "sinkhorn_scale", sk.sinkhorn_scale_plain)
+    ref = matcher.match_images(image0, image1)
+    assert out["scores"].shape == ref["scores"].shape == (513, 513)
+    assert np.abs(out["scores"] - ref["scores"]).max() <= 0.05
+
+    def matches0(result):
+        m = np.full(512, -1)
+        m[result["indices0"]] = result["indices1"]
+        return m
+
+    assert (matches0(out) == matches0(ref)).mean() >= 0.99 and len(out["indices0"]) >= 50
+
+
+@pytest.mark.cuda
+def test_int8_static_matcher_calibrates_on_its_first_pair_then_serves(tmp_path):
+    """The warm-up refuses an uncalibrated int8_static matcher; the first pair
+    calibrates it, then every pair serves through K7 (36 launches of 6
+    kernels) and no K1, the same pair bit for bit."""
+    _cuda()
+    image0, image1 = _serving_pair(tmp_path)
+    matcher = _serving_matcher(quantize="int8_static")
+    with pytest.raises(RuntimeError, match="uncalibrated"):
+        matcher.precompile(512)
+    first = matcher.match_images(image0, image1)
+    assert matcher.model.int8_calibration.calibrated
+    matcher.precompile(512)
+    before = (glk.counter.count, gli8.counter.count, gli8.launch_counter.count)
+    second = matcher.match_images(image0, image1)
+    assert (glk.counter.count - before[0], gli8.counter.count - before[1],
+            gli8.launch_counter.count - before[2]) == (0, 36, 216)
+    assert (second["scores"] == first["scores"]).all()
