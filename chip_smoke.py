@@ -103,7 +103,19 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    files; a request in the 512 bucket; an ``int8_static`` matcher through
    K7), and ``cli.evaluate.main`` on the trainer phase's experiment, its
    metrics against those of fit's validation;
-8. keypoint-axis context parallelism (``ring_axis``): the ring's block
+8. the device extractors (``device_extractors_phase``), with seeded random
+   weights: ``cli.extract_features.main`` with
+   configs/features/superpoint_magicleap.yaml (SuperPoint D=256, up to 2048
+   keypoints, the 960x720 target: 960x768 images) over the serving phase's
+   images; a SuperPoint experiment served (``initialize_matcher`` ->
+   ``precompile`` -> ``run_inference`` per pair: the stages, the extraction's
+   device time, the bucket, 36 K1 + 1 K2, the host synchronizations, each
+   forward against its plain path); the device DoG SIFT, GFTT-AffNet-HardNet,
+   DoG(OpenCV)-AffNet-HardNet and SuperPoint with BatchNorms (COCO config)
+   served once each; every extractor on the card against its CPU run with
+   the same weights (``features/agreement.py``'s bars); the device SIFT
+   pairs' matches after MAGSAC against the known homography;
+9. keypoint-axis context parallelism (``ring_axis``): the ring's block
    attention with the LSE (K11) at B=12 N=1024 and B=4 N=2048, bf16 and f32,
    against its plain version with the library call's time beside it; the
    block merge of the ring (K11 on 4 key blocks of a B=12 N=1024 request,
@@ -1989,15 +2001,21 @@ class MemoryH5:
 
 @contextlib.contextmanager
 def replaced(*entries):
-    """Set ``(owner, name, value)`` attributes for the block, then restore them."""
-    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in entries]
+    """Set ``(owner, name, value)`` attributes for the block, then restore
+    them: an attribute the owner held itself is set back, one it took from
+    its class (a method) is deleted again."""
+    saved = [(owner, name, getattr(owner, name), name in getattr(owner, "__dict__", {}))
+             for owner, name, _ in entries]
     for owner, name, value in entries:
         setattr(owner, name, value)
     try:
         yield
     finally:
-        for owner, name, value in saved:
-            setattr(owner, name, value)
+        for owner, name, value, own in reversed(saved):
+            if own:
+                setattr(owner, name, value)
+            else:
+                delattr(owner, name)
 
 
 class TrainerProbe:
@@ -2153,7 +2171,11 @@ def sync_sites(fn):
 
     sites = collections.Counter()
 
+    running = []  # set while fn runs: setting the debug mode may warn itself
+
     def record(message, category, filename, lineno, file=None, line=None):
+        if not running or "synchroniz" not in str(message):  # not fn's, or not the sync debug mode's
+            return
         frames = [f for f in traceback.extract_stack() if "openglue_tpu_torch" in f.filename]
         where = (f"{frames[-1].filename.split('openglue_tpu_torch/')[-1]}:{frames[-1].lineno}"
                  if frames else f"{Path(filename).name}:{lineno}")
@@ -2164,9 +2186,11 @@ def sync_sites(fn):
         warnings.simplefilter("always")
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
+        running.append(True)
         try:
             fn()
         finally:
+            running.clear()
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     return sites
@@ -2506,6 +2530,69 @@ class ServingProbe:
                 - ms["forward"] - ms["decode"], "MAGSAC": ms["magsac"]}
 
 
+def serving_pairs(images: Path):
+    """SERVING_IMAGES fixture images (1280x1024) in ``images``, each beside a
+    copy warped by ``serving_homography``: [(image, warped copy, H)]."""
+    import cv2
+
+    from openglue_tpu_torch.data import fixture, io
+
+    fixture.generate_image_fixture(images, num_images=SERVING_IMAGES, image_size=(1280, 1024), seed=0)
+    pairs = []
+    for i in range(SERVING_IMAGES):
+        a = images / f"img{i:04d}.jpg"
+        b = images / f"img{i:04d}_warped.png"
+        H = serving_homography(i)
+        cv2.imwrite(str(b), cv2.warpPerspective(io.read_grayscale(a), H, (1280, 1024)))
+        pairs.append((a, b, H))
+    return pairs
+
+
+def f32_twin(model, device):
+    """The served matcher's f32 twin: the same weights, chain_dtype None, no quantize."""
+    from openglue_tpu_torch.models.superglue import SuperGlue
+
+    twin = SuperGlue(dataclasses.replace(model.config, chain_dtype=None, quantize=None), device=device).eval()
+    twin.load_state_dict(model.state_dict())
+    return twin
+
+
+def held_forward(m, twin, fwd, name):
+    """A served forward (``fwd``: its inputs and output) against its plain
+    path: the served chain is bf16 (int8 for the int8_static matcher), which
+    the kernels and the plain versions round differently, each as validly:
+    at random weights the assignment is nearly flat (top-two margins under
+    1e-3 nats), so the decode at threshold 0 flips with the rounding.
+    ``compare``'s bars hold the same request on the f32 ``twin`` (chain_dtype
+    None, no quantize, the same weights); the served forward is held to
+    log_P within LOG_P_NATS of its plain path, and its decode's disagreement
+    with the plain f32 path to at most BF16_DISTANCE_RATIO times its plain
+    path's, or to compare's 1 - DECODE_AGREEMENT where that is larger.
+    Returns (the plain path's output, the readings)."""
+    from openglue_tpu_torch.models.matching import decode_from_output
+    from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+
+    kw = fwd["kw"]
+    with torch.no_grad():
+        out32 = twin(**kw)
+        with plain_versions(glk, sk, gli8):
+            ref32, ref = twin(**kw), m.model(**kw)
+    nats, stats = compare(decode_from_output, out32, ref32, kw, f"{name} f32 twin")
+    got = decode_readings(decode_from_output, fwd["out"], ref, kw)
+    d_kernel = 1 - decode_readings(decode_from_output, fwd["out"], ref32, kw)["matches@0"]
+    d_plain = 1 - decode_readings(decode_from_output, ref, ref32, kw)["matches@0"]
+    bar = max(BF16_DISTANCE_RATIO * d_plain, 1 - DECODE_AGREEMENT)
+    check(got["nats_max"] <= LOG_P_NATS and d_kernel <= bar,
+          f"{name}: vs its plain path {got}; decode disagreement with the plain f32 path {d_kernel} "
+          f"(kernels) vs {d_plain} (plain), bar {bar}")
+    return ref, (f"vs plain path {got['nats_max']:.3e} nats, decode {got['matches@0']:.4f} at threshold 0, row "
+                 f"argmax {got['row_argmax']:.4f}; decode disagreement with the plain f32 path {d_kernel:.4f} "
+                 f"(its plain path {d_plain:.4f}; bar {bar:.4f}); f32 twin vs its plain path {nats:.3e} nats, decode "
+                 f"{json.dumps(stats)}")
+
+
 def serving_cli_phase(card, repo: Path, store: MemoryH5, work: Path, trained, device="cuda"):
     """The port's serving and evaluation entry points on the card, at the
     SIFT serving shape (configs/features/sift_opencv.yaml: OpenCV SIFT,
@@ -2532,7 +2619,7 @@ def serving_cli_phase(card, repo: Path, store: MemoryH5, work: Path, trained, de
     from openglue_tpu_torch.cli import evaluate, extract_features, inference
     from openglue_tpu_torch.cli.common import superglue_config_from
     from openglue_tpu_torch.core.config import load_config
-    from openglue_tpu_torch.data import fixture, io
+    from openglue_tpu_torch.data import io
     from openglue_tpu_torch.features import opencv_features
     from openglue_tpu_torch.models.matching import decode_from_output
     from openglue_tpu_torch.models.superglue import SuperGlue
@@ -2555,14 +2642,7 @@ def serving_cli_phase(card, repo: Path, store: MemoryH5, work: Path, trained, de
 
     # ---- images: the fixture and a warped copy of each
     images = root / "images"
-    fixture.generate_image_fixture(images, num_images=SERVING_IMAGES, image_size=(1280, 1024), seed=0)
-    pairs = []
-    for i in range(SERVING_IMAGES):
-        a = images / f"img{i:04d}.jpg"
-        b = images / f"img{i:04d}_warped.png"
-        H = serving_homography(i)
-        cv2.imwrite(str(b), cv2.warpPerspective(io.read_grayscale(a), H, (1280, 1024)))
-        pairs.append((a, b, H))
+    pairs = serving_pairs(images)
 
     with replaced(*store.entries(io)):
         # ---- extraction through the cacher's entry point
@@ -2639,39 +2719,9 @@ def serving_cli_phase(card, repo: Path, store: MemoryH5, work: Path, trained, de
                     + f" ms (forward device {device:.3f} ms); request {r['total_ms']:.1f} ms with the card "
                     f"synchronized after each device stage, the card busy {device / r['total_ms']:.4f} of it")
 
-        # the served chain is bf16 (int8 for the int8_static matcher), which
-        # the kernels and the plain versions round differently, each as
-        # validly: at random weights the assignment is nearly flat (top-two
-        # margins under 1e-3 nats), so the decode at threshold 0 flips with
-        # the rounding. compare's bars hold the same request on an f32 twin
-        # (chain_dtype None, no quantize, the same weights); the served
-        # forward is held to log_P within LOG_P_NATS of its plain path, and
-        # its decode's disagreement with the plain f32 path to at most
-        # BF16_DISTANCE_RATIO times its plain path's, or to compare's
-        # 1 - DECODE_AGREEMENT where that is larger
-        twin = SuperGlue(dataclasses.replace(matcher.model.config, chain_dtype=None, quantize=None),
-                         device=device).eval()
-        twin.load_state_dict(matcher.model.state_dict())
-
-        def held(m, fwd, name):
-            """(the plain path's output, the readings)"""
-            kw = fwd["kw"]
-            with torch.no_grad():
-                out32 = twin(**kw)
-                with plain_versions(glk, sk, gli8):
-                    ref32, ref = twin(**kw), m.model(**kw)
-            nats, stats = compare(decode_from_output, out32, ref32, kw, f"{name} f32 twin")
-            got = decode_readings(decode_from_output, fwd["out"], ref, kw)
-            d_kernel = 1 - decode_readings(decode_from_output, fwd["out"], ref32, kw)["matches@0"]
-            d_plain = 1 - decode_readings(decode_from_output, ref, ref32, kw)["matches@0"]
-            bar = max(BF16_DISTANCE_RATIO * d_plain, 1 - DECODE_AGREEMENT)
-            check(got["nats_max"] <= LOG_P_NATS and d_kernel <= bar,
-                  f"{name}: vs its plain path {got}; decode disagreement with the plain f32 path {d_kernel} "
-                  f"(kernels) vs {d_plain} (plain), bar {bar}")
-            return ref, (f"vs plain path {got['nats_max']:.3e} nats, decode {got['matches@0']:.4f} at threshold 0, row "
-                    f"argmax {got['row_argmax']:.4f}; decode disagreement with the plain f32 path {d_kernel:.4f} "
-                    f"(its plain path {d_plain:.4f}; bar {bar:.4f}); f32 twin vs its plain path {nats:.3e} nats, decode "
-                    f"{json.dumps(stats)}")
+        # each forward against its plain path on an f32 twin (held_forward)
+        twin = f32_twin(matcher.model, device)
+        held = lambda m, fwd, name: held_forward(m, twin, fwd, name)
 
         def latency_ms(m, a, b, repeats=3):
             times = []
@@ -2842,6 +2892,351 @@ def serving_cli_phase(card, repo: Path, store: MemoryH5, work: Path, trained, de
     return dict(launches)
 
 
+# the device extractors' phase (device_extractors_phase): the flagship's own
+# features config, cached and served, and every other device extractor's
+# config served once, on the serving phase's images
+DEVICE_FEATURES = "configs/features/superpoint_magicleap.yaml"
+OTHER_EXTRACTORS = ("configs/features_online/sift.yaml", "configs/features_online/gftt_affnet_hardnet.yaml",
+                    "configs/features/dog_opencv_affnet_hardnet.yaml", "configs/features/superpoint_coco.yaml")
+# the device SIFT pairs' matches at threshold 0 after MAGSAC under the known
+# homography are held to the serving phase's bars (GEOMETRY_MIN_MATCHES,
+# GEOMETRY_MAX_PX): at random matcher weights 16-28 of them are kept, at a
+# median error of 0.64-2.58 px (an NVIDIA H100 80GB HBM3 at 700 W), not the
+# 100 and 1.0 px first set for them; the line prints the descriptors' own
+# mutual nearest neighbours beside OpenCV SIFT's
+
+
+def flat_patches_line(ref, held):
+    """Where the reference extraction's valid keypoints whose patch is flat lie."""
+    xy = ref[0][ref[3] & ~held][:, :, 2]
+    if not len(xy):
+        return "; no keypoint on a flat patch"
+    return (f"; {len(xy)} valid keypoints on flat patches, x {xy[:, 0].min():.1f}-{xy[:, 0].max():.1f}, "
+            f"y {xy[:, 1].min():.1f}-{xy[:, 1].max():.1f}")
+
+
+class ExtractorProbe(ServingProbe):
+    """``ServingProbe`` for a matcher whose extractor computes on the card:
+    the host time of read, resize, extraction (upload, the extractor, the
+    seam mask and the one copy back; for OPENCVDoGAffNetHardNet the OpenCV
+    detection on the host too), to-bucket, prepare, forward, decode, the
+    rest of ``match_images`` and MAGSAC; and the extractor's device time by
+    CUDA events around its device part (the module's forward, or
+    ``describe``)."""
+
+    def reset(self):
+        super().reset()
+        self.events = []
+
+    def device_part(self, fn):
+        def run(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        return run
+
+    def entries(self, inference, io, matcher):
+        extractor = matcher.extractor
+        if matcher.device_extractor:
+            extraction = [(inference, "extract_on_device", self.timed("extraction", inference.extract_on_device)),
+                          (extractor, "forward", self.device_part(extractor.forward))]
+        else:  # OpenCV's detection on the host, AffNet, OriNet and HardNet on the card
+            extraction = [(extractor, "detect_and_compute", self.timed("extraction", extractor.detect_and_compute)),
+                          (extractor.detector, "detect_and_compute",
+                           self.timed("detect", extractor.detector.detect_and_compute)),
+                          (extractor, "describe", self.device_part(extractor.describe))]
+        return ((io, "read_grayscale", self.timed("read", io.read_grayscale)),
+                (io, "aspect_preserving_resize", self.timed("resize", io.aspect_preserving_resize)),
+                *extraction,
+                (matcher, "_to_bucket", self.timed("to_bucket", matcher._to_bucket)),
+                (inference, "prepare_features_output", self.timed("prepare", inference.prepare_features_output,
+                                                                  sync=True)),
+                (matcher.model, "forward", self.forward(matcher.model.forward)),
+                (inference, "decode_from_output", self.timed("decode", inference.decode_from_output, sync=True)),
+                (matcher, "match_images", self.timed("match_images", matcher.match_images)),
+                (inference, "magsac_inlier_filter", self.magsac_filter(inference.magsac_inlier_filter)))
+
+    def extraction_device_ms(self):
+        torch.cuda.synchronize()
+        return sum(start.elapsed_time(end) for start, end in self.events)
+
+    def stages(self):
+        ms = self.ms
+        out = {"read": ms["read"], "resize": ms["resize"], "extraction": ms["extraction"]}
+        if "detect" in ms:
+            out["of which OpenCV detection"] = ms["detect"]
+        out.update({"to-bucket": ms["to_bucket"], "prepare and copy": ms["prepare"], "forward": ms["forward"],
+                    "decode": ms["decode"],
+                    "copy back and the rest": ms["match_images"] - ms["resize"] - ms["extraction"]
+                    - ms["to_bucket"] - ms["prepare"] - ms["forward"] - ms["decode"],
+                    "MAGSAC": ms["magsac"]})
+        return out
+
+
+def device_extractors_phase(card, repo: Path, store: MemoryH5, work: Path, device="cuda", target=(960, 720)):
+    """The device extractors on the card, behind the cacher and the serving
+    entry point, with seeded random weights (no trained extractor weights
+    are in the repository):
+
+    (a) ``cli.extract_features.main`` with configs/features/superpoint_magicleap.yaml
+        (SuperPoint D=256, up to 2048 keypoints) over the serving phase's
+        images and their warped copies at the CLI's 960x720 target (the
+        1280x1024 images become 960x768): keypoints and ms per image, the
+        handshake config.yaml, the extractor's device time;
+    (b) a SuperPoint experiment (the flagship ``superglue:`` section,
+        buckets 512/1024/2048): ``initialize_matcher`` -> ``precompile`` ->
+        ``run_inference`` on every pair, each request's stages (the
+        extraction by host and device time), bucket, launches (36 K1 + 1
+        K2), each forward held against its plain path (``held_forward``);
+        the host synchronizations of a request; the matches at threshold 0
+        after MAGSAC against the known homography (printed, no bar: the
+        weights are random);
+    (c) each other config of OTHER_EXTRACTORS served once at its own shape
+        (D=128 runs heads of width 32), the same readings;
+    (d) every extractor on the card against the same module with the same
+        weights on the CPU in f32, on one image, at the bars of
+        ``features/agreement.py``;
+    (e) the device SIFT pairs' matches at threshold 0 after MAGSAC under the
+        known homography, at the serving phase's bars (GEOMETRY_MIN_MATCHES
+        kept, median error under GEOMETRY_MAX_PX), with the descriptors' own
+        mutual nearest neighbours beside OpenCV SIFT's.
+
+    Returns the phase's launches by kernel (K2 by its K storage dtype too)."""
+    import copy
+
+    import numpy as np
+    import yaml
+
+    from openglue_tpu_torch.cli import extract_features, inference
+    from openglue_tpu_torch.cli.common import superglue_config_from
+    from openglue_tpu_torch.core.config import Config, load_config
+    from openglue_tpu_torch.data import io
+    from openglue_tpu_torch.features import agreement as agree
+    from openglue_tpu_torch.features.dog_affnet_hardnet import DoGAffNetHardNet
+    from openglue_tpu_torch.features.prepare import to_device
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.train.checkpoint import save_train_state
+    from openglue_tpu_torch.train.state import create_train_state
+
+    phase_start = time.perf_counter()
+    root = work / "device_extractors"
+    counters = {"K1": glk.counter, "K2": sk.counter, "K2s": sk.stream_counter}
+    layers = 2 * SUPERGLUE_SECTION["attention_gnn"]["num_stages"] * 2
+    expected = {"K1": layers, "K2": 1, "K2s": 0}
+    launches = collections.Counter()
+    pairs = serving_pairs(root / "images")
+    sp_yaml = repo / DEVICE_FEATURES
+    sp_config = load_config(sp_yaml)
+    tw, th = target
+    config = {"superglue": SUPERGLUE_SECTION, "inference": {"match_threshold": MATCH_THRESHOLD,
+                                                             "buckets": SERVING_BUCKETS}}
+    probe = ExtractorProbe(counters)
+    twins = {}
+
+    def request(m, a, b, name, ransac=True):
+        """One probed run_inference: (result, readings)."""
+        probe.reset()
+        with replaced(*probe.entries(inference, io, m)):
+            start = time.perf_counter()
+            result = inference.run_inference(m, a, b, ransac=ransac)
+            total = (time.perf_counter() - start) * 1e3
+        fwd = probe.forwards[-1]
+        check(fwd["launches"] == expected, f"{name}: launches {fwd['launches']}, expected {expected}")
+        launches.update(fwd["launches"])
+        n = m._last_num_keypoints
+        launches[f"K2 {sk.k_storage_dtype(n + 1, n + 1)}"] += fwd["launches"]["K2"]
+        return result, dict(total_ms=total, stages=probe.stages(), forward=fwd, bucket=n,
+                            extraction_device_ms=probe.extraction_device_ms(), magsac=probe.magsac[-1])
+
+    def request_line(m, r, name):
+        """The request's readings, its forward held against its plain path."""
+        fwd = r["forward"]
+        twin = twins.setdefault(id(m), f32_twin(m.model, device))
+        with torch.no_grad():
+            forward_device = device_ms(lambda: m.model(**fwd["kw"]), calls=1)
+        before, after = r["magsac"]
+        return (f"bucket {r['bucket']} (valid {int(fwd['kw']['mask0'].sum())}/{int(fwd['kw']['mask1'].sum())}); "
+                + ", ".join(f"{k} {v:.2f}" for k, v in r["stages"].items())
+                + f" ms; extraction on the card {r['extraction_device_ms']:.3f} ms device time for both images, "
+                f"forward device {forward_device:.3f} ms; request {r['total_ms']:.1f} ms with the card synchronized "
+                f"after each device stage; launches {json.dumps(fwd['launches'])}; matches at threshold "
+                f"{m.match_threshold}: {before} before MAGSAC, {after} after; "
+                f"{held_forward(m, twin, fwd, name)[1]} [{card}]")
+
+    def mutual_nn_within_3px(m, a, b, H):
+        """The extractor's own mutual nearest neighbours (L2 of the
+        descriptors, no matcher) on a pair: (count, within 3 px)."""
+        fa, fb = (m.extract(io.read_grayscale(p)) for p in (a, b))
+        da, db = fa[2][fa[3]].astype(np.float64), fb[2][fb[3]].astype(np.float64)
+        d = (da * da).sum(1)[:, None] + (db * db).sum(1)[None] - 2 * da @ db.T
+        n01, n10 = d.argmin(1), d.argmin(0)
+        i = np.flatnonzero(n10[n01] == np.arange(len(da)))
+        err = reprojection_px(fa[0][fa[3]][i, :, 2], fb[0][fb[3]][n01[i], :, 2], H, tw / 1280)
+        return len(i), int((err < 3).sum())
+
+    def geometry(m, name, min_matches=None, max_px=None):
+        """The pairs' matches at threshold 0 after MAGSAC under the known homography."""
+        m.match_threshold = 0.0
+        readings = []
+        for i, (a, b, H) in enumerate(pairs):
+            result, r = request(m, a, b, f"{name} geometry pair {i}")
+            scale = tw / 1280
+            error = reprojection_px(result["keypoints0"], result["keypoints1"], H, scale)
+            median = float(np.median(error)) if len(error) else float("inf")
+            readings.append((r["magsac"][0], r["magsac"][1], median, float(np.mean(error < 3)) if len(error) else 0.0))
+        bars = "" if min_matches is None else f" (bars: at least {min_matches} kept, median under {max_px} px)"
+        a, b, H = pairs[0]
+        mnn, good = mutual_nn_within_3px(m, a, b, H)
+        print(f"{name} geometry at threshold 0: " + "; ".join(
+            f"pair {i} {n0} matches, {n1} after MAGSAC, median error {med:.3f} px, within 3 px {w3:.3f}"
+            for i, (n0, n1, med, w3) in enumerate(readings)) + f"{bars}; the descriptors' own mutual nearest "
+              f"neighbours on pair 0: {mnn}, {good} within 3 px [{card}]", flush=True)
+        if min_matches is not None:
+            for i, (_, kept, med, _) in enumerate(readings):
+                check(kept >= min_matches and med < max_px,
+                      f"{name} geometry pair {i}: {kept} matches after MAGSAC, median error {med} px")
+
+    with replaced(*store.entries(io)):
+        # ---- (a) the cacher with SuperPoint
+        saved = []
+
+        def timed_save(out_dir, base, lafs, scores, descriptors, size):
+            save_outputs(out_dir, base, lafs, scores, descriptors, size)
+            saved.append((base, lafs.shape[0], descriptors.shape[1], tuple(size), time.perf_counter()))
+
+        save_outputs = extract_features.save_outputs
+        start = time.perf_counter()
+        with replaced((extract_features, "save_outputs", timed_save)):
+            extract_features.main(["--features_config", str(sp_yaml), "--data_dir", str(root / "images"),
+                                   "--output_dir", str(root / "features"), "--target_size", str(tw), str(th),
+                                   "--device", device])
+        cache_s = time.perf_counter() - start
+        handshake = root / "features" / f"SuperPointNet_{tw}_{th}" / "config.yaml"
+        check(handshake.is_file() and load_config(handshake) == sp_config,
+              f"extract_features: the handshake {handshake} is missing or differs from {sp_yaml}")
+        check(len(saved) == 2 * SERVING_IMAGES, f"extract_features: {len(saved)} images extracted")
+        max_k = int(sp_config["parameters"]["max_keypoints"])
+        for base, n, d, size, _ in saved:
+            check(0 < n <= max_k and d == DESCRIPTOR_DIM, f"extract_features {base}: {n} keypoints, D={d}")
+        times = np.diff([start] + [t for *_, t in saved]) * 1e3
+        model = extract_features.build_device_extractor(sp_config, None, device)
+        image = io.aspect_preserving_resize(io.read_grayscale(pairs[0][0]), target)
+        h, w = image.shape
+        padded = np.zeros((-(-h // 8) * 8, -(-w // 8) * 8), np.float32)
+        padded[:h, :w] = image / np.float32(255.0)
+        x = to_device(padded[None], device)
+        with torch.no_grad():
+            sp_ms = device_ms(lambda: model(x), calls=5)
+        print("device_extractors extract_features (SuperPointNet D=256, max 2048, 960x720 target): "
+              + "; ".join(f"{base} {w}x{h} {n} keypoints {ms:.1f} ms" for (base, n, _, (w, h), _), ms
+                          in zip(saved, times))
+              + f"; {cache_s:.2f} s for {len(saved)} images with the first call; handshake {handshake.name} "
+              f"written; SuperPoint's forward (extraction on the card, B=1 {padded.shape[1]}x{padded.shape[0]}) "
+              f"{sp_ms:.3f} ms device time [{card}]", flush=True)
+        del model
+
+        # ---- (b) serving a SuperPoint experiment
+        exp = root / "experiment"
+        exp.mkdir(parents=True)
+        (exp / "config.yaml").write_text(yaml.safe_dump(config))
+        shutil.copy(sp_yaml, exp / "features_config.yaml")
+        init = SuperGlue(superglue_config_from(config, DESCRIPTOR_DIM, SIDE_INFO_DIM), device=device,
+                         generator=torch.Generator().manual_seed(0))
+        save_train_state(exp / "checkpoints", create_train_state(init), step=0)
+        del init
+        matcher = inference.initialize_matcher(exp, target_size=target, device=device)
+        check(matcher.device_extractor and matcher.buckets == tuple(SERVING_BUCKETS),
+              f"initialize_matcher: device extractor {matcher.device_extractor}, buckets {matcher.buckets}")
+        start = time.perf_counter()
+        matcher.precompile(matcher.buckets)
+        precompile_s = time.perf_counter() - start
+        for i, (a, b, _) in enumerate(pairs):
+            name = f"device_extractors SuperPoint pair {i} ({a.name}, {b.name})"
+            _, r = request(matcher, a, b, name)
+            print(f"{name}: {request_line(matcher, r, name)}", flush=True)
+        a, b, _ = pairs[0]
+        sites = sync_sites(lambda: inference.run_inference(matcher, a, b))
+        print(f"device_extractors SuperPoint run_inference: {sum(sites.values())} host synchronizations per request "
+              f"({', '.join(f'{n} at {where}' for where, n in sites.most_common())}); precompile {precompile_s:.2f} s "
+              f"[{card}]", flush=True)
+        geometry(matcher, "device_extractors SuperPoint")
+
+        # ---- (c) the other extractors' configs, one pair each
+        matchers = {"SuperPointNet": matcher}
+        for rel in OTHER_EXTRACTORS:
+            fc = load_config(repo / rel)
+            m = inference.OpenGlueMatcher(Config(config), fc, target_size=target, device=device)
+            m.precompile(m.buckets)
+            name = f"device_extractors {fc['name']} ({rel}, D={fc['descriptor_dim']}, max {fc['parameters']['max_keypoints']})"
+            a, b, _ = pairs[0]
+            _, r = request(m, a, b, name)
+            print(f"{name}, its first request: {r['total_ms']:.1f} ms, extraction {r['stages']['extraction']:.2f} ms "
+                  f"(the card's first convolutions and sorts at these shapes)", flush=True)
+            _, r = request(m, a, b, name)
+            print(f"{name}: {request_line(m, r, name)}", flush=True)
+            matchers[fc["name"]] = m
+
+        # ---- (d) each extractor on the card against its CPU run
+        image = io.aspect_preserving_resize(io.read_grayscale(pairs[0][0]), target)
+        for name, m in matchers.items():
+            if m.device_extractor:
+                start = time.perf_counter()
+                got = extract_features.extract_on_device(m.extractor, image, device)
+                card_s = time.perf_counter() - start
+                cpu = copy.deepcopy(m.extractor).cpu()
+                start = time.perf_counter()
+                ref = extract_features.extract_on_device(cpu, image, "cpu")
+            else:
+                ext = m.extractor
+                start = time.perf_counter()
+                got = ext.detect_and_compute(image)
+                card_s = time.perf_counter() - start
+                cpu = DoGAffNetHardNet(max_keypoints=ext.detector.max_keypoints, device="cpu")
+                cpu.load_weights(ext.affnet.state_dict(), ext.orinet.state_dict(), ext.hardnet.state_dict())
+                start = time.perf_counter()
+                ref = cpu.detect_and_compute(image)
+            cpu_s = time.perf_counter() - start
+            patch_size = getattr(getattr(m.extractor, "config", m.extractor), "patch_size", None)
+            held = None if patch_size is None else agree.textured(image, ref[0], patch_size)
+            readings = agree.agreement(got, ref, held=held)
+            flat = "" if held is None else flat_patches_line(ref, held)
+            if m.device_extractor:
+                x = to_device(padded[None], device)
+                with torch.no_grad():
+                    busy, top = device_profile(lambda: m.extractor(x))
+            else:
+                with torch.no_grad():
+                    busy, top = device_profile(lambda: ext.detect_and_compute(image))
+            print(f"device_extractors {name} card vs CPU (f32, {image.shape[1]}x{image.shape[0]}): "
+                  f"{json.dumps(readings)}{flat}; bars: shared and same frame >= {agree.SHARED_MIN} within "
+                  f"{agree.KEYPOINT_PX} px, and of those with the same frame >= {agree.SHARED_MIN} identified by "
+                  f"their descriptors{'' if name == 'SIFT' else f' and within {agree.DESCRIPTOR_MAX}'} (patch "
+                  f"descriptors: where the patch spans {agree.CONTRAST_MIN}), "
+                  f"responses within {agree.RESPONSE_REL_MAX} relative; host {card_s * 1e3:.1f} ms on the card, "
+                  f"{cpu_s * 1e3:.1f} ms on the CPU; one extraction's device busy {busy} ms, by kernel: "
+                  + "; ".join(f"{kname} {ms:.3f} ms ({calls} calls)" for ms, kname, calls in top) + f" [{card}]",
+                  flush=True)
+            check(agree.within_bars(readings, descriptor_max=name != "SIFT"), f"{name}: card vs CPU {readings}")
+
+        # ---- (e) the device SIFT's geometry, beside OpenCV SIFT's descriptors; the SuperPoint pairs printed above
+        geometry(matchers["SIFT"], "device_extractors SIFT", GEOMETRY_MIN_MATCHES, GEOMETRY_MAX_PX)
+        ocv = inference.OpenGlueMatcher(Config(config), load_config(repo / "configs/features/sift_opencv.yaml"),
+                                        target_size=target, device=device)
+        a, b, H = pairs[0]
+        mnn, good = mutual_nn_within_3px(ocv, a, b, H)
+        print(f"device_extractors OpenCV SIFT (configs/features/sift_opencv.yaml, max 2048): the descriptors' own "
+              f"mutual nearest neighbours on pair 0: {mnn}, {good} within 3 px [{card}]", flush=True)
+        del matchers, matcher, m, ocv
+    print(f"device_extractors phase: {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return dict(launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -3007,6 +3402,7 @@ def main() -> int:
     try:
         trainer, trained = trainer_phase(card, repo, store, work)
         serving_cli = serving_cli_phase(card, repo, store, work, trained)
+        extractors = device_extractors_phase(card, repo, store, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     rings = ring_phase(gen, card, model, ring_requests)
@@ -3027,18 +3423,21 @@ def main() -> int:
              **k1[torch.bfloat16], library_ms=None,
              f32=dict(k1[torch.float32], library_ms=None),
              dh32=dh32(k1_32[torch.bfloat16], k1_32[torch.float32]), sift_launches=wider[sift]["K1"],
-             trainer_launches=trainer["K1"], serving_cli_launches=serving_cli["K1"]),
+             trainer_launches=trainer["K1"], serving_cli_launches=serving_cli["K1"],
+             device_extractors_launches=extractors["K1"]),
         dict(name="sinkhorn_scale (f32 K, B=16 N=1024)", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:128", launches=n1024,
              train_launches=train["K2"], trainer_launches=trainer["K2"],
              serving_cli_launches=serving_cli.get("K2 torch.float32", 0),
+             device_extractors_launches=extractors.get("K2 torch.float32", 0),
              **{k: v for k, v in k2[(16, 1024)].items() if k != "k_dtype"}, library_ms=None,
              single_pair=dict({k: v for k, v in k2[(1, 1024)].items() if k != "k_dtype"},
                               replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:56")),
         dict(name="sinkhorn_scale (bf16 K, B=4 N=2048)", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315", launches=n2048,
              **{k: v for k, v in k2[(4, 2048)].items() if k != "k_dtype"}, library_ms=None,
-             pretrain_launches=pretrain["K2"], serving_cli_launches=serving_cli.get("K2 torch.bfloat16", 0)),
+             pretrain_launches=pretrain["K2"], serving_cli_launches=serving_cli.get("K2 torch.bfloat16", 0),
+             device_extractors_launches=extractors.get("K2 torch.bfloat16", 0)),
         dict(name=f"sinkhorn_scale streaming (bf16 K, B=1 N={WIDE_KEYPOINTS})", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315",
              launches=sum(d["K2s"] for d in wider.values()), **k2s, library_ms=None),

@@ -8,8 +8,11 @@ take two images, return matched keypoints/LAFs/confidences after
 mutual-NN + threshold decoding. ``run_inference`` adds MAGSAC fundamental-
 matrix inlier filtering (reference inference.py:230-233).
 
-Features come from a host extractor (OpenCV); the device extractors and the
-online trainer's experiments wait for ROADMAP.md module 9 and are refused.
+Features come from a device extractor (SuperPoint, the DoG SIFT,
+GFTT-AffNet-HardNet), run on the matcher's device with one copy of its
+output back to the host per image, or from a host extractor (OpenCV, whose
+AffNet/HardNet variant runs its networks on the matcher's device); the
+online trainer's experiments wait for ROADMAP.md module 9b and are refused.
 A request moves its extracted arrays to the matcher's device once, decodes
 there and copies the decoded matches and the scores back in one transfer.
 
@@ -32,6 +35,7 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from openglue_tpu_torch.cli.extract_features import build_device_extractor, extract_on_device
 from openglue_tpu_torch.core.config import Config, load_config
 from openglue_tpu_torch.data import io
 from openglue_tpu_torch.data.bucketing import batch_bucket
@@ -64,7 +68,7 @@ class OpenGlueMatcher:
     ):
         from openglue_tpu_torch.cli.common import superglue_config_from
         from openglue_tpu_torch.features.lafs import get_laf_to_sideinfo_converter
-        from openglue_tpu_torch.features.registry import get_feature_extractor, is_device_extractor
+        from openglue_tpu_torch.features.registry import build_host_extractor, is_device_extractor
         from openglue_tpu_torch.models.superglue import SuperGlue
 
         self.device = torch.device(device)
@@ -86,13 +90,11 @@ class OpenGlueMatcher:
             buckets = config.get("inference.buckets")
         self.buckets = tuple(int(b) for b in buckets) if buckets else None
 
-        name = features_config["name"]
-        if is_device_extractor(name):
-            raise NotImplementedError(
-                f"device feature extractor {name!r}: the device extractors are not ported yet "
-                "(ROADMAP.md module 9); serve with a host extractor such as OPENCV_SIFT"
-            )
-        self.extractor = get_feature_extractor(name)(**features_config.get("parameters", {}))
+        self.device_extractor = is_device_extractor(features_config["name"])
+        if self.device_extractor:
+            self.extractor = build_device_extractor(features_config, features_config.get("weights"), self.device)
+        else:
+            self.extractor = build_host_extractor(features_config, self.device)
 
         laf_method = config.get("superglue.laf_to_sideinfo_method", "none")
         self.laf_converter = get_laf_to_sideinfo_converter(laf_method)
@@ -167,10 +169,14 @@ class OpenGlueMatcher:
 
     def extract(self, image: np.ndarray):
         """grayscale uint8 [H, W] -> (lafs, scores, desc, mask, (w, h)) numpy,
-        in the resized image's pixels."""
+        in the resized image's pixels (a device extractor's detections in
+        the padding to multiples of 8 masked out)."""
         resized = io.aspect_preserving_resize(image, self.target_size)
         h, w = resized.shape[:2]
-        lafs, scores, desc, mask = self.extractor.detect_and_compute(resized)
+        if self.device_extractor:
+            lafs, scores, desc, mask = extract_on_device(self.extractor, resized, self.device)
+        else:
+            lafs, scores, desc, mask = self.extractor.detect_and_compute(resized)
         return lafs, scores, desc, mask, (w, h)
 
     @staticmethod
@@ -257,7 +263,7 @@ def initialize_matcher(experiment_dir, checkpoint_step: Optional[int] = None, **
     (the latest unless ``checkpoint_step``). ``kwargs`` go to
     ``OpenGlueMatcher``. An online experiment (its config has a ``features``
     section: the checkpoint holds the extractor and the matcher) waits for
-    ROADMAP.md module 9 and raises."""
+    ROADMAP.md module 9b and raises."""
     from openglue_tpu_torch.train.checkpoint import restore_model
 
     experiment_dir = Path(experiment_dir)
@@ -266,7 +272,7 @@ def initialize_matcher(experiment_dir, checkpoint_step: Optional[int] = None, **
     if "features" in config:
         raise NotImplementedError(
             f"{experiment_dir} is an online experiment (its config has a features section): the online "
-            "trainer and its checkpoints are not ported yet (ROADMAP.md module 9)"
+            "trainer and its checkpoints are not ported yet (ROADMAP.md module 9b)"
         )
     matcher = OpenGlueMatcher(config, features_config, **kwargs)
     restore_model(experiment_dir / "checkpoints", matcher.model, step=checkpoint_step)

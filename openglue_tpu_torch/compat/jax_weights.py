@@ -18,6 +18,12 @@ one npz entry per leaf, keyed by its path) into such a tree.
 
 All three directions follow one table, ``_layout``: for every port entry,
 its JAX collection and path and how its layout changes.
+
+The device extractors' carriers (``superpoint_state_dict_from_jax``,
+``hardnet_…``, ``affnet_…``, ``orinet_…`` and
+``gftt_affnet_hardnet_state_dict_from_jax``) take the JAX variables of each
+network the same way and return the port's state dict, named after the
+reference's (SuperPoint) or kornia's (``features.N``) torch keys.
 """
 
 from __future__ import annotations
@@ -190,3 +196,85 @@ def save_npz_tree(path, tree: Mapping[str, Any]) -> None:
 
     walk(tree, ())
     np.savez(path, **flat)
+
+
+# --- the device extractors ----------------------------------------------------
+# flax convolution kernels are (kh, kw, in, out) on NHWC, torch's weights
+# (out, in, kh, kw) on NCHW; flax BatchNorm scale/bias/mean/var are torch's
+# weight/bias/running_mean/running_var (flax momentum 0.9 is torch's 0.1,
+# a setting of the module, not a weight)
+
+
+def _conv_weight(kernel) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.array(kernel, np.float32).transpose(3, 2, 0, 1)))
+
+
+def _tensor(value) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, np.float32))
+
+
+def superpoint_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's SuperPoint state dict (the reference's keys) from the JAX
+    SuperPoint variables; the BatchNorms of ``SuperPointNetBn`` come along
+    when the variables have them."""
+    params = variables["params"]["backbone"]
+    stats = variables.get("batch_stats", {}).get("backbone", {})
+    sd: Dict[str, torch.Tensor] = {}
+    for name, entry in params.items():
+        if name.startswith("conv"):
+            sd[f"{name}.weight"] = _conv_weight(entry["kernel"])
+            sd[f"{name}.bias"] = _tensor(entry["bias"])
+        else:
+            sd[f"{name}.weight"] = _tensor(entry["scale"])
+            sd[f"{name}.bias"] = _tensor(entry["bias"])
+            sd[f"{name}.running_mean"] = _tensor(stats[name]["mean"])
+            sd[f"{name}.running_var"] = _tensor(stats[name]["var"])
+    return sd
+
+
+def _patch_net_state_dict(params: Mapping[str, Any], stats: Mapping[str, Any], prefix: str = "features"
+                          ) -> Dict[str, torch.Tensor]:
+    """A HardNet / AffNet / OriNet tree (``conv_i`` kernels, affine-free
+    ``bn_i`` statistics) as kornia's Sequential: conv i at index 3i, its
+    BatchNorm at 3i + 1; after six layers and the dropout, the head's 8x8
+    conv at 19 (with its bias, where it has one) and HardNet's BatchNorm at 20."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, entry in params.items():
+        i = int(name.split("_")[1])
+        index = 3 * i if i < 6 else 19
+        sd[f"{prefix}.{index}.weight"] = _conv_weight(entry["kernel"])
+        if "bias" in entry:
+            sd[f"{prefix}.{index}.bias"] = _tensor(entry["bias"])
+    for name, entry in stats.items():
+        i = int(name.split("_")[1])
+        index = 3 * i + 1 if i < 6 else 20
+        sd[f"{prefix}.{index}.running_mean"] = _tensor(entry["mean"])
+        sd[f"{prefix}.{index}.running_var"] = _tensor(entry["var"])
+    return sd
+
+
+def hardnet_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's HardNet state dict from the JAX HardNet variables."""
+    return _patch_net_state_dict(variables["params"], variables["batch_stats"])
+
+
+def affnet_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's AffNet (or OriNet) state dict from the JAX variables, whose
+    regressor sits under ``trunk``."""
+    return _patch_net_state_dict(variables["params"]["trunk"], variables["batch_stats"]["trunk"])
+
+
+orinet_state_dict_from_jax = affnet_state_dict_from_jax
+
+
+def gftt_affnet_hardnet_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's GFTTAffNetHardNet state dict from the JAX module's
+    variables: the ``affnet/trunk`` subtree (absent without AffNet) and the
+    ``hardnet`` subtree."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {f"hardnet.{k}": v for k, v in hardnet_state_dict_from_jax(
+        {"params": params["hardnet"], "batch_stats": stats["hardnet"]}).items()}
+    if "affnet" in params:
+        sd.update({f"affnet.{k}": v for k, v in affnet_state_dict_from_jax(
+            {"params": params["affnet"], "batch_stats": stats["affnet"]}).items()})
+    return sd

@@ -29,6 +29,18 @@ class KeypointSet:
 
 
 @dataclasses.dataclass
+class Features:
+    """A device extractor's output before side-info preparation, at a fixed
+    ``N`` per image: lafs [B, N, 2, 3] local affine frames (last column the
+    keypoint xy), responses [B, N], descriptors [B, N, D], mask [B, N] bool."""
+
+    lafs: torch.Tensor
+    responses: torch.Tensor
+    descriptors: torch.Tensor
+    mask: torch.Tensor
+
+
+@dataclasses.dataclass
 class Transformation:
     """The ground-truth geometric relation between the two images of a pair:
     a homography (``kind="perspective"``, ``H`` [B, 3, 3] mapping image0

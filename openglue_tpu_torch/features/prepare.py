@@ -4,8 +4,10 @@
 The side information is built on the host in numpy, with the port's numpy
 LAF helpers (``features/lafs.py``), as the collate builds it; the finished
 arrays then go to the caller's device once each (from page-locked memory
-without blocking the host, for a CUDA device). ``features_to_keypoint_set``
-takes the device extractors' ``Features``, which wait for ROADMAP.md module 9.
+without blocking the host, for a CUDA device). The serving path takes a
+device extractor's output as host arrays too (``cli.extract_features.
+extract_on_device``); ``features_to_keypoint_set``, which takes ``Features``
+on the device inside the online train step, waits for ROADMAP.md module 9b.
 """
 
 from __future__ import annotations

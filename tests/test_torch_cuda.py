@@ -1531,3 +1531,56 @@ def test_int8_static_matcher_calibrates_on_its_first_pair_then_serves(tmp_path):
     assert (glk.counter.count - before[0], gli8.counter.count - before[1],
             gli8.launch_counter.count - before[2]) == (0, 36, 216)
     assert (second["scores"] == first["scores"]).all()
+
+
+# the device extractors (their convolutions and gathers are PyTorch ops, run
+# with TF32 off inside each module): each on the card against the same
+# module with the same weights on the CPU in f32, at the bars of
+# features/agreement.py
+EXTRACTOR_CONFIGS = {
+    "SuperPointNet": dict(max_keypoints=1024, descriptor_dim=256, nms_kernel=9, remove_borders_size=4,
+                          keypoint_threshold=0.005),
+    "SuperPointNetBn": dict(max_keypoints=1024, descriptor_dim=256, nms_kernel=9, remove_borders_size=4,
+                            keypoint_threshold=0.005),
+    "SIFT": dict(max_keypoints=1024, nms_diameter=9, rootsift=True),
+    "GFTTAffNetHardNet": dict(max_keypoints=1024, descriptor_dim=128, nms_diameter=9),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(EXTRACTOR_CONFIGS))
+def test_device_extractor_on_the_card_matches_its_cpu_run(name, tmp_path):
+    import copy
+
+    from openglue_tpu_torch.cli.extract_features import build_device_extractor, extract_on_device
+    from openglue_tpu_torch.features.agreement import agreement, textured, within_bars
+
+    _cuda()
+    image, _ = _serving_pair(tmp_path)
+    model = build_device_extractor({"name": name, "parameters": EXTRACTOR_CONFIGS[name]}, None, "cuda")
+    torch.backends.cudnn.allow_tf32 = True  # the module turns TF32 off itself, whatever the caller set
+    try:
+        got = extract_on_device(model, image, "cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    ref = extract_on_device(copy.deepcopy(model).cpu(), image, "cpu")
+    patch_size = getattr(model.config, "patch_size", None)
+    readings = agreement(got, ref, held=None if patch_size is None else textured(image, ref[0], patch_size))
+    assert within_bars(readings, descriptor_max=name != "SIFT"), readings
+    assert readings["n_ref"] >= 200
+
+
+@pytest.mark.cuda
+def test_dog_affnet_hardnet_on_the_card_matches_its_cpu_run(tmp_path):
+    from openglue_tpu_torch.features.agreement import agreement, textured, within_bars
+    from openglue_tpu_torch.features.dog_affnet_hardnet import DoGAffNetHardNet
+
+    _cuda()
+    image, _ = _serving_pair(tmp_path)
+    card = DoGAffNetHardNet(max_keypoints=1024, device="cuda")
+    cpu = DoGAffNetHardNet(max_keypoints=1024, device="cpu")
+    cpu.load_weights(card.affnet.state_dict(), card.orinet.state_dict(), card.hardnet.state_dict())
+    ref = cpu.detect_and_compute(image)
+    readings = agreement(card.detect_and_compute(image), ref, held=textured(image, ref[0], card.patch_size))
+    assert within_bars(readings), readings
+    assert readings["n_ref"] >= 200

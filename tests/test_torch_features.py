@@ -18,6 +18,7 @@ import cv2
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from openglue_tpu import native as jax_native
 from openglue_tpu.data.fixture import generate_image_fixture as jax_generate_image_fixture
@@ -162,9 +163,19 @@ def test_prepare_features_output_matches_jax(image, method, log_response):
 @pytest.mark.parametrize("name", ["SuperPointNet", "SuperPointNetBn", "SIFT", "GFTTAffNetHardNet",
                                   "OPENCVDoGAffNetHardNet"])
 def test_registry_refuses_the_unported_extractors_naming_module_9(name):
-    with pytest.raises(NotImplementedError, match="module 9"):
-        registry.get_feature_extractor(name)
+    """Module 9a ported every extractor of the JAX registry: each name builds
+    (nothing is refused any more), the device ones as modules."""
+    from openglue_tpu.features import registry as jax_registry
+
+    params = {"max_keypoints": 16}
+    if name == "OPENCVDoGAffNetHardNet":
+        extractor = registry.build_host_extractor({"name": name, "parameters": params}, "cpu")
+        assert extractor.hardnet.features[0].weight.device.type == "cpu"
+    else:
+        extractor = registry.get_feature_extractor(name)(**params)
+        assert isinstance(extractor, torch.nn.Module)
     assert registry.is_device_extractor(name) == (name != "OPENCVDoGAffNetHardNet")
+    assert registry.is_device_extractor(name) == jax_registry.is_device_extractor(name)
 
 
 def test_registry_host_sift_and_unknown_names():

@@ -323,15 +323,16 @@ def test_refusals(images, experiments, tmp_path):
     online = tmp_path / "online"
     shutil.copytree(experiments["composed"], online)
     write_yaml(online / "config.yaml", dict(CONFIG, features={"name": "SuperPointNet"}))
-    with pytest.raises(NotImplementedError, match="online experiment.*module 9"):
+    with pytest.raises(NotImplementedError, match="online experiment.*module 9b"):
         inference.initialize_matcher(online, device="cpu")
-    superpoint = {"name": "SuperPointNet", "descriptor_dim": 256, "parameters": {}}
-    with pytest.raises(NotImplementedError, match="module 9"):
-        inference.OpenGlueMatcher(yaml_config(CONFIG), yaml_config(superpoint), device="cpu")
+    # the device extractors are served now (tests/test_torch_device_serving.py)
+    superpoint = {"name": "SuperPointNet", "descriptor_dim": 256, "parameters": {"max_keypoints": 32}}
+    assert inference.OpenGlueMatcher(yaml_config(CONFIG), yaml_config(superpoint), device="cpu").device_extractor
     write_yaml(tmp_path / "sp.yaml", superpoint)
-    with pytest.raises(NotImplementedError, match="module 9"):
-        extract_features.main(["--features_config", str(tmp_path / "sp.yaml"), "--data_dir", str(images),
-                               "--output_dir", str(tmp_path / "out")])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            extract_features.main(["--features_config", str(tmp_path / "sp.yaml"), "--data_dir", str(images),
+                                   "--output_dir", str(tmp_path / "out")])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             inference.initialize_matcher(experiments["composed"])
