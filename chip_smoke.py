@@ -27,8 +27,11 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    at N=1000, M=777 with and without the LSE's cotangent)
    at B=12, N=1024, K9 and K10 also at B=4, N=2048, with the time of
    ``scaled_dot_product_attention`` on the same inputs beside them; the
-   streaming Sinkhorn forward (K2s) past the fused kernel's columns (B=1,
-   4352 x 4352); every kernel that attends (K1, K4-K11) again at heads of
+   wide Sinkhorn forward (K2s) past the fused kernel's columns, one launch
+   per call (bf16 K at B=1 and B=4 N=4352 and B=1 N=8192, past the card's
+   shared memory, and f32 K at B=1 N=2048, past its 1536 fused columns;
+   each after its plan line, held against the Python mirror, and run twice,
+   bit for bit); every kernel that attends (K1, K4-K11) again at heads of
    width 32 (D=128, 4 heads); and the dense GEMMs inside the layer kernels
    alone (gemm_f32 at every shape of a ``message`` step and of the
    pretraining fixture's width, tn_gemm_f32 at their weight gradients, each
@@ -191,7 +194,7 @@ PRETRAIN_TRAIN_SECTION = {
     "nll_weight": 1.0, "metric_weight": 0.0, "lr": 0.0002, "scheduler_gamma": 0.999994, "warmup_steps": 500,
 }
 PRETRAIN_BATCH = 2
-WIDE_KEYPOINTS = 4352  # past the fused Sinkhorn kernel's 4096 columns: the streaming kernel
+WIDE_KEYPOINTS = 4352  # past the fused Sinkhorn kernel's 4096 columns: the wide kernel (K2s)
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -1661,38 +1664,110 @@ def routes_phase(gen, card, device="cuda"):
     return launches
 
 
-def streaming_sinkhorn_phase(sk, gen, batch=1, n=WIDE_KEYPOINTS, iters=20):
-    """K2's streaming variant past the fused kernel's columns (bf16 K, B=1,
-    4352 x 4352): kernel vs plain, two runs bit for bit."""
+# K2s's shapes: (batch, keypoints, K's storage). bf16 K past the card's
+# shared memory (one element and four in turn at N=4352, one at N=8192, most
+# of its rows spilled past the L2) and f32 K past its 1536 fused columns
+WIDE_SINKHORN_SHAPES = ((1, WIDE_KEYPOINTS, torch.bfloat16), (4, WIDE_KEYPOINTS, torch.bfloat16),
+                        (1, 8192, torch.bfloat16), (1, 2048, torch.float32))
+# the first square shape past the wide plan's reach (bf16 K, rows spilled):
+# the older streaming kernel's route
+PAST_REACH_SHAPE = (1, 19184, torch.bfloat16)
+
+
+def wide_plan_line(sk, name, batch, rows, cols, k_dtype):
+    """Print the wide kernel's launch plan as the C code makes it (tiers,
+    clusters, waves, workspace) and check it against the Python mirror."""
+    found = sk.wide_kernel_plan(batch, rows, cols, k_dtype)
+    check(found is not None, f"{name}: the card's C plan places nothing")
+    plan, caps, sms = found
+    mirror = sk.wide_launch_plan(batch, rows, cols, k_dtype, sms, caps)
+    print(f"{name} plan: {plan.ctas} CTAs per element ({plan.groups} cluster(s) of {plan.cs}"
+          f"{', cooperative' if plan.cooperative else ''}, exchange in {max(plan.exchange_levels, 1)} level(s)), "
+          f"{plan.slots} element(s) in flight, {plan.waves} wave(s); per CTA {plan.rows} rows: {plan.smem_rows} in "
+          f"shared memory, {plan.spill_rows} in device memory"
+          + (f" read once per iteration through a ring of {plan.stages} rows ({plan.ring_bytes} bytes)"
+             if plan.spill_rows else "")
+          + f", 0 in registers; column sums in {plan.col_vecs} vectors "
+          f"a thread; {plan.smem_bytes} bytes of shared memory; workspace {plan.workspace_bytes} bytes "
+          f"(exchange {plan.exchange_bytes}); clusters the card holds {caps}, {sms} SMs", flush=True)
+    check(plan == mirror, f"{name}: the C plan {plan} is not the Python mirror's {mirror}")
+    return plan
+
+
+def streaming_sinkhorn_phase(sk, gen, iters=20, extra=None):
+    """K2s, the wide kernel past the fused kernel's columns, at each of
+    ``WIDE_SINKHORN_SHAPES``: its plan, one launch per call (no fused or
+    older streaming launch), kernel vs plain, two runs bit for bit; then the
+    older streaming kernel at ``PAST_REACH_SHAPE``: its route, one forward
+    through ``log_optimal_transport`` with its launches counted, kernel vs
+    plain, two runs bit for bit. The first shape draws from ``gen`` what
+    this phase drew before it had the others, the other wide shapes from
+    ``extra`` (by default a generator of their own, seed 16) and the last
+    from one of its own (seed 17), so that every later phase draws the data
+    it drew before. Returns ({(batch, n, storage name): readings}, the
+    streaming kernel's readings)."""
     dev = torch.device("cuda")
-    scores = torch.randn(batch, n, n, generator=gen, device=dev) * 4
-    mask0 = torch.rand(batch, n, generator=gen, device=dev) > 0.1
-    mask1 = torch.rand(batch, n, generator=gen, device=dev) > 0.1
-    rows, cols = n + 1, n + 1
-    cp = sk._round_up(cols, sk.COL_ALIGN)
-    k_dtype = sk.k_storage_dtype(rows, cols)
-    check(cp > sk.FUSED_MAX_COLS[k_dtype], f"K2s: {cp} columns fit the fused kernel")
-    M_pad = sk.build_padded_otp_matrix(scores, torch.tensor(1.0, device=dev), 1.0, mask0, mask1, rows, cp)
-    la, lb, _ = sk.otp_marginals(batch, n, n, mask0, mask1, dev)
-    la, lb = sk.padded_marginals(la, lb, rows, cp)
-    run = lambda: sk.sinkhorn_scale(M_pad, la, lb, iters, k_dtype)
-    plain = lambda: sk.sinkhorn_scale_plain(M_pad, la, lb, iters, k_dtype)
-    before = sk.stream_counter.count, sk.counter.count
-    u, again, ref = run(), run(), plain()
-    torch.cuda.synchronize()
-    check((sk.stream_counter.count - before[0], sk.counter.count - before[1]) == (2, 0), "K2s: launches")
-    check(torch.equal(u, again), "K2s: two runs differ")
-    live = la > -1e8  # masked rows sit near -1e9, where one f32 ulp is 64
-    err = (u - ref).abs()[live].max().item()
-    check(err <= 1e-3, f"K2s B={batch} N={n}: max error {err} on live rows")  # K2's bar
-    ms = device_ms(run, 5)
-    plain_ms = device_ms(plain, 2)
-    flops = batch * rows * cp * (4 * (iters - 1) + 2)
-    nbytes = batch * (rows * cp * 4 + 2 * rows * 4 + cp * 4)
-    bms, by = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
-    print(f"K2s sinkhorn_streaming K={str(k_dtype)[6:]} B={batch} N={n} ({cp} columns): max_abs_err={err:.3e} "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms ({by}), two runs equal", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    extra = torch.Generator(device=dev).manual_seed(16) if extra is None else extra
+    readings = {}
+    counters = (sk.stream_counter, sk.counter, sk.legacy_stream_counter)
+    for i, (batch, n, k_dtype) in enumerate((*WIDE_SINKHORN_SHAPES, PAST_REACH_SHAPE)):
+        legacy = i == len(WIDE_SINKHORN_SHAPES)
+        g = gen if i == 0 else torch.Generator(device=dev).manual_seed(17) if legacy else extra
+        scores = torch.randn(batch, n, n, generator=g, device=dev) * 4
+        mask0 = torch.rand(batch, n, generator=g, device=dev) > 0.1
+        mask1 = torch.rand(batch, n, generator=g, device=dev) > 0.1
+        rows, cols = n + 1, n + 1
+        cp = sk._round_up(cols, sk.COL_ALIGN)
+        kd = str(k_dtype)[6:]
+        name = f"{'streaming' if legacy else 'K2s'} {kd} K B={batch} N={n}"
+        route = sk.forward_route(batch, rows, cp, k_dtype)
+        check(route == ("stream" if legacy else "wide"), f"{name}: route {route}")
+        if legacy:
+            check(sk.wide_kernel_plan(batch, rows, cp, k_dtype) is None, f"{name}: the card's wide plan places it")
+            before = [c.count for c in counters]
+            log_p = sk.log_optimal_transport(scores, torch.tensor(1.0, device=dev), iters, 1.0, mask0, mask1)
+            torch.cuda.synchronize()
+            launches = [c.count - b for c, b in zip(counters, before)]
+            check(launches == [0, 0, 1], f"{name}: log_optimal_transport launches {launches}")
+            check(log_p.shape == (batch, rows, cols) and bool(torch.isfinite(log_p).all()),
+                  f"{name}: log_optimal_transport's output")
+            del log_p
+        M_pad = sk.build_padded_otp_matrix(scores, torch.tensor(1.0, device=dev), 1.0, mask0, mask1, rows, cp)
+        del scores
+        la, lb, _ = sk.otp_marginals(batch, n, n, mask0, mask1, dev)
+        la, lb = sk.padded_marginals(la, lb, rows, cp)
+        if not legacy:
+            plan = wide_plan_line(sk, name, batch, rows, cp, k_dtype)
+        run = lambda: sk.sinkhorn_scale(M_pad, la, lb, iters, k_dtype)
+        plain = lambda: sk.sinkhorn_scale_plain(M_pad, la, lb, iters, k_dtype)
+        before = [c.count for c in counters]
+        u, again, ref = run(), run(), plain()
+        torch.cuda.synchronize()
+        expected = [0, 0, 2] if legacy else [2, 0, 0]
+        check([c.count - b for c, b in zip(counters, before)] == expected, f"{name}: launches")
+        check(torch.equal(u, again), f"{name}: two runs differ")
+        live = la > -1e8  # masked rows sit near -1e9, where one f32 ulp is 64
+        err = (u - ref).abs()[live].max().item()
+        check(err <= 1e-3, f"{name}: max error {err} on live rows")  # K2's bar
+        ms = device_ms(run, 5)
+        plain_ms = device_ms(plain, 2)
+        flops = batch * rows * cp * (4 * (iters - 1) + 2)
+        nbytes = batch * (rows * cp * 4 + 2 * rows * 4 + cp * 4)
+        bms, by = bound_ms(flops, PEAK_F32_FLOPS, nbytes)
+        print(f"{'streaming sinkhorn_scale_streaming' if legacy else 'K2s sinkhorn_wide'} K={kd} B={batch} N={n} "
+              f"({cp} columns): max_abs_err={err:.3e} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}), two runs equal" + (f"; launches in one log_optimal_transport {launches}"
+                                                        if legacy else ""), flush=True)
+        reading = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+        if legacy:
+            streaming = dict(reading, launches=launches[2])
+        else:
+            readings[(batch, n, kd)] = dict(reading, plan=dict(
+                smem_rows=plan.smem_rows, spill_rows=plan.spill_rows, stages=plan.stages, clusters=plan.groups,
+                cluster_size=plan.cs, waves=plan.waves, exchange_levels=plan.exchange_levels,
+                workspace_bytes=plan.workspace_bytes))
+        del M_pad, u, again, ref
+    return readings, streaming
 
 
 def counted_serve(model, decode_from_output, inputs, counters, expected, name):
@@ -1720,7 +1795,7 @@ def wider_serving_phase(gen, card, model, mods):
     the plain path at the bars of the flagship phases: the matcher at the
     SIFT shape (configs/features/sift_opencv.yaml: D=128, so 4 heads of width
     32; B=4 pairs of 2048 keypoints) through K1 and K2, and one flagship pair
-    of 4352 keypoints per image, whose Sinkhorn runs the streaming kernel.
+    of 4352 keypoints per image, whose Sinkhorn runs the wide kernel (K2s).
     Returns the launches of the counted runs."""
     glk, sk, SuperGlue = mods["glk"], mods["sk"], mods["SuperGlue"]
     decode_from_output = mods["decode_from_output"]
@@ -3291,7 +3366,7 @@ def main() -> int:
         k6 = {(kind, dt): feature_layer_phase(glk, sample_orthogonal_random_matrix, kind, dt, gen)
               for kind in glk.FEATURE_KINDS for dt in (torch.bfloat16, torch.float32)}
         k7 = {mode: int8_layer_phase(glk, gli8, mode, gen) for mode in INT8_MODES}
-        k2s = streaming_sinkhorn_phase(sk, gen)
+        k2s, streaming = streaming_sinkhorn_phase(sk, gen)
         # every kernel that attends, at heads of width 32 (D=128, 4 heads: the SIFT configurations)
         k1_32 = {dt: layer_phase(glk, dt, gen, dim=128) for dt in (torch.bfloat16, torch.float32)}
         k45_32 = {dt: message_phase(glk, dt, gen, dim=128) for dt in (torch.bfloat16, torch.float32)}
@@ -3438,9 +3513,16 @@ def main() -> int:
              **{k: v for k, v in k2[(4, 2048)].items() if k != "k_dtype"}, library_ms=None,
              pretrain_launches=pretrain["K2"], serving_cli_launches=serving_cli.get("K2 torch.bfloat16", 0),
              device_extractors_launches=extractors.get("K2 torch.bfloat16", 0)),
-        dict(name=f"sinkhorn_scale streaming (bf16 K, B=1 N={WIDE_KEYPOINTS})", route="cuda", source=sinkhorn,
+        dict(name=f"sinkhorn_scale wide (bf16 K, B=1 N={WIDE_KEYPOINTS})", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315",
-             launches=sum(d["K2s"] for d in wider.values()), **k2s, library_ms=None),
+             launches=sum(d["K2s"] for d in wider.values()), **k2s[(1, WIDE_KEYPOINTS, "bfloat16")],
+             library_ms=None,
+             shapes={f"{kd} K B={b} N={n}": dict(reading, library_ms=None)
+                     for (b, n, kd), reading in k2s.items() if (b, n, kd) != (1, WIDE_KEYPOINTS, "bfloat16")}),
+        # past the wide plan's reach; its launches: one log_optimal_transport in its phase
+        dict(name=f"sinkhorn_scale streaming (bf16 K, B={PAST_REACH_SHAPE[0]} N={PAST_REACH_SHAPE[1]}, past the wide "
+                  f"plan's reach)", route="cuda", source=sinkhorn,
+             replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315", **streaming, library_ms=None),
         dict(name="sinkhorn_adjoint (f32 K, B=12 N=1024 T=20)", route="cuda", source=csrc + "sinkhorn_adjoint.cu",
              replaces=pallas + "sinkhorn_kernel.py:548", launches=train["K3"], trainer_launches=trainer["K3"],
              **k3, library_ms=None),

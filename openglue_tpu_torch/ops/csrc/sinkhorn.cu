@@ -31,12 +31,27 @@
 // one trip through L2 where an element spans clusters.
 //
 // Beyond the fused kernel's columns (1536 with f32 K, 4096 with bf16 K), the
-// streaming variant (og_sinkhorn_scale_streaming, the counterpart of
-// _blocked_scale_kernel) runs the same recursion with K read from device
-// memory in every half-iteration: a warp per row forms u (rows pass); blocks
-// of 256 columns sum u_i K_ij over splits of 64 rows into partials (columns
-// pass); a last launch adds the partials in a fixed order and forms v. Three
-// launches per iteration, any column count, no atomics.
+// wide kernel (K2s, og_sinkhorn_scale_wide, the counterpart of
+// _blocked_scale_kernel) runs the whole recursion in one launch on the same
+// engine under make_wide_plan: K formed once from M, the rows past the card's
+// shared memory written once to the workspace and read back once per
+// iteration through a ring of one-row buffers filled by bulk copies (each row
+// read once: its dot, its u and its share of the column sums in one visit,
+// the sums held in registers), and a two-level exchange where an element
+// spans more than eight clusters. What bounds it at B=1 N=4352 (bf16 K, 37.9
+// MB, past the card's 30.7 MB of shared memory): one read of M (75.9 MB f32),
+// then per iteration the spilled rows (a third of K) from L2 and the
+// exchange's round trips through L2 between 66 clusters.
+//
+// Past the wide plan's reach (more columns than eight 16-byte vectors a
+// thread cover, or no room for a ring of two rows beside the per-column
+// buffers: about 19,000 bf16 columns where rows spill, 24,576 where none do,
+// 12,288 f32), the streaming variant
+// (og_sinkhorn_scale_streaming) runs the same recursion with K read from
+// device memory in every half-iteration: a warp per row forms u (rows pass);
+// blocks of 256 columns sum u_i K_ij over splits of 64 rows into partials
+// (columns pass); a last launch adds the partials in a fixed order and forms
+// v. Three launches per iteration, any column count, no atomics.
 
 #include "sinkhorn_rows.cuh"
 
@@ -84,6 +99,69 @@ sinkhorn_scale_kernel(const float* __restrict__ M, const float* __restrict__ log
   cluster.sync();  // no CTA leaves while a peer's store to it may be in flight
 }
 
+// The wide kernel (K2s): the same recursion with the spilled rows read once
+// per iteration (Stripe::sweep) and the column sums of NV column vectors a
+// thread kept in registers across the sweep.
+template <typename KT, int NV>
+__global__ void __launch_bounds__(kStripeThreads, 1)
+sinkhorn_wide_kernel(const float* __restrict__ M, const float* __restrict__ log_a,
+                     const float* __restrict__ log_b, float* __restrict__ u_out, void* workspace,
+                     const Shape shape, int num_iters) {
+  constexpr int V = Store<KT>::kVec;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  Stripe<KT> st(smem, shape, workspace, cluster);
+  const int R = shape.R, C = shape.C;
+  st.init(cluster);
+  for (int b = st.slot; b < shape.B; b += st.nslots) {
+    const float* Mb = M + static_cast<size_t>(b) * R * C;
+    const float* la = log_a + static_cast<size_t>(b) * R;
+    const float* lb = log_b + static_cast<size_t>(b) * C;
+    float* ub = u_out + static_cast<size_t>(b) * R;
+    st.begin(R, shape.rows);
+    for (int lr = threadIdx.x; lr < st.n; lr += kStripeThreads) st.rowa[lr] = expf(la[st.r0 + lr]);
+    for (int j = threadIdx.x; j < C; j += kStripeThreads) st.vec[j] = 1.f;
+    st.form_k(Mb);
+    // the spilled rows just stored are read back by bulk copies (the async proxy)
+    asm volatile("fence.proxy.async;\n" ::: "memory");
+    __syncthreads();
+    // the spilled rows are read once in each iteration and once in the last pass
+    const int total = num_iters * st.n_o;
+    st.ring_prime(total);
+    int done = 0;
+    for (int it = 0; it + 1 < num_iters; ++it) {
+      st.rows_pass_shared([&](int lr, float y) { st.coef[lr] = st.rowa[lr] / fmaxf(y, kTiny); });
+      float acc[NV][V];
+#pragma unroll
+      for (int k = 0; k < NV; ++k)
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[k][e] = 0.f;
+      st.template sweep<NV>(done, total, [&](int o, float y, const uint4 (&raw)[NV]) {
+        st.add_row(acc, raw, st.rowa[st.ns + o] / fmaxf(y, kTiny));
+      });
+      st.template cols_pass_from<NV>(acc);
+      st.template exchange<true>(
+          [&](int j) {
+            const float4 l = *reinterpret_cast<const float4*>(lb + 4 * j);
+            return make_float4(expf(l.x), expf(l.y), expf(l.z), expf(l.w));
+          },
+          [&](int j, float4 s, float4 bj) {
+            return make_float4(bj.x / fmaxf(s.x, kTiny), bj.y / fmaxf(s.y, kTiny), bj.z / fmaxf(s.z, kTiny),
+                               bj.w / fmaxf(s.w, kTiny));
+          });
+    }
+    const auto out = [&](int lr, float y) {
+      ub[st.r0 + lr] = la[st.r0 + lr] - st.rowm[lr] - logf(fmaxf(y, kTiny));
+    };
+    st.rows_pass_shared(out);
+    st.template sweep<NV>(done, total, [&](int o, float y, const uint4 (&)[NV]) {
+      if (threadIdx.x == 0) out(st.ns + o, y);
+    });
+    st.ring_seq += static_cast<uint32_t>(total);
+  }
+  cluster.sync();  // no CTA leaves while a peer's store to it may be in flight
+}
+
 template <typename KT>
 cudaError_t plan_for(int B, int R, int C, Plan* plan, int* caps, int* sms) {
   static int cache[8][6] = {};
@@ -102,6 +180,34 @@ cudaError_t fused(const float* M, const float* la, const float* lb, float* u, vo
   if (err != cudaSuccess) return err;
   const Shape shape = {B, R, C, p.ctas, p.groups, p.rows, p.smem_rows, p.exchange_bytes};
   return launch_planned(p, sinkhorn_scale_kernel<KT>, ws, s, M, la, lb, u, ws, shape, num_iters);
+}
+
+template <typename KT>
+cudaError_t wide_plan_for(int B, int R, int C, Plan* plan, int* caps, int* sms) {
+  // every instance holds one CTA of kStripeThreads threads per SM at the full
+  // shared memory (__launch_bounds__(kStripeThreads, 1)): one reads the caps
+  static int cache[8][6] = {};
+  const cudaError_t err = cluster_caps(sinkhorn_wide_kernel<KT, 8>, caps, sms, cache);
+  if (err != cudaSuccess) return err;
+  *plan = make_wide_plan(B, R, C, static_cast<int>(sizeof(KT)), *sms, caps);
+  return plan->ctas > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
+template <typename KT>
+cudaError_t wide(const float* M, const float* la, const float* lb, float* u, void* ws, int B, int R, int C,
+                 int num_iters, cudaStream_t s) {
+  Plan p;
+  int caps[5], sms = 0;
+  const cudaError_t err = wide_plan_for<KT>(B, R, C, &p, caps, &sms);
+  if (err != cudaSuccess) return err;
+  const Shape shape = {B, R, C, p.ctas, p.groups, p.rows, p.smem_rows, p.exchange_bytes, p.stages,
+                       p.exchange_levels};
+  switch (p.col_vecs) {
+    case 2: return launch_planned(p, sinkhorn_wide_kernel<KT, 2>, ws, s, M, la, lb, u, ws, shape, num_iters);
+    case 4: return launch_planned(p, sinkhorn_wide_kernel<KT, 4>, ws, s, M, la, lb, u, ws, shape, num_iters);
+    case 8: return launch_planned(p, sinkhorn_wide_kernel<KT, 8>, ws, s, M, la, lb, u, ws, shape, num_iters);
+    default: return cudaErrorInvalidConfiguration;
+  }
 }
 
 // ---------------------------------------------------------------- streaming
@@ -227,11 +333,12 @@ cudaError_t streaming(const float* M, const float* la, const float* lb, KT* K, f
 }  // namespace
 
 // The fused kernel's launch plan for B elements of R x C with K in bf16 or
-// f32: out [17] ints (cluster size, clusters per element, CTAs per element,
+// f32: out [21] ints (cluster size, clusters per element, CTAs per element,
 // elements in flight, waves, grid, rows per CTA in all / in shared memory /
-// in device memory, shared bytes per CTA, cooperative, SMs, then the
-// clusters of 1..16 CTAs the card holds at once); bytes [2] (the exchange's
-// and the whole workspace's). Returns a CUDA error code.
+// in device memory, shared bytes per CTA, cooperative, ring buffers, ring
+// bytes, column vectors a thread, exchange levels, SMs, then the clusters
+// of 1..16 CTAs the card holds at once); bytes [2] (the exchange's and the
+// whole workspace's). Returns a CUDA error code.
 extern "C" int og_sinkhorn_plan(int k_is_bf16, int B, int R, int C, int* out, long long* bytes) {
   Plan p;
   int caps[5], sms = 0;
@@ -258,6 +365,36 @@ extern "C" int og_sinkhorn_scale(int k_is_bf16, const void* M, const void* log_a
   return fused<float>(m, la, lb, uo, workspace, B, R, C, num_iters, s);
 }
 
+// The wide kernel's launch plan (make_wide_plan), reported as
+// og_sinkhorn_plan reports the fused one's; cudaErrorInvalidConfiguration
+// where the plan places nothing (past its reach).
+extern "C" int og_sinkhorn_wide_plan(int k_is_bf16, int B, int R, int C, int* out, long long* bytes) {
+  Plan p;
+  int caps[5], sms = 0;
+  const cudaError_t err = k_is_bf16 ? wide_plan_for<__nv_bfloat16>(B, R, C, &p, caps, &sms)
+                                    : wide_plan_for<float>(B, R, C, &p, caps, &sms);
+  if (err != cudaSuccess) return err;
+  plan_report(p, caps, sms, out, bytes);
+  return cudaSuccess;
+}
+
+// The same recursion as og_sinkhorn_scale on the wide kernel, one launch
+// (and a memset of the exchange where an element spans clusters);
+// workspace: og_sinkhorn_wide_plan's bytes[1] (null where 0). Returns the
+// CUDA error code of the launch (0 on success).
+extern "C" int og_sinkhorn_scale_wide(int k_is_bf16, const void* M, const void* log_a, const void* log_b, void* u,
+                                      void* workspace, int B, int R, int C, int num_iters, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(M);
+  const float* la = static_cast<const float*>(log_a);
+  const float* lb = static_cast<const float*>(log_b);
+  float* uo = static_cast<float*>(u);
+  if (B == 0 || R == 0) return cudaSuccess;
+  if (C % 8 != 0 || num_iters < 1) return cudaErrorInvalidValue;
+  if (k_is_bf16) return wide<__nv_bfloat16>(m, la, lb, uo, workspace, B, R, C, num_iters, s);
+  return wide<float>(m, la, lb, uo, workspace, B, R, C, num_iters, s);
+}
+
 // Bytes of workspace og_sinkhorn_scale_streaming needs.
 extern "C" size_t og_sinkhorn_scale_streaming_workspace(int B, int R, int C) {
   size_t bytes = 0;
@@ -266,7 +403,8 @@ extern "C" size_t og_sinkhorn_scale_streaming_workspace(int B, int R, int C) {
 }
 
 // The same recursion as og_sinkhorn_scale for any column count (C a multiple
-// of 8), with K read from device memory in every half-iteration.
+// of 8), with K read from device memory in every half-iteration (the route
+// past the wide plan's reach).
 // workspace: og_sinkhorn_scale_streaming_workspace bytes. Returns the CUDA
 // error code of the launches (0 on success).
 extern "C" int og_sinkhorn_scale_streaming(int k_is_bf16, const void* M, const void* log_a,

@@ -12,6 +12,22 @@
 // as a second tier and dropped: they spill, and with 229 KB of shared memory
 // the L1 that would catch the spills is 27 KB.)
 //
+// The wide forward (K2s, past the fused kernel's columns, where an element
+// is often larger than the card's shared memory) reads its spilled rows once
+// per iteration: they come in turn through a ring of ``stages`` one-row
+// buffers in shared memory, filled by bulk copies that complete on an
+// mbarrier each (``sweep``). On each row the CTA forms the row's dot with the
+// vector (a block reduction), its u, and adds u_i K_ij into the column sums
+// of its threads' column vectors, held in registers until the columns pass
+// adds the shared-memory rows to them: the one pass per stripe of the TPU's
+// _blocked_scale_kernel. The ring's bytes come out of the shared-memory
+// rows; the plan (``make_wide_plan``) keeps them few, so that the workspace
+// stays small. Where an element spans many clusters its exchange has two
+// levels (``two_level``): cluster sums meet in device memory, each CTA adds
+// all clusters' sums of a 1/G part of its slice and posts that part of the
+// next vector, and each CTA gathers its slice from those parts, so that the
+// reads per exchange grow as G C rather than G^2 C.
+//
 // The P CTAs of an element form G clusters of cs CTAs (P = G * cs). Each
 // iteration is a rows pass (a warp per row, up to six rows at a time, four
 // with bf16 K, so that each read of the vector serves them all), then a
@@ -52,6 +68,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxCluster = 16;  // the largest cluster the plan asks for (non-portable above 8)
 constexpr int kSmemLimit = 232448;  // the shared memory one block may opt into on the H100
 constexpr float kTiny = 1e-30f;
+constexpr int kRingBars = 4;  // mbarriers reserved for the ring (32 bytes: the row values stay 16-byte aligned)
+// the wide plan's exchange has two levels past this many clusters per element
+constexpr int kFlatMaxGroups = 8;
 
 template <typename KT> struct Store;
 template <> struct Store<float> {
@@ -117,6 +136,10 @@ struct Plan {
   int smem_rows, spill_rows;  // S in shared memory and in device memory
   int smem_bytes;  // dynamic shared memory per CTA
   int cooperative;
+  int stages;      // one-row buffers of the ring that streams the spilled rows (the wide plan)
+  int ring_bytes;  // shared memory of the ring: its buffers, mbarriers and block-reduction slots
+  int col_vecs;    // 16-byte column vectors a thread sums in registers (the wide plan; 2, 4 or 8)
+  int exchange_levels;  // 0: one cluster per element; 1: every CTA polls every cluster; 2: two levels
   long long exchange_bytes;  // device memory for the cross-cluster exchange
   long long workspace_bytes;  // exchange and spilled rows
 };
@@ -186,6 +209,7 @@ inline Plan make_plan(int B, int R, int C, int kbytes, int sms, const int* caps)
     p.cooperative = p.groups > 1;
   }
   if (p.ctas == 0 || p.slots == 0) return Plan{};
+  p.exchange_levels = p.groups > 1 ? 1 : 0;
   p.waves = (B + p.slots - 1) / p.slots;
   p.rows = (R + p.ctas - 1) / p.ctas;
   p.smem_rows = smem_rows_for(p.rows, C, kbytes);
@@ -199,14 +223,56 @@ inline Plan make_plan(int B, int R, int C, int kbytes, int sms, const int* caps)
   return p;
 }
 
-// the plan as og_sinkhorn_plan / og_sinkhorn_adjoint_plan report it: out [17]
-// ints (the plan's first eleven fields, the SM count, caps), bytes [2] (the
-// exchange's and the whole workspace's)
+// shared memory of a ring of ``stages`` one-row buffers: the buffers, the
+// mbarriers and two slots per warp for the block reduction of a row's dot
+inline int ring_bytes_for(int stages, int C, int kbytes) {
+  return stages * C * kbytes + 8 * kRingBars + 2 * kStripeWarps * 4;
+}
+
+// The wide forward's plan (K2s): make_plan's layout of CTAs and clusters;
+// where rows spill, a ring of two one-row buffers taken out of the
+// shared-memory rows, and the spilled rows read through it (a third buffer
+// costs a shared-memory row and gains nothing: scripts/sinkhorn_ablations.py);
+// the column vectors a thread sums (the fewest of 2, 4, 8 that cover the
+// row); two exchange levels past kFlatMaxGroups clusters per element. An
+// empty plan past its reach: more columns than 8 vectors a thread cover, or
+// no room for the ring beside the per-column buffers.
+inline Plan make_wide_plan(int B, int R, int C, int kbytes, int sms, const int* caps) {
+  Plan p = make_plan(B, R, C, kbytes, sms, caps);
+  if (p.ctas == 0) return Plan{};
+  const int nvec = C * kbytes / 16;
+  p.col_vecs = nvec <= 2 * kStripeThreads ? 2 : nvec <= 4 * kStripeThreads ? 4 : nvec <= 8 * kStripeThreads ? 8 : 0;
+  if (p.col_vecs == 0) return Plan{};
+  if (p.spill_rows > 0) {
+    const int fixed = fixed_smem_bytes(C) + 12 * p.rows;
+    p.stages = 2;
+    p.ring_bytes = ring_bytes_for(p.stages, C, kbytes);
+    if (fixed + p.ring_bytes > kSmemLimit) return Plan{};
+    const int fit = (kSmemLimit - fixed - p.ring_bytes) / (C * kbytes);
+    p.smem_rows = fit < p.rows ? fit : p.rows;
+    p.spill_rows = p.rows - p.smem_rows;
+    p.smem_bytes = p.smem_rows * C * kbytes + fixed + p.ring_bytes;
+  }
+  if (p.groups > kFlatMaxGroups) {
+    // single buffers: a CTA posts the next exchange's sums only after every
+    // CTA that reads them has read this exchange's (see two_level)
+    p.exchange_levels = 2;
+    p.exchange_bytes = static_cast<long long>(p.slots) * (p.groups + 1) * C * 8;
+  }
+  p.workspace_bytes = p.exchange_bytes + static_cast<long long>(p.grid) * p.spill_rows * C * kbytes;
+  return p;
+}
+
+// the plan as og_sinkhorn_plan / og_sinkhorn_adjoint_plan /
+// og_sinkhorn_wide_plan report it: out [21] ints (the plan's first fifteen
+// fields, the SM count, caps), bytes [2] (the exchange's and the whole
+// workspace's)
 inline void plan_report(const Plan& p, const int* caps, int sms, int* out, long long* bytes) {
-  const int v[12] = {p.cs, p.groups, p.ctas, p.slots, p.waves, p.grid, p.rows, p.smem_rows,
-                     p.spill_rows, p.smem_bytes, p.cooperative, sms};
-  for (int i = 0; i < 12; ++i) out[i] = v[i];
-  for (int i = 0; i < 5; ++i) out[12 + i] = caps[i];
+  const int v[16] = {p.cs, p.groups, p.ctas, p.slots, p.waves, p.grid, p.rows, p.smem_rows,
+                     p.spill_rows, p.smem_bytes, p.cooperative, p.stages, p.ring_bytes, p.col_vecs,
+                     p.exchange_levels, sms};
+  for (int i = 0; i < 16; ++i) out[i] = v[i];
+  for (int i = 0; i < 5; ++i) out[16 + i] = caps[i];
   bytes[0] = p.exchange_bytes;
   bytes[1] = p.workspace_bytes;
 }
@@ -292,6 +358,7 @@ struct Shape {
   int B, R, C;
   int ctas, groups, rows, smem_rows;
   long long exchange_bytes;
+  int stages, exchange_levels;  // the wide plan's ring and exchange (0 in K2's and K3's)
 };
 
 __device__ __forceinline__ void add4(float4& s, const float4& x) {
@@ -333,6 +400,14 @@ __device__ __forceinline__ void push4(uint32_t remote, uint32_t remote_bar, cons
                "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(remote_bar)
                : "memory");
 }
+// ``bytes`` (a multiple of 16) from device memory into this CTA's shared
+// memory, completing on its mbarrier ``bar``
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes), "r"(smem_u32(bar))
+               : "memory");
+}
 
 template <typename KT>
 struct Stripe {
@@ -344,41 +419,54 @@ struct Stripe {
   // geometry
   int C, nvec, nq;                 // columns, 16-byte vectors of K per row, float4 groups per row
   int ns;                          // the plan's shared-memory rows per CTA
+  int stages, levels;              // the ring's buffers (0: none); the exchange's levels
   int P, G, cs, rank, g, part, slot, nslots;
   int lo, hi, width;               // this CTA's slice of the float4 groups; the widest slice
   // this element
   int r0, n, n_s, n_o;             // first row, rows, and rows in shared and in device memory
   // shared memory
   KT* ks;                          // [ns][C]
+  KT* ring;                        // [stages][C] the spilled rows in turn (the wide kernel)
   float* vec;                      // [C] the vector of the rows pass (laid out by vec_slot)
   float4* recv;                    // [cs][width] the peers' column sums of this CTA's slice
   uint64_t* bars;                  // [2]: the receive buffer's and vec's mbarriers
   float* coef;                     // [S] the row values of the current pass
   float* rowa;                     // [S] a_i = exp(log_a_i)
   float* rowm;                     // [S] rmax_i
+  uint64_t* ring_bars;             // [stages] a ring buffer's mbarrier (kRingBars reserved)
+  float* dots;                     // [2][kStripeWarps] each warp's share of a spilled row's dot
   // device memory
   KT* kg;                          // this CTA's spilled rows [S - ns][C]
   uint4* xchg;                     // [2][slots][G][C / 4][2]: per float, the float and its exchange's number
+                                   // (two levels: [slots][G][C / 4][2], then the next vector [slots][C / 4][2])
   uint32_t phase;                  // exchanges done (the parity of both mbarriers)
+  uint32_t ring_seq;               // spilled rows read through the ring before this element
 
   __device__ Stripe(unsigned char* smem, const Shape& s, void* workspace, cg::cluster_group& cluster) {
     C = s.C; nvec = s.C / V; nq = s.C / 4;
     ns = s.smem_rows;
+    stages = s.stages; levels = s.exchange_levels;
     P = s.ctas; G = s.groups; cs = static_cast<int>(cluster.num_blocks());
     rank = static_cast<int>(cluster.block_rank());
     part = blockIdx.x % P; g = part / cs; slot = blockIdx.x / P; nslots = gridDim.x / P;
     lo = rank * nq / cs; hi = (rank + 1) * nq / cs; width = (nq + cs - 1) / cs;
     ks = reinterpret_cast<KT*>(smem);
-    vec = reinterpret_cast<float*>(smem + static_cast<size_t>(ns) * C * sizeof(KT));
+    ring = ks + static_cast<size_t>(ns) * C;
+    vec = reinterpret_cast<float*>(ring + static_cast<size_t>(stages) * C);
     recv = reinterpret_cast<float4*>(vec + C);
     bars = reinterpret_cast<uint64_t*>(recv + nq + kMaxCluster);
-    coef = reinterpret_cast<float*>(bars + 2);
+    ring_bars = bars + 2;
+    // the ring's mbarriers and the warps' shares of a row's dot (16-byte
+    // aligned, as coef after them)
+    dots = reinterpret_cast<float*>(ring_bars + kRingBars);
+    coef = stages > 0 ? dots + 2 * kStripeWarps : reinterpret_cast<float*>(ring_bars);
     rowa = coef + s.rows;
     rowm = rowa + s.rows;
     char* ws = static_cast<char*>(workspace);
     xchg = reinterpret_cast<uint4*>(ws);
     kg = reinterpret_cast<KT*>(ws + s.exchange_bytes) + static_cast<size_t>(blockIdx.x) * (s.rows - ns) * C;
     phase = 0;
+    ring_seq = 0;
   }
 
   // Before the first exchange: the mbarriers, initialized where every peer
@@ -387,6 +475,7 @@ struct Stripe {
     if (threadIdx.x == 0) {
       bar_init(bars);
       bar_init(bars + 1);
+      for (int i = 0; i < stages; ++i) bar_init(full_bar(i));
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     cluster.sync();
@@ -437,6 +526,37 @@ struct Stripe {
     return Store<KT>::pack(e);
   }
 
+  // rmax_i and K = exp(M - rmax) of every own row (the wide kernel), a warp
+  // per row: the warp reads its row a second time right after the first (from
+  // L2), so M crosses device memory once where row_max then load_k would read
+  // it twice (an element's M is larger than the L2 at these widths)
+  __device__ void form_k(const float* Mb) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int lr = warp; lr < n; lr += kStripeWarps) {
+      const float* m = Mb + static_cast<size_t>(r0 + lr) * C;
+      float mx = -INFINITY;
+#pragma unroll 8
+      for (int j = lane; j < nq; j += 32) {
+        const float4 x = *reinterpret_cast<const float4*>(m + 4 * j);
+        mx = fmaxf(mx, fmaxf(fmaxf(x.x, x.y), fmaxf(x.z, x.w)));
+      }
+      mx = warp_max(mx);
+      if (lane == 0) rowm[lr] = mx;
+      KT* dst = lr < ns ? ks + static_cast<size_t>(lr) * C : kg + static_cast<size_t>(lr - ns) * C;
+#pragma unroll 4
+      for (int j = lane; j < nvec; j += 32) {
+        float e[V];
+#pragma unroll
+        for (int h = 0; h < V / 4; ++h) {
+          const float4 x = *reinterpret_cast<const float4*>(m + j * V + 4 * h);
+          e[4 * h] = expf(x.x - mx); e[4 * h + 1] = expf(x.y - mx);
+          e[4 * h + 2] = expf(x.z - mx); e[4 * h + 3] = expf(x.w - mx);
+        }
+        *reinterpret_cast<uint4*>(dst + j * V) = Store<KT>::pack(e);
+      }
+    }
+  }
+
   // K = exp(M - rmax) of every own row into shared (or device) memory (rowm
   // must be complete)
   __device__ void load_k(const float* Mb) {
@@ -455,19 +575,20 @@ struct Stripe {
 
   // y = K_lr . vec of ``count`` rows of ``base`` (local rows first_lr + idx),
   // a warp per row: warp w takes rows w, w + kStripeWarps, ..., up to
-  // kRowBlock of them per read of vec (so a stripe of up to kRowBlock *
-  // kStripeWarps rows is one step for every warp); fn(lr, y) on lane 0. A
+  // kBlock (kRowBlock unless asked) of them per read of vec (so a stripe of
+  // up to kBlock * kStripeWarps rows is one step for every warp); fn(lr, y)
+  // on lane 0. A
   // warp's missing rows load nothing (predicated, no branch), so the loads of
   // a step issue together.
-  template <typename F>
+  template <int kBlock = kRowBlock, typename F>
   __device__ void rows_block(const KT* base, int count, int first_lr, F& fn) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    for (int idx = warp; idx < count; idx += kRowBlock * kStripeWarps) {
-      const KT* rows[kRowBlock];
-      bool live[kRowBlock];
-      float y[kRowBlock];
+    for (int idx = warp; idx < count; idx += kBlock * kStripeWarps) {
+      const KT* rows[kBlock];
+      bool live[kBlock];
+      float y[kBlock];
 #pragma unroll
-      for (int k = 0; k < kRowBlock; ++k) {
+      for (int k = 0; k < kBlock; ++k) {
         live[k] = idx + k * kStripeWarps < count;
         rows[k] = base + static_cast<size_t>(live[k] ? idx + k * kStripeWarps : idx) * C + lane * V;
         y[k] = 0.f;
@@ -482,12 +603,12 @@ struct Stripe {
           const float4 x = *reinterpret_cast<const float4*>(v + off / (V / 4) + h * (C / (V / 4)));
           vv[4 * h] = x.x; vv[4 * h + 1] = x.y; vv[4 * h + 2] = x.z; vv[4 * h + 3] = x.w;
         }
-        uint4 raw[kRowBlock];
+        uint4 raw[kBlock];
 #pragma unroll
-        for (int k = 0; k < kRowBlock; ++k)
+        for (int k = 0; k < kBlock; ++k)
           raw[k] = live[k] ? *reinterpret_cast<const uint4*>(rows[k] + off) : make_uint4(0, 0, 0, 0);
 #pragma unroll
-        for (int k = 0; k < kRowBlock; ++k) {
+        for (int k = 0; k < kBlock; ++k) {
           float kv[V];
           Store<KT>::unpack(raw[k], kv);
 #pragma unroll
@@ -495,7 +616,7 @@ struct Stripe {
         }
       }
 #pragma unroll
-      for (int k = 0; k < kRowBlock; ++k) {
+      for (int k = 0; k < kBlock; ++k) {
         const float s = warp_sum(y[k]);
         if (lane == 0 && live[k]) fn(first_lr + idx + k * kStripeWarps, s);
       }
@@ -511,6 +632,17 @@ struct Stripe {
     rows_block(kg, n_o, ns, fn);
     __syncthreads();
   }
+  // the same over the shared-memory rows only (the wide kernel's spilled
+  // rows go through ``sweep``); two rows a warp where that covers them
+  template <typename F>
+  __device__ void rows_pass_shared(F&& fn) {
+    if (n_s <= 2 * kStripeWarps) {
+      rows_block<2>(ks, n_s, 0, fn);
+    } else {
+      rows_block(ks, n_s, 0, fn);
+    }
+    __syncthreads();
+  }
 
   // the owner of float4 group j: the q with q * nq / cs <= j < (q + 1) * nq / cs
   __device__ int owner(int j) const { return ((j + 1) * cs + nq - 1) / nq - 1; }
@@ -521,6 +653,47 @@ struct Stripe {
   // (bf16 K: one vector of K is two float4s of vec)
   __device__ int vec_slot(int j) const { return (j % (V / 4)) * (C / (V / 4)) + (j / (V / 4)) * 4; }
 
+  // acc += the sums over the shared-memory rows of coef_lr K_lr,j of column
+  // vector t, in row order
+  __device__ void add_smem_rows(int t, float (&acc)[V]) const {
+    // four rows at a time: their coefficients in one broadcast read
+    const KT* col = ks + t * V;
+    const float4* coef4 = reinterpret_cast<const float4*>(coef);
+    int lr = 0;
+#pragma unroll 2
+    for (; lr + 4 <= n_s; lr += 4) {
+      const float4 c = coef4[lr / 4];
+      uint4 raw[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) raw[k] = *reinterpret_cast<const uint4*>(col + static_cast<size_t>(lr + k) * C);
+      const float cf[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        float kv[V];
+        Store<KT>::unpack(raw[k], kv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) acc[e] = fmaf(cf[k], kv[e], acc[e]);
+      }
+    }
+    for (; lr < n_s; ++lr) {
+      const float c = coef[lr];
+      float kv[V];
+      Store<KT>::unpack(*reinterpret_cast<const uint4*>(col + static_cast<size_t>(lr) * C), kv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[e] = fmaf(c, kv[e], acc[e]);
+    }
+  }
+
+  // column vector t's sums, stored into the owner of each float4's receive buffer
+  __device__ void push_sums(int t, const float (&acc)[V]) {
+#pragma unroll
+    for (int h = 0; h < V / 4; ++h) {
+      const int j = t * (V / 4) + h, q = owner(j);
+      push4(peer_addr(smem_u32(recv + rank * width + (j - q * nq / cs)), q), peer_addr(smem_u32(bars), q),
+            make_float4(acc[4 * h], acc[4 * h + 1], acc[4 * h + 2], acc[4 * h + 3]));
+    }
+  }
+
   // The columns pass: the sums over own rows of coef_lr K_lr,j (shared
   // memory rows, then spilled, each in row order; thread t the column
   // vectors t, t + kStripeThreads, ...), stored into the owner of each
@@ -530,32 +703,7 @@ struct Stripe {
       float acc[V];
 #pragma unroll
       for (int e = 0; e < V; ++e) acc[e] = 0.f;
-      // four rows at a time: their coefficients in one broadcast read
-      const KT* col = ks + t * V;
-      const float4* coef4 = reinterpret_cast<const float4*>(coef);
-      int lr = 0;
-#pragma unroll 2
-      for (; lr + 4 <= n_s; lr += 4) {
-        const float4 c = coef4[lr / 4];
-        uint4 raw[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) raw[k] = *reinterpret_cast<const uint4*>(col + static_cast<size_t>(lr + k) * C);
-        const float cf[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          float kv[V];
-          Store<KT>::unpack(raw[k], kv);
-#pragma unroll
-          for (int e = 0; e < V; ++e) acc[e] = fmaf(cf[k], kv[e], acc[e]);
-        }
-      }
-      for (; lr < n_s; ++lr) {
-        const float c = coef[lr];
-        float kv[V];
-        Store<KT>::unpack(*reinterpret_cast<const uint4*>(col + static_cast<size_t>(lr) * C), kv);
-#pragma unroll
-        for (int e = 0; e < V; ++e) acc[e] = fmaf(c, kv[e], acc[e]);
-      }
+      add_smem_rows(t, acc);
       const KT* gcol = kg + t * V;
 #pragma unroll 4
       for (int o = 0; o < n_o; ++o) {
@@ -565,12 +713,146 @@ struct Stripe {
 #pragma unroll
         for (int e = 0; e < V; ++e) acc[e] = fmaf(c, kv[e], acc[e]);
       }
+      push_sums(t, acc);
+    }
+  }
+
+  // The wide kernel's columns pass: column vector threadIdx.x + k
+  // kStripeThreads starts from the spilled rows' sums acc[k] (``sweep``) and
+  // adds the shared-memory rows
+  template <int NV>
+  __device__ void cols_pass_from(float (&acc)[NV][V]) {
 #pragma unroll
-      for (int h = 0; h < V / 4; ++h) {
-        const int j = t * (V / 4) + h, q = owner(j);
-        push4(peer_addr(smem_u32(recv + rank * width + (j - q * nq / cs)), q), peer_addr(smem_u32(bars), q),
-              make_float4(acc[4 * h], acc[4 * h + 1], acc[4 * h + 2], acc[4 * h + 3]));
+    for (int k = 0; k < NV; ++k) {
+      const int t = threadIdx.x + k * kStripeThreads;
+      if (t < nvec) {
+        add_smem_rows(t, acc[k]);
+        push_sums(t, acc[k]);
       }
+    }
+  }
+
+  // ring buffer b's mbarrier: its copy has landed (one arrival with its bytes)
+  __device__ uint64_t* full_bar(int b) const { return ring_bars + b; }
+
+  // spilled row o into ring buffer q % stages (one thread)
+  __device__ void ring_issue(uint32_t q, int o) {
+    const int b = static_cast<int>(q % stages);
+    const uint32_t bytes = static_cast<uint32_t>(C * sizeof(KT));
+    bar_expect(full_bar(b), bytes);
+    bulk_load(ring + static_cast<size_t>(b) * C, kg + static_cast<size_t>(o) * C, bytes, full_bar(b));
+  }
+
+  // Before an element's first sweep, once its spilled rows are in device
+  // memory and fenced for the bulk copies: the ring's first ``stages`` of
+  // the element's ``total`` reads (spilled row k % n_o is read k-th).
+  __device__ void ring_prime(int total) {
+    if (threadIdx.x == 0)
+      for (int k = 0; k < stages && k < total; ++k) ring_issue(ring_seq + k, k % n_o);
+  }
+
+  // A pass over the spilled rows, each read once: per row, in order, its
+  // dot y with vec (each thread over its column vectors, then the warps'
+  // shares added in a fixed order), then on_row(o, y, raw) on every thread
+  // with ``raw`` the row's column vectors threadIdx.x + k kStripeThreads
+  // (the iterations: u_hat and the column sums, ``add_row``; the last pass:
+  // the output). ``done``: the element's reads so far, of ``total``. One
+  // block barrier per row, after which the row's buffer is refilled with
+  // the read ``stages`` ahead. Where a thread sums at most two column
+  // vectors, it holds their entries of vec in registers for the whole pass
+  // (vec is twice a bf16 row's bytes), and a row's on_row runs in the next
+  // row's step, beside that row's dot (two independent chains between
+  // barriers). Past two, the sums and two rows' vectors would crowd the
+  // registers (spills of 8-400 bytes a thread): vec is read from shared
+  // memory and on_row runs in the row's own step, after the barrier.
+  template <int NV, typename Row>
+  __device__ void sweep(int& done, int total, Row&& on_row) {
+    constexpr bool kHold = NV <= 2, kPipe = kHold;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    float held[kHold ? NV : 1][V];
+    if constexpr (kHold) {
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int t = threadIdx.x + k * kStripeThreads;
+#pragma unroll
+        for (int h = 0; h < V / 4; ++h) {
+          const float4 x = t < nvec ? *reinterpret_cast<const float4*>(vec + h * (C / (V / 4)) + t * 4)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+          held[k][4 * h] = x.x; held[k][4 * h + 1] = x.y; held[k][4 * h + 2] = x.z; held[k][4 * h + 3] = x.w;
+        }
+      }
+    }
+    uint4 prev[kPipe ? NV : 1];
+    for (int o = 0; o < n_o; ++o, ++done) {
+      const uint32_t q = ring_seq + static_cast<uint32_t>(done);
+      const int b = static_cast<int>(q % stages);
+      bar_wait(full_bar(b), (q / stages) & 1);
+      const KT* row = ring + static_cast<size_t>(b) * C;
+      uint4 raw[NV];
+      float dot[V / 4] = {};  // independent partial sums, added in a fixed order
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        const int t = threadIdx.x + k * kStripeThreads;
+        raw[k] = make_uint4(0, 0, 0, 0);
+        if (t < nvec) {
+          raw[k] = *reinterpret_cast<const uint4*>(row + t * V);
+          float kv[V];
+          Store<KT>::unpack(raw[k], kv);
+#pragma unroll
+          for (int h = 0; h < V / 4; ++h) {
+            float4 x;
+            if constexpr (kHold) {
+              x = make_float4(held[k][4 * h], held[k][4 * h + 1], held[k][4 * h + 2], held[k][4 * h + 3]);
+            } else {
+              x = *reinterpret_cast<const float4*>(vec + h * (C / (V / 4)) + t * 4);
+            }
+            dot[h] = fmaf(kv[4 * h], x.x, dot[h]);
+            dot[h] = fmaf(kv[4 * h + 1], x.y, dot[h]);
+            dot[h] = fmaf(kv[4 * h + 2], x.z, dot[h]);
+            dot[h] = fmaf(kv[4 * h + 3], x.w, dot[h]);
+          }
+        }
+      }
+      float d = dot[0];
+#pragma unroll
+      for (int h = 1; h < V / 4; ++h) d += dot[h];
+      d = warp_sum(d);
+      if constexpr (kPipe) {
+        if (o > 0) on_row(o - 1, shares_sum(q - 1), prev);
+      }
+      if (lane == 0) dots[(q & 1) * kStripeWarps + warp] = d;
+      __syncthreads();  // every share is in, and every thread has read the buffer
+      if (threadIdx.x == 0 && done + stages < total) ring_issue(q + stages, (done + stages) % n_o);
+      if constexpr (kPipe) {
+#pragma unroll
+        for (int k = 0; k < NV; ++k) prev[k] = raw[k];
+      } else {
+        on_row(o, shares_sum(q), raw);
+      }
+    }
+    if constexpr (kPipe) {
+      if (n_o > 0) on_row(n_o - 1, shares_sum(ring_seq + static_cast<uint32_t>(done) - 1), prev);
+    }
+  }
+
+  // the dot of read q: the warps' shares added in a fixed order
+  __device__ float shares_sum(uint32_t q) const {
+    const float4* sh = reinterpret_cast<const float4*>(dots + (q & 1) * kStripeWarps);
+    float4 s = sh[0];
+#pragma unroll
+    for (int w = 1; w < kStripeWarps / 4; ++w) add4(s, sh[w]);
+    return (s.x + s.y) + (s.z + s.w);
+  }
+
+  // acc[k] += c K_row of column vector threadIdx.x + k kStripeThreads (raw[k])
+  template <int NV>
+  __device__ static void add_row(float (&acc)[NV][V], const uint4 (&raw)[NV], float c) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      float kv[V];
+      Store<KT>::unpack(raw[k], kv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) acc[k][e] = fmaf(c, kv[e], acc[k][e]);
     }
   }
 
@@ -593,32 +875,62 @@ struct Stripe {
   // fn(j, sum, pre(j)), the float4 of the next vector at columns 4 j .. 4 j
   // + 3 (on the slice's owner, the same thread for the same j in every call;
   // pre's device-memory loads are issued before the wait) -> every peer's
-  // vec. Ends with the whole vector in vec.
-  template <typename Pre, typename F>
+  // vec. Ends with the whole vector in vec. Only a kernel that asks for it
+  // (kTwoLevel: the wide kernel) holds the two-level exchange's code.
+  template <bool kTwoLevel = false, typename Pre, typename F>
   __device__ void exchange(Pre&& pre, F&& fn) {
     const int j0 = lo + threadIdx.x;
     decltype(pre(j0)) first = {};
     if (j0 < hi) first = pre(j0);
-    const uint32_t vec_bar = smem_u32(bars + 1);
     if (threadIdx.x == 0) bar_expect(bars, static_cast<uint32_t>(cs * (hi - lo) * 16));
     bar_wait(bars, phase & 1);  // every column sum of this slice is here
-    // the cross-cluster buffer of this exchange (by parity), and its number
+    // the cross-cluster buffer of this exchange (by parity; two levels: the
+    // one buffer), and its number
     const uint32_t tag = phase + 1;
-    uint4* x8 = xchg + (static_cast<size_t>(tag & 1) * nslots + slot) * G * nq * 2;
+    const bool two = kTwoLevel && levels == 2;
+    uint4* x8 = xchg + (static_cast<size_t>(two ? 0 : tag & 1) * nslots + slot) * G * nq * 2;
     for (int j = j0; j < hi; j += kStripeThreads) {
       float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 4
       for (int q = 0; q < cs; ++q) add4(s, recv[q * width + (j - lo)]);
       if (G == 1) {
-        const float4 v = fn(j, s, j == j0 ? first : pre(j));
-        const uint32_t local = smem_u32(vec + vec_slot(j));
-        for (int q = 0; q < cs; ++q) push4(peer_addr(local, q), peer_addr(vec_bar, q), v);
+        gather(j, fn(j, s, j == j0 ? first : pre(j)));
       } else {
         post(x8 + (static_cast<size_t>(g) * nq + j) * 2, s, tag);
       }
     }
-    // every cluster's sums of this slice: eight clusters' words in flight,
-    // polled until all carry this exchange's number, added in cluster order
+    if constexpr (kTwoLevel) {
+      if (two) {
+        two_level(x8, tag, pre, fn);
+      } else {
+        flat(x8, tag, j0, first, pre, fn);
+      }
+    } else {
+      flat(x8, tag, j0, first, pre, fn);
+    }
+    if (threadIdx.x == 0) bar_expect(bars + 1, static_cast<uint32_t>(nq * 16));
+    bar_wait(bars + 1, phase & 1);  // every slice of the vector is here
+    ++phase;
+  }
+
+  __device__ static bool tagged(const uint4& a, const uint4& b, uint32_t tag) {
+    return a.y == tag && a.w == tag && b.y == tag && b.w == tag;
+  }
+  __device__ static float4 untag(const uint4& a, const uint4& b) {
+    return make_float4(__uint_as_float(a.x), __uint_as_float(a.z), __uint_as_float(b.x), __uint_as_float(b.z));
+  }
+
+  // v, the float4 of the next vector at group j, into every peer's vec
+  __device__ void gather(int j, const float4& v) const {
+    const uint32_t local = smem_u32(vec + vec_slot(j)), vec_bar = smem_u32(bars + 1);
+    for (int q = 0; q < cs; ++q) push4(peer_addr(local, q), peer_addr(vec_bar, q), v);
+  }
+
+  // One level (G > 1): every cluster's sums of this slice, eight clusters'
+  // words in flight, polled until all carry this exchange's number, added
+  // in cluster order; each cluster forms the whole slice of the next vector.
+  template <typename T, typename Pre, typename F>
+  __device__ void flat(uint4* x8, uint32_t tag, int j0, const T& first, Pre& pre, F& fn) {
     for (int j = j0; G > 1 && j < hi; j += kStripeThreads) {
       float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int h0 = 0; h0 < G; h0 += 8) {
@@ -636,22 +948,57 @@ struct Stripe {
           }
 #pragma unroll
           for (int k = 0; k < 8; ++k)
-            if (h0 + k < G)
-              ready = ready && w[k][0].y == tag && w[k][0].w == tag && w[k][1].y == tag && w[k][1].w == tag;
+            if (h0 + k < G) ready = ready && tagged(w[k][0], w[k][1], tag);
         } while (!ready);
 #pragma unroll
         for (int k = 0; k < 8; ++k)
-          if (h0 + k < G)
-            add4(s, make_float4(__uint_as_float(w[k][0].x), __uint_as_float(w[k][0].z), __uint_as_float(w[k][1].x),
-                                __uint_as_float(w[k][1].z)));
+          if (h0 + k < G) add4(s, untag(w[k][0], w[k][1]));
       }
-      const float4 v = fn(j, s, j == j0 ? first : pre(j));
-      const uint32_t local = smem_u32(vec + vec_slot(j));
-      for (int q = 0; q < cs; ++q) push4(peer_addr(local, q), peer_addr(vec_bar, q), v);
+      gather(j, fn(j, s, j == j0 ? first : pre(j)));
     }
-    if (threadIdx.x == 0) bar_expect(bars + 1, static_cast<uint32_t>(nq * 16));
-    bar_wait(bars + 1, phase & 1);  // every slice of the vector is here
-    ++phase;
+  }
+
+  // Two levels: CTA rank r of cluster g owns part g of slice r (groups s0 ..
+  // s0 + W - 1). Its threads poll the G clusters' words of that part, one
+  // word pair each, into recv ([G][W]: the slice's sums from the cluster
+  // were all read above, and no peer sends the next ones before this CTA's
+  // gather below); the part's sums are added in cluster order, and the
+  // part's next vector posted beside this exchange's number. Then each CTA
+  // polls its whole slice from the G parts and gathers it into its cluster.
+  // Buffers are single: a CTA posts the next exchange's sums of slice r only
+  // after it has its next vector, so after every part owner of slice r has
+  // posted that, which each did after adding this exchange's sums; and it
+  // posts the next part of the vector only after every CTA of slice r has
+  // posted its next sums, which each did after gathering this exchange's.
+  template <typename Pre, typename F>
+  __device__ void two_level(uint4* x8, uint32_t tag, Pre& pre, F& fn) {
+    const int w = hi - lo, s0 = lo + g * w / G, W = lo + (g + 1) * w / G - s0;
+    uint4* y8 = xchg + (static_cast<size_t>(nslots) * G + slot) * nq * 2;
+    __syncthreads();  // every thread has added its slice's sums out of recv
+    for (int idx = threadIdx.x; idx < G * W; idx += kStripeThreads) {
+      const int h = idx / W;
+      const uint4* src = x8 + (static_cast<size_t>(h) * nq + s0 + idx - h * W) * 2;
+      uint4 a, b;
+      do {
+        a = peek(src);
+        b = peek(src + 1);
+      } while (!tagged(a, b, tag));
+      recv[idx] = untag(a, b);
+    }
+    __syncthreads();
+    for (int jl = threadIdx.x; jl < W; jl += kStripeThreads) {
+      float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int h = 0; h < G; ++h) add4(s, recv[h * W + jl]);
+      post(y8 + static_cast<size_t>(s0 + jl) * 2, fn(s0 + jl, s, pre(s0 + jl)), tag);
+    }
+    for (int j = lo + threadIdx.x; j < hi; j += kStripeThreads) {
+      uint4 a, b;
+      do {
+        a = peek(y8 + static_cast<size_t>(j) * 2);
+        b = peek(y8 + static_cast<size_t>(j) * 2 + 1);
+      } while (!tagged(a, b, tag));
+      gather(j, untag(a, b));
+    }
   }
 };
 

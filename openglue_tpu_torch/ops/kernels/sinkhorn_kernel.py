@@ -14,13 +14,34 @@ with a = exp(log_a), b = exp(log_b). The kernel holds K on chip across the
 iterations: a launch plan (``launch_plan``, the mirror of the C plan in
 ``ops/csrc/sinkhorn_rows.cuh``) spreads each element over enough CTAs that
 each one's stripe of rows fits its shared memory, and fills the card where
-the batch allows it. The fused kernel takes at most 1536 columns with f32 K
-and 4096 with bf16 K (``FUSED_MAX_COLS``); beyond that a
-streaming variant of the same kernel source (counted by ``stream_counter``),
-the counterpart of ``_blocked_scale_kernel``, reads K from device memory in
-every half-iteration. The padded cost matrix, the marginals, the final
-column-stabilized half-iteration and the log_P assembly stay in torch, as
-they stay in XLA in the JAX package.
+the batch allows it. The fused kernel (K2, counted by ``counter``) takes at
+most 1536 columns with f32 K and 4096 with bf16 K (``FUSED_MAX_COLS``).
+Beyond that the wide kernel (K2s, counted by ``stream_counter``), the
+counterpart of ``_blocked_scale_kernel``, runs the same recursion in one
+launch on the same engine under its own plan (``wide_launch_plan``): the
+rows past the card's shared memory are written once to the workspace and
+read once per iteration through a ring of one-row buffers in shared memory,
+each row's dot, its u and its share of the column sums taken in one visit;
+an element over more than eight clusters exchanges in two levels. No
+``[B, R, C]`` K is allocated: the workspace holds the spilled rows and the
+exchange.
+
+The wide plan's reach ends where a CTA can no longer hold a row's column
+sums in registers, eight 16-byte vectors a thread (24,576 columns with bf16
+K, 12,288 with f32 K), or, where rows spill, where the vector and the
+receive buffer (8 bytes a column) and the ring of two rows (4 bytes a bf16
+column) no longer fit its shared memory together (about 19,300 bf16
+columns; the first square shape past it is N=19,184). That is short of the
+28,688 columns at which the per-column buffers alone fill shared memory:
+reaching them needs a ring of part-rows or the buffers in device memory,
+and no configuration asks for more than 2048 keypoints. Past the reach the
+older streaming kernel runs, counted apart by ``legacy_stream_counter``: it
+allocates K ``[B, R, C]`` in device memory and reads it in every
+half-iteration, three launches per iteration.
+``forward_route`` names the route, chosen from the shape before anything
+runs. The padded cost matrix, the marginals, the final column-stabilized
+half-iteration and the log_P assembly stay in torch, as they stay in XLA in
+the JAX package.
 
 The backward is the port of ``_sinkhorn_vjp_kernel_path`` (:670). A second
 kernel (``ops/csrc/sinkhorn_adjoint.cu``, replacing
@@ -41,6 +62,7 @@ counts the backwards that took the autograd route.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -60,12 +82,13 @@ COL_ALIGN = 8  # column pitch of M_pad and K: 16-byte aligned rows in f32 and bf
 _VMEM_BUDGET_BYTES = 13 * 1024 * 1024
 
 counter = kernels.LaunchCounter()
-stream_counter = kernels.LaunchCounter()
+stream_counter = kernels.LaunchCounter()  # K2s, the wide kernel
+legacy_stream_counter = kernels.LaunchCounter()  # the streaming kernel past the wide plan's reach
 adjoint_counter = kernels.LaunchCounter()
 autograd_counter = kernels.LaunchCounter()  # backwards on the autograd route: no kernel
 
 # the column limits of the fused forward kernel, by K's storage type; past
-# them ``sinkhorn_scale`` runs the streaming kernel
+# them ``sinkhorn_scale`` runs the wide kernel (``forward_route``)
 FUSED_MAX_COLS = {torch.float32: 1536, torch.bfloat16: 4096}
 
 # ---- the launch plan: a mirror of ``make_plan`` in ops/csrc/sinkhorn_rows.cuh
@@ -75,6 +98,9 @@ SMEM_LIMIT = 232448  # the shared memory one block may opt into on the H100
 # fused kernel (NVIDIA H100 80GB HBM3), and its SM count
 H100_CLUSTER_CAPS = (132, 66, 30, 15, 7)
 H100_SMS = 132
+STRIPE_THREADS = 384  # a CTA of the on-chip kernels
+RING_BARS = 4  # mbarriers the wide plan's ring reserves
+FLAT_MAX_GROUPS = 8  # the wide plan's exchange has two levels past this many clusters per element
 
 
 @dataclass(frozen=True)
@@ -84,7 +110,13 @@ class LaunchPlan:
     per element, ``slots`` elements in flight, taken in ``waves`` groups,
     ``grid`` CTAs launched; a CTA's ``rows`` in shared memory
     (``smem_rows``) and, past the card's room, in device memory
-    (``spill_rows``); ``cooperative`` where an element spans clusters."""
+    (``spill_rows``); ``cooperative`` where an element spans clusters. The
+    wide plan (K2s) adds a ring of ``stages`` one-row buffers
+    (``ring_bytes`` of shared memory with its mbarriers) through which the
+    spilled rows are read, the ``col_vecs`` 16-byte column vectors a thread
+    sums in registers, and ``exchange_levels`` 2 where an element spans more
+    than ``FLAT_MAX_GROUPS`` clusters (1: every CTA polls every cluster; 0:
+    one cluster per element)."""
 
     cs: int
     groups: int
@@ -97,6 +129,10 @@ class LaunchPlan:
     spill_rows: int
     smem_bytes: int
     cooperative: int
+    stages: int
+    ring_bytes: int
+    col_vecs: int
+    exchange_levels: int
     exchange_bytes: int
     workspace_bytes: int
 
@@ -178,36 +214,114 @@ def launch_plan(
     return LaunchPlan(
         cs=cs, groups=groups, ctas=ctas, slots=slots, waves=-(-batch // slots), grid=grid, rows=rows,
         smem_rows=smem_rows, spill_rows=rows - smem_rows, smem_bytes=smem_bytes,
-        cooperative=int(groups > 1), exchange_bytes=exchange,
-        workspace_bytes=exchange + grid * (rows - smem_rows) * num_cols * kb,
+        cooperative=int(groups > 1), stages=0, ring_bytes=0, col_vecs=0, exchange_levels=int(groups > 1),
+        exchange_bytes=exchange, workspace_bytes=exchange + grid * (rows - smem_rows) * num_cols * kb,
     )
+
+
+def _ring_bytes(stages: int, cols: int, kbytes: int) -> int:
+    # the one-row buffers, the ring's mbarriers, two slots per warp for a row's dot
+    return stages * cols * kbytes + 8 * RING_BARS + 2 * (STRIPE_THREADS // 32) * 4
+
+
+def wide_launch_plan(
+    batch: int, num_rows: int, num_cols: int, k_dtype: torch.dtype,
+    sms: int = H100_SMS, caps: Sequence[int] = H100_CLUSTER_CAPS,
+) -> Optional[LaunchPlan]:
+    """The wide kernel's plan (K2s), the mirror of ``make_wide_plan``:
+    ``launch_plan``'s CTAs and clusters; where rows spill, a ring of two
+    one-row buffers taken out of the shared-memory rows; the fewest of 2, 4,
+    8 column vectors a thread that cover a row; two exchange levels past
+    ``FLAT_MAX_GROUPS`` clusters per element (single buffers of every
+    cluster's sums and of the next vector). None past its reach."""
+    plan = launch_plan(batch, num_rows, num_cols, k_dtype, sms, caps)
+    if plan is None:
+        return None
+    kb = _K_BYTES[k_dtype]
+    nvec = num_cols * kb // 16
+    col_vecs = next((v for v in (2, 4, 8) if nvec <= v * STRIPE_THREADS), 0)
+    if col_vecs == 0:
+        return None
+    fields = dict(col_vecs=col_vecs)
+    if plan.spill_rows > 0:
+        fixed = _fixed_smem_bytes(num_cols) + 12 * plan.rows
+        stages = 2
+        ring = _ring_bytes(stages, num_cols, kb)
+        if fixed + ring > SMEM_LIMIT:
+            return None
+        smem_rows = min((SMEM_LIMIT - fixed - ring) // (num_cols * kb), plan.rows)
+        fields.update(stages=stages, ring_bytes=ring, smem_rows=smem_rows, spill_rows=plan.rows - smem_rows,
+                      smem_bytes=smem_rows * num_cols * kb + fixed + ring)
+    if plan.groups > FLAT_MAX_GROUPS:
+        fields.update(exchange_levels=2, exchange_bytes=plan.slots * (plan.groups + 1) * num_cols * 8)
+    spill = fields.get("spill_rows", plan.spill_rows)
+    fields["workspace_bytes"] = fields.get("exchange_bytes", plan.exchange_bytes) + plan.grid * spill * num_cols * kb
+    return dataclasses.replace(plan, **fields)
+
+
+def forward_route(
+    batch: int, num_rows: int, num_cols: int, k_dtype: torch.dtype, plan_of=wide_launch_plan,
+) -> str:
+    """The Sinkhorn forward's route for ``batch`` elements of ``num_rows`` x
+    ``num_cols`` (padded) with K in ``k_dtype``: "fused" (K2) up to
+    ``FUSED_MAX_COLS[k_dtype]`` columns, past them "wide" (K2s) where
+    ``plan_of(batch, num_rows, num_cols, k_dtype)`` places the shape, else
+    "stream", the older streaming kernel. ``plan_of``: the H100's plan by
+    its mirror (the default); ``sinkhorn_scale`` asks the card's C plan."""
+    if num_cols <= FUSED_MAX_COLS[k_dtype]:
+        return "fused"
+    return "wide" if plan_of(batch, num_rows, num_cols, k_dtype) is not None else "stream"
 
 
 _plans: Dict[tuple, tuple] = {}
 
 
+_CUDA_ERROR_INVALID_CONFIGURATION = 9  # what a C plan returns where it places nothing
+
+
 def kernel_plan(batch: int, num_rows: int, num_cols: int, k_dtype: torch.dtype, adjoint: bool = False):
     """(plan, caps, sms) as the C code makes it on the current card for the
-    fused forward (or, with ``adjoint``, the adjoint kernel): the plan it
+    fused forward (with ``adjoint``, the adjoint kernel): the plan it
     launches, the clusters of 1..16 CTAs the card holds at once and its SM
-    count. Raises where the plan places nothing."""
-    key = (adjoint, batch, num_rows, num_cols, k_dtype, torch.cuda.current_device())
+    count. Raises where the plan places nothing. The wide kernel's:
+    ``wide_kernel_plan``."""
+    status, found = _card_plan(batch, num_rows, num_cols, k_dtype, "adjoint" if adjoint else "fused")
+    kernels.check(status, f"the Sinkhorn launch plan for B={batch} R={num_rows} C={num_cols}")
+    return found
+
+
+def wide_kernel_plan(batch: int, num_rows: int, num_cols: int, k_dtype: torch.dtype):
+    """The wide kernel's (plan, caps, sms) on the current card, or None where
+    its plan places nothing (past its reach)."""
+    status, found = _card_plan(batch, num_rows, num_cols, k_dtype, "wide")
+    if status == _CUDA_ERROR_INVALID_CONFIGURATION:
+        return None
+    kernels.check(status, f"the K2s launch plan for B={batch} R={num_rows} C={num_cols}")
+    return found
+
+
+def _card_plan(batch, num_rows, num_cols, k_dtype, kind):
+    """(CUDA status, (plan, caps, sms) or None) of ``kind`` ("fused",
+    "adjoint", "wide") from the C code; a plan is cached."""
+    key = (kind, batch, num_rows, num_cols, k_dtype, torch.cuda.current_device())
     found = _plans.get(key)
     if found is not None:
-        return found
-    out = (ctypes.c_int * 17)()
+        return 0, found
+    out = (ctypes.c_int * 21)()
     nbytes = (ctypes.c_longlong * 2)()
-    if adjoint:
+    if kind == "adjoint":
         fn = kernels.entry_point(
             "sinkhorn_adjoint", "og_sinkhorn_adjoint_plan", [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2)
         status = fn(batch, num_rows, num_cols, out, nbytes)
     else:
-        fn = kernels.entry_point("sinkhorn", "og_sinkhorn_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+        symbol = "og_sinkhorn_wide_plan" if kind == "wide" else "og_sinkhorn_plan"
+        fn = kernels.entry_point("sinkhorn", symbol, [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
         status = fn(int(k_dtype == torch.bfloat16), batch, num_rows, num_cols, out, nbytes)
-    kernels.check(status, f"the Sinkhorn launch plan for B={batch} R={num_rows} C={num_cols}")
-    plan = LaunchPlan(*out[:11], exchange_bytes=nbytes[0], workspace_bytes=nbytes[1])
-    found = _plans[key] = (plan, tuple(out[12:17]), out[11])
-    return found
+    if status != 0:
+        return status, None
+    plan = LaunchPlan(*out[:15], exchange_bytes=nbytes[0], workspace_bytes=nbytes[1])
+    found = _plans[key] = (plan, tuple(out[16:21]), out[15])
+    return 0, found
 
 
 def _round_up(x: int, m: int) -> int:
@@ -315,7 +429,8 @@ def sinkhorn_scale(
 ) -> torch.Tensor:
     """u [B, R] of the scale-domain recursion: the CUDA kernel for a CUDA
     tensor (the fused kernel up to ``FUSED_MAX_COLS[k_dtype]`` columns, the
-    streaming kernel beyond), the plain version for a CPU tensor."""
+    wide kernel beyond, the older streaming kernel past the wide plan's
+    reach: ``forward_route``), the plain version for a CPU tensor."""
     if M_pad.device.type == "cpu":
         return sinkhorn_scale_plain(M_pad, la, lb, num_iters, k_dtype)
     batch, rows, cols = M_pad.shape
@@ -336,7 +451,23 @@ def sinkhorn_scale(
     kernels.require(not torch.is_grad_enabled() or not M_pad.requires_grad,
                     "the Sinkhorn kernel is forward only")
     u = torch.empty(batch, rows, dtype=torch.float32, device=M_pad.device)
-    if cols > FUSED_MAX_COLS[k_dtype]:
+    route = forward_route(batch, rows, cols, k_dtype, plan_of=_wide_plan_on_card)
+    if route == "wide":
+        # the workspace holds the spilled rows and the exchange, no [B, R, C] K
+        workspace = _workspace(_wide_plan_on_card(batch, rows, cols, k_dtype), M_pad.device)
+        fn = kernels.entry_point(
+            "sinkhorn", "og_sinkhorn_scale_wide",
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        )
+        status = fn(
+            int(k_dtype == torch.bfloat16), M_pad.data_ptr(), la.data_ptr(), lb.data_ptr(), u.data_ptr(),
+            workspace.data_ptr() if workspace is not None else None, batch, rows, cols, num_iters,
+            kernels.stream_handle(M_pad.device),
+        )
+        kernels.check(status, "og_sinkhorn_scale_wide")
+        stream_counter.add()
+        return u
+    if route == "stream":
         K = torch.empty(batch, rows, cols, dtype=k_dtype, device=M_pad.device)
         size = kernels.entry_point(
             "sinkhorn", "og_sinkhorn_scale_streaming_workspace", [ctypes.c_int] * 3, ctypes.c_size_t
@@ -352,7 +483,7 @@ def sinkhorn_scale(
             kernels.stream_handle(M_pad.device),
         )
         kernels.check(status, "og_sinkhorn_scale_streaming")
-        stream_counter.add()
+        legacy_stream_counter.add()
         return u
     # K stays on chip: the workspace holds only the exchange between clusters
     # (and rows past the card's on-chip room, where the plan spills any)
@@ -369,6 +500,11 @@ def sinkhorn_scale(
     kernels.check(status, "og_sinkhorn_scale")
     counter.add()
     return u
+
+
+def _wide_plan_on_card(batch: int, num_rows: int, num_cols: int, k_dtype: torch.dtype) -> Optional[LaunchPlan]:
+    found = wide_kernel_plan(batch, num_rows, num_cols, k_dtype)
+    return None if found is None else found[0]
 
 
 def _workspace(plan: LaunchPlan, device: torch.device) -> Optional[torch.Tensor]:

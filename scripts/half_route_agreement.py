@@ -4,6 +4,7 @@ by batch, on a CUDA card.
 
     python3 scripts/half_route_agreement.py --repo DIR [--label NAME] [--seeds 0-10] [--route half] [--brief]
     python3 scripts/half_route_agreement.py --repo DIR --smoke-batch FILE [--label NAME] [--route half]
+    python3 scripts/half_route_agreement.py --repo DIR --small-f32 FILE [--label NAME]
 
 Imports ``openglue_tpu_torch`` and ``chip_smoke.py``'s config and helpers
 from the checkout DIR. For each seed it draws a B=12 N=1024 batch of
@@ -34,6 +35,18 @@ not exist, the script makes it first: it runs DIR's ``chip_smoke.py`` main
 with that change, up to the routes phase, saves the batch there and stops
 (about two minutes; DIR must have the GEMM phase). Then every run above
 takes the saved batch.
+
+With ``--small-f32``, it reproduces instead the f32 step that
+``chip_smoke.py``'s routes phase holds on the ``half`` route against the
+``message`` route (B=2 N=256, ``chain_dtype`` None, the weights of seed 1;
+bars loss 1e-5, gradient norm 1e-4, cosine 0.99999, statistics 1e-5), on
+the batch that phase draws when the K2s phase's three other wide shapes take
+the generator that the later phases share (as they did before they got one
+of their own). If FILE does not exist, the script makes it first, as
+``--smoke-batch`` does (about three minutes). Then it runs that step on both
+routes with every kernel, with the route's forward layer kernel plain, with
+every kernel plain, and in f64 on the composed path, and prints each
+against the ``message`` step with every kernel and against the f64 step.
 """
 
 from __future__ import annotations
@@ -72,6 +85,7 @@ def main() -> int:
     parser.add_argument("--smoke-batch", type=Path, default=None)
     parser.add_argument("--route", choices=("half", "message"), default="half")
     parser.add_argument("--brief", action="store_true", help="the kernel, plain and f64 steps only")
+    parser.add_argument("--small-f32", type=Path, default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("half_route_agreement: no CUDA card is available", file=sys.stderr)
@@ -79,6 +93,8 @@ def main() -> int:
     repo = args.repo.resolve()
     sys.path.insert(0, str(repo))
     import chip_smoke as cs
+    if args.small_f32 is not None:
+        return small_f32(cs, args.small_f32, args.label or str(repo))
     from openglue_tpu_torch.cli.common import loss_config_from, optimizer_from, superglue_config_from
     from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
     from openglue_tpu_torch.models.superglue import SuperGlue
@@ -263,6 +279,94 @@ def z_report(glk, x_q, x_kv, mask, w, w1, b1, heads, use_offset, dtype):
 
 class _BatchSaved(Exception):
     pass
+
+
+def small_f32(cs, path: Path, label: str) -> int:
+    """The routes phase's f32 B=2 N=256 step, ``half`` against ``message``,
+    on the batch saved in ``path`` (made first where it is missing)."""
+    from openglue_tpu_torch.cli.common import loss_config_from, optimizer_from, superglue_config_from
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import attention_kernel as ak
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.train.state import create_train_state
+    from openglue_tpu_torch.train.step import make_train_step
+
+    if not path.exists():
+        shared_k2s_batch(cs, path)
+    small = torch.load(path, map_location="cuda", weights_only=False)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = {"superglue": cs.SUPERGLUE_SECTION, "train": cs.TRAIN_SECTION}
+    step = make_train_step(loss_config_from(config))
+    section = dict(cs.SUPERGLUE_SECTION, chain_dtype=None)
+    cfg = superglue_config_from({"superglue": section}, cs.DESCRIPTOR_DIM, cs.SIDE_INFO_DIM)
+    base = SuperGlue(cfg, device="cuda", generator=torch.Generator().manual_seed(1), train_route="half")
+    cfg64 = superglue_config_from({"superglue": dict(section, use_pallas=False)}, cs.DESCRIPTOR_DIM,
+                                  cs.SIDE_INFO_DIM)
+
+    def run(route, swap, f64=False):
+        model = SuperGlue(cfg64 if f64 else cfg, device="cuda", train_route=route)
+        model = model.double() if f64 else model
+        model.load_state_dict(base.state_dict())
+        st = create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
+        with swapped(swap), (f64_floats() if f64 else contextlib.nullcontext()):
+            metrics = step(st, to_f64(small) if f64 else small)
+        stats = [b.double() for k, b in st.model.named_buffers() if "running" in k]
+        return (metrics, cs.flat_grads(st.model)), stats
+
+    plain = [(glk, "message_forward", glk.message_forward_plain),
+             (glk, "message_backward", glk.message_backward_plain),
+             (glk, "train_half_forward", glk.train_half_plain),
+             (sk, "sinkhorn_scale", sk.sinkhorn_scale_plain), (sk, "sinkhorn_adjoint", sk.sinkhorn_adjoint_plain),
+             (ak, "attention_forward", ak.attention_forward_plain),
+             (ak, "attention_backward", ak.attention_backward_plain)]
+    runs = {
+        "half": run("half", []),
+        "message": run("message", []),
+        "half, K8 plain": run("half", [(glk, "train_half_forward", glk.train_half_plain)]),
+        "message, K4 plain": run("message", [(glk, "message_forward", glk.message_forward_plain)]),
+        "half, every kernel plain": run("half", plain),
+        "message, every kernel plain": run("message", plain),
+        "f64": run("message", [], f64=True),
+    }
+    ref, ref_stats = runs["message"]
+    exact = runs["f64"][0]
+    for name, (steps, stats) in runs.items():
+        loss, norm, cos = distance_values(steps, ref)
+        stat = max((x - y).abs().max().item() for x, y in zip(stats, ref_stats))
+        inside = loss <= 1e-5 and norm <= 1e-4 and cos >= 0.99999 and stat <= 1e-5
+        print(f"[{label}] f32 B=2 N=256, {name}: against message loss {loss:.2e}, norm {norm:.2e}, cosine "
+              f"{cos:.7f}, stats {stat:.2e} ({'inside' if inside else 'outside'} the routes phase's bars); "
+              f"against f64 {distance(steps, exact)}; loss {steps[0]['total_loss'].item():.8f}, grad norm "
+              f"{steps[0]['grad_norm'].item():.8f}", flush=True)
+    return 0
+
+
+def shared_k2s_batch(cs, path: Path) -> None:
+    """Run ``chip_smoke.py``'s main with the K2s phase's other wide shapes on
+    the generator that the later phases share, up to the routes phase; save
+    the f32 B=2 N=256 batch that phase draws second to ``path``."""
+    from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
+
+    phase = cs.streaming_sinkhorn_phase
+
+    def routes_small(gen, card, device="cuda"):  # the routes phase's first two draws
+        n = cs.MAX_KEYPOINTS
+        counts = lambda: torch.randint(n // 2, n + 1, (cs.BATCH_SIZE,), generator=gen, device=device).tolist()
+        cs.make_request(SyntheticHomographyPairs, gen, cs.BATCH_SIZE, n, counts(), counts())
+        small = cs.make_request(SyntheticHomographyPairs, gen, 2, 256, [256, 180], [200, 256])
+        torch.save(small, path)
+        raise _BatchSaved
+
+    cs.streaming_sinkhorn_phase = lambda sk, gen, *a, **kw: phase(sk, gen, *a, extra=gen, **kw)
+    cs.routes_phase = routes_small
+    try:
+        cs.main()
+    except _BatchSaved:
+        print(f"saved the routes phase's f32 batch to {path}", flush=True)
+    else:
+        raise RuntimeError("chip_smoke.py's main returned before its routes phase")
 
 
 def smoke_batch(cs, path: Path) -> None:

@@ -31,16 +31,20 @@ beside ``scaled_dot_product_attention`` on the same inputs and mask (for K10
 its forward and backward less its forward); K1's parts alone at B=16: its
 attention on K1's operand layout beside the same library call, and its five
 bf16 GEMMs, each beside ``F.linear``; K2 with f32 K at B=16, B=1 and B=12
-N=1024 and with bf16 K at B=4 N=2048, and K3 at B=12 N=1024 T=20 (padded,
-masked OT matrices); and, where the checkout has
+N=1024 and with bf16 K at B=4 N=2048, K2s (the Sinkhorn forward past the
+fused kernel's columns, whichever kernel the checkout runs there) with bf16
+K at B=1 and B=4 N=4352 and B=1 N=8192 and N=16000 and with f32 K at B=1
+N=4352 and N=8192, and K3 at B=12 N=1024 T=20
+(padded, masked OT matrices); and, where the checkout has
 ``ops/kernels/gemm_kernel.py``, the f32 GEMM and weight-gradient GEMM alone at
 the ``message`` step's shapes (12,288 rows, D=256). (``bf16_ablations.py``
 times the bf16 GEMM at each of its tiles.)
 
 To compare two checkouts on one card, run it in one session in the order
 A, B, B, A. ``--only`` keeps the cases and profiles whose names hold one of
-the given texts (``--only K7 _int_mm`` for the int8 layer), the ptxas report
-of gnn_layer_int8 alone, and no serving or host readings.
+the given texts (``--only K7 _int_mm`` for the int8 layer, ``--only K2s``
+for the wide Sinkhorn), the ptxas report of gnn_layer_int8 and sinkhorn
+alone, and no serving or host readings.
 """
 
 from __future__ import annotations
@@ -63,10 +67,10 @@ import torch
 # wgmma one, so one call reports both checkouts' passes; K6's attention part
 # is listed under its one-launch name and its three earlier kernels' names)
 PTXAS_SOURCES = ("gnn_layer", "gnn_layer_features", "gnn_layer_int8", "message_forward", "message_backward",
-                 "train_half", "attention", "attention_backward", "gemm")
+                 "train_half", "attention", "attention_backward", "gemm", "sinkhorn")
 PTXAS_KERNELS = ("feature_attention", "key_features_kernel", "aggregate_kernel", "query_kernel", "attention_bf16",
                  "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16", "gemm_f32", "tn_gemm_f32", "gemm_bf16", "gemm_s8",
-                 "attention_s8", "quant_")
+                 "attention_s8", "quant_", "sinkhorn_")
 
 
 def card_line() -> str:
@@ -249,9 +253,13 @@ def k7_cases(gen, rows=16 * 1024, dim=256):
 
 def sinkhorn_cases(gen):
     """K2 at chip_smoke.py's serving and training shapes (f32 K B=16, B=1 and
-    B=12 N=1024, bf16 K B=4 N=2048) and K3 at the training shape (B=12
-    N=1024 T=20), on padded, masked OT matrices, through the wrappers'
-    public functions (``sinkhorn_scale``, ``sinkhorn_adjoint``)."""
+    B=12 N=1024, bf16 K B=4 N=2048), K2s at its bf16 shapes (B=1 and B=4
+    N=4352, B=1 N=8192), at the shapes of its instances that keep eight
+    column vectors a thread (bf16 K B=1 N=16000, f32 K B=1 N=8192) and with
+    f32 K at B=1 N=4352 (four vectors), and K3 at the training shape (B=12
+    N=1024 T=20), on
+    padded, masked OT matrices, through the wrappers' public functions
+    (``sinkhorn_scale``, ``sinkhorn_adjoint``)."""
     from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
 
     dev = torch.device("cuda")
@@ -270,6 +278,11 @@ def sinkhorn_cases(gen):
         (M, la, lb), _ = ot(batch, n)
         kd = sk.k_storage_dtype(n + 1, n + 1)
         cases[f"K2 {str(kd)[6:]} B={batch} N={n}"] = lambda M=M, la=la, lb=lb, kd=kd: sk.sinkhorn_scale(M, la, lb, 20, kd)
+    for batch, n, kd in ((1, 4352, torch.bfloat16), (4, 4352, torch.bfloat16), (1, 8192, torch.bfloat16),
+                         (1, 16000, torch.bfloat16), (1, 4352, torch.float32), (1, 8192, torch.float32)):
+        (M, la, lb), _ = ot(batch, n)
+        cases[f"K2s {str(kd)[6:]} B={batch} N={n}"] = lambda M=M, la=la, lb=lb, kd=kd: sk.sinkhorn_scale(
+            M, la, lb, 20, kd)
     (M, la, lb), valid = ot(12, 1024)
     g = torch.zeros_like(M)
     g[:, :, :1025] = torch.randn(12, 1025, 1025, generator=gen, device=dev) * valid
@@ -576,7 +589,8 @@ def main() -> int:
         "label": args.label or str(repo), "card": card_line(),
         "ms": {name: statistics.median(t) for name, t in times.items()},
         "profiles": profile, "serve": serving, "host_us": host,
-        "rounds_ms": times, "ptxas": ptxas_usage(repo, None if args.only is None else ("gnn_layer_int8",)),
+        "rounds_ms": times,
+        "ptxas": ptxas_usage(repo, None if args.only is None else ("gnn_layer_int8", "sinkhorn")),
     }), flush=True)
     return 0
 

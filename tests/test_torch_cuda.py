@@ -602,10 +602,14 @@ def test_on_chip_sinkhorn_adjoint_matches_plain_at_every_branch_of_its_plan(batc
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k_dtype,batch,n", [(torch.float32, 16, 1024), (torch.bfloat16, 4, 2048)])
+@pytest.mark.parametrize("k_dtype,batch,n", [
+    (torch.float32, 16, 1024), (torch.bfloat16, 4, 2048),
+    (torch.bfloat16, 1, 4352),  # the wide kernel (K2s): a third of each CTA's rows in the workspace
+])
 def test_fused_sinkhorn_keeps_k_off_device_memory(k_dtype, batch, n):
-    """The fused forward allocates no [B, R, C] K: its peak allocation stays
-    under half of K's bytes."""
+    """The fused forward, and the wide forward past its columns, allocate no
+    [B, R, C] K: the peak allocation of a call stays under half of K's
+    bytes."""
     dev = _cuda()
     M_pad, la, lb, _, _ = _ot_case(dev, batch, n, n, 23)
     sk.sinkhorn_scale(M_pad, la, lb, 20, k_dtype)  # builds and plans outside the window
@@ -1054,7 +1058,8 @@ def test_attention_kernels_take_heads_of_width_32(dtype):
 @pytest.mark.parametrize("k_dtype,m,n", [(torch.bfloat16, 130, 4400), (torch.float32, 40, 1700)])
 def test_streaming_sinkhorn_kernel_matches_plain(k_dtype, m, n):
     """Past 4096 columns with bf16 K, and past 1536 with f32 K, the forward
-    runs the streaming kernel (counted apart from the fused one)."""
+    runs the wide kernel K2s, one launch per call (counted apart from the
+    fused kernel and from the older streaming kernel)."""
     dev = _cuda()
     gen = torch.Generator(device=dev).manual_seed(12)
     batch = 2
@@ -1066,15 +1071,69 @@ def test_streaming_sinkhorn_kernel_matches_plain(k_dtype, m, n):
     M_pad = sk.build_padded_otp_matrix(scores, torch.tensor(1.0, device=dev), 1.0, mask0, mask1, rows, cp)
     la, lb, _ = sk.otp_marginals(batch, m, n, mask0, mask1, dev)
     la, lb = sk.padded_marginals(la, lb, rows, cp)
-    before = sk.counter.count, sk.stream_counter.count
+    plan, caps, sms = sk.wide_kernel_plan(batch, rows, cp, k_dtype)
+    assert plan == sk.wide_launch_plan(batch, rows, cp, k_dtype, sms, caps)  # the mirror is the C plan
+    counters = (sk.counter, sk.stream_counter, sk.legacy_stream_counter)
+    before = [c.count for c in counters]
     u = sk.sinkhorn_scale(M_pad, la, lb, 20, k_dtype)
     again = sk.sinkhorn_scale(M_pad, la, lb, 20, k_dtype)
     ref = sk.sinkhorn_scale_plain(M_pad, la, lb, 20, k_dtype)
     torch.cuda.synchronize()
-    assert (sk.counter.count - before[0], sk.stream_counter.count - before[1]) == (0, 2)
+    assert [c.count - b for c, b in zip(counters, before)] == [0, 2, 0]
     assert torch.equal(u, again)  # fixed summation order
     live = la > -1e8
     # the fused kernel's bar: the same f32 recursion and storage rounding
+    torch.testing.assert_close(u[live], ref[live], atol=1e-4, rtol=0)
+
+
+# (batch, n, K's storage): the wide kernel past the card's shared memory,
+# its spilled rows through the ring and a two-level exchange over 66
+# clusters: B=1 and B=4 (taken in four waves) at N=4352, B=1 at N=8192
+# (most rows spilled, past the L2), and f32 K at N=4352; the instances of
+# eight column vectors a thread: bf16 K at N=16000, f32 K at N=8192
+WIDE_SHAPES = [
+    (1, 4352, torch.bfloat16), (4, 4352, torch.bfloat16), (1, 8192, torch.bfloat16), (1, 4352, torch.float32),
+    (1, 16000, torch.bfloat16), (1, 8192, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,k_dtype", WIDE_SHAPES)
+def test_wide_sinkhorn_matches_plain_past_the_cards_shared_memory(batch, n, k_dtype):
+    dev = _cuda()
+    M_pad, la, lb, _, _ = _ot_case(dev, batch, n, n, 25)
+    plan, caps, sms = sk.wide_kernel_plan(batch, *M_pad.shape[1:], k_dtype)
+    assert plan == sk.wide_launch_plan(batch, *M_pad.shape[1:], k_dtype, sms, caps)
+    assert plan.spill_rows > 0 and plan.stages >= 2 and plan.exchange_levels == 2
+    before = sk.stream_counter.count
+    u = sk.sinkhorn_scale(M_pad, la, lb, 20, k_dtype)
+    again = sk.sinkhorn_scale(M_pad, la, lb, 20, k_dtype)
+    ref = sk.sinkhorn_scale_plain(M_pad, la, lb, 20, k_dtype)
+    torch.cuda.synchronize()
+    assert sk.stream_counter.count == before + 2
+    assert torch.equal(u, again)
+    live = la > -1e8
+    torch.testing.assert_close(u[live], ref[live], atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_streaming_sinkhorn_runs_past_the_wide_plans_reach():
+    """Past the wide plan's reach (25,008 bf16 columns: more than eight
+    16-byte column vectors a thread) the older streaming kernel runs,
+    counted apart."""
+    dev = _cuda()
+    M_pad, la, lb, _, _ = _ot_case(dev, 2, 40, 25000, 26)
+    assert sk.wide_kernel_plan(2, *M_pad.shape[1:], torch.bfloat16) is None
+    assert sk.forward_route(2, *M_pad.shape[1:], torch.bfloat16) == "stream"
+    counters = (sk.counter, sk.stream_counter, sk.legacy_stream_counter)
+    before = [c.count for c in counters]
+    u = sk.sinkhorn_scale(M_pad, la, lb, 20, torch.bfloat16)
+    again = sk.sinkhorn_scale(M_pad, la, lb, 20, torch.bfloat16)
+    ref = sk.sinkhorn_scale_plain(M_pad, la, lb, 20, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert [c.count - b for c, b in zip(counters, before)] == [0, 0, 2]
+    assert torch.equal(u, again)
+    live = la > -1e8
     torch.testing.assert_close(u[live], ref[live], atol=1e-4, rtol=0)
 
 
