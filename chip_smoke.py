@@ -64,14 +64,15 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    the config's batch (B=12, N=1024, valid counts in [512, 1024]): one step
    held against the same step through the plain versions, 2 warm-up and 5
    timed steps with the launch counts checked per step, a profile, and a
-   small f32 step held against the composed path; the f32 GEMMs that K4 and
+   small f32 step held against the composed path in f64 made to take the f32
+   step's ReLU gates (``hold_f32_step_against_exact``); the f32 GEMMs that K4 and
    K5 launch are counted too, by the C code where it launches them (272
    gemm_f32 and 34 tn_gemm_f32 per step), and so are the bf16 attention
    backward's passes (two per bf16 K5 launch: 4 per step). Then the same step on the
    model's two other training routes, ``train_route="composed"`` (K9, K10)
    and ``"half"`` (K8, K5): one step held against the plain versions, timed
    steps with the launch counts checked, a profile, and a small f32 step held
-   against the ``"message"`` route; and one ``"message"`` step with
+   as the message route's is; and one ``"message"`` step with
    ``remat=True`` held against the step without it, with both peak memories;
    then one step of examples/pretrain_e2e_fixture.yaml as written (bf16
    compute and chain, SIFT D=128 with heads of width 32, B=2 N=2048, 9
@@ -118,7 +119,23 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    served once each; every extractor on the card against its CPU run with
    the same weights (``features/agreement.py``'s bars); the device SIFT
    pairs' matches after MAGSAC against the known homography;
-9. keypoint-axis context parallelism (``ring_axis``): the ring's block
+9. the online trainer (``online_trainer_phase``), with seeded random
+   weights: ``cli.pretrain_homography.main`` with
+   configs/homography_pretraining.yaml as written (B=12, 960x720, warp offset
+   256, frozen SuperPoint up to 1024 keypoints D=256, the 9-stage matcher,
+   weak_color_aug) on fixture images, with use_pallas, a few steps and a
+   validation of two batches: 36 K4 + 36 K5 + 1 K2 + 1 K3 per step and 36
+   K1 + 1 K2 per eval batch, the frozen extractor unchanged bit for bit, the
+   first step held against its plain versions at the training bars, the
+   augmentation on the card against its CPU run, the step's time, busy time,
+   idle share, extraction time, host synchronizations, loader wait and peak
+   memory; ``cli.train.main`` with configs/config.yaml (B=6, 960x720) and
+   the online SuperPoint features config on the MegaDepth layout (the
+   fixture's depths in memory, images written beside them), a few steps and
+   a validation batch; and ``initialize_matcher`` serving the pretraining
+   experiment with the extractor its checkpoint holds (36 K1 + 1 K2, held
+   against the plain path);
+10. keypoint-axis context parallelism (``ring_axis``): the ring's block
    attention with the LSE (K11) at B=12 N=1024 and B=4 N=2048, bf16 and f32,
    against its plain version with the library call's time beside it; the
    block merge of the ring (K11 on 4 key blocks of a B=12 N=1024 request,
@@ -702,6 +719,11 @@ def half_phase(glk, dtype, gen, batch=BATCH_SIZE, n=MAX_KEYPOINTS, dim=256, head
 # dA and dx_q in the kn form, dx_kv in the kn form over [Wk; Wv], and the four
 # weight gradients in one tn GEMM)
 F32_MESSAGE_LAYERS = 34
+# the bars of a small f32 training step (B=2 N=256) against f64 on the f32
+# step's own ReLU gates (hold_f32_step_against_exact): each route on 9
+# batches read at most loss 3.9e-6, norm 2.4e-6, 1 - cosine 2.5e-11 and
+# statistics 2.7e-7 (H100); one gate taken apart moves the norm by 2e-4
+F32_STEP_BARS = dict(loss_tol=1e-5, norm_tol=2e-5, cos_min=0.999999, stats_tol=2e-6)
 # (name, n_out / D, k / D, form, launches per f32 message layer)
 GEMM_F32_SHAPES = (("kv", 2, 1, "split", 2), ("q/out", 1, 1, "plain", 3), ("dA/dx_q", 1, 1, "kn", 2),
                    ("dx_kv", 1, 2, "kn_split", 1))
@@ -1212,6 +1234,86 @@ def flat_grads(model):
     return torch.cat([p.grad.double().flatten() for p in model.parameters() if p.grad is not None])
 
 
+@contextlib.contextmanager
+def f64_floats():
+    """``Tensor.float()`` leaves an f64 tensor in f64 (the model casts its
+    scores and statistics with it), so that a step of an f64 model on an f64
+    batch stays f64 throughout."""
+    float32 = torch.Tensor.float
+    torch.Tensor.float = lambda self, *a, **kw: self if self.dtype == torch.float64 else float32(self, *a, **kw)
+    try:
+        yield
+    finally:
+        torch.Tensor.float = float32
+
+
+def to_f64(x):
+    """A copy of a batch (dataclasses of tensors) with its floating tensors in f64."""
+    if torch.is_tensor(x):
+        return x.double() if x.is_floating_point() else x
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: to_f64(getattr(x, f.name)) for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+@contextlib.contextmanager
+def relu_gates(model, glk, force=None):
+    """Record the ReLU gates (pre-activation > 0) of the model's forward
+    passes in call order: its ReLU modules and the ReLU that the train-half
+    kernel fuses. With ``force`` (another run's record), each ReLU module
+    takes those gates in place of its own; the record then holds the gates
+    this run would have taken."""
+    seen = []
+    half = glk.train_half_forward
+
+    def hook(module, args, out):
+        seen.append(args[0].detach() > 0)
+        if force is not None:
+            return torch.where(force[len(seen) - 1], args[0], torch.zeros_like(args[0]))
+        return None
+
+    def half_recorded(*args, **kwargs):
+        z, attn, lse = half(*args, **kwargs)
+        seen.append(z.detach() > 0)
+        return z, attn, lse
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, torch.nn.ReLU)]
+    glk.train_half_forward = half_recorded
+    try:
+        yield seen
+    finally:
+        glk.train_half_forward = half
+        for h in hooks:
+            h.remove()
+
+
+def hold_f32_step_against_exact(state, batch, step, config, glk, name, **bars):
+    """One f32 training step of ``state`` on ``batch`` against the same step
+    in f64 through the composed path (``use_pallas=False``) made to take the
+    f32 step's ReLU gates. A gate whose pre-activation lies within f32's
+    rounding of 0 falls on either side, and the gradient jumps with it (one
+    FFN gate moved the norm by 2e-4 on a B=2 N=256 batch), so a step is held
+    against exact arithmetic on its own gates, where rounding alone is
+    left."""
+    from openglue_tpu_torch.cli.common import optimizer_from
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.train.state import create_train_state
+
+    model = SuperGlue(dataclasses.replace(state.model.config, use_pallas=False),
+                      device=next(state.model.parameters()).device).double()
+    model.load_state_dict(state.model.state_dict())
+    exact = create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
+    with relu_gates(state.model, glk) as gates:
+        m_f32 = step(state, batch)
+    with relu_gates(model, glk, force=gates) as own, f64_floats():
+        m_f64 = step(exact, to_f64(batch))
+    check(len(own) == len(gates), f"{name}: {len(gates)} ReLU calls in f32, {len(own)} in f64")
+    flipped = sum(int((a != b).sum()) for a, b in zip(gates, own))
+    print(f"{name}: {len(gates)} ReLU calls, {flipped} gates of {sum(g.numel() for g in gates)} taken "
+          f"from the f32 step against f64's own", flush=True)
+    return compare_steps(state.model, model, m_f32, m_f64, name, **bars)
+
+
 def compare_steps(kernel, plain, m_kernel, m_plain, name, loss_tol, norm_tol, cos_min, stats_tol):
     """One training step from the same state and batch on two paths: the
     loss, the unclipped gradient norm, the direction of the gradient (cosine;
@@ -1443,11 +1545,8 @@ def train_phase(gen, card, device="cuda"):
         model = SuperGlue(cfg, device=device, generator=torch.Generator().manual_seed(1))
         return cfg, create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
 
-    def twin(state, **changes):
+    def twin(state):
         model = copy.deepcopy(state.model)
-        if changes:  # the same weights in a model of another configuration
-            model = SuperGlue(dataclasses.replace(model.config, **changes), device=device)
-            model.load_state_dict(state.model.state_dict())
         return create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
 
     n = MAX_KEYPOINTS
@@ -1508,13 +1607,11 @@ def train_phase(gen, card, device="cuda"):
           + "; ".join(f"{kname} {ms:.3f} ms ({calls} calls)" for ms, kname, calls in kernels_by_time),
           flush=True)
 
-    # a small f32 step against the independent composed path
+    # a small f32 step against the independent composed path in f64
     small = make_request(SyntheticHomographyPairs, gen, 2, 256, [256, 180], [200, 256])
     _, kernel_f32 = fresh(dict(SUPERGLUE_SECTION, chain_dtype=None))
-    composed = twin(kernel_f32, use_pallas=False)
-    compare_steps(kernel_f32.model, composed.model, step(kernel_f32, small), step(composed, small),
-                  "f32 train step B=2 N=256 kernels vs composed",
-                  loss_tol=1e-5, norm_tol=1e-4, cos_min=0.99999, stats_tol=1e-5)
+    hold_f32_step_against_exact(kernel_f32, small, step, config, glk,
+                                "f32 train step B=2 N=256 kernels vs f64 composed on its ReLU gates", **F32_STEP_BARS)
     return launches
 
 
@@ -1541,10 +1638,10 @@ def routes_phase(gen, card, device="cuda"):
         model = SuperGlue(cfg, device=device, generator=torch.Generator().manual_seed(1), train_route=route)
         return create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
 
-    def twin(state, route=None, **changes):
-        """The same weights in a model of another route or configuration."""
+    def twin(state, **changes):
+        """The same weights in a model of another configuration."""
         model = SuperGlue(dataclasses.replace(state.model.config, **changes), device=device,
-                          train_route=route or state.model.train_route)
+                          train_route=state.model.train_route)
         model.load_state_dict(state.model.state_dict())
         return create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
 
@@ -1617,13 +1714,12 @@ def routes_phase(gen, card, device="cuda"):
               flush=True)
         del state
 
-        # a small f32 step against the message route
+        # a small f32 step against the composed path in f64
         route_f32 = fresh(dict(SUPERGLUE_SECTION, chain_dtype=None), route)
-        message_f32 = twin(route_f32, route="message")
-        compare_steps(route_f32.model, message_f32.model, step(route_f32, small), step(message_f32, small),
-                      f"f32 train step B=2 N=256 route={route} vs route=message",
-                      loss_tol=1e-5, norm_tol=1e-4, cos_min=0.99999, stats_tol=1e-5)
-        del route_f32, message_f32
+        hold_f32_step_against_exact(route_f32, small, step, config, glk,
+                                    f"f32 train step B=2 N=256 route={route} vs f64 composed on its ReLU gates",
+                                    **F32_STEP_BARS)
+        del route_f32
 
     # remat on the message route: the same step, its activations rebuilt
     state = fresh(SUPERGLUE_SECTION, "message")
@@ -3312,6 +3408,358 @@ def device_extractors_phase(card, repo: Path, store: MemoryH5, work: Path, devic
     return dict(launches)
 
 
+# the online trainer phase (online_trainer_phase): configs/homography_pretraining.yaml
+# as written but for its image folder (generate_image_fixture's images at the
+# dataset's resize size, target + 2 x warp offset), use_pallas, the steps and
+# a validation of ONLINE_VAL_PAIRS pairs; then cli.train on configs/config.yaml
+# with the online SuperPoint features config on the MegaDepth layout
+ONLINE_IMAGES = 24  # the validation takes min(images, val_pairs) pairs
+ONLINE_STEPS = 6  # the first is the warm-up
+ONLINE_VAL_PAIRS = 24  # two batches of 12
+ONLINE_MEGADEPTH = dict(scenes=4, images_per_scene=8, val_scenes=1, seed=13)
+ONLINE_MEGADEPTH_STEPS = 3
+ONLINE_MEGADEPTH_VAL_PAIRS = 6  # one batch of 6
+
+
+class OnlineProbe:
+    """What the online phase reads from inside the online CLIs, through
+    wrappers of what ``cli.online.run_online_training`` looks up at call
+    time: each train step (its launches checked, its host time with the card
+    synchronized before and after it, a copy of the state and the batch of
+    the first one), each eval batch (its launches checked), the validation
+    sweep's metrics and seconds, and each wait on a loader's ``next()``."""
+
+    def __init__(self, counters, train_expected, eval_expected, clone_train_state):
+        self.counters, self.train_expected, self.eval_expected = counters, train_expected, eval_expected
+        self.clone_train_state = clone_train_state
+        self.train_steps, self.eval_batches = 0, 0
+        self.step_ms, self.waits, self.first = [], [], None
+        self.eval_metrics = self.eval_seconds = None
+
+    def counts(self):
+        return {k: c.count for k, c in self.counters.items()}
+
+    def _checked(self, fn, expected, what):
+        before = self.counts()
+        out = fn()
+        delta = {k: v - before[k] for k, v in self.counts().items()}
+        check(delta == expected, f"online {what}: launches {delta}, expected {expected}")
+        return out
+
+    def make_train_step(self, real):
+        def make(*args, **kwargs):
+            step = real(*args, **kwargs)
+
+            def probed(state, batch):
+                i = self.train_steps
+                self.train_steps += 1
+                torch.cuda.synchronize()
+                if self.first is None:
+                    self.first = (self.clone_train_state(state), batch)
+                start = time.perf_counter()
+                metrics = self._checked(lambda: step(state, batch), self.train_expected, f"train step {i}")
+                torch.cuda.synchronize()
+                self.step_ms.append((time.perf_counter() - start) * 1e3)
+                check(all(math.isfinite(v.item()) for v in metrics.values()), f"online train step {i}: {metrics}")
+                return metrics
+
+            return probed
+
+        return make
+
+    def make_eval_step(self, real):
+        def make(*args, **kwargs):
+            step = real(*args, **kwargs)
+
+            def probed(state, batch):
+                self.eval_batches += 1
+                return self._checked(lambda: step(state, batch), self.eval_expected, f"eval batch {self.eval_batches}")
+
+            return probed
+
+        return make
+
+    def evaluate(self, real):
+        def probed(*args, **kwargs):
+            start = time.perf_counter()
+            self.eval_metrics = real(*args, **kwargs)
+            self.eval_seconds = time.perf_counter() - start
+            return self.eval_metrics
+
+        return probed
+
+    def loader_iter(self, real_iter):
+        probe = self
+
+        def probed(loader):
+            it = real_iter(loader)
+            while True:
+                start = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                probe.waits.append((time.perf_counter() - start) * 1e3)
+                yield batch
+
+        return probed
+
+    def entries(self, step_mod, loop, loader_mod):
+        return ((step_mod, "make_online_train_step", self.make_train_step(step_mod.make_online_train_step)),
+                (step_mod, "make_online_eval_step", self.make_eval_step(step_mod.make_online_eval_step)),
+                (loop, "evaluate_online", self.evaluate(loop.evaluate_online)),
+                (loader_mod.DataLoader, "__iter__", self.loader_iter(loader_mod.DataLoader.__iter__)))
+
+
+def write_megadepth_images(store: MemoryH5, root: Path, seed=0):
+    """A grayscale image beside each depth map of a ``generate_megadepth_fixture``
+    tree (``dense0/imgs/<name>.jpg``, the depth map's size): a smooth random
+    field with discs, shaded by the depth, so that an extractor finds
+    corners. The package's fixture writes no images."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    depths = sorted(p for p in store.files if "/dense0/depths/" in p and p.startswith(str(root.resolve())))
+    for path in depths:
+        depth = store.load_h5(path, key="depth")
+        h, w = depth.shape
+        field = cv2.resize(rng.random((h // 16, w // 16)).astype(np.float32), (w, h), interpolation=cv2.INTER_CUBIC)
+        image = 60 + 120 * field + 20 * np.sin(depth * 4.0)
+        for _ in range(60):
+            cv2.circle(image, (int(rng.integers(0, w)), int(rng.integers(0, h))), int(rng.integers(3, 20)),
+                       float(rng.uniform(0, 255)), -1)
+        out = Path(path).parent.parent / "imgs" / (Path(path).stem + ".jpg")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cv2.imwrite(str(out), np.clip(image, 0, 255).astype(np.uint8))
+    return len(depths)
+
+
+def online_trainer_phase(card, repo: Path, store: MemoryH5, work: Path, device="cuda"):
+    """The online trainer end to end (module 9b), with seeded random
+    weights. (a) ``cli.pretrain_homography.main`` with
+    configs/homography_pretraining.yaml as written (B=12, 960x720, warp
+    offset 256, SuperPoint up to 1024 keypoints D=256, the 9-stage matcher,
+    weak_color_aug, a frozen extractor) and an override that changes only
+    the image folder (ONLINE_IMAGES fixture images), use_pallas (true, so
+    that K1-K5 run), the steps (ONLINE_STEPS) and a validation of
+    ONLINE_VAL_PAIRS pairs (``evaluate_online``, the homography precision):
+    36 K4 + 36 K5 + 1 K2 + 1 K3 per step, 36 K1 + 1 K2 per eval batch,
+    every step finite, the extractor's parameters and buffers unchanged bit
+    for bit; the first step from a copy of its state and batch, kernels
+    against the plain versions, at train_phase's f32 bars; the augmentation
+    on the card against its CPU run with the same draws; the step's time,
+    busy time and idle share, the extraction's device time, the host
+    synchronizations, the loader's wait and the peak memory. (b)
+    ``cli.train.main`` with configs/config.yaml (B=6, 960x720) and
+    configs/features_online/superpoint_magicleap.yaml on the MegaDepth
+    layout (``generate_megadepth_fixture``, its depths in ``store``, and
+    images this phase writes), ONLINE_MEGADEPTH_STEPS steps and one
+    validation batch, the launches checked as in (a). (c)
+    ``cli.inference.initialize_matcher`` on (a)'s experiment serves one pair
+    with the extractor its checkpoint holds: 36 K1 + 1 K2, the forward held
+    against its plain path at ``compare``'s bars. Returns the launches of
+    the three runs by kernel."""
+    import cv2
+    import yaml
+
+    from openglue_tpu_torch import augmentations as aug
+    from openglue_tpu_torch.cli import common, inference, pretrain_homography
+    from openglue_tpu_torch.cli import train as online_train
+    from openglue_tpu_torch.data import fixture, io
+    from openglue_tpu_torch.data import loader as loader_mod
+    from openglue_tpu_torch.models.matching import decode_from_output
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.train import loop
+    from openglue_tpu_torch.train import step as step_mod
+    from openglue_tpu_torch.train.state import clone_train_state
+
+    phase_start = time.perf_counter()
+    counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter, "K4": glk.message_counter,
+                "K5": glk.message_bwd_counter, "autograd_sinkhorn": sk.autograd_counter}
+    total = collections.Counter()
+
+    # ---- (a) homography pretraining at the config's width
+    base = repo / "configs" / "homography_pretraining.yaml"
+    written = common.load_merged_config(str(base))
+    (tw, th), off = written["data"]["target_size"], int(written["data"]["warp_offset"])
+    images = work / "online_images"
+    start = time.perf_counter()
+    fixture.generate_image_fixture(images, num_images=ONLINE_IMAGES, image_size=(tw + 2 * off, th + 2 * off), seed=11)
+    fixture_s = time.perf_counter() - start
+    override = {"data": {"root_path": str(images), "val_pairs": ONLINE_VAL_PAIRS},
+                "logging": {"root_path": str(work / "online_logs")},
+                "train": {"epochs": 1, "steps_per_epoch": ONLINE_STEPS, "evaluation": True},
+                "superglue": {"use_pallas": True}}
+    (work / "online.yaml").write_text(yaml.safe_dump(override))
+    config = common.load_merged_config(str(base), str(work / "online.yaml"))
+    layers = 2 * int(config.get("superglue.attention_gnn.num_stages")) * 2
+    train_expected = {"K1": 0, "K2": 1, "K3": 1, "K4": layers, "K5": layers, "autograd_sinkhorn": 0}
+    eval_expected = {"K1": layers, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "autograd_sinkhorn": 0}
+    probe = OnlineProbe(counters, train_expected, eval_expected, clone_train_state)
+    for c in counters.values():
+        c.reset()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    with replaced(*probe.entries(step_mod, loop, loader_mod)):
+        state = pretrain_homography.main(["--config", str(base), "--config_override", str(work / "online.yaml"),
+                                          "--device", device])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: c.count for k, c in counters.items()}
+    total.update(launches)
+    batch = int(config.get("data.batch_size"))
+    check(state.step == ONLINE_STEPS and probe.train_steps == ONLINE_STEPS,
+          f"online pretraining: state.step {state.step}, probed steps {probe.train_steps}, expected {ONLINE_STEPS}: "
+          f"run_online_training no longer looks up make_online_train_step in train.step when it runs")
+    check(probe.eval_batches == ONLINE_VAL_PAIRS // batch, f"online validation: {probe.eval_batches} batches")
+    metrics = probe.eval_metrics
+    check(metrics is not None and "H-Precision@3.0px" in metrics and all(math.isfinite(v) for v in metrics.values()),
+          f"online validation: {metrics}")
+    saved, first_batch = probe.first
+    before, after = saved.model.extractor.state_dict(), state.model.extractor.state_dict()
+    check(set(before) == set(after) and all(torch.equal(before[k], after[k]) for k in before),
+          "online pretraining: the frozen extractor changed")
+    check(not torch.equal(saved.model.superglue.dustbin_score, state.model.superglue.dustbin_score),
+          "online pretraining: the matcher did not change")
+
+    # the first step from a copy of its state and batch, kernels against plain
+    loss_config = common.loss_config_from(config)
+    augmentation = config.get("train.augmentations.name")
+    step = step_mod.make_online_train_step(loss_config, augmentation=augmentation)
+    kernel, plain = clone_train_state(saved), clone_train_state(saved)
+    m_kernel = step(kernel, first_batch)
+    with plain_versions(glk, sk):
+        m_plain = step(plain, first_batch)
+    torch.cuda.synchronize()
+    name = f"online pretraining first step B={batch} {tw}x{th} N={config.get('features.parameters.max_keypoints')}"
+    compare_steps(kernel.model, plain.model, m_kernel, m_plain, f"{name}, kernels vs plain",
+                  loss_tol=1e-3, norm_tol=0.01, cos_min=0.999, stats_tol=1e-3)
+    del kernel, plain
+
+    # the augmentation on the card against its CPU run with the same draws
+    x = first_batch["image0"]
+    draws = aug.draw_weak_color_aug(torch.Generator(device=device).manual_seed(0), x)
+    on_card = aug.apply_weak_color_aug(x, draws).cpu()
+    on_cpu = aug.apply_weak_color_aug(x.cpu(), {k: v.cpu() for k, v in draws.items()})
+    every = torch.ones(x.shape[0], dtype=torch.bool)
+    equalized = torch.equal(aug.equalize(x, every.to(device)).cpu(), aug.equalize(x.cpu(), every))
+    aug_err = (on_card - on_cpu).abs().max().item()
+    check(equalized and aug_err <= 1e-6, f"online weak_color_aug: card vs CPU {aug_err}, equalize equal {equalized}")
+
+    # one more step on a copy of the trained state: the profile, the
+    # extraction's device time and the host synchronizations
+    copy_ = clone_train_state(state)
+    busy, kernels_by_time = device_profile(lambda: step(copy_, first_batch), top=6)
+    pair_images = torch.cat([first_batch["image0"], first_batch["image1"]], dim=0)
+    extract_ms = device_ms(lambda: copy_.model.extract(pair_images), calls=3)
+    sites = sync_sites(lambda: step(copy_, first_batch))
+    step_ms = statistics.median(probe.step_ms[1:])
+    idle = "not measured" if busy is None else f"{1 - busy / step_ms:.3f}"
+    matcher_ms = "not measured" if busy is None else f"{busy - extract_ms:.3f}"
+    print(f"online pretraining B={batch} {tw}x{th} (configs/homography_pretraining.yaml, {augmentation}, frozen "
+          f"SuperPoint, use_pallas): {ONLINE_STEPS} steps and {probe.eval_batches} validation batches in "
+          f"{run_s:.1f} s (main() whole; the image fixture {fixture_s:.1f} s before it); step {step_ms:.3f} ms "
+          f"(median of {len(probe.step_ms) - 1} synchronized steps after the first; all "
+          f"{', '.join(f'{t:.1f}' for t in probe.step_ms)}), {batch / step_ms * 1e3:.2f} pairs/s, device busy "
+          f"{busy} ms a step, idle share {idle}; extraction (2B={2 * batch} images, one call) {extract_ms:.3f} "
+          f"device ms, the rest of the step {matcher_ms} device ms; {sum(sites.values())} host synchronizations a "
+          f"step ({', '.join(f'{n} at {w}' for w, n in sites.most_common())}); loader next() wait median "
+          f"{statistics.median(probe.waits):.3f} ms (max {max(probe.waits):.3f}, {len(probe.waits)} batches); "
+          f"peak memory {peak:.2f} GiB; augmentation card vs CPU with the same draws {aug_err:.3e} (equalize "
+          f"equal); launches per step {json.dumps(train_expected)}, per eval batch {json.dumps(eval_expected)} "
+          f"[{card}]", flush=True)
+    print("  device time by kernel, online pretraining step: "
+          + "; ".join(f"{kname} {ms:.3f} ms ({calls} calls)" for ms, kname, calls in kernels_by_time), flush=True)
+    print(f"online validation: {probe.eval_batches} batches, {probe.eval_seconds:.2f} s, {json.dumps(metrics)} "
+          f"[{card}]", flush=True)
+    del copy_, saved, first_batch, state
+
+    # ---- (b) cli.train on the MegaDepth layout at configs/config.yaml's width
+    with replaced(*store.entries(io)):
+        root = work / "online_megadepth"
+        start = time.perf_counter()
+        stats = fixture.generate_megadepth_fixture(root, **ONLINE_MEGADEPTH)
+        written_images = write_megadepth_images(store, root)
+        # the fixture's cameras sit close together: of its training pairs one
+        # lies inside the config's overlap range [0.15, 0.7] (the rest 0.66-0.94)
+        md_override = {
+            "data": {"root_path": str(root), "val_max_pairs_per_scene": ONLINE_MEGADEPTH_VAL_PAIRS,
+                     "train_pairs_overlap": None},
+            "logging": {"root_path": str(work / "online_logs")},
+            "train": {"epochs": 1, "steps_per_epoch": ONLINE_MEGADEPTH_STEPS},
+            "superglue": {"use_pallas": True},
+        }
+        (work / "online_md.yaml").write_text(yaml.safe_dump(md_override))
+        md_fixture_s = time.perf_counter() - start
+        md_probe = OnlineProbe(counters, train_expected, eval_expected, clone_train_state)
+        for c in counters.values():
+            c.reset()
+        start = time.perf_counter()
+        with replaced(*md_probe.entries(step_mod, loop, loader_mod)):
+            md_state = online_train.main(["--config", str(repo / "configs" / "config.yaml"), "--config_override",
+                                          str(work / "online_md.yaml"), "--features_config",
+                                          str(repo / "configs/features_online/superpoint_magicleap.yaml"),
+                                          "--device", device])
+        torch.cuda.synchronize()
+        md_s = time.perf_counter() - start
+    md_launches = {k: c.count for k, c in counters.items()}
+    total.update(md_launches)
+    check(md_state.step == ONLINE_MEGADEPTH_STEPS and md_probe.eval_batches == 1,
+          f"online MegaDepth: {md_state.step} steps, {md_probe.eval_batches} eval batches")
+    md_metrics = md_probe.eval_metrics
+    check(md_metrics is not None and "AUC@5deg" in md_metrics and all(math.isfinite(v) for v in md_metrics.values()),
+          f"online MegaDepth validation: {md_metrics}")
+    md_config = common.load_merged_config(str(repo / "configs" / "config.yaml"), str(work / "online_md.yaml"))
+    print(f"online MegaDepth B={md_config.get('data.batch_size')} {'x'.join(map(str, md_config['data']['target_size']))} "
+          f"(configs/config.yaml, configs/features_online/superpoint_magicleap.yaml): fixture {len(stats['scenes'])} "
+          f"scenes, {stats['pairs']} pairs, {written_images} images written, {md_fixture_s:.1f} s; "
+          f"{ONLINE_MEGADEPTH_STEPS} steps and 1 validation batch in {md_s:.1f} s; steps "
+          f"{', '.join(f'{t:.1f}' for t in md_probe.step_ms)} ms (synchronized); loader next() wait median "
+          f"{statistics.median(md_probe.waits):.3f} ms; validation {json.dumps(md_metrics)}; launches "
+          f"{json.dumps(md_launches)} [{card}]", flush=True)
+    del md_state
+
+    # ---- (c) the pretraining experiment served with its own extractor
+    experiment = next((work / "online_logs").glob("pretrain_superpoint/*/checkpoints")).parent
+    matcher = inference.initialize_matcher(experiment, target_size=(tw, th), device=device)
+    a = images / "img0000.jpg"
+    b = work / "online_warped.png"
+    cv2.imwrite(str(b), cv2.warpPerspective(io.read_grayscale(a), serving_homography(0, (tw + 2 * off, th + 2 * off)),
+                                            (tw + 2 * off, th + 2 * off)))
+    forwards = []
+    real_forward = matcher.model.forward
+
+    def forward(**kw):
+        before = {k: c.count for k, c in counters.items()}
+        out = real_forward(**kw)
+        forwards.append((kw, out, {k: c.count - before[k] for k, c in counters.items()}))
+        return out
+
+    with replaced((matcher.model, "forward", forward)):
+        inference.run_inference(matcher, a, b, ransac=False)  # the first request builds and warms
+        forwards.clear()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        result = inference.run_inference(matcher, a, b, ransac=False)
+        request_ms = (time.perf_counter() - start) * 1e3
+    (kw, out, served), = forwards
+    total.update(served)
+    check(served == eval_expected, f"online experiment served: launches {served}, expected {eval_expected}")
+    with torch.no_grad(), plain_versions(glk, sk):
+        ref = matcher.model(**kw)
+    nats, decode = compare(decode_from_output, out, ref, kw, "online experiment served")
+    print(f"online experiment served (initialize_matcher on the pretraining experiment, its extractor from the "
+          f"checkpoint): a request {request_ms:.1f} ms, N={kw['kpts0'].shape[1]}, {len(result['keypoints0'])} "
+          f"matches at threshold {matcher.match_threshold}; launches {json.dumps(served)}; vs plain path "
+          f"{nats:.3e} nats, decode {json.dumps(decode)} [{card}]", flush=True)
+    del matcher
+    print(f"online_trainer phase: {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return dict(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -3478,6 +3926,7 @@ def main() -> int:
         trainer, trained = trainer_phase(card, repo, store, work)
         serving_cli = serving_cli_phase(card, repo, store, work, trained)
         extractors = device_extractors_phase(card, repo, store, work)
+        online = online_trainer_phase(card, repo, store, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     rings = ring_phase(gen, card, model, ring_requests)
@@ -3499,12 +3948,13 @@ def main() -> int:
              f32=dict(k1[torch.float32], library_ms=None),
              dh32=dh32(k1_32[torch.bfloat16], k1_32[torch.float32]), sift_launches=wider[sift]["K1"],
              trainer_launches=trainer["K1"], serving_cli_launches=serving_cli["K1"],
-             device_extractors_launches=extractors["K1"]),
+             device_extractors_launches=extractors["K1"], online_trainer_launches=online["K1"]),
         dict(name="sinkhorn_scale (f32 K, B=16 N=1024)", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:128", launches=n1024,
              train_launches=train["K2"], trainer_launches=trainer["K2"],
              serving_cli_launches=serving_cli.get("K2 torch.float32", 0),
              device_extractors_launches=extractors.get("K2 torch.float32", 0),
+             online_trainer_launches=online["K2"],
              **{k: v for k, v in k2[(16, 1024)].items() if k != "k_dtype"}, library_ms=None,
              single_pair=dict({k: v for k, v in k2[(1, 1024)].items() if k != "k_dtype"},
                               replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:56")),
@@ -3525,20 +3975,20 @@ def main() -> int:
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315", **streaming, library_ms=None),
         dict(name="sinkhorn_adjoint (f32 K, B=12 N=1024 T=20)", route="cuda", source=csrc + "sinkhorn_adjoint.cu",
              replaces=pallas + "sinkhorn_kernel.py:548", launches=train["K3"], trainer_launches=trainer["K3"],
-             **k3, library_ms=None),
+             online_trainer_launches=online["K3"], **k3, library_ms=None),
         dict(name="message_forward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_forward.cu", replaces=pallas + "gnn_layer_kernel.py:557",
              launches=train["K4"], **k45[torch.bfloat16]["K4"], library_ms=None,
              f32=dict(k45[torch.float32]["K4"], library_ms=None),
              dh32=dh32(k45_32[torch.bfloat16]["K4"], k45_32[torch.float32]["K4"]), pretrain_launches=pretrain["K4"],
-             trainer_launches=trainer["K4"]),
+             trainer_launches=trainer["K4"], online_trainer_launches=online["K4"]),
         dict(name="message_backward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_backward.cu", replaces=pallas + "gnn_layer_kernel.py:627",
              launches=train["K5"], **k45[torch.bfloat16]["K5"], library_ms=None,
              f32=dict(k45[torch.float32]["K5"], library_ms=None),
              dh32=dh32(k45_32[torch.bfloat16]["K5"], k45_32[torch.float32]["K5"]), pretrain_launches=pretrain["K5"],
              bf16_pass_launches=train["attn_bwd_bf16"], pretrain_bf16_pass_launches=pretrain["attn_bwd_bf16"],
-             trainer_launches=trainer["K5"]),
+             trainer_launches=trainer["K5"], online_trainer_launches=online["K5"]),
         *[dict(name=f"gnn_layer_features {kind} (bf16, B=16 N=M=1024 D=256 H=4)", route="cuda",
                source=csrc + "gnn_layer_features.cu", replaces=pallas + "gnn_layer_kernel.py:117",
                launches=other[kind], **k6[(kind, torch.bfloat16)], library_ms=None,

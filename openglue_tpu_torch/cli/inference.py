@@ -11,8 +11,9 @@ matrix inlier filtering (reference inference.py:230-233).
 Features come from a device extractor (SuperPoint, the DoG SIFT,
 GFTT-AffNet-HardNet), run on the matcher's device with one copy of its
 output back to the host per image, or from a host extractor (OpenCV, whose
-AffNet/HardNet variant runs its networks on the matcher's device); the
-online trainer's experiments wait for ROADMAP.md module 9b and are refused.
+AffNet/HardNet variant runs its networks on the matcher's device). An
+online trainer's experiment is served with its own extractor, whose weights
+its checkpoint holds beside the matcher's.
 A request moves its extracted arrays to the matcher's device once, decodes
 there and copies the decoded matches and the scores back in one transfer.
 
@@ -257,25 +258,34 @@ class OpenGlueMatcher:
 
 
 def initialize_matcher(experiment_dir, checkpoint_step: Optional[int] = None, **kwargs) -> OpenGlueMatcher:
-    """Build a matcher from a cached-training experiment directory
-    (reference initialize_models, inference.py:41-78): config.yaml,
-    features_config.yaml and the model's part of ``checkpoints/<step>.pt``
-    (the latest unless ``checkpoint_step``). ``kwargs`` go to
-    ``OpenGlueMatcher``. An online experiment (its config has a ``features``
-    section: the checkpoint holds the extractor and the matcher) waits for
-    ROADMAP.md module 9b and raises."""
+    """Build a matcher from a training experiment directory (reference
+    initialize_models, inference.py:41-78): config.yaml, features_config.yaml
+    and the model's part of ``checkpoints/<step>.pt`` (the latest unless
+    ``checkpoint_step``). ``kwargs`` go to ``OpenGlueMatcher``. An online
+    experiment (``cli.train``, ``cli.pretrain_homography``: its config has a
+    ``features`` section) holds the whole ``MatchingModule``: the matcher
+    takes its ``superglue`` part, and a device extractor its ``extractor``
+    part; its features config may give the descriptor width in its
+    parameters only."""
     from openglue_tpu_torch.train.checkpoint import restore_model
 
     experiment_dir = Path(experiment_dir)
     config = load_config(experiment_dir / "config.yaml")
     features_config = load_config(experiment_dir / "features_config.yaml")
-    if "features" in config:
-        raise NotImplementedError(
-            f"{experiment_dir} is an online experiment (its config has a features section): the online "
-            "trainer and its checkpoints are not ported yet (ROADMAP.md module 9b)"
-        )
+    checkpoints = experiment_dir / "checkpoints"
+    if "features" not in config:
+        matcher = OpenGlueMatcher(config, features_config, **kwargs)
+        restore_model(checkpoints, matcher.model, step=checkpoint_step)
+        return matcher
+    from openglue_tpu_torch.models.matching_module import MatchingModuleConfig
+
+    if "descriptor_dim" not in features_config:
+        dim = MatchingModuleConfig.from_dict({"features": features_config}).superglue.descriptor_dim
+        features_config = Config(dict(features_config, descriptor_dim=dim))
     matcher = OpenGlueMatcher(config, features_config, **kwargs)
-    restore_model(experiment_dir / "checkpoints", matcher.model, step=checkpoint_step)
+    restore_model(checkpoints, matcher.model, step=checkpoint_step, prefix="superglue.")
+    if matcher.device_extractor and matcher.extractor.state_dict():
+        restore_model(checkpoints, matcher.extractor, step=checkpoint_step, prefix="extractor.")
     return matcher
 
 

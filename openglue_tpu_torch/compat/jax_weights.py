@@ -23,7 +23,9 @@ The device extractors' carriers (``superpoint_state_dict_from_jax``,
 ``hardnet_…``, ``affnet_…``, ``orinet_…`` and
 ``gftt_affnet_hardnet_state_dict_from_jax``) take the JAX variables of each
 network the same way and return the port's state dict, named after the
-reference's (SuperPoint) or kornia's (``features.N``) torch keys.
+reference's (SuperPoint) or kornia's (``features.N``) torch keys;
+``matching_module_state_dict_from_jax`` composes them with the matcher's for
+the online trainer's ``MatchingModule``.
 """
 
 from __future__ import annotations
@@ -277,4 +279,30 @@ def gftt_affnet_hardnet_state_dict_from_jax(variables: Mapping[str, Any]) -> Dic
     if "affnet" in params:
         sd.update({f"affnet.{k}": v for k, v in affnet_state_dict_from_jax(
             {"params": params["affnet"], "batch_stats": stats["affnet"]}).items()})
+    return sd
+
+
+_EXTRACTOR_CARRIERS = {
+    "SuperPointNet": superpoint_state_dict_from_jax,
+    "SuperPointNetBn": superpoint_state_dict_from_jax,
+    "GFTTAffNetHardNet": gftt_affnet_hardnet_state_dict_from_jax,
+}
+
+
+def matching_module_state_dict_from_jax(variables: Mapping[str, Any], config) -> Dict[str, torch.Tensor]:
+    """The port's ``MatchingModule`` state dict from the JAX module's
+    variables (``{"params": {"extractor", "superglue"}, "batch_stats":
+    ...}``; ``config`` a ``MatchingModuleConfig``): the matcher's part
+    through ``superglue_state_dict_from_jax`` under ``superglue.``, the
+    extractor's through its carrier under ``extractor.`` (a parameter-free
+    extractor, the DoG SIFT, has none)."""
+    def part(name):
+        return {collection: tree[name] for collection, tree in variables.items() if name in tree}
+
+    sd = {f"superglue.{k}": v for k, v in superglue_state_dict_from_jax(part("superglue"), config.superglue).items()}
+    extractor = part("extractor")
+    if "params" in extractor:
+        extractor.setdefault("batch_stats", {})
+        carrier = _EXTRACTOR_CARRIERS[config.extractor_name]
+        sd.update({f"extractor.{k}": v for k, v in carrier(extractor).items()})
     return sd

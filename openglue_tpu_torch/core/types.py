@@ -4,7 +4,7 @@ a fixed-size padded tensor plus a ``[B, N]`` bool validity mask."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -84,6 +84,23 @@ class PairBatch:
     side1: KeypointSet
     transformation: Optional[Transformation] = None
 
+
+
+def superglue_inputs(batch: PairBatch) -> Dict[str, Any]:
+    """Map a PairBatch onto the ``SuperGlue.forward`` keyword arguments."""
+    s0, s1 = batch.side0, batch.side1
+    return dict(
+        kpts0=s0.keypoints,
+        kpts1=s1.keypoints,
+        desc0=s0.descriptors,
+        desc1=s1.descriptors,
+        side_info0=s0.side_info,
+        side_info1=s1.side_info,
+        image_size0=s0.image_size,
+        image_size1=s1.image_size,
+        mask0=s0.mask,
+        mask1=s1.mask,
+    )
 
 def map_tensors(batch: PairBatch, fn: Callable[[torch.Tensor], torch.Tensor]) -> PairBatch:
     """The batch with ``fn`` applied to each of its tensors (a missing field

@@ -1,6 +1,6 @@
-"""MegaDepth pair datasets (port of the pair index and the cached-feature
-dataset of ``openglue_tpu/data/megadepth.py``; reference
-data/megadepth_dataset.py:55-282).
+"""MegaDepth pair datasets (port of ``openglue_tpu/data/megadepth.py``: the
+pair index, the online trainer's image dataset and the cached-feature
+dataset; reference data/megadepth_dataset.py:55-282).
 
 Directory contract (identical to the reference so existing data drops in):
 
@@ -93,6 +93,57 @@ class MegaDepthPairsIndex:
 
     def scene_sizes(self) -> Dict[str, int]:
         return {scene: len(recs) for scene, recs in self.pairs.items()}
+
+
+class MegaDepthPairsDataset:
+    """Online-mode dataset: grayscale image pairs + depth + pose
+    (reference MegaDepthPairsDataset, megadepth_dataset.py:114-192).
+
+    Sample dict: image0/1 [H, W] float32 in [0, 1], transformation dict with
+    K0, K1, R, T, dense depth0/1 at the image size.
+    """
+
+    def __init__(
+        self,
+        root_path,
+        scenes_list: Sequence[str],
+        target_size: Tuple[int, int] = (960, 720),
+        random_crop: bool = False,
+        max_pairs_per_scene: Optional[int] = None,
+        overlap: Optional[Tuple[float, float]] = None,
+        seed: int = 0,
+    ):
+        self.index = MegaDepthPairsIndex(root_path, scenes_list, max_pairs_per_scene, overlap)
+        self.root_path = Path(root_path)
+        self.target_size = tuple(target_size)
+        self.random_crop = random_crop
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self) -> int:
+        return len(self.index)
+
+    def _image_dir(self, scene: str) -> Path:
+        return self.root_path / MEGADEPTH_IMAGES_SUBDIR / scene / "dense0"
+
+    def __getitem__(self, idx: int) -> Dict:
+        rec = self.index[idx]
+        sides = []
+        for img_name, K in ((rec.img0, rec.K0), (rec.img1, rec.K1)):
+            base = self._image_dir(rec.scene)
+            image = io.read_grayscale(base / "imgs" / img_name)
+            depth = io.load_h5(base / "depths" / (img_name[: -len(Path(img_name).suffix)] + ".h5"), key="depth")
+            image, depth, K = io.resize_and_crop(image, depth, K, self.target_size, self.random_crop, self.rng)
+            sides.append((image.astype(np.float32) / 255.0, depth.astype(np.float32), K))
+        (image0, depth0, K0), (image1, depth1, K1) = sides
+        return {
+            "image0": image0,
+            "image1": image1,
+            "transformation": {
+                "type": "3d_reprojection",
+                "K0": K0, "K1": K1, "R": rec.R, "T": rec.T,
+                "depth0": depth0, "depth1": depth1,
+            },
+        }
 
 
 class MegaDepthPairsDatasetFeatures:

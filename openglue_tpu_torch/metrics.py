@@ -8,8 +8,11 @@ utils/metrics.py).
 * ``CameraPoseAUC``: RANSAC essential-matrix pose recovery and the
   pose-error AUC (reference utils/metrics.py:55-141), on the host through
   OpenCV.
+* ``HomographyPrecisionMetric``: precision and matching score under a
+  ground-truth homography (the homography-pretraining evaluation), counted
+  on the batch's device.
 
-Both accumulate and compute; with ``torch.distributed`` initialized, ``sync``
+Each accumulates and compute; with ``torch.distributed`` initialized, ``sync``
 gathers every process's per-pair values first (torchmetrics' dist_sync in the
 reference, metrics.py:12-15).
 """
@@ -92,6 +95,63 @@ def _allgather_list(values: List[float]) -> List[float]:
     gathered: List[Optional[List[float]]] = [None] * dist.get_world_size()
     dist.all_gather_object(gathered, list(values))
     return [v for part in gathered for v in part]
+
+
+HOMOGRAPHY_THRESHOLD_PX = 3.0  # a match within this many pixels of H's image is correct
+
+
+def _homography_counts(kpts0, kpts1, matches0, H, threshold: float):
+    """Counts of one batch on the device of ``kpts0``: (correct, matched) per
+    element, as numpy; a match is correct where H maps its keypoint of
+    image 0 within ``threshold`` pixels of its keypoint of image 1."""
+    kpts0 = torch.as_tensor(kpts0)
+    kpts1, matches0, H = (torch.as_tensor(x, device=kpts0.device) for x in (kpts1, matches0, H))
+    valid = matches0 >= 0
+    cols = matches0.clamp(0, kpts1.shape[1] - 1).long()
+    mkpts1 = torch.gather(kpts1, 1, cols[..., None].expand(-1, -1, kpts1.shape[-1]))
+    ones = torch.ones_like(kpts0[..., :1])
+    warped = torch.einsum("bij,bnj->bni", H.to(kpts0.dtype), torch.cat([kpts0, ones], dim=-1))
+    warped = warped[..., :2] / (warped[..., 2:3] + 1e-8)
+    dist = torch.linalg.vector_norm(warped - mkpts1, dim=-1)
+    correct = ((dist < threshold) & valid).sum(dim=1)
+    matched = valid.sum(dim=1)
+    return correct.cpu().numpy(), matched.cpu().numpy()
+
+
+class HomographyPrecisionMetric:
+    """Reprojection precision under a ground-truth homography (evaluation for
+    the homography-pretraining path; the reference disables eval there —
+    homography_pretraining.yaml 'evaluation: False' — this goes beyond it)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.precisions: List[float] = []
+        self.matching_scores: List[float] = []
+
+    def update(self, kpts0, kpts1, matches0, H, num_detected=None) -> None:
+        """Tensors (on any one device) or numpy arrays; num_detected: [B] valid
+        keypoint counts of image0 (defaults to N)."""
+        correct, matched = _homography_counts(kpts0, kpts1, matches0, H, HOMOGRAPHY_THRESHOLD_PX)
+        if num_detected is None:
+            num_detected = np.full(correct.shape, kpts0.shape[1])
+        else:
+            num_detected = np.asarray(num_detected)
+        self.precisions.extend((correct / np.maximum(matched, 1)).tolist())
+        self.matching_scores.extend((correct / np.maximum(num_detected, 1)).tolist())
+
+    def sync(self) -> None:
+        """Gather the per-pair values of every process; nothing to do in
+        one process."""
+        self.precisions = _allgather_list(self.precisions)
+        self.matching_scores = _allgather_list(self.matching_scores)
+
+    def compute(self) -> Dict[str, float]:
+        return {
+            f"H-Precision@{HOMOGRAPHY_THRESHOLD_PX}px": float(np.mean(self.precisions or [0.0])),
+            f"H-Matching Score@{HOMOGRAPHY_THRESHOLD_PX}px": float(np.mean(self.matching_scores or [0.0])),
+        }
 
 
 def rotation_angle_deg(R_est: np.ndarray, R_gt: np.ndarray) -> float:

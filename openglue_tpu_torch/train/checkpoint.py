@@ -6,7 +6,8 @@ Two tiers:
   * the whole train state for resuming: ``<directory>/<step>.pt``, written
     with ``torch.save`` and kept for every save. It holds the model's
     ``state_dict`` (parameters, BatchNorm running statistics, FAVOR and
-    calibration buffers), the Adam moments, the schedule's count and
+    calibration buffers; for the online trainer the whole ``MatchingModule``,
+    extractor and matcher), the Adam moments, the schedule's count and
     ``state.step``;
   * the matcher's weights alone in the JAX package's npz format
     (``save_weights``), so that a file written by either package warm-starts
@@ -74,16 +75,20 @@ def restore_train_state(directory, state: TrainState, step: Optional[int] = None
     return state
 
 
-def restore_model(directory, model: torch.nn.Module, step: Optional[int] = None) -> int:
+def restore_model(directory, model: torch.nn.Module, step: Optional[int] = None, prefix: str = "") -> int:
     """Load the model's part of a checkpoint (the latest unless ``step``)
     into ``model`` in place, which is all a server needs; returns the
-    checkpoint's step. Every parameter and statistic must be there. The
+    checkpoint's step. With ``prefix`` only the entries under it are loaded,
+    the prefix taken off: an online trainer's checkpoint holds the whole
+    ``MatchingModule``, its matcher under ``superglue.`` and its extractor
+    under ``extractor.``. Every parameter and statistic must be there. The
     calibration of an ``int8_static*`` model (its ``act_absmax`` buffers and
     ``int8_calibration`` flag) may be absent, as it is from a model that did
     not quantize: the model then stays uncalibrated, as in the JAX package,
     whose calibration is a collection of its own."""
     path, payload = _load(directory, step)
-    missing, unexpected = model.load_state_dict(payload["model"], strict=False)
+    state = {k[len(prefix):]: v for k, v in payload["model"].items() if k.startswith(prefix)}
+    missing, unexpected = model.load_state_dict(state, strict=False)
     missing = [k for k in missing if not k.endswith((".act_absmax", "int8_calibration._extra_state"))]
     if missing or unexpected:
         raise RuntimeError(f"checkpoint {path} does not fit the model: "

@@ -26,7 +26,7 @@ import torch
 
 from openglue_tpu_torch.core.types import PairBatch, map_tensors
 from openglue_tpu_torch.data.collate import resize_keypoint_axis
-from openglue_tpu_torch.metrics import CameraPoseAUC, EpipolarDistanceMetric
+from openglue_tpu_torch.metrics import CameraPoseAUC, EpipolarDistanceMetric, HomographyPrecisionMetric
 from openglue_tpu_torch.parallel.distributed import is_main_process
 from openglue_tpu_torch.train.checkpoint import save_train_state
 from openglue_tpu_torch.train.state import TrainState, clone_train_state
@@ -126,6 +126,14 @@ def batch_to_device(batch: PairBatch, device) -> PairBatch:
     return map_tensors(batch, lambda t: t.to(device, non_blocking=True))
 
 
+def _update_pose_metrics(epipolar, pose_auc, kpts0, kpts1, matches0, mask0, tf) -> None:
+    """One batch into the epipolar counts (on the device) and the RANSAC pose
+    AUC (on the host)."""
+    detected = mask0.sum(dim=1).cpu().numpy()
+    epipolar.update(kpts0, kpts1, matches0, tf.K0, tf.K1, tf.R, tf.T, num_detected=detected)
+    pose_auc.update(*(t.cpu().numpy() for t in (kpts0, kpts1, matches0, tf.K0, tf.K1, tf.R, tf.T)))
+
+
 def evaluate(
     state: TrainState,
     eval_step: Callable,
@@ -142,14 +150,45 @@ def evaluate(
         if to_device is not None:
             batch = to_device(batch)
         out = eval_step(state, batch)
-        tf = batch.transformation
-        kpts0, kpts1, matches0 = batch.side0.keypoints, batch.side1.keypoints, out["matches0"]
-        detected = batch.side0.mask.sum(dim=1).cpu().numpy()
-        epipolar.update(kpts0, kpts1, matches0, tf.K0, tf.K1, tf.R, tf.T, num_detected=detected)
-        pose_auc.update(*(t.cpu().numpy() for t in (kpts0, kpts1, matches0, tf.K0, tf.K1, tf.R, tf.T)))
+        _update_pose_metrics(epipolar, pose_auc, batch.side0.keypoints, batch.side1.keypoints,
+                             out["matches0"], batch.side0.mask, batch.transformation)
     epipolar.sync()
     pose_auc.sync()
     return {**epipolar.compute(), **pose_auc.compute()}
+
+
+def evaluate_online(
+    state: TrainState,
+    eval_step: Callable,
+    eval_batches: Iterable,
+    config: TrainLoopConfig,
+    to_device: Optional[Callable] = None,
+) -> Dict[str, float]:
+    """Validation for the ONLINE path (image batches; the keypoints come from
+    the eval step's extraction): the epipolar and pose-AUC metrics for
+    3d_reprojection batches, the homography precision for perspective ones."""
+    epipolar = EpipolarDistanceMetric(config.eval_threshold)
+    pose_auc = CameraPoseAUC(config.pose_auc_thresholds, config.ransac_thresh_px)
+    homography = HomographyPrecisionMetric()
+    for batch in eval_batches:
+        if to_device is not None:
+            batch = to_device(batch)
+        out = eval_step(state, batch)
+        tf = batch["transformation"]
+        kpts0, kpts1, matches0 = out["keypoints0"], out["keypoints1"], out["matches0"]
+        if tf.kind == "3d_reprojection":
+            _update_pose_metrics(epipolar, pose_auc, kpts0, kpts1, matches0, out["mask0"], tf)
+        elif tf.kind == "perspective":
+            homography.update(kpts0, kpts1, matches0, tf.H, num_detected=out["mask0"].sum(dim=1).cpu().numpy())
+    epipolar.sync()
+    pose_auc.sync()
+    homography.sync()
+    metrics: Dict[str, float] = {}
+    if epipolar.precisions:
+        metrics.update({**epipolar.compute(), **pose_auc.compute()})
+    if homography.precisions:
+        metrics.update(homography.compute())
+    return metrics
 
 
 def prefetch_to_device(batches: Iterable, to_device: Callable, depth: int = 2) -> Iterable:
@@ -212,10 +251,13 @@ def fit(
     eval_step: Optional[Callable] = None,
     eval_batches_fn: Optional[Callable[[], Iterable]] = None,
     to_device: Optional[Callable] = None,
+    evaluate_fn: Optional[Callable] = None,
 ) -> TrainState:
     """Drive training. ``train_batches`` yields host batches (it may be
     infinite); ``to_device`` moves one to the model's device. The step
-    updates ``state`` in place; returns it."""
+    updates ``state`` in place; returns it. ``evaluate_fn`` is the
+    validation sweep, ``evaluate`` by default (``evaluate_online`` for the
+    online path)."""
     logger = MetricsLogger.from_config(config)
     generator = torch.Generator().manual_seed(0)  # the FAVOR redraws
     train_iter = iter(train_batches)
@@ -241,7 +283,7 @@ def fit(
 
         if eval_step is not None and eval_batches_fn is not None:
             t_eval = time.time()
-            eval_metrics = evaluate(state, eval_step, eval_batches_fn(), config, to_device)
+            eval_metrics = (evaluate_fn or evaluate)(state, eval_step, eval_batches_fn(), config, to_device)
             logger.log({f"val/{k}": v for k, v in eval_metrics.items()}, int(state.step))
             if is_main_process():
                 print(f"epoch {epoch} val ({time.time() - t_eval:.1f}s): "

@@ -105,6 +105,24 @@ def make_warmup_optimizer(
     return ClippedAdam(params, make_lr_schedule(learning_rate, gamma, warmup_steps), gradient_clip)
 
 
+def make_online_optimizer(
+    model: nn.Module,
+    learning_rate: float = 1e-4,
+    gamma: float = 0.999994,
+    gradient_clip: Optional[float] = 10.0,
+    finetune_extractor: bool = False,
+) -> ClippedAdam:
+    """The optimizer of a ``MatchingModule``: with a frozen extractor only
+    the other submodules' parameters are in it, and the global-norm clip
+    takes their gradients only, as optax's ``multi_transform`` with the
+    extractor's subtree set to zero does (the reference optimizes the
+    superglue parameters alone, matching_module.py:133-136); fine-tuning,
+    every parameter."""
+    params = [p for name, p in model.named_parameters()
+              if finetune_extractor or name.split(".", 1)[0] != "extractor"]
+    return make_optimizer(params, learning_rate, gamma, gradient_clip)
+
+
 @dataclasses.dataclass
 class TrainState:
     """The model, whose parameters and buffers (the BatchNorm running

@@ -1,4 +1,6 @@
-"""Train and eval steps (port of ``openglue_tpu/train/step.py``).
+"""Train and eval steps (port of ``openglue_tpu/train/step.py``): the
+cached-feature steps and the online steps, which extract the features from
+the images first (``models.matching_module.MatchingModule``).
 
 One step: GT match generation from the pair's geometry -> SuperGlue forward
 in training mode -> weighted NLL (+ metric) loss -> backward -> clipped Adam
@@ -21,7 +23,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
-from openglue_tpu_torch.core.types import PairBatch
+from openglue_tpu_torch.core.types import PairBatch, superglue_inputs
 from openglue_tpu_torch.geometry.gt_matches import generate_gt_matches
 from openglue_tpu_torch.losses import criterion
 from openglue_tpu_torch.models.matching import decode_from_output
@@ -41,23 +43,6 @@ class LossConfig:
     metric_weight: float = 0.0
     margin: Optional[float] = None
     gt_parity_mode: bool = False
-
-
-def superglue_inputs(batch: PairBatch) -> Dict[str, Any]:
-    """Map a PairBatch onto the ``SuperGlue.forward`` keyword arguments."""
-    s0, s1 = batch.side0, batch.side1
-    return dict(
-        kpts0=s0.keypoints,
-        kpts1=s1.keypoints,
-        desc0=s0.descriptors,
-        desc1=s1.descriptors,
-        side_info0=s0.side_info,
-        side_info1=s1.side_info,
-        image_size0=s0.image_size,
-        image_size1=s1.image_size,
-        mask0=s0.mask,
-        mask1=s1.mask,
-    )
 
 
 def make_train_step(loss_config: LossConfig) -> Callable[[TrainState, PairBatch], Dict[str, torch.Tensor]]:
@@ -82,25 +67,33 @@ def make_train_step(loss_config: LossConfig) -> Callable[[TrainState, PairBatch]
             gt["gt_matches0"] = gt["gt_matches0"][:, start:start + n_loc]
         model = state.model.train()
         out = model(**superglue_inputs(batch))
-        losses = criterion(gt, out, margin=loss_config.margin, mask0=s0.mask, mask1=s1.mask, group=group)
-        total = (loss_config.nll_weight * losses["loss"]
-                 + loss_config.metric_weight * losses["metric_loss"])
-        state.optimizer.zero_grad()
-        total.backward()
-        if group is not None:
-            _sum_gradients(state.optimizer.params, group)
-        grads = [p.grad for p in state.optimizer.params if p.grad is not None]
-        grad_norm = global_norm(grads)
-        state.optimizer.step(grad_norm)
-        state.step += 1
-        return {
-            "total_loss": total.detach(),
-            "nll_loss": losses["loss"].detach(),
-            "metric_loss": losses["metric_loss"].detach(),
-            "grad_norm": grad_norm,
-        }
+        return _apply_loss(state, gt, out, s0.mask, s1.mask, loss_config, group)
 
     return train_step
+
+
+def _apply_loss(state: TrainState, gt: Dict[str, torch.Tensor], out: Dict[str, torch.Tensor],
+                mask0: torch.Tensor, mask1: torch.Tensor, loss_config: LossConfig,
+                group=None) -> Dict[str, torch.Tensor]:
+    """The second half of a training step: the weighted loss of ``out``
+    against ``gt``, backward (the gradients summed over ``group`` when there
+    is one), the clipped update and the step's metrics."""
+    losses = criterion(gt, out, margin=loss_config.margin, mask0=mask0, mask1=mask1, group=group)
+    total = (loss_config.nll_weight * losses["loss"]
+             + loss_config.metric_weight * losses["metric_loss"])
+    state.optimizer.zero_grad()
+    total.backward()
+    if group is not None:
+        _sum_gradients(state.optimizer.params, group)
+    grad_norm = global_norm([p.grad for p in state.optimizer.params if p.grad is not None])
+    state.optimizer.step(grad_norm)
+    state.step += 1
+    return {
+        "total_loss": total.detach(),
+        "nll_loss": losses["loss"].detach(),
+        "metric_loss": losses["metric_loss"].detach(),
+        "grad_norm": grad_norm,
+    }
 
 
 def _sum_gradients(params, group) -> None:
@@ -124,6 +117,67 @@ def make_eval_step(match_threshold: float = 0.2) -> Callable[[TrainState, PairBa
                 group=getattr(model, "ring_group", None),
             )
         matches["scores"] = out["scores"]
+        return matches
+
+    return eval_step
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The online step's augmentation generator: on ``device``, seeded from
+    the loop's seed and the step's number, so that a resumed run draws what
+    the uninterrupted one drew."""
+    return torch.Generator(device=device).manual_seed((int(seed) * 1_000_003 + int(step)) % 2**63)
+
+
+def make_online_train_step(
+    loss_config: LossConfig,
+    augmentation: str = "none",
+    seed: int = 0,
+) -> Callable[[TrainState, Dict[str, Any]], Dict[str, torch.Tensor]]:
+    """The ONLINE step (reference matching_module.py:71-105): device-side
+    augmentation of each side -> feature extraction -> GT generation from the
+    batch's transformation -> SuperGlue -> loss -> backward -> clipped Adam.
+    ``state.model`` is a ``MatchingModule``; the batch a dict with image0/1
+    [B, H, W] and a ``Transformation`` on the model's device. Returns the
+    metrics of ``make_train_step``."""
+    from openglue_tpu_torch.augmentations import get_augmentation_transform
+
+    augment = get_augmentation_transform(augmentation)
+
+    def train_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        image0, image1 = batch["image0"], batch["image1"]
+        generator = step_generator(seed, state.step, image0.device)
+        image0, image1 = augment(generator, image0), augment(generator, image1)
+        model = state.model.train()
+        out, pair = model(image0, image1)
+        s0, s1 = pair.side0, pair.side1
+        with torch.no_grad():
+            gt = generate_gt_matches(
+                s0.keypoints, s1.keypoints, batch["transformation"],
+                positive_threshold=loss_config.positive_threshold,
+                negative_threshold=loss_config.negative_threshold,
+                mask0=s0.mask, mask1=s1.mask, parity_mode=loss_config.gt_parity_mode,
+            )
+        return _apply_loss(state, gt, out, s0.mask, s1.mask, loss_config)
+
+    return train_step
+
+
+def make_online_eval_step(match_threshold: float = 0.2) -> Callable[[TrainState, Dict[str, Any]], Dict[str, torch.Tensor]]:
+    """The ONLINE eval step: images -> extraction -> matching -> decode
+    (reference validation_step with online features). Returns the decoded
+    matches plus the extracted keypoints and image 0's mask (the metrics
+    need them)."""
+
+    def eval_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        model = state.model.eval()
+        with torch.no_grad():
+            out, pair = model(batch["image0"], batch["image1"])
+            matches = decode_from_output(out, match_threshold=match_threshold,
+                                         mask0=pair.side0.mask, mask1=pair.side1.mask)
+        matches["keypoints0"] = pair.side0.keypoints
+        matches["keypoints1"] = pair.side1.keypoints
+        matches["mask0"] = pair.side0.mask
         return matches
 
     return eval_step

@@ -37,9 +37,10 @@ with that change, up to the routes phase, saves the batch there and stops
 takes the saved batch.
 
 With ``--small-f32``, it reproduces instead the f32 step that
-``chip_smoke.py``'s routes phase holds on the ``half`` route against the
+``chip_smoke.py``'s routes phase once held on the ``half`` route against the
 ``message`` route (B=2 N=256, ``chain_dtype`` None, the weights of seed 1;
-bars loss 1e-5, gradient norm 1e-4, cosine 0.99999, statistics 1e-5), on
+bars loss 1e-5, gradient norm 1e-4, cosine 0.99999, statistics 1e-5; the
+phase now holds each route against f64 on the route's own ReLU gates), on
 the batch that phase draws when the K2s phase's three other wide shapes take
 the generator that the later phases share (as they did before they got one
 of their own). If FILE does not exist, the script makes it first, as
@@ -47,13 +48,21 @@ of their own). If FILE does not exist, the script makes it first, as
 routes with every kernel, with the route's forward layer kernel plain, with
 every kernel plain, and in f64 on the composed path, and prints each
 against the ``message`` step with every kernel and against the f64 step.
+Then, for the ``message`` step with every kernel, with K4 plain and with
+every kernel plain, it prints the FFN ReLU gates that differ from the f64
+step's and the parameters whose gradients differ most, and the step against
+an f64 step made to take that step's gates. Last it keeps the inputs of
+every f32 K4 launch of the ``message`` step and
+prints, per launch, how far K4's msg, attn and lse, K8's attn and lse, the
+plain f32 version's and msg formed in f64 from K4's attn lie from an f64
+evaluation of the same function on those inputs (largest difference over
+the largest value).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
-import dataclasses
 import sys
 from pathlib import Path
 
@@ -184,8 +193,8 @@ def main() -> int:
             grads[variant] = {k: p.grad.double() for k, p in st.model.named_parameters() if p.grad is not None}
             stats[variant] = [b.double() for k, b in st.model.named_buffers() if "running" in k]
         st = state64()
-        with f64_floats():
-            metrics = step(st, to_f64(pairs))
+        with cs.f64_floats():
+            metrics = step(st, cs.to_f64(pairs))
         runs["f64"] = (metrics, cs.flat_grads(st.model))
         parts = []
         for variant in (variant for variant, _ in variants if variant != "plain"):
@@ -223,28 +232,6 @@ def distance_values(run, ref):
 def distance(run, ref) -> str:
     loss, norm, cos = distance_values(run, ref)
     return f"loss {loss:.2e}, norm {norm:.2e}, cosine {cos:.6f}"
-
-
-@contextlib.contextmanager
-def f64_floats():
-    """``Tensor.float()`` leaves an f64 tensor in f64 (the model casts its
-    scores and statistics with it), so that a step of an f64 model on an f64
-    batch stays f64 throughout."""
-    float32 = torch.Tensor.float
-    torch.Tensor.float = lambda self, *a, **kw: self if self.dtype == torch.float64 else float32(self, *a, **kw)
-    try:
-        yield
-    finally:
-        torch.Tensor.float = float32
-
-
-def to_f64(x):
-    """A copy of a batch (dataclasses of tensors) with its floating tensors in f64."""
-    if torch.is_tensor(x):
-        return x.double() if x.is_floating_point() else x
-    if dataclasses.is_dataclass(x):
-        return dataclasses.replace(x, **{f.name: to_f64(getattr(x, f.name)) for f in dataclasses.fields(x) if f.init})
-    return x
 
 
 def clone(args):
@@ -305,13 +292,29 @@ def small_f32(cs, path: Path, label: str) -> int:
     cfg64 = superglue_config_from({"superglue": dict(section, use_pallas=False)}, cs.DESCRIPTOR_DIM,
                                   cs.SIDE_INFO_DIM)
 
-    def run(route, swap, f64=False):
+    gates, grads = {}, {}
+
+    def run(route, swap, f64=False, name=None, force=None):
+        """One step; ``force``: the FFN pre-activations of another run, whose
+        ReLU gates this run takes in place of its own."""
         model = SuperGlue(cfg64 if f64 else cfg, device="cuda", train_route=route)
         model = model.double() if f64 else model
         model.load_state_dict(base.state_dict())
         st = create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
-        with swapped(swap), (f64_floats() if f64 else contextlib.nullcontext()):
-            metrics = step(st, to_f64(small) if f64 else small)
+        seen = gates.setdefault(name, [])
+
+        def hook(module, args, out):
+            seen.append(args[0].detach().double())
+            if force is not None:
+                return torch.where(force[len(seen) - 1] > 0, args[0], torch.zeros_like(args[0]))
+            return None
+
+        hooks = [m.register_forward_hook(hook) for m in model.attention_gnn.modules() if isinstance(m, torch.nn.ReLU)]
+        with swapped(swap), (cs.f64_floats() if f64 else contextlib.nullcontext()):
+            metrics = step(st, cs.to_f64(small) if f64 else small)
+        for h in hooks:
+            h.remove()
+        grads[name] = {k: p.grad.double() for k, p in st.model.named_parameters() if p.grad is not None}
         stats = [b.double() for k, b in st.model.named_buffers() if "running" in k]
         return (metrics, cs.flat_grads(st.model)), stats
 
@@ -321,15 +324,16 @@ def small_f32(cs, path: Path, label: str) -> int:
              (sk, "sinkhorn_scale", sk.sinkhorn_scale_plain), (sk, "sinkhorn_adjoint", sk.sinkhorn_adjoint_plain),
              (ak, "attention_forward", ak.attention_forward_plain),
              (ak, "attention_backward", ak.attention_backward_plain)]
-    runs = {
-        "half": run("half", []),
-        "message": run("message", []),
-        "half, K8 plain": run("half", [(glk, "train_half_forward", glk.train_half_plain)]),
-        "message, K4 plain": run("message", [(glk, "message_forward", glk.message_forward_plain)]),
-        "half, every kernel plain": run("half", plain),
-        "message, every kernel plain": run("message", plain),
-        "f64": run("message", [], f64=True),
+    variants = {
+        "half": ("half", []),
+        "message": ("message", []),
+        "half, K8 plain": ("half", [(glk, "train_half_forward", glk.train_half_plain)]),
+        "message, K4 plain": ("message", [(glk, "message_forward", glk.message_forward_plain)]),
+        "half, every kernel plain": ("half", plain),
+        "message, every kernel plain": ("message", plain),
     }
+    runs = {name: run(route, swap, name=name) for name, (route, swap) in variants.items()}
+    runs["f64"] = run("message", [], f64=True, name="f64")
     ref, ref_stats = runs["message"]
     exact = runs["f64"][0]
     for name, (steps, stats) in runs.items():
@@ -340,7 +344,71 @@ def small_f32(cs, path: Path, label: str) -> int:
               f"{cos:.7f}, stats {stat:.2e} ({'inside' if inside else 'outside'} the routes phase's bars); "
               f"against f64 {distance(steps, exact)}; loss {steps[0]['total_loss'].item():.8f}, grad norm "
               f"{steps[0]['grad_norm'].item():.8f}", flush=True)
+    for name in ("message", "message, K4 plain", "message, every kernel plain"):
+        print(f"[{label}] f32 B=2 N=256, {name} against f64: " + gate_report(gates[name], gates["f64"])
+              + "; largest gradient differences: " + grad_report(grads[name], grads["f64"]), flush=True)
+        same_gates = run("message", [], f64=True, name=f"f64 on {name}'s gates", force=gates[name])[0]
+        print(f"[{label}] f32 B=2 N=256, {name} against the f64 step on its own ReLU gates: "
+              f"{distance(runs[name][0], same_gates)}; that f64 step against the f64 step: "
+              f"{distance(same_gates, exact)}", flush=True)
+    launches = []
+    real = glk.message_forward
+
+    def kept(x_q, x_kv, mask, w, heads, dtype):
+        if dtype == torch.float32:
+            launches.append(clone([x_q, x_kv, mask, w]) + [heads])
+        return real(x_q, x_kv, mask, w, heads, dtype)
+
+    run("message", [(glk, "message_forward", kept)])
+    for i, (x_q, x_kv, mask, w, heads) in enumerate(launches):
+        print(f"[{label}] f32 K4 launch {i}: " + k4_report(cs, glk, x_q, x_kv, mask, w, heads), flush=True)
     return 0
+
+
+def gate_report(seen, exact) -> str:
+    """The FFN ReLU gates (pre-activation > 0) of one step that differ from
+    the f64 step's, by layer call: how many, and the largest f64
+    pre-activation among them."""
+    parts = []
+    for i, (z, ref) in enumerate(zip(seen, exact)):
+        flips = (z > 0) != (ref > 0)
+        if flips.any():
+            parts.append(f"call {i}: {int(flips.sum())} (largest |f64 z| {ref[flips].abs().max().item():.2e})")
+    return f"{len(seen)} ReLU calls, gates flipped at " + (", ".join(parts) or "none")
+
+
+def grad_report(got, exact, top=4) -> str:
+    diff = {k: (got[k] - exact[k]).pow(2).sum().item() for k in exact}
+    total = sum(diff.values()) or 1.0
+    return ", ".join(f"{k} {diff[k] / total:.3f}" for k in sorted(diff, key=diff.get, reverse=True)[:top])
+
+
+def k4_report(cs, glk, x_q, x_kv, mask, w, heads) -> str:
+    """How far one f32 K4 launch's outputs lie from an f64 evaluation of the
+    same function, beside K8's attn and lse and the plain f32 version's."""
+    f32, f64 = torch.float32, torch.float64
+    dim = x_q.shape[-1]
+    gen = torch.Generator(device=x_q.device).manual_seed(0)
+    w1 = torch.randn(2 * dim, 2 * dim, generator=gen, device=x_q.device) * dim**-0.5
+    b1 = torch.zeros(2 * dim, device=x_q.device)
+    with torch.no_grad():
+        k4 = glk.message_forward(x_q, x_kv, mask, w, heads, f32)
+        k8 = glk.train_half_forward(x_q, x_kv, mask, w, w1, b1, heads, False, f32)
+        plain = glk.message_forward_plain(x_q, x_kv, mask, w, heads, f32)
+        w64 = type(w)(*(t.double() for t in w))
+        with cs.f64_floats():
+            exact = glk.message_forward_plain(x_q.double(), x_kv.double(), mask, w64, heads, f64)
+            msg_of_k4_attn = glk._dense_f32(k4[1].double(), w64.wo, w64.bo)
+
+    def rel(a, ref):
+        return ((a.double() - ref).abs().max() / ref.abs().max()).item()
+
+    parts = [f"{name}: K4 {rel(k, e):.2e}, plain {rel(p, e):.2e}"
+             for name, k, p, e in zip(("msg", "attn", "lse"), k4, plain, exact)]
+    parts.append(f"K8 attn {rel(k8[1], exact[1]):.2e}, lse {rel(k8[2], exact[2]):.2e}")
+    parts.append(f"msg of K4's attn in f64 {rel(msg_of_k4_attn, exact[0]):.2e}, "
+                 f"K4 msg against it {rel(k4[0], msg_of_k4_attn):.2e}")
+    return "; ".join(parts)
 
 
 def shared_k2s_batch(cs, path: Path) -> None:

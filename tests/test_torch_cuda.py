@@ -421,6 +421,40 @@ def test_message_kernels_are_deterministic():
         assert torch.equal(a, b)
 
 
+def _message_f64(x_q, x_kv, mask, w, heads):
+    """(msg, attn, lse) of the attention half in f64 throughout."""
+    x_q, x_kv = x_q.double(), x_kv.double()
+    wq, bq, wk, bk, wv, bv, wo, bo = (t.double() for t in w)
+    batch, n, dim = x_q.shape
+    dh = dim // heads
+
+    def split(t):  # [B, L, D] -> [B, H, L, dh]
+        return t.reshape(batch, t.shape[1], heads, dh).transpose(1, 2)
+
+    q, k, v = split(x_q @ wq.T + bq), split(x_kv @ wk.T + bk), split(x_kv @ wv.T + bv)
+    logits = q @ k.transpose(-1, -2) * dh**-0.5 + torch.where(mask, 0.0, -1e9).double()[:, None, None, :]
+    lse = torch.logsumexp(logits, dim=-1)
+    attn = (torch.exp(logits - lse[..., None]) @ v).transpose(1, 2).reshape(batch, n, dim)
+    return attn @ wo.T + bo, attn, lse
+
+
+@pytest.mark.cuda
+def test_message_forward_f32_is_as_near_f64_as_plain_f32():
+    """K4's f32 launch against an f64 evaluation of the same function at B=2
+    N=256 D=256: msg, attn and lse each within twice the plain f32 version's
+    distance from f64, plus 1e-7 (the largest difference over the largest
+    value)."""
+    dev = _cuda()
+    x_q, x_kv, mask, w, _ = _message_case(dev, torch.float32, n=256, m=256, counts=(256, 180))
+    out = glk.message_forward(x_q, x_kv, mask, w, 4, torch.float32)
+    plain = glk.message_forward_plain(x_q, x_kv, mask, w, 4, torch.float32)
+    exact = _message_f64(x_q, x_kv, mask, w, 4)
+    for name, got, ref, e in zip(("msg", "attn", "lse"), out, plain, exact):
+        scale = e.abs().max().item()
+        kernel, base = ((t.double() - e).abs().max().item() / scale for t in (got, ref))
+        assert kernel <= 2 * base + 1e-7, f"{name}: K4 {kernel:.3e} from f64, plain f32 {base:.3e}"
+
+
 @pytest.mark.cuda
 def test_fused_attention_message_autograd_on_card():
     """Self attention through the autograd Function: both input gradients are

@@ -3,8 +3,9 @@ extractor, the port against the JAX package. ``cli.extract_features`` with a
 SuperPoint features config writes the same h5 arrays as JAX's cacher, and
 ``OpenGlueMatcher`` extracts the same keypoints, computes the same
 log-assignment and returns the same matches as JAX's, from experiments that
-hold the same weights. Also the refusals that stay: an online experiment
-(module 9b) and ``--device cuda`` without a card.
+hold the same weights. Also an online experiment, served with the extractor
+its checkpoint holds, and the refusal that stays: ``--device cuda`` without
+a card.
 
 The extractor is configs/features/superpoint_magicleap.yaml as written
 (SuperPoint D=256, 2048 keypoints, NMS 9, border 4, threshold 0.005) with
@@ -146,11 +147,27 @@ def test_run_inference_with_ransac_and_buckets(setup):
 
 
 def test_refusals_that_stay(setup, tmp_path):
+    # an online experiment is served with the extractor its checkpoint holds
+    # (the MatchingModule's extractor. and superglue. parts): its features
+    # config names no weights, and its matches are the cached experiment's
+    # whose features config loads the same SuperPoint weights
     online = tmp_path / "online"
     shutil.copytree(setup["experiments"]["port"], online)
-    write_yaml(online / "config.yaml", dict(CONFIG, features={"name": "SuperPointNet"}))
-    with pytest.raises(NotImplementedError, match="online experiment.*module 9b"):
-        inference.initialize_matcher(online, device="cpu")
+    features = dict(FEATURES, weights=None)
+    write_yaml(online / "config.yaml", dict(CONFIG, features=features))
+    write_yaml(online / "features_config.yaml", features)
+    path = online / "checkpoints" / "0.pt"
+    payload = torch.load(path, weights_only=True)
+    payload["model"] = {f"superglue.{k}": v for k, v in payload["model"].items()}
+    payload["model"].update({f"extractor.{k}": v for k, v in torch.load(setup["root"] / "superpoint.pth").items()})
+    torch.save(payload, path)
+    served = inference.initialize_matcher(online, target_size=TARGET, device="cpu", buckets=(512,))
+    cached = inference.initialize_matcher(setup["experiments"]["port"], target_size=TARGET, device="cpu",
+                                          buckets=(512,))
+    img0, img1 = (io.read_grayscale(setup["images"] / f"{n}.png") for n in "ab")
+    got, want = served.match_images(img0, img1), cached.match_images(img0, img1)
+    for key in ("indices0", "indices1", "keypoints0", "keypoints1", "scores"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             extract_features.main(["--features_config", str(setup["features"]), "--data_dir", str(setup["images"]),

@@ -320,11 +320,23 @@ def test_evaluate_main_matches_jax(tmp_path):
 
 
 def test_refusals(images, experiments, tmp_path):
+    # an online experiment (its config has a features section) is served: its
+    # checkpoint holds the whole MatchingModule, the matcher under superglue.
+    # (a host extractor has no part of it)
     online = tmp_path / "online"
     shutil.copytree(experiments["composed"], online)
-    write_yaml(online / "config.yaml", dict(CONFIG, features={"name": "SuperPointNet"}))
-    with pytest.raises(NotImplementedError, match="online experiment.*module 9b"):
-        inference.initialize_matcher(online, device="cpu")
+    write_yaml(online / "config.yaml", dict(CONFIG, features=FEATURES))
+    path = online / "checkpoints" / "0.pt"
+    payload = torch.load(path, weights_only=True)
+    payload["model"] = {f"superglue.{k}": v for k, v in payload["model"].items()}
+    torch.save(payload, path)
+    served = inference.initialize_matcher(online, target_size=TARGET, device="cpu")
+    cached = inference.initialize_matcher(experiments["composed"], target_size=TARGET, device="cpu")
+    for key, value in cached.model.state_dict().items():
+        assert torch.equal(served.model.state_dict()[key], value), key
+    got, want = (inference.run_inference(m, images / "a.png", images / "b.png", ransac=False) for m in (served, cached))
+    for key in ("indices0", "indices1", "keypoints0", "keypoints1"):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
     # the device extractors are served now (tests/test_torch_device_serving.py)
     superpoint = {"name": "SuperPointNet", "descriptor_dim": 256, "parameters": {"max_keypoints": 32}}
     assert inference.OpenGlueMatcher(yaml_config(CONFIG), yaml_config(superpoint), device="cpu").device_extractor

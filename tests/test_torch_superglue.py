@@ -314,7 +314,9 @@ metrics = make_train_step(LossConfig())(create_train_state(model), pairs)
 assert torch.isfinite(metrics["total_loss"])
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "openglue_tpu")]
 assert not bad, bad
-assert {"openglue_tpu_torch.parallel.ring", "openglue_tpu_torch.parallel.context_parallel"} <= set(sys.modules)
+assert {"openglue_tpu_torch.parallel.ring", "openglue_tpu_torch.parallel.context_parallel",
+        "openglue_tpu_torch.cli.online", "openglue_tpu_torch.models.matching_module",
+        "openglue_tpu_torch.augmentations"} <= set(sys.modules)
 print("ok")
 """
     result = subprocess.run(
