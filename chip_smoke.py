@@ -95,7 +95,15 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    each bucket from a copy of the state, kernels against plain (the run's
    bf16 chain by its distance from the plain f32 step, an f32 chain at the
    training bars); a restore that resumes bit for bit, and a resume through
-   ``--checkpoint``;
+   ``--checkpoint``; then data parallelism (``data_parallel_phase``): the
+   same trainer at world 2, two processes on the card in a gloo group (NCCL
+   refuses two ranks on one device; what it says is printed), each with 6 of
+   the 12 rows of every global batch, 4 steps and a validation sweep: the
+   launches of every step and eval batch, both ranks' parameters equal bit
+   for bit after every step, each step's loss and gradient norm and the final
+   state against the same global batches at world 1, at the B=12 training
+   bars; each rank's step time, the gradient all-reduce's host time and the
+   idle share of one step;
 7. the serving and evaluation entry points (``serving_cli_phase``) at the
    SIFT serving shape (configs/features/sift_opencv.yaml: D=128, up to 2048
    keypoints, the CLI's 960x720 target) with the flagship matcher section:
@@ -162,6 +170,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -2367,6 +2376,23 @@ def sync_sites(fn):
     return sites
 
 
+def trainer_override(root: Path, logs: Path, steps: int, val_pairs_per_scene: int) -> dict:
+    """The trainer phases' override of configs/config_cached_sp_magicleap.yaml:
+    the fixture under ``root``, the card's descriptors sent with each batch
+    (device_descriptor_cache 0), one epoch of ``steps`` steps and a
+    validation of ``val_pairs_per_scene`` pairs of each validation scene."""
+    return {
+        "data": {"root_path": str(root), "features_dir": "SyntheticSphere_640_480",
+                 "train_list_path": "assets/megadepth_train.txt",
+                 "val_list_path": "assets/megadepth_valid.txt",
+                 "device_descriptor_cache": 0, "dataloader_workers": 4,
+                 # the fixture's images are 640x480, smaller than the flagship's 960x720
+                 "target_size": [640, 480], "val_max_pairs_per_scene": val_pairs_per_scene},
+        "logging": {"root_path": str(logs)},
+        "train": {"epochs": 1, "steps_per_epoch": steps},
+    }
+
+
 def trainer_phase(card, repo: Path, store: "MemoryH5", work: Path, device="cuda"):
     """The port's cached-feature trainer end to end: ``cli.train_cached.main``
     on the MegaDepth-format fixture at examples/train_e2e_fixture.yaml's
@@ -2414,16 +2440,7 @@ def trainer_phase(card, repo: Path, store: "MemoryH5", work: Path, device="cuda"
         print(f"trainer fixture: {len(stats['scenes'])} scenes, {stats['pairs']} pairs, "
               f"{len(store.files)} h5 files, {store.nbytes() / 2**20:.1f} MiB in memory, "
               f"{time.perf_counter() - start:.1f} s", flush=True)
-        override = {
-            "data": {"root_path": str(root), "features_dir": "SyntheticSphere_640_480",
-                     "train_list_path": "assets/megadepth_train.txt",
-                     "val_list_path": "assets/megadepth_valid.txt",
-                     "device_descriptor_cache": 0, "dataloader_workers": 4,
-                     # the fixture's images are 640x480, smaller than the flagship's 960x720
-                     "target_size": [640, 480], "val_max_pairs_per_scene": 24},
-            "logging": {"root_path": str(work / "logs")},
-            "train": {"epochs": 1, "steps_per_epoch": TRAINER_STEPS},
-        }
+        override = trainer_override(root, work / "logs", TRAINER_STEPS, val_pairs_per_scene=24)
         (work / "override.yaml").write_text(yaml.safe_dump(override))
         base = repo / "configs" / "config_cached_sp_magicleap.yaml"
         argv = ["--config", str(base), "--config_override", str(work / "override.yaml"), "--device", device]
@@ -2577,6 +2594,369 @@ def trainer_phase(card, repo: Path, store: "MemoryH5", work: Path, device="cuda"
         print(f"trainer resume through --checkpoint: step {state.step} -> {resumed.step}", flush=True)
     return launches, dict(experiment=ckpt_dir.parent, step=int(state.step), eval_metrics=metrics,
                           eval_batches=probe.eval_batches)
+
+
+# the data-parallel phase (data_parallel_phase): cli.train_cached at world 2,
+# two processes on the one card over gloo (NCCL refuses two ranks on one
+# device), each step held against world 1 in this process. Two runs: the
+# flagship as written (its bf16 chain), then its f32-chain twin
+# (chain_dtype null), as the trainer phase holds its steps
+DP_WORLD, DP_VAL_PAIRS = 2, 6
+DP_RUNS = {"bf16": 4, "f32": 2}  # chain -> steps
+DP_PROFILED = 2  # the flagship run's step (from 0, after the warm-up) under torch.profiler
+DP_BARS = dict(loss_tol=1e-3, norm_tol=0.01, cos_min=0.999, stats_tol=1e-3)  # the B=12 training bars
+DP_TIMEOUT = 300  # seconds for the ranks
+NCCL_PROBE = """
+import os, sys
+import torch
+import torch.distributed as dist
+rank, port = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)
+try:
+    x = torch.ones(1, device="cuda")
+    dist.all_reduce(x)
+    torch.cuda.synchronize()
+    print(f"rank {rank}: all_reduce returned {x.item()}", flush=True)
+except Exception as exc:
+    print(f"rank {rank}: {type(exc).__name__}: {str(exc).strip().splitlines()[0]}", flush=True)
+os._exit(0)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cat_pair_batches(parts):
+    """One pair batch of the rows of ``parts``, in order."""
+    from openglue_tpu_torch.core.types import map_tensors
+
+    leaves = [[] for _ in parts]
+    for found, part in zip(leaves, parts):
+        map_tensors(part, lambda t, found=found: found.append(t) or t)
+    joined = iter([torch.cat(ts) for ts in zip(*leaves)])
+    return map_tensors(parts[0], lambda _: next(joined))
+
+
+def data_parallel_rank(rank: int, port: int, work: str) -> None:
+    """One rank of ``data_parallel_phase``, in a process of its own: for each
+    chain of DP_RUNS, ``cli.train_cached.main`` in a gloo group of DP_WORLD
+    ranks on card 0, with data.io's h5 functions on the store the phase
+    saved. Every train step (the warm-up's too) and eval batch is checked
+    for its launches; after each step of a run the ranks' parameters are
+    gathered and held equal bit for bit; the gradient all-reduce is timed on
+    the host; one step of the flagship run runs under torch.profiler. Rank
+    0 writes the state each step starts from and its gradient; each rank
+    writes its readings and its batches."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from openglue_tpu_torch import parallel
+    from openglue_tpu_torch.cli import common, train_cached
+    from openglue_tpu_torch.core.types import map_tensors
+    from openglue_tpu_torch.data import io
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.train import loop
+    from openglue_tpu_torch.train import step as step_mod
+    from openglue_tpu_torch.train.checkpoint import save_train_state
+
+    work = Path(work)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.initialize(f"tcp://127.0.0.1:{port}", DP_WORLD, rank, device_type="cuda", backend="gloo")
+    store = MemoryH5()
+    store.files = torch.load(work / "store.pt", weights_only=False)
+    counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter, "K4": glk.message_counter,
+                "K5": glk.message_bwd_counter, "autograd_sinkhorn": sk.autograd_counter}
+    real = dict(make=step_mod.make_train_step, make_eval=step_mod.make_eval_step, summed=step_mod._sum_gradients,
+                warm=loop.warm_up_buckets, evaluate=loop.evaluate)
+    for chain, steps in DP_RUNS.items():
+        argv = json.loads((work / f"dp_{chain}_argv.json").read_text())
+        out = work / f"dp_{chain}"
+        config = common.load_merged_config(argv[1], argv[3])
+        layers = 2 * int(config.get("superglue.attention_gnn.num_stages")) * 2
+        train_expected = {"K1": 0, "K2": 1, "K3": 1, "K4": layers, "K5": layers, "autograd_sinkhorn": 0}
+        eval_expected = {"K1": layers, "K2": 1, "K3": 0, "K4": 0, "K5": 0, "autograd_sinkhorn": 0}
+        rec = dict(steps=[], batches=[], warm_up=0, eval_batches=0, allreduce_ms=[], busy_ms=None,
+                   profiled_ms=None, eval_metrics=None, layers=layers)
+        warming = [False]
+        for counter in counters.values():
+            counter.reset()
+
+        def counted(fn, expected, what):
+            before = {k: c.count for k, c in counters.items()}
+            result = fn()
+            delta = {k: c.count - before[k] for k, c in counters.items()}
+            check(delta == expected, f"data_parallel {chain} rank {rank} {what}: launches {delta}, "
+                                     f"expected {expected}")
+            return result
+
+        def sum_gradients(params, group):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            real["summed"](params, group)
+            torch.cuda.synchronize()
+            rec["allreduce_ms"].append((time.perf_counter() - start) * 1e3)
+
+        def make_train_step(loss_config):
+            step = real["make"](loss_config)
+
+            def probed(state, batch):
+                if warming[0]:
+                    rec["warm_up"] += 1
+                    return counted(lambda: step(state, batch), train_expected, "warm-up step")
+                i = len(rec["steps"])
+                if rank == 0:  # the state this step starts from, for the world-1 step in the parent
+                    save_train_state(out, state, step=i)
+                profiled = chain == "bf16" and i == DP_PROFILED
+                prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled else None
+                torch.cuda.synchronize()
+                dist.barrier()  # rank 0's state save above is not the other ranks' step time
+                if prof is not None:
+                    prof.start()
+                start = time.perf_counter()
+                metrics = counted(lambda: step(state, batch), train_expected, f"step {i}")
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - start) * 1e3
+                if prof is not None:
+                    prof.stop()
+                    rec["busy_ms"], rec["profiled_ms"] = kernel_rows(prof)[0], ms
+                flat = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()]).cpu()
+                gathered = [torch.empty_like(flat) for _ in range(DP_WORLD)]
+                dist.all_gather(gathered, flat)
+                check(all(torch.equal(g, flat) for g in gathered),
+                      f"data_parallel {chain} step {i}: the ranks' parameters differ")
+                rec["steps"].append(dict(loss=metrics["total_loss"].item(), norm=metrics["grad_norm"].item(),
+                                         ms=ms, allreduce_ms=rec["allreduce_ms"][-1],
+                                         rows=batch.side0.keypoints.shape[0], n=batch.side0.keypoints.shape[1]))
+                rec["batches"].append(map_tensors(batch, lambda t: t.cpu()))
+                if rank == 0:
+                    torch.save(flat_grads(state.model).float().cpu(), out / f"grads{i}.pt")
+                    if i == steps - 1:
+                        save_train_state(out, state, step=steps)
+                return metrics
+
+            return probed
+
+        def make_eval_step(match_threshold):
+            step = real["make_eval"](match_threshold)
+
+            def probed(state, batch):
+                rec["eval_batches"] += 1
+                return counted(lambda: step(state, batch), eval_expected, "eval batch")
+
+            return probed
+
+        def warm_up(*args, **kwargs):
+            warming[0] = True
+            try:
+                return real["warm"](*args, **kwargs)
+            finally:
+                warming[0] = False
+
+        def evaluate(*args, **kwargs):
+            rec["eval_metrics"] = real["evaluate"](*args, **kwargs)
+            return rec["eval_metrics"]
+
+        with replaced(*store.entries(io), (step_mod, "make_train_step", make_train_step),
+                      (step_mod, "make_eval_step", make_eval_step), (step_mod, "_sum_gradients", sum_gradients),
+                      (loop, "warm_up_buckets", warm_up), (loop, "evaluate", evaluate)):
+            state = train_cached.main(argv)
+        check(state.step == steps and len(rec["steps"]) == steps,
+              f"data_parallel {chain} rank {rank}: {len(rec['steps'])} steps, state.step {state.step}")
+        rec["launches"] = {k: c.count for k, c in counters.items()}
+        torch.save(rec, out / f"rank{rank}.pt")
+        del state
+    parallel.barrier()
+    dist.destroy_process_group()
+
+
+def run_ranks(commands, timeout, logs: Path):
+    """Start one process per ``(argv, env)``, each writing its output to a
+    file under ``logs``; wait for all, killing every one still running at
+    ``timeout`` seconds or once one has failed (its peers would wait in a
+    collective). Returns each one's (exit code, output)."""
+    logs.mkdir(parents=True, exist_ok=True)
+    files = [open(logs / f"{i}.log", "w+b") for i in range(len(commands))]
+    procs = [subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, env=env)
+             for (cmd, env), f in zip(commands, files)]
+    deadline = time.time() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline or any(p.returncode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs = []
+    for f in files:
+        f.seek(0)
+        outs.append(f.read().decode(errors="replace"))
+        f.close()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def flat_distance(a, b):
+    """(gradient L2 distance relative to ``b``'s norm, cosine) of two flat
+    gradients."""
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item(), (a @ b / (a.norm() * b.norm())).item()
+
+
+def data_parallel_phase(card, repo: Path, store: "MemoryH5", work: Path, device="cuda"):
+    """Data parallelism (``parallel.shard_train_step``) through the cached
+    trainer as a user launches it: DP_WORLD processes
+    (``data_parallel_rank``) on the one card in a gloo group, each running
+    ``cli.train_cached.main`` with the trainer phase's flagship config and
+    fixture (global B=12, 6 rows a rank, buckets 256/512/1024 grouped,
+    use_pallas, device_descriptor_cache 0) and a validation sweep, then the
+    same with an f32 chain. Checks each rank's launches per step (36 K4 +
+    36 K5 + 1 K2 + 1 K3) and per eval batch (36 K1 + 1 K2) and the ranks'
+    parameters equal bit for bit after every step; then each step again at
+    world 1 in this process, from the state the ranks started it from, on
+    the global batch: the f32 chain at the B=12 training bars (loss, norm,
+    cosine, statistics; the parameters after the step at the statistics'
+    bar), the flagship's bf16 chain at those bars for the loss, the
+    statistics and the parameters and for its gradient by the trainer
+    phase's rule (its distance from the f32-chain step at most
+    BF16_DISTANCE_RATIO times world 1's). Prints each rank's step time,
+    the gradient all-reduce's host time and the idle share of one step;
+    then what NCCL says when two ranks are put on one device. Two processes
+    share one card, so the times are no scaling figure. Returns the
+    launches of both ranks, both runs, by kernel."""
+    import yaml
+
+    from openglue_tpu_torch.cli import common
+    from openglue_tpu_torch.core.config import load_config
+    from openglue_tpu_torch.data import fixture, io
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.train.checkpoint import restore_model, restore_train_state
+    from openglue_tpu_torch.train.loop import batch_to_device
+    from openglue_tpu_torch.train.state import create_train_state
+    from openglue_tpu_torch.train.step import make_train_step
+
+    start = time.perf_counter()
+    root = work / "megadepth"
+    if not store.files:  # run alone: the trainer phase's fixture
+        with replaced(*store.entries(io)):
+            fixture.generate_megadepth_fixture(root, **TRAINER_FIXTURE)
+    torch.save(store.files, work / "store.pt")
+    base = repo / "configs" / "config_cached_sp_magicleap.yaml"
+    for chain, steps in DP_RUNS.items():
+        override = trainer_override(root, work / f"logs_dp_{chain}", steps, val_pairs_per_scene=DP_VAL_PAIRS)
+        if chain == "f32":
+            override["superglue"] = {"chain_dtype": None}
+        (work / f"dp_{chain}.yaml").write_text(yaml.safe_dump(override))
+        argv = ["--config", str(base), "--config_override", str(work / f"dp_{chain}.yaml"), "--device", device]
+        (work / f"dp_{chain}_argv.json").write_text(json.dumps(argv))
+    env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "WORLD_SIZE", "RANK")}
+    env.update(LOCAL_RANK="0", PYTHONPATH=str(repo))  # both ranks on card 0
+    port = free_port()
+    code = (f"import sys; sys.path.insert(0, {str(repo)!r}); import chip_smoke; "
+            f"chip_smoke.data_parallel_rank(int(sys.argv[1]), {port}, {str(work)!r})")
+    results = run_ranks([([sys.executable, "-c", code, str(r)], env) for r in range(DP_WORLD)], DP_TIMEOUT,
+                        work / "dp_logs")
+    for r, (rc, out) in enumerate(results):
+        check(rc == 0, f"data_parallel rank {r} exited with {rc}:\n{out[-6000:]}")
+    run_s = time.perf_counter() - start
+    descriptor_dim = int(load_config(root / "SyntheticSphere_640_480" / "config.yaml")["descriptor_dim"])
+
+    launches = collections.Counter()
+    failures = []
+    for chain in DP_RUNS:
+        out = work / f"dp_{chain}"
+        ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+        for rank in ranks:
+            launches.update({k: v for k, v in rank["launches"].items() if k != "autograd_sinkhorn"})
+        for r, rank in enumerate(ranks):
+            steps, layers = rank["steps"], rank["layers"]
+            timed = ""
+            if rank["profiled_ms"] is not None:
+                busy, wall = rank["busy_ms"], rank["profiled_ms"]
+                idle = "not measured" if busy is None else f"{1 - busy / wall:.3f}"
+                busy = "not measured" if busy is None else f"{busy:.3f} ms"
+                timed = f"; step {DP_PROFILED} under the profiler {wall:.3f} ms, device busy {busy}, idle share {idle}"
+            print(f"data_parallel {chain} chain rank {r}/{DP_WORLD} (gloo, card 0): {len(steps)} steps of "
+                  f"{steps[0]['rows']} rows (global {steps[0]['rows'] * DP_WORLD}), N {[s['n'] for s in steps]}, "
+                  f"step ms {[round(s['ms'], 3) for s in steps]} (median "
+                  f"{statistics.median(s['ms'] for s in steps):.3f}, each synchronized), gradient all-reduce host "
+                  f"ms {[round(s['allreduce_ms'], 3) for s in steps]} (median "
+                  f"{statistics.median(s['allreduce_ms'] for s in steps):.3f}){timed}; {rank['warm_up']} warm-up "
+                  f"and {len(steps)} steps at {layers} K4 + {layers} K5 + 1 K2 + 1 K3 each, {rank['eval_batches']} "
+                  f"eval batches at {layers} K1 + 1 K2 each; launches {json.dumps(rank['launches'])}; validation "
+                  f"{json.dumps(rank['eval_metrics'])} [{card}]", flush=True)
+
+        # ---- each step again at world 1, on its global batch, from the state the ranks started it from
+        config = common.load_merged_config(str(base), str(work / f"dp_{chain}.yaml"))
+        cfg = common.superglue_config_from(config, descriptor_dim, SIDE_INFO_DIM)
+        twin_cfg = dataclasses.replace(cfg, chain_dtype=None)
+        state = create_train_state(SuperGlue(cfg, device=device))
+        twin = create_train_state(SuperGlue(twin_cfg, device=device)) if twin_cfg != cfg else None
+        after = SuperGlue(cfg, device=device)
+        step = make_train_step(common.loss_config_from(config))
+        for i, parts in enumerate(zip(*(r["batches"] for r in ranks))):
+            got = ranks[0]["steps"][i]
+            check(all(r["steps"][i]["loss"] == got["loss"] and r["steps"][i]["norm"] == got["norm"] for r in ranks),
+                  f"data_parallel {chain} step {i}: the ranks' metrics differ")
+            batch = batch_to_device(cat_pair_batches(parts), device)
+            restore_train_state(out, state, step=i)
+            restore_model(out, after, step=i + 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            dp_grad, grad = torch.load(out / f"grads{i}.pt").to(device), flat_grads(state.model)
+            d, cos = flat_distance(dp_grad, grad)
+            ranked = dict(after.named_buffers())
+            x = dict(loss=abs(got["loss"] - metrics["total_loss"].item()),
+                     norm=abs(got["norm"] / metrics["grad_norm"].item() - 1), grad=d, cos=cos,
+                     stats=max((ranked[k] - v).abs().max().item()
+                               for k, v in state.model.named_buffers() if "running" in k),
+                     params=max((q.detach() - p.detach()).abs().max().item()
+                                for q, p in zip(after.parameters(), state.model.parameters())))
+            line = (f"data_parallel {chain} chain step {i} N={got['n']}, world {DP_WORLD} against world 1 from the "
+                    f"same state on the same global batch: loss |diff| {x['loss']:.3e}, grad norm rel "
+                    f"{x['norm']:.3e}, gradient distance {x['grad']:.3e}, cosine {x['cos']:.6f}, running stats max "
+                    f"|diff| {x['stats']:.3e}, parameters after the step max |diff| {x['params']:.3e}")
+            held = (x["loss"] <= DP_BARS["loss_tol"] and x["stats"] <= DP_BARS["stats_tol"]
+                    and x["params"] <= DP_BARS["stats_tol"])
+            if twin is None:
+                held = held and x["norm"] <= DP_BARS["norm_tol"] and x["cos"] >= DP_BARS["cos_min"]
+            else:  # the bf16 chain: both steps by their distance from the f32-chain step
+                restore_train_state(out, twin, step=i)
+                step(twin, batch)
+                ref = flat_grads(twin.model)
+                d_dp, d_one = flat_distance(dp_grad, ref)[0], flat_distance(grad, ref)[0]
+                line += (f"; against the f32-chain step: world {DP_WORLD} {d_dp:.3e}, world 1 {d_one:.3e}, ratio "
+                         f"{d_dp / d_one:.3f} (bar {BF16_DISTANCE_RATIO})")
+                held = held and d_dp <= BF16_DISTANCE_RATIO * d_one
+            print(f"{line}; world-1 step {ms:.3f} ms in this process [{card}]", flush=True)
+            if not held:
+                failures.append(f"{chain} step {i}: {x}")
+        del state, twin, after
+    print(f"data_parallel: bars {json.dumps(DP_BARS)} (the parameters at the statistics' bar); the ranks' parameters "
+          f"equal bit for bit after every step; the ranks and their start {run_s:.1f} s [{card}]", flush=True)
+
+    # ---- what NCCL says to two ranks on one device
+    port = free_port()
+    said = run_ranks([([sys.executable, "-c", NCCL_PROBE, str(r), str(port)], env) for r in range(2)], 45,
+                     work / "nccl_logs")
+    for r, (rc, out) in enumerate(said):
+        lines = [line for line in out.splitlines() if line.startswith(f"rank {r}:")] or out.strip().splitlines()[-2:]
+        print(f"data_parallel NCCL with two ranks on card 0, rank {r} (exit {rc}): {' | '.join(lines)}", flush=True)
+    print(f"data_parallel phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
+    check(not failures, "data_parallel: world 2 against world 1 outside the bars: " + "; ".join(failures))
+    return dict(launches)
 
 
 # the serving phase (serving_cli_phase): generate_image_fixture's 1280x1024
@@ -3924,6 +4304,7 @@ def main() -> int:
     store, work = MemoryH5(), Path(tempfile.mkdtemp(prefix="chip-smoke-"))
     try:
         trainer, trained = trainer_phase(card, repo, store, work)
+        data_parallel = data_parallel_phase(card, repo, store, work)
         serving_cli = serving_cli_phase(card, repo, store, work, trained)
         extractors = device_extractors_phase(card, repo, store, work)
         online = online_trainer_phase(card, repo, store, work)
@@ -3947,11 +4328,12 @@ def main() -> int:
              **k1[torch.bfloat16], library_ms=None,
              f32=dict(k1[torch.float32], library_ms=None),
              dh32=dh32(k1_32[torch.bfloat16], k1_32[torch.float32]), sift_launches=wider[sift]["K1"],
-             trainer_launches=trainer["K1"], serving_cli_launches=serving_cli["K1"],
+             trainer_launches=trainer["K1"], data_parallel_launches=data_parallel["K1"],
+             serving_cli_launches=serving_cli["K1"],
              device_extractors_launches=extractors["K1"], online_trainer_launches=online["K1"]),
         dict(name="sinkhorn_scale (f32 K, B=16 N=1024)", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:128", launches=n1024,
-             train_launches=train["K2"], trainer_launches=trainer["K2"],
+             train_launches=train["K2"], trainer_launches=trainer["K2"], data_parallel_launches=data_parallel["K2"],
              serving_cli_launches=serving_cli.get("K2 torch.float32", 0),
              device_extractors_launches=extractors.get("K2 torch.float32", 0),
              online_trainer_launches=online["K2"],
@@ -3975,20 +4357,23 @@ def main() -> int:
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315", **streaming, library_ms=None),
         dict(name="sinkhorn_adjoint (f32 K, B=12 N=1024 T=20)", route="cuda", source=csrc + "sinkhorn_adjoint.cu",
              replaces=pallas + "sinkhorn_kernel.py:548", launches=train["K3"], trainer_launches=trainer["K3"],
+             data_parallel_launches=data_parallel["K3"],
              online_trainer_launches=online["K3"], **k3, library_ms=None),
         dict(name="message_forward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_forward.cu", replaces=pallas + "gnn_layer_kernel.py:557",
              launches=train["K4"], **k45[torch.bfloat16]["K4"], library_ms=None,
              f32=dict(k45[torch.float32]["K4"], library_ms=None),
              dh32=dh32(k45_32[torch.bfloat16]["K4"], k45_32[torch.float32]["K4"]), pretrain_launches=pretrain["K4"],
-             trainer_launches=trainer["K4"], online_trainer_launches=online["K4"]),
+             trainer_launches=trainer["K4"], data_parallel_launches=data_parallel["K4"],
+             online_trainer_launches=online["K4"]),
         dict(name="message_backward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_backward.cu", replaces=pallas + "gnn_layer_kernel.py:627",
              launches=train["K5"], **k45[torch.bfloat16]["K5"], library_ms=None,
              f32=dict(k45[torch.float32]["K5"], library_ms=None),
              dh32=dh32(k45_32[torch.bfloat16]["K5"], k45_32[torch.float32]["K5"]), pretrain_launches=pretrain["K5"],
              bf16_pass_launches=train["attn_bwd_bf16"], pretrain_bf16_pass_launches=pretrain["attn_bwd_bf16"],
-             trainer_launches=trainer["K5"], online_trainer_launches=online["K5"]),
+             trainer_launches=trainer["K5"], data_parallel_launches=data_parallel["K5"],
+             online_trainer_launches=online["K5"]),
         *[dict(name=f"gnn_layer_features {kind} (bf16, B=16 N=M=1024 D=256 H=4)", route="cuda",
                source=csrc + "gnn_layer_features.cu", replaces=pallas + "gnn_layer_kernel.py:117",
                launches=other[kind], **k6[(kind, torch.bfloat16)], library_ms=None,

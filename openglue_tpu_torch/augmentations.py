@@ -8,14 +8,17 @@ Each augmentation is split in two: a draw, from an explicit
 as tensors (per-image Bernoulli masks, sharpness factors, noise). The
 generator's stream is not JAX's ``jax.random``; the split lets a caller feed
 any draws, JAX's included, through the same arithmetic. All are photometric,
-so the intrinsics are left as they are.
+so the intrinsics are left as they are. ``rows`` = (start, global batch)
+makes a data-parallel rank draw for the whole global batch and keep its rows
+from ``start`` on, so that the global batch is augmented as one process
+augments it; the default is this batch alone.
 
 images: [B, H, W] grayscale in [0, 1], f32.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -102,17 +105,23 @@ def gaussian_noise(
     return add_noise(images, apply, noise, std)
 
 
-def draw_weak_color_aug(generator: torch.Generator, images: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """The draws of ``weak_color_aug`` for ``images``, in the order it uses them."""
-    batch, device = images.shape[0], images.device
-    return {
+Rows = Optional[Tuple[int, int]]
+
+
+def draw_weak_color_aug(generator: torch.Generator, images: torch.Tensor, rows: Rows = None) -> Dict[str, torch.Tensor]:
+    """The draws of ``weak_color_aug`` for ``images``, in the order it uses
+    them; with ``rows``, rows start:start + B of the global batch's draws."""
+    local, device = images.shape[0], images.device
+    start, batch = rows or (0, local)
+    draws = {
         "equalize": draw_mask(generator, batch, 0.25, device),
         "sharpen": draw_mask(generator, batch, 0.25, device),
         "sharpness": torch.rand(batch, generator=generator, device=device) * 0.5,
         "solarize": draw_mask(generator, batch, 0.25, device),
         "noisy": draw_mask(generator, batch, 0.5, device),
-        "noise": torch.randn(images.shape, generator=generator, device=device),
+        "noise": torch.randn((batch, *images.shape[1:]), generator=generator, device=device),
     }
+    return {k: v[start:start + local] for k, v in draws.items()}
 
 
 def apply_weak_color_aug(images: torch.Tensor, draws: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -123,11 +132,11 @@ def apply_weak_color_aug(images: torch.Tensor, draws: Dict[str, torch.Tensor]) -
     return add_noise(images, draws["noisy"], draws["noise"])
 
 
-def weak_color_aug(generator: torch.Generator, images: torch.Tensor) -> torch.Tensor:
-    return apply_weak_color_aug(images, draw_weak_color_aug(generator, images))
+def weak_color_aug(generator: torch.Generator, images: torch.Tensor, rows: Rows = None) -> torch.Tensor:
+    return apply_weak_color_aug(images, draw_weak_color_aug(generator, images, rows))
 
 
-def no_aug(generator: torch.Generator, images: torch.Tensor) -> torch.Tensor:
+def no_aug(generator: torch.Generator, images: torch.Tensor, rows: Rows = None) -> torch.Tensor:
     return images
 
 

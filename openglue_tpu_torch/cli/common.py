@@ -1,9 +1,9 @@
 """Shared CLI plumbing (port of ``openglue_tpu/cli/common.py``; reference
 train.py:22-66, utils/train_utils.py:13-30): config loading and merging, the
 experiment's name and logging directory with its config snapshots, and the
-model, loss, optimizer and loop settings built from a config's sections.
-Each takes a ``Config`` or a plain dict. The data-parallel mesh
-(``build_mesh_and_sharding``) waits for ROADMAP.md module 10a."""
+model, loss, optimizer and loop settings built from a config's sections,
+and the data-parallel mesh of the job (``build_mesh_and_sharding``). Each
+takes a ``Config`` or a plain dict."""
 
 from __future__ import annotations
 
@@ -13,7 +13,9 @@ from pathlib import Path
 from typing import Any, Iterable, Mapping, Optional
 
 import torch
+import torch.distributed as dist
 
+from openglue_tpu_torch import parallel
 from openglue_tpu_torch.core.config import Config, load_config, merge_configs, save_config
 from openglue_tpu_torch.models.superglue import SuperGlueConfig
 from openglue_tpu_torch.parallel.distributed import is_main_process
@@ -44,13 +46,25 @@ def prepare_logging_directory(config: Config, features_config: Optional[Config] 
     main process (reference utils/train_utils.py:13-30)."""
     root = Path(config.get("logging.root_path", "logs"))
     name = config.get("logging.name", "default")
-    log_dir = root / name / experiment_name(config, features_config)
+    stamped = [experiment_name(config, features_config)]
+    if dist.is_initialized():  # rank 0's time stamp names the one directory
+        dist.broadcast_object_list(stamped, src=0)
+    log_dir = root / name / stamped[0]
     if is_main_process():
         log_dir.mkdir(parents=True, exist_ok=True)
         save_config(config, log_dir / "config.yaml")
         if features_config is not None:
             save_config(features_config, log_dir / "features_config.yaml")
     return log_dir
+
+
+def build_mesh_and_sharding(device_type: str = "cuda"):
+    """(mesh, shard_batch, shard_train_step, shard_eval_step): the
+    data-parallel mesh of every process of the job (``parallel.make_mesh``)
+    and its helpers; the mesh is None in one process, where the step
+    helpers return the step as it is."""
+    mesh = parallel.make_mesh(device_type=device_type) if dist.is_initialized() else None
+    return mesh, parallel.shard_batch, parallel.shard_train_step, parallel.shard_eval_step
 
 
 def superglue_config_from(

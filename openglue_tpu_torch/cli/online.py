@@ -2,9 +2,13 @@
 of ``openglue_tpu/cli/online.py``; the reference's train.py and
 pretrain_homography.py differ only in the dataset and the GT thresholds).
 
-The model is a ``MatchingModule`` (extractor + matcher) on one device. A
-data-parallel world above one process is not ported yet (ROADMAP.md module
-10a) and raises.
+The model is a ``MatchingModule`` (extractor + matcher) on each process's
+device. In a data-parallel job (a launcher such as torchrun names it; the
+CLIs call ``parallel.initialize``) each process loads its rows of each global
+batch and the step is ``parallel.shard_train_step``'s: every rank takes the
+update one process takes on the whole batch, its augmentation drawn for the
+whole batch. A fine-tuned extractor with BatchNorm layers is refused there:
+its statistics would be each rank's alone (ROADMAP.md module 10b).
 """
 
 from __future__ import annotations
@@ -16,7 +20,8 @@ import numpy as np
 import torch
 
 from openglue_tpu_torch.cli import common
-from openglue_tpu_torch.core.types import Transformation
+from openglue_tpu_torch.core.types import Transformation, map_tensors
+from openglue_tpu_torch.parallel import data_parallel_world_size, initialize
 
 
 def collate_image_pairs(samples, pin_memory: bool = False):
@@ -35,25 +40,13 @@ def collate_image_pairs(samples, pin_memory: bool = False):
         "image1": stack([s["image1"] for s in samples]),
         "transformation": Transformation(kind=kind, **{k: stack([t[k] for t in tfs]) for k in names}),
     }
-    return map_image_batch(batch, lambda t: t.pin_memory()) if pin_memory else batch
-
-
-def map_image_batch(batch, fn: Callable[[torch.Tensor], torch.Tensor]):
-    """The dict batch with ``fn`` applied to each of its tensors."""
-    tf = batch["transformation"]
-    fields = ("H", "K0", "K1", "R", "T", "depth0", "depth1")
-    return {
-        "image0": fn(batch["image0"]),
-        "image1": fn(batch["image1"]),
-        "transformation": Transformation(tf.kind, *(None if getattr(tf, f) is None else fn(getattr(tf, f))
-                                                    for f in fields)),
-    }
+    return map_tensors(batch, lambda t: t.pin_memory()) if pin_memory else batch
 
 
 def image_batch_to_device(batch, device):
     """The dict batch on ``device``; from pinned memory the copies are queued
     behind the device's running work."""
-    return map_image_batch(batch, lambda t: t.to(device, non_blocking=True))
+    return map_tensors(batch, lambda t: t.to(device, non_blocking=True))
 
 
 def build_matching_module(config, features_config=None, device="cuda"):
@@ -86,21 +79,24 @@ def load_extractor_weights_into(model, weights_path: Optional[str]):
     return model
 
 
-def check_world() -> None:
-    from openglue_tpu_torch.cli.train_cached import data_parallel_world_size
-
-    world = data_parallel_world_size()
-    if world > 1:
-        raise NotImplementedError(
-            f"data-parallel online training over {world} processes is not ported yet: ROADMAP.md module 10a"
-        )
-
-
 def require_device(device) -> torch.device:
+    """``device``, after the job a launcher names, if any, is started on it
+    (``parallel.initialize``); a CUDA device must be present."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu to train on the CPU)")
+    initialize(device_type=device.type)
     return device
+
+
+def check_data_parallel_extractor(model) -> None:
+    """Refuse a fine-tuned extractor with BatchNorm layers at a world above
+    one process: torch's BatchNorm takes its statistics over this rank's
+    images alone, where the JAX package's take the global batch's."""
+    finetuned = model.config.finetune and data_parallel_world_size() > 1
+    if finetuned and any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) for m in model.extractor.modules()):
+        raise NotImplementedError("data-parallel fine-tuning of an extractor with BatchNorm layers is not ported "
+                                  "yet: ROADMAP.md module 10b")
 
 
 def run_online_training(
@@ -123,9 +119,9 @@ def run_online_training(
     from openglue_tpu_torch.train.state import create_train_state, make_online_optimizer
     from openglue_tpu_torch.train.step import make_online_eval_step, make_online_train_step
 
-    check_world()
     device = require_device(device)
     model = build_matching_module(config, features_config, device)
+    check_data_parallel_extractor(model)
     snapshot = features_config
     if snapshot is None and config.get("features"):
         snapshot = Config(dict(config.get("features")))
@@ -143,9 +139,10 @@ def run_online_training(
     if checkpoint:
         restore_train_state(checkpoint, state)
 
-    step = make_online_train_step(common.loss_config_from(config),
-                                  augmentation=config.get("train.augmentations.name", "none"),
-                                  seed=int(config.get("train.seed", 0)))
+    mesh, _, shard_train_step, _ = common.build_mesh_and_sharding(device.type)
+    step = shard_train_step(make_online_train_step(common.loss_config_from(config),
+                                                   augmentation=config.get("train.augmentations.name", "none"),
+                                                   seed=int(config.get("train.seed", 0))), mesh)
     eval_step = None
     if val_loader_fn is not None:
         eval_step = make_online_eval_step(float(config.get("inference.match_threshold", 0.2)))

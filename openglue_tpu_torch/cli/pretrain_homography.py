@@ -9,8 +9,10 @@ Usage:
       [--checkpoint dir] [--smoke] [--device cuda|cpu]
 
 The model trains on ``--device`` (default ``cuda``, which must be present).
-A data-parallel world above one process is not ported yet (ROADMAP.md
-module 10a) and raises.
+Under a launcher such as torchrun it trains data-parallel
+(``cli/online.py``): ``data.batch_size`` is the global batch, and each
+process draws its own rows of it from a stream seeded by its first row, as
+the JAX package's hosts do.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ import argparse
 import numpy as np
 
 from openglue_tpu_torch.cli import common
-from openglue_tpu_torch.cli.online import check_world, collate_image_pairs, require_device, run_online_training
+from openglue_tpu_torch.cli.online import collate_image_pairs, require_device, run_online_training
+from openglue_tpu_torch.data.sampler import process_shard
+from openglue_tpu_torch.parallel import local_batch_slice
 
 
 def main(argv=None):
@@ -32,7 +36,6 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    check_world()
     device = require_device(args.device)
     config = common.load_merged_config(args.config, args.config_override)
     if args.smoke:
@@ -43,12 +46,13 @@ def main(argv=None):
     from openglue_tpu_torch.data.loader import DataLoader
 
     data = config["data"]
-    batch_size = int(data["batch_size"])
+    start, stop = local_batch_slice(int(data["batch_size"]))
+    batch_size = stop - start
     target_size = tuple(data.get("target_size", (960, 720)))
     offset = int(data.get("warp_offset", 256))
     dataset = HomographyPairsDataset(data["root_path"], target_size=target_size, max_corner_offset=offset,
-                                     seed=int(config.get("train.seed", 0)))
-    rng = np.random.default_rng(1234)
+                                     seed=int(config.get("train.seed", 0)) + start)
+    rng = np.random.default_rng(1234 + start)
 
     def infinite_indices():
         while True:
@@ -65,9 +69,10 @@ def main(argv=None):
         val_ds = HomographyPairsDataset(data["root_path"], target_size=target_size, max_corner_offset=offset,
                                         color_augmentation=False, seed=999)
         n_val = min(len(val_ds), int(data.get("val_pairs", 32)))
+        world, rank = process_shard()  # each process evaluates its share of the pairs
         val_loader_fn = lambda: DataLoader(
             val_ds, batch_size=batch_size, collate_fn=lambda s: collate_image_pairs(s, pin),
-            sampler=iter([i % len(val_ds) for i in range(n_val)]), num_workers=0,
+            sampler=iter([i % len(val_ds) for i in range(rank, n_val, world)]), num_workers=0,
         )
 
     state, _, _ = run_online_training(config, loader, val_loader_fn, checkpoint=args.checkpoint, device=device)

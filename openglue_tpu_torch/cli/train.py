@@ -7,8 +7,10 @@ Usage:
       [--config_override o.yaml] [--checkpoint dir] [--smoke] [--device cuda|cpu]
 
 The model trains on ``--device`` (default ``cuda``, which must be present).
-A data-parallel world above one process is not ported yet (ROADMAP.md
-module 10a) and raises.
+Under a launcher such as torchrun it trains data-parallel
+(``cli/online.py``): ``data.batch_size`` is the global batch, each process
+samples its rows from its own stream (seeded by its rank) and validates its
+share of the pairs.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import argparse
 from pathlib import Path
 
 from openglue_tpu_torch.cli import common
-from openglue_tpu_torch.cli.online import check_world, collate_image_pairs, require_device, run_online_training
+from openglue_tpu_torch.cli.online import collate_image_pairs, require_device, run_online_training
 from openglue_tpu_torch.core.config import load_config
+from openglue_tpu_torch.parallel import local_batch_slice
 
 
 def main(argv=None):
@@ -31,7 +34,6 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
-    check_world()
     device = require_device(args.device)
     config = common.load_merged_config(args.config, args.config_override)
     features_config = load_config(args.features_config)
@@ -52,7 +54,8 @@ def main(argv=None):
             p = Path(root) / p
         return [s.strip() for s in p.read_text().splitlines() if s.strip()]
 
-    batch_size = int(data["batch_size"])
+    start, stop = local_batch_slice(int(data["batch_size"]))
+    batch_size = stop - start
     target_size = tuple(data.get("target_size", (960, 720)))
     workers = int(data.get("dataloader_workers", 2))
     pin = device.type == "cuda"

@@ -10,8 +10,13 @@ Usage:
       [--config_override my.yaml] [--checkpoint dir] [--smoke] [--device cuda|cpu]
 
 The model trains on ``--device`` (default ``cuda``, which must be present).
-Not ported yet, and refused: ``data.device_descriptor_cache > 0`` (ROADMAP.md
-module 7), a data-parallel world above one process (module 10a), and
+Data-parallel training runs one process per device under a launcher that
+names the job, such as
+``torchrun --nproc_per_node=N -m openglue_tpu_torch.cli.train_cached ...``
+(NCCL on cards, gloo with ``--device cpu``): ``data.batch_size`` is the
+global batch, each rank loads its rows of it, and every rank takes the step
+one process would take on the whole batch. Not ported yet, and refused:
+``data.device_descriptor_cache > 0`` (ROADMAP.md module 7) and
 ``--checkify`` (module 11).
 """
 
@@ -19,23 +24,13 @@ from __future__ import annotations
 
 import argparse
 import itertools
-import os
 from functools import partial
 from pathlib import Path
 
 import torch
-import torch.distributed as dist
 
 from openglue_tpu_torch.cli import common
-
-
-def data_parallel_world_size() -> int:
-    """The number of processes the job trains on: ``torch.distributed``'s
-    world size when it is initialized, else ``WORLD_SIZE`` as a launcher
-    such as torchrun sets it, else 1."""
-    if dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
+from openglue_tpu_torch.parallel import initialize, local_batch_slice
 
 
 def check_ported(config) -> None:
@@ -45,17 +40,19 @@ def check_ported(config) -> None:
             "data.device_descriptor_cache > 0 (the device-resident descriptor cache) is not "
             "ported yet: ROADMAP.md module 7; set it to 0"
         )
-    world = data_parallel_world_size()
-    if world > 1:
-        raise NotImplementedError(
-            f"data-parallel training over {world} processes is not ported yet: ROADMAP.md module 10a"
-        )
 
 
 def build_dataloaders(config, laf_converter, pin_memory: bool = False):
-    """(train loader, function making a val loader) from the ``data``
-    section. ``pin_memory``: the workers put each batch in page-locked memory
-    for a non-blocking copy to a CUDA device."""
+    """(train loader, function making a val loader) of this process from the
+    ``data`` section; ``data.batch_size`` is the global batch, of which each
+    process of a data-parallel job loads its rows (``local_batch_slice``).
+    With bucket grouping every process forms the same grouped schedule from
+    one global sampler stream and keeps its slice of each batch, so that the
+    global batches are the ones one process forms; without it each process
+    samples its own stream (seeded by its rank). Validation is this
+    process's share of the pairs, in batches of its share of the batch size.
+    ``pin_memory``: the workers put each batch in page-locked memory for a
+    non-blocking copy to a CUDA device."""
     from openglue_tpu_torch.data.bucketing import BucketGroupedIndexBatches
     from openglue_tpu_torch.data.collate import cast_for_transfer, stack_keypoints_batch
     from openglue_tpu_torch.data.loader import DataLoader
@@ -81,7 +78,9 @@ def build_dataloaders(config, laf_converter, pin_memory: bool = False):
     # formed, on indices with h5-metadata keypoint counts, so loading and
     # collate both run in the loader's workers
     bucket_grouping = bool(data.get("bucket_grouping")) and buckets is not None
-    batch_size = int(data["batch_size"])
+    global_batch = int(data["batch_size"])
+    start, stop = local_batch_slice(global_batch)
+    batch_size = stop - start
     cache_images = int(data.get("cache_images", 64))
     target_size = tuple(data.get("target_size", (960, 720)))
     train_ds = MegaDepthPairsDatasetFeatures(
@@ -120,9 +119,10 @@ def build_dataloaders(config, laf_converter, pin_memory: bool = False):
     workers = int(data.get("dataloader_workers", 2))
 
     if bucket_grouping:
+        global_stream = BalancedSceneSampler(train_ds.index.scene_sizes(), num_shards=1, shard_index=0)
         groups = BucketGroupedIndexBatches(
-            iter(BalancedSceneSampler(train_ds.index.scene_sizes())), train_ds.keypoint_count,
-            batch_size=batch_size, buckets=buckets,
+            iter(global_stream), train_ds.keypoint_count,
+            batch_size=global_batch, buckets=buckets, local_slice=(start, stop),
         )
         train_loader = DataLoader(train_ds, batch_size=batch_size, collate_fn=train_collate,
                                   batch_sampler=iter(groups), num_workers=workers)
@@ -165,6 +165,7 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu to train on the CPU)")
+    initialize(device_type=device.type)  # the job a launcher names, if any
     if args.smoke:
         config["train"]["steps_per_epoch"] = 2
         config["train"]["epochs"] = 1
@@ -209,7 +210,8 @@ def main(argv=None):
     if resume_from:
         restore_train_state(resume_from, state)
 
-    train_step = make_train_step(common.loss_config_from(config))
+    mesh, _, shard_train_step, _ = common.build_mesh_and_sharding(device.type)
+    train_step = shard_train_step(make_train_step(common.loss_config_from(config)), mesh)
     eval_step = make_eval_step(float(config.get("inference.match_threshold", 0.2)))
     to_device = partial(batch_to_device, device=device)
 

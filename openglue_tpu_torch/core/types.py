@@ -102,17 +102,21 @@ def superglue_inputs(batch: PairBatch) -> Dict[str, Any]:
         mask1=s1.mask,
     )
 
-def map_tensors(batch: PairBatch, fn: Callable[[torch.Tensor], torch.Tensor]) -> PairBatch:
-    """The batch with ``fn`` applied to each of its tensors (a missing field
-    of the transformation stays None)."""
-
-    def side(s: KeypointSet) -> KeypointSet:
-        return KeypointSet(*(fn(getattr(s, f.name)) for f in dataclasses.fields(s)))
-
-    tf = batch.transformation
-    if tf is not None:
-        tf = Transformation(tf.kind, *(
-            None if getattr(tf, f.name) is None else fn(getattr(tf, f.name))
-            for f in dataclasses.fields(tf)[1:]
+def map_tensors(batch: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
+    """The batch with ``fn`` applied to each of its tensors: a ``PairBatch``,
+    a ``Transformation`` (a missing field stays None), a dict of these and
+    tensors (the online trainer's image batch), or a tensor."""
+    if isinstance(batch, dict):
+        return {k: map_tensors(v, fn) for k, v in batch.items()}
+    if isinstance(batch, Transformation):
+        return Transformation(batch.kind, *(
+            None if getattr(batch, f.name) is None else fn(getattr(batch, f.name))
+            for f in dataclasses.fields(batch)[1:]
         ))
-    return PairBatch(side(batch.side0), side(batch.side1), tf)
+    if isinstance(batch, PairBatch):
+        def side(s: KeypointSet) -> KeypointSet:
+            return KeypointSet(*(fn(getattr(s, f.name)) for f in dataclasses.fields(s)))
+
+        tf = batch.transformation
+        return PairBatch(side(batch.side0), side(batch.side1), None if tf is None else map_tensors(tf, fn))
+    return fn(batch)

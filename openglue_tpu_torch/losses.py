@@ -7,12 +7,16 @@ per-keypoint terms are averaged; the per-image sums add as
 ``matched + 0.5 * (unmatched0 + unmatched1)`` and are divided by the batch
 size. An element with no keypoint in a category contributes zero.
 
-With ``group`` (keypoint-axis context parallelism, ``SuperGlue`` with
-``ring_axis``) the scores and ``gt_matches0`` are this rank's rows. The loss
+With ``groups`` (``parallel.MeshGroups``) each rank holds a shard of the
+global batch: its rows of the batch (the ``data`` group), and with
+keypoint-axis context parallelism (``SuperGlue`` with ``ring_axis``, the
+``model`` group) its rows of the scores and of ``gt_matches0``. The loss
 returned is the global one, on every rank; its gradient is this rank's share:
-the terms of its rows over the global counts, and the replicated dustbin
-row's terms over the number of ranks, so that they count once. The parameter
-gradients summed over the ranks are then the global loss's.
+the terms of its elements over the GLOBAL batch size, within an element the
+terms of its rows over the counts of every ``model`` rank, and the
+replicated dustbin row's terms over the number of ``model`` ranks, so that
+they count once. The shares over the world sum to the one-process loss, and
+so do the parameter gradients summed over the world.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 import torch.distributed as dist
 
 from openglue_tpu_torch.geometry.transforms import pairwise_cosine_dist
-from openglue_tpu_torch.parallel.distributed import all_reduce_sum
+from openglue_tpu_torch.parallel.distributed import MeshGroups, all_reduce_sum
 
 _BIG = 1e9
 
@@ -45,28 +49,38 @@ def _rows_mean(values: torch.Tensor, mask: torch.Tensor, group) -> torch.Tensor:
     return torch.where(count > 0, total / torch.clamp(count, min=1.0), torch.zeros_like(total))
 
 
+def _global_value(share: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``share`` as the value, this rank's
+    ``share`` as the gradient."""
+    if group is None:
+        return share
+    return share + (all_reduce_sum(share.detach(), group) - share.detach())
+
+
 def matching_nll_loss(
-    gt_matches0: torch.Tensor, gt_matches1: torch.Tensor, scores: torch.Tensor, group=None
+    gt_matches0: torch.Tensor, gt_matches1: torch.Tensor, scores: torch.Tensor,
+    groups: Optional[MeshGroups] = None,
 ) -> torch.Tensor:
     """Negative log-likelihood of the GT assignment: gt_matches0 [B, N],
-    gt_matches1 [B, M], scores [B, N+1, M+1] log-assignment. With ``group``,
-    gt_matches0 and the scores' inner rows are this rank's."""
-    batch, n_aug, m_aug = scores.shape
+    gt_matches1 [B, M], scores [B, N+1, M+1] log-assignment. With
+    ``groups``, this rank's shard of them."""
+    groups = groups or MeshGroups()
+    ring = groups.model
+    rows, n_aug, m_aug = scores.shape
     n, m = n_aug - 1, m_aug - 1
     matched0 = gt_matches0 >= 0
     gt_cols = gt_matches0.clamp(0, m - 1).long()
     matched_ll = torch.gather(scores[:, :n, :m], 2, gt_cols[:, :, None])[..., 0]
     unmatched1_loss = _per_image_mean(-scores[:, n, :m], gt_matches1 == -1)
-    if group is None:
+    if ring is None:
         matched_loss = _per_image_mean(-matched_ll, matched0)
         unmatched0_loss = _per_image_mean(-scores[:, :n, m], gt_matches0 == -1)
-        total = matched_loss + 0.5 * (unmatched0_loss + unmatched1_loss)
-        return total.sum() / batch
-    matched_loss = _rows_mean(-matched_ll, matched0, group)
-    unmatched0_loss = _rows_mean(-scores[:, :n, m], gt_matches0 == -1, group)
-    unmatched1_loss = unmatched1_loss / dist.get_world_size(group)
-    share = (matched_loss + 0.5 * (unmatched0_loss + unmatched1_loss)).sum() / batch
-    return share + (all_reduce_sum(share.detach(), group) - share.detach())
+    else:
+        matched_loss = _rows_mean(-matched_ll, matched0, ring)
+        unmatched0_loss = _rows_mean(-scores[:, :n, m], gt_matches0 == -1, ring)
+        unmatched1_loss = unmatched1_loss / dist.get_world_size(ring)
+    share = (matched_loss + 0.5 * (unmatched0_loss + unmatched1_loss)).sum() / (rows * groups.data_size)
+    return _global_value(share, groups.world)
 
 
 def metric_learning_loss(
@@ -77,10 +91,14 @@ def metric_learning_loss(
     margin: float,
     mask0: Optional[torch.Tensor] = None,
     mask1: Optional[torch.Tensor] = None,
+    groups: Optional[MeshGroups] = None,
 ) -> torch.Tensor:
     """Triplet + margin losses on the cosine distances of the context
     descriptors [B, N, D] / [B, M, D]; the hardest negatives are mined on the
-    detached distance matrix with the positives and invalid pairs at 1e9."""
+    detached distance matrix with the positives and invalid pairs at 1e9.
+    With ``groups`` (a ``data`` axis; the ring is not ported), this rank's
+    rows of the global batch."""
+    groups = groups or MeshGroups()
     batch, n = gt_matches0.shape
     m = gt_matches1.shape[1]
     device = gdesc0.device
@@ -109,7 +127,8 @@ def metric_learning_loss(
     dist_for_min = torch.where(pair_valid, dist, _BIG)
     margin0 = _per_image_mean(torch.clamp(margin - dist_for_min.amin(dim=2), min=0.0), gt_matches0 == -1)
     margin1 = _per_image_mean(torch.clamp(margin - dist_for_min.amin(dim=1), min=0.0), gt_matches1 == -1)
-    return (triplet + margin0 + margin1).sum() / batch
+    share = (triplet + margin0 + margin1).sum() / (batch * groups.data_size)
+    return _global_value(share, groups.world)
 
 
 def criterion(
@@ -118,18 +137,18 @@ def criterion(
     margin: Optional[float] = None,
     mask0: Optional[torch.Tensor] = None,
     mask1: Optional[torch.Tensor] = None,
-    group=None,
+    groups: Optional[MeshGroups] = None,
 ) -> Dict[str, torch.Tensor]:
     """{"loss": NLL, "metric_loss": metric loss or 0 when margin is None}."""
-    if group is not None and margin is not None:
+    if groups is not None and groups.model is not None and margin is not None:
         raise NotImplementedError("not ported yet: the metric-learning loss with ring_axis")
-    nll = matching_nll_loss(y_true["gt_matches0"], y_true["gt_matches1"], y_pred["scores"], group)
+    nll = matching_nll_loss(y_true["gt_matches0"], y_true["gt_matches1"], y_pred["scores"], groups)
     if margin is None:
         metric = torch.zeros((), dtype=nll.dtype, device=nll.device)
     else:
         metric = metric_learning_loss(
             y_true["gt_matches0"], y_true["gt_matches1"],
             y_pred["context_descriptors0"], y_pred["context_descriptors1"],
-            margin, mask0=mask0, mask1=mask1,
+            margin, mask0=mask0, mask1=mask1, groups=groups,
         )
     return {"loss": nll, "metric_loss": metric}

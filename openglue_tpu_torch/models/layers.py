@@ -59,13 +59,15 @@ class MaskedBatchNorm(nn.Module):
     that is run again to rebuild activations (``frozen_running_statistics``)
     must count once.
 
-    ``group``, set by a model whose keypoints are sharded over a process group
-    (``SuperGlue`` with ``ring_axis``), makes the training statistics those of
-    every rank's valid keypoints, as GSPMD makes them in the JAX package: the
-    count and the masked sum are all-reduced, then the masked sum of squared
-    deviations from the global mean, with differentiable all-reduces. The
-    running statistics then move alike on every rank; eval needs no
-    collective."""
+    ``group`` makes the training statistics those of every rank's valid
+    keypoints, as GSPMD makes them in the JAX package: the count and the
+    masked sum are all-reduced, then the masked sum of squared deviations
+    from the global mean, with differentiable all-reduces. A model whose
+    keypoints are sharded (``SuperGlue`` with ``ring_axis``) sets it to the
+    ring's group; a data-parallel step (``parallel.shard_train_step``) to
+    the whole data x model world (``set_batch_norm_group``). The running
+    statistics then move with the global count, alike on every rank; eval
+    needs no collective."""
 
     def __init__(
         self,
@@ -107,6 +109,14 @@ class MaskedBatchNorm(nn.Module):
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight + self.bias
         return y.to(self.dtype or x.dtype)
+
+
+def set_batch_norm_group(module: nn.Module, group) -> None:
+    """Every ``MaskedBatchNorm`` under ``module`` takes its training
+    statistics over ``group`` (None: this process's batch alone)."""
+    for m in module.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.group = group
 
 
 @contextlib.contextmanager

@@ -52,7 +52,7 @@ import torch
 from torch import nn
 
 from openglue_tpu_torch.models.gnn import AttentionGNN
-from openglue_tpu_torch.models.layers import Conv1x1, MaskedBatchNorm
+from openglue_tpu_torch.models.layers import Conv1x1, set_batch_norm_group
 from openglue_tpu_torch.models.matching import assignment_stats
 from openglue_tpu_torch.models.positional_encoding import MLPPositionalEncoding
 from openglue_tpu_torch.ops import sinkhorn as sinkhorn_ops
@@ -207,9 +207,7 @@ class SuperGlue(nn.Module):
             if isinstance(module, Conv1x1):
                 module.reset_parameters(generator)
         self.positional_encoding.reset_parameters(generator)
-        for module in self.modules():
-            if isinstance(module, MaskedBatchNorm):
-                module.group = self.ring_group
+        set_batch_norm_group(self, self.ring_group)
         self.to(device)
 
     def calibrate(self, **inputs) -> Dict[str, torch.Tensor]:

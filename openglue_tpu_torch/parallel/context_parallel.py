@@ -12,32 +12,31 @@ a mesh makes the collectives the global program needs, and ``gather_rows`` /
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from openglue_tpu_torch.core.types import KeypointSet, PairBatch, Transformation
+from openglue_tpu_torch.core.types import PairBatch, map_tensors
 from openglue_tpu_torch.parallel.distributed import all_gather
-from openglue_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+from openglue_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size_rank, local_batch_slice, shard_train_step
 
 _KEYPOINT_FIELDS = ("keypoints", "descriptors", "side_info", "mask")
 
 
-def _model_axis(mesh: DeviceMesh):
-    names = mesh.mesh_dim_names or ()
-    if DATA_AXIS in names and mesh.size(names.index(DATA_AXIS)) > 1:
-        raise NotImplementedError("not ported yet: a data axis of size > 1 (data parallelism)")
-    if MODEL_AXIS not in names:
-        raise ValueError(f"the mesh has no {MODEL_AXIS!r} axis: {names}")
-    return mesh.size(names.index(MODEL_AXIS)), mesh.get_local_rank(MODEL_AXIS)
-
-
 def shard_pair_batch_cp(batch: PairBatch, mesh: DeviceMesh) -> PairBatch:
-    """This rank's contiguous slice of the keypoints of both images
+    """This rank's shard of a global pair batch: its rows by its rank on the
+    ``data`` axis (``local_batch_slice``), and of those rows its contiguous
+    slice of the keypoints of both images by its rank on the ``model`` axis
     (keypoints, descriptors, side info, masks, per-keypoint depths); image
     sizes, the homography or the pose and intrinsics, and dense depth maps
-    stay whole. Both keypoint counts must divide by the ``model`` axis."""
-    size, rank = _model_axis(mesh)
+    keep every keypoint. Both keypoint counts must divide by the ``model``
+    axis."""
+    if MODEL_AXIS not in (mesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh has no {MODEL_AXIS!r} axis: {mesh.mesh_dim_names}")
+    size, rank = axis_size_rank(mesh, MODEL_AXIS)
+    start, stop = local_batch_slice(batch.side0.keypoints.shape[0], mesh)
+    batch = map_tensors(batch, lambda t: t[start:stop])
 
     def cut(x):
         n = x.shape[1]
@@ -56,6 +55,18 @@ def shard_pair_batch_cp(batch: PairBatch, mesh: DeviceMesh) -> PairBatch:
             if (d := getattr(tf, name)) is not None and d.dim() == 2
         })
     return PairBatch(sides[0], sides[1], tf)
+
+
+def shard_train_step_cp(train_step: Callable, mesh: DeviceMesh) -> Callable:
+    """A ``(state, batch) -> metrics`` step over a GLOBAL pair batch for each
+    rank of a data x model mesh (port of JAX's ``shard_train_step_cp``): the
+    rank takes its shard (``shard_pair_batch_cp``) and runs
+    ``mesh.shard_train_step``'s step, so that the ring runs over the
+    ``model`` group while the BatchNorm statistics, the loss's value and the
+    gradients are summed over both axes. The model is a ``SuperGlue`` with
+    ``ring_axis`` on ``mesh``."""
+    step = shard_train_step(train_step, mesh)
+    return lambda state, batch: step(state, shard_pair_batch_cp(batch, mesh))
 
 
 def gather_pair_batch(batch: PairBatch, group) -> PairBatch:

@@ -3,9 +3,18 @@
 ``lax.ppermute``, ``psum``, ``pmax`` and GSPMD's gathers do in the JAX package).
 
 ``initialize`` starts ``torch.distributed`` with NCCL for ``device_type="cuda"``
-and gloo for ``"cpu"``; nothing falls back from one to the other. Nothing on a
-machine tells a process of its job, so the caller gives the address
-(``tcp://127.0.0.1:<port>``), the world size and the rank.
+and gloo for ``"cpu"``, or with the ``backend`` its caller names (gloo on
+"cuda" puts several ranks on one card, which NCCL refuses); nothing falls back
+from one to the other. The caller gives the address
+(``tcp://127.0.0.1:<port>``), the world size and the rank, or a launcher such
+as torchrun names the job in the environment (``MASTER_ADDR``, ``WORLD_SIZE``,
+``RANK``, ``LOCAL_RANK``).
+
+A data x model mesh has three groups (``MeshGroups``): the ``data`` group
+(ranks that hold other rows of the global batch), the ``model`` group (ranks
+that hold other keypoints of the same rows: the ring) and the whole world,
+over which the gradients, the BatchNorm statistics and the loss's value are
+summed.
 
 The differentiable collectives follow one rule: each rank's loss is its share
 of the global loss (the shares sum to it), and each collective's backward is
@@ -17,8 +26,9 @@ global loss's.
 
 from __future__ import annotations
 
+import dataclasses
 import os
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -29,21 +39,36 @@ def initialize(
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
     device_type: str = "cuda",
+    backend: Optional[str] = None,
 ) -> bool:
-    """Start the default process group: NCCL on "cuda", gloo on "cpu".
-    Returns True when a group is (or already was) initialized, False when
-    nothing names a job (no arguments and no ``MASTER_ADDR``). On "cuda" the
+    """Start the default process group: ``backend``, else NCCL on "cuda" and
+    gloo on "cpu". Returns True when a group is (or already was) initialized,
+    False when nothing names a job (no arguments and no ``MASTER_ADDR``); a
+    ``WORLD_SIZE`` above 1 without ``MASTER_ADDR`` raises. On "cuda" the
     process takes the card ``LOCAL_RANK`` (or its rank modulo the cards)."""
     if dist.is_initialized():
         return True
     if init_method is None and world_size is None and "MASTER_ADDR" not in os.environ:
+        named = int(os.environ.get("WORLD_SIZE", "1"))
+        if named > 1:
+            raise RuntimeError(f"WORLD_SIZE={named} names a job of {named} processes, but MASTER_ADDR is not "
+                               "set: start the job with a launcher such as torchrun")
         return False
-    backend = {"cuda": "nccl", "cpu": "gloo"}[device_type]
+    backend = backend or {"cuda": "nccl", "cpu": "gloo"}[device_type]
     if device_type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", rank if rank is not None else 0))
         torch.cuda.set_device(local % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=init_method, world_size=world_size, rank=rank)
     return True
+
+
+def data_parallel_world_size() -> int:
+    """The number of processes the job trains on: ``torch.distributed``'s
+    world size when it is initialized, else ``WORLD_SIZE`` as a launcher
+    such as torchrun sets it, else 1."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 def is_main_process() -> bool:
@@ -56,6 +81,41 @@ def barrier() -> None:
     """Every process of the job meets here."""
     if dist.is_initialized():
         dist.barrier()
+
+
+def broadcast_from_first(tensors: Sequence[torch.Tensor], group) -> None:
+    """Overwrite each tensor, in place, with its value on the group's first
+    rank: one broadcast per dtype and device of flat copies."""
+    by_kind = {}
+    for t in tensors:
+        by_kind.setdefault((t.dtype, t.device), []).append(t)
+    src = dist.get_global_rank(group, 0)
+    for same in by_kind.values():
+        flat = torch.cat([t.detach().reshape(-1) for t in same])
+        dist.broadcast(flat, src=src, group=group)
+        with torch.no_grad():
+            for t, part in zip(same, torch.split(flat, [t.numel() for t in same])):
+                t.copy_(part.view_as(t))
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshGroups:
+    """The process groups a training step reduces over; each is None where
+    it would hold one rank. ``data``: the ranks holding other rows of the
+    global batch; ``model``: the ranks holding other keypoints of the same
+    rows (the ring); ``world``: every rank of the mesh."""
+
+    data: Optional[Any] = None
+    model: Optional[Any] = None
+    world: Optional[Any] = None
+
+    @property
+    def data_size(self) -> int:
+        return 1 if self.data is None else dist.get_world_size(self.data)
+
+    @property
+    def data_rank(self) -> int:
+        return 0 if self.data is None else dist.get_rank(self.data)
 
 
 class _AllReduceSum(torch.autograd.Function):

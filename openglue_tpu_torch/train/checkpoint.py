@@ -12,6 +12,11 @@ Two tiers:
   * the matcher's weights alone in the JAX package's npz format
     (``save_weights``), so that a file written by either package warm-starts
     the other.
+
+A data-parallel state is the same on every rank, so one file holds it: rank
+0 writes it (``train.loop.fit``) and every rank restores the same file. It
+does not depend on the world size: a checkpoint written at one world size
+resumes at another.
 """
 
 from __future__ import annotations

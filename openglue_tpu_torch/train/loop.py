@@ -5,9 +5,17 @@ Each epoch: ``steps_per_epoch`` train steps (reference
 limit_train_batches=steps_per_epoch, train.py:77), then a validation sweep
 with the epipolar and pose-AUC metrics, then a checkpoint (every epoch kept).
 FAVOR projections are redrawn every ``favor_redraw_interval`` steps (reference
-utils/lightning_callbacks.py:10-14). Metrics go to TensorBoard through
-tensorboardX when it is installed and a log_dir is given, and to W&B when
-enabled and installed; only the main process logs.
+utils/lightning_callbacks.py:10-14), from a generator of the same seed on
+every rank, so that data-parallel ranks draw the same matrices. Metrics go to
+TensorBoard through tensorboardX when it is installed and a log_dir is given,
+and to W&B when enabled and installed; only the main process logs and writes
+checkpoints, and every rank waits for the checkpoint before it goes on.
+
+Data parallelism: each rank drives the loop with its own loaders (its rows
+of each global training batch, its share of the validation pairs, a tail of
+any size included); a data-parallel step (``parallel.shard_train_step``)
+returns the global batch's metrics on every rank, and the validation metrics
+gather every rank's pairs (``metrics.py``'s ``sync``).
 
 The step's metrics are 0-dim tensors on the model's device: they are read
 (which waits for the device) only at log steps, and the loop counts steps on
@@ -27,7 +35,7 @@ import torch
 from openglue_tpu_torch.core.types import PairBatch, map_tensors
 from openglue_tpu_torch.data.collate import resize_keypoint_axis
 from openglue_tpu_torch.metrics import CameraPoseAUC, EpipolarDistanceMetric, HomographyPrecisionMetric
-from openglue_tpu_torch.parallel.distributed import is_main_process
+from openglue_tpu_torch.parallel.distributed import barrier, is_main_process
 from openglue_tpu_torch.train.checkpoint import save_train_state
 from openglue_tpu_torch.train.state import TrainState, clone_train_state
 from openglue_tpu_torch.train.step import redraw_favor_projections
@@ -289,9 +297,11 @@ def fit(
                 print(f"epoch {epoch} val ({time.time() - t_eval:.1f}s): "
                       + " ".join(f"{k}={v:.4f}" for k, v in eval_metrics.items()), flush=True)
 
-        if config.checkpoint_dir and is_main_process():
-            path = save_train_state(config.checkpoint_dir, state)
-            print(f"epoch {epoch}: checkpoint {path}", flush=True)
+        if config.checkpoint_dir:
+            if is_main_process():
+                path = save_train_state(config.checkpoint_dir, state)
+                print(f"epoch {epoch}: checkpoint {path}", flush=True)
+            barrier()
         if is_main_process():
             print(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s", flush=True)
 

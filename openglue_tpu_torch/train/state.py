@@ -4,6 +4,11 @@ of ``openglue_tpu/train/state.py``).
 The optimizer is the JAX package's ``optax.chain(clip_by_global_norm(c),
 adam(schedule))``: global-norm gradient clipping, Adam, and a per-step
 exponential learning-rate decay, optionally after a linear warmup.
+
+A data-parallel state (``TrainState.replicate``, which
+``parallel.shard_train_step`` calls) is the same on every rank: rank 0's
+parameters and buffers at its start, then the same update from the summed
+gradients at every step, as the JAX package's replicated state is.
 """
 
 from __future__ import annotations
@@ -14,6 +19,9 @@ from typing import Callable, Iterable, Optional, Sequence
 
 import torch
 from torch import nn
+
+from openglue_tpu_torch.models.layers import set_batch_norm_group
+from openglue_tpu_torch.parallel.distributed import MeshGroups, broadcast_from_first
 
 Schedule = Callable[[int], float]
 
@@ -126,12 +134,26 @@ def make_online_optimizer(
 @dataclasses.dataclass
 class TrainState:
     """The model, whose parameters and buffers (the BatchNorm running
-    statistics) the step updates, its optimizer, and the number of updates
-    taken."""
+    statistics) the step updates, its optimizer, the number of updates
+    taken, and the groups of a data-parallel or ring step (None: the
+    model's ring group alone, if it has one)."""
 
     model: nn.Module
     optimizer: ClippedAdam
     step: int = 0
+    groups: Optional[MeshGroups] = None
+
+    def replicate(self, groups: MeshGroups) -> "TrainState":
+        """Make this the state of one rank of ``groups``' mesh: every
+        parameter and buffer broadcast from the world's rank 0 (the Adam
+        moments are alike already: restored from one checkpoint, or none),
+        every BatchNorm's statistics taken over the world, and the step's
+        groups set. Returns the state."""
+        if groups.world is not None:
+            broadcast_from_first([*self.model.parameters(), *self.model.buffers()], groups.world)
+            set_batch_norm_group(self.model, groups.world)
+        self.groups = groups
+        return self
 
 
 def create_train_state(

@@ -6,13 +6,16 @@ One step: GT match generation from the pair's geometry -> SuperGlue forward
 in training mode -> weighted NLL (+ metric) loss -> backward -> clipped Adam
 update. The BatchNorm running statistics update during the forward.
 
-A model with a ``ring_group`` (``SuperGlue`` with ``ring_axis``) takes this
-rank's shard of the batch (``parallel.shard_pair_batch_cp``): the GT comes
-from the gathered keypoints of both images (the mutual check needs them all)
-and keeps this rank's rows of image 0; the loss is the global one with this
-rank's share as its gradient; the parameter gradients are summed over the
-group before clipping and Adam, so that every rank takes the same step, as
-the JAX package's ``shard_train_step_cp`` with a replicated state does.
+A data-parallel state (``state.groups``, set by ``parallel.shard_train_step``)
+takes this rank's rows of the global batch; a model with a ``ring_group``
+(``SuperGlue`` with ``ring_axis``) this rank's shard of their keypoints
+(``parallel.shard_pair_batch_cp``): the GT then comes from the gathered
+keypoints of both images (the mutual check needs them all) and keeps this
+rank's rows of image 0. The loss is the global one with this rank's share as
+its gradient; the parameter gradients are summed over the world (data x
+model) before clipping and Adam, so that every rank takes the same step and
+the metrics are the global batch's, as the JAX package's ``shard_train_step``
+and ``shard_train_step_cp`` with a replicated state do.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from openglue_tpu_torch.losses import criterion
 from openglue_tpu_torch.models.matching import decode_from_output
 from openglue_tpu_torch.ops.attention import sample_orthogonal_random_matrix
 from openglue_tpu_torch.parallel.context_parallel import gather_pair_batch
-from openglue_tpu_torch.parallel.distributed import all_reduce_sum
+from openglue_tpu_torch.parallel.distributed import MeshGroups, all_reduce_sum
 from openglue_tpu_torch.train.state import TrainState, global_norm
 
 
@@ -45,6 +48,15 @@ class LossConfig:
     gt_parity_mode: bool = False
 
 
+def step_groups(state: TrainState) -> MeshGroups:
+    """The groups a step of ``state`` reduces over: ``state.groups``, else
+    the model's ring group as both the model group and the world."""
+    if state.groups is not None:
+        return state.groups
+    ring = getattr(state.model, "ring_group", None)
+    return MeshGroups(model=ring, world=ring)
+
+
 def make_train_step(loss_config: LossConfig) -> Callable[[TrainState, PairBatch], Dict[str, torch.Tensor]]:
     """(state, batch) -> metrics: ``total_loss``, ``nll_loss``,
     ``metric_loss`` and ``grad_norm`` (of the unclipped gradients), as 0-dim
@@ -52,7 +64,8 @@ def make_train_step(loss_config: LossConfig) -> Callable[[TrainState, PairBatch]
 
     def train_step(state: TrainState, batch: PairBatch) -> Dict[str, torch.Tensor]:
         s0, s1 = batch.side0, batch.side1
-        group = getattr(state.model, "ring_group", None)
+        groups = step_groups(state)
+        group = groups.model
         whole = batch if group is None else gather_pair_batch(batch, group)
         with torch.no_grad():
             gt = generate_gt_matches(
@@ -67,24 +80,24 @@ def make_train_step(loss_config: LossConfig) -> Callable[[TrainState, PairBatch]
             gt["gt_matches0"] = gt["gt_matches0"][:, start:start + n_loc]
         model = state.model.train()
         out = model(**superglue_inputs(batch))
-        return _apply_loss(state, gt, out, s0.mask, s1.mask, loss_config, group)
+        return _apply_loss(state, gt, out, s0.mask, s1.mask, loss_config, groups)
 
     return train_step
 
 
 def _apply_loss(state: TrainState, gt: Dict[str, torch.Tensor], out: Dict[str, torch.Tensor],
                 mask0: torch.Tensor, mask1: torch.Tensor, loss_config: LossConfig,
-                group=None) -> Dict[str, torch.Tensor]:
+                groups: MeshGroups) -> Dict[str, torch.Tensor]:
     """The second half of a training step: the weighted loss of ``out``
-    against ``gt``, backward (the gradients summed over ``group`` when there
+    against ``gt``, backward (the gradients summed over the world when there
     is one), the clipped update and the step's metrics."""
-    losses = criterion(gt, out, margin=loss_config.margin, mask0=mask0, mask1=mask1, group=group)
+    losses = criterion(gt, out, margin=loss_config.margin, mask0=mask0, mask1=mask1, groups=groups)
     total = (loss_config.nll_weight * losses["loss"]
              + loss_config.metric_weight * losses["metric_loss"])
     state.optimizer.zero_grad()
     total.backward()
-    if group is not None:
-        _sum_gradients(state.optimizer.params, group)
+    if groups.world is not None:
+        _sum_gradients(state.optimizer.params, groups.world)
     grad_norm = global_norm([p.grad for p in state.optimizer.params if p.grad is not None])
     state.optimizer.step(grad_norm)
     state.step += 1
@@ -139,15 +152,21 @@ def make_online_train_step(
     batch's transformation -> SuperGlue -> loss -> backward -> clipped Adam.
     ``state.model`` is a ``MatchingModule``; the batch a dict with image0/1
     [B, H, W] and a ``Transformation`` on the model's device. Returns the
-    metrics of ``make_train_step``."""
+    metrics of ``make_train_step``. A data-parallel rank draws the
+    augmentation of the whole global batch and keeps its rows, as GSPMD
+    gives each device its slice of JAX's global draws, so that the global
+    batch is the one a single process augments."""
     from openglue_tpu_torch.augmentations import get_augmentation_transform
 
     augment = get_augmentation_transform(augmentation)
 
     def train_step(state: TrainState, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         image0, image1 = batch["image0"], batch["image1"]
+        groups = step_groups(state)
+        local = image0.shape[0]
+        rows = (groups.data_rank * local, local * groups.data_size)
         generator = step_generator(seed, state.step, image0.device)
-        image0, image1 = augment(generator, image0), augment(generator, image1)
+        image0, image1 = augment(generator, image0, rows), augment(generator, image1, rows)
         model = state.model.train()
         out, pair = model(image0, image1)
         s0, s1 = pair.side0, pair.side1
@@ -158,7 +177,7 @@ def make_online_train_step(
                 negative_threshold=loss_config.negative_threshold,
                 mask0=s0.mask, mask1=s1.mask, parity_mode=loss_config.gt_parity_mode,
             )
-        return _apply_loss(state, gt, out, s0.mask, s1.mask, loss_config)
+        return _apply_loss(state, gt, out, s0.mask, s1.mask, loss_config, groups)
 
     return train_step
 

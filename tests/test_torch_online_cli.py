@@ -4,8 +4,8 @@ weak_color_aug and the homography-precision validation) and ``cli.train``
 on tests/test_data.py's MegaDepth fixture (with the pose validation), each
 to a checkpoint; ``cli.inference.initialize_matcher`` serving the
 pretraining experiment with the extractor its checkpoint holds; resuming;
-and the refusals: a data-parallel world above one process (module 10a) and
-``--device cuda`` without a card."""
+and the refusals: a data-parallel world that WORLD_SIZE names without the
+address of its rendezvous, and ``--device cuda`` without a card."""
 
 import numpy as np
 import pytest
@@ -113,7 +113,8 @@ def test_refusals(pretrained, monkeypatch):
             pretrain_homography.main(args)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--config", str(pretrained["config"])])
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
     for main in (pretrain_homography.main, train.main):
-        with pytest.raises(NotImplementedError, match="module 10a"):
+        with pytest.raises(RuntimeError, match="MASTER_ADDR is not set"):
             main(args + ["--device", "cpu"])

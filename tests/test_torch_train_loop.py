@@ -31,7 +31,7 @@ from openglue_tpu.train import loop as jax_loop
 from openglue_tpu.train.step import make_eval_step as jax_make_eval_step
 from openglue_tpu.train.step import make_train_step as jax_make_train_step
 from openglue_tpu.train.step import superglue_inputs as jax_superglue_inputs
-from openglue_tpu_torch import metrics
+from openglue_tpu_torch import metrics, parallel
 from openglue_tpu_torch.cli import common, train_cached
 from openglue_tpu_torch.compat.jax_weights import superglue_state_dict_from_jax
 from openglue_tpu_torch.data.collate import stack_keypoints_batch
@@ -394,12 +394,17 @@ def test_train_cached_refuses_what_is_not_ported(tmp_path, extra, argv, match):
 
 
 def test_train_cached_refuses_data_parallel_worlds(tmp_path, monkeypatch):
+    """A data-parallel world trains (tests/test_torch_data_parallel.py), but
+    one that WORLD_SIZE names without the address of its rendezvous
+    (MASTER_ADDR, as torchrun sets it) is refused."""
     args = _cli_fixture(tmp_path)
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="module 10a"):
+    assert parallel.data_parallel_world_size() == 2
+    with pytest.raises(RuntimeError, match="MASTER_ADDR is not set"):
         train_cached.main(args + ["--device", "cpu"])
     monkeypatch.setenv("WORLD_SIZE", "1")
-    assert train_cached.data_parallel_world_size() == 1
+    assert parallel.data_parallel_world_size() == 1
 
 
 def test_dataset_refuses_device_descriptors(tmp_path):
