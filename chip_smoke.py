@@ -84,7 +84,9 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    (kernel rows of the profile only);
 6. the cached-feature trainer (``trainer_phase``): ``cli.train_cached.main``
    as a user runs it, with configs/config_cached_sp_magicleap.yaml (B=12,
-   max 1024 keypoints, buckets 256/512/1024 grouped, 4 loader threads) and
+   max 1024 keypoints, buckets 256/512/1024 grouped, 4 loader threads, the
+   device-resident descriptor cache of 512 slots of 2048 rows as the config
+   writes it: its hits, misses and copied bytes) and
    an override, on the MegaDepth-format fixture at
    examples/train_e2e_fixture.yaml's generator arguments, its h5 files held
    in memory (the card machine has no h5py): the warm-up at every bucket,
@@ -95,15 +97,27 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    each bucket from a copy of the state, kernels against plain (the run's
    bf16 chain by its distance from the plain f32 step, an f32 chain at the
    training bars); a restore that resumes bit for bit, and a resume through
-   ``--checkpoint``; then data parallelism (``data_parallel_phase``): the
+   ``--checkpoint``; then the cache against host mode (``cache_twin_phase``):
+   the trainer from the same seeded weights on the same rows, 4 steps with
+   the cache and 4 with the descriptors in every batch, the descriptors, the
+   losses, the gradient norms and the parameters after each step bit for
+   bit, each mode's bytes to the card per step, loader wait and step time;
+   then data parallelism (``data_parallel_phase``): the
    same trainer at world 2, two processes on the card in a gloo group (NCCL
    refuses two ranks on one device; what it says is printed), each with 6 of
-   the 12 rows of every global batch, 4 steps and a validation sweep: the
+   the 12 rows of every global batch and a cache of its own, 4 steps and a
+   validation sweep, again in host mode on the same rows (bit for bit), and
+   in host mode with an f32 chain: the
    launches of every step and eval batch, both ranks' parameters equal bit
    for bit after every step, each step's loss and gradient norm and the final
    state against the same global batches at world 1, at the B=12 training
    bars; each rank's step time, the gradient all-reduce's host time and the
-   idle share of one step;
+   idle share of one step; then ``cli.train_cached --checkify``
+   (``checkify_phase``, a process of its own under ``timeout``): 2 checked
+   steps with the unchecked step's launches and, from the same state on the
+   same batch, its losses and gradient norms; a NaN in one valid descriptor
+   row raising at the first aten op that computed a NaN, and one in K4's
+   input raising under K4's name;
 7. the serving and evaluation entry points (``serving_cli_phase``) at the
    SIFT serving shape (configs/features/sift_opencv.yaml: D=128, up to 2048
    keypoints, the CLI's 960x720 target) with the flagship matcher section:
@@ -2378,14 +2392,15 @@ def sync_sites(fn):
 
 def trainer_override(root: Path, logs: Path, steps: int, val_pairs_per_scene: int) -> dict:
     """The trainer phases' override of configs/config_cached_sp_magicleap.yaml:
-    the fixture under ``root``, the card's descriptors sent with each batch
-    (device_descriptor_cache 0), one epoch of ``steps`` steps and a
-    validation of ``val_pairs_per_scene`` pairs of each validation scene."""
+    the fixture under ``root``, one epoch of ``steps`` steps and a
+    validation of ``val_pairs_per_scene`` pairs of each validation scene.
+    The device-resident descriptor cache stays as the config writes it (512
+    slots of 2048 rows)."""
     return {
         "data": {"root_path": str(root), "features_dir": "SyntheticSphere_640_480",
                  "train_list_path": "assets/megadepth_train.txt",
                  "val_list_path": "assets/megadepth_valid.txt",
-                 "device_descriptor_cache": 0, "dataloader_workers": 4,
+                 "dataloader_workers": 4,
                  # the fixture's images are 640x480, smaller than the flagship's 960x720
                  "target_size": [640, 480], "val_max_pairs_per_scene": val_pairs_per_scene},
         "logging": {"root_path": str(logs)},
@@ -2398,11 +2413,13 @@ def trainer_phase(card, repo: Path, store: "MemoryH5", work: Path, device="cuda"
     on the MegaDepth-format fixture at examples/train_e2e_fixture.yaml's
     generator arguments, with configs/config_cached_sp_magicleap.yaml (the
     flagship: D=256, 9 stages, B=12, max 1024 keypoints, buckets 256/512/1024
-    grouped) and an override naming the fixture, the card's one process
-    (device_descriptor_cache 0), one epoch of TRAINER_STEPS steps and a
+    grouped) and an override naming the fixture, one epoch of TRAINER_STEPS steps and a
     validation sweep of 48 pairs. data.io's three h5 functions are an
     in-memory store (``MemoryH5``); the pairs lists, configs, logging
-    directory and checkpoints are files. Checks: 36 K4 + 36 K5 + 1 K2 + 1 K3
+    directory and checkpoints are files. The config's device-resident
+    descriptor cache (512 slots of 2048 rows of 256) holds the descriptors;
+    its hits, misses and copied bytes are printed. Checks: the cache as the
+    config writes it, 36 K4 + 36 K5 + 1 K2 + 1 K3
     per train step and no autograd-route Sinkhorn backward, 36 K1 + 1 K2 per
     eval batch; the first step of each bucket (warm-up and training) from a
     copy of the state, kernels against plain: in the run's bf16 chain every
@@ -2421,7 +2438,7 @@ def trainer_phase(card, repo: Path, store: "MemoryH5", work: Path, device="cuda"
     import yaml
 
     from openglue_tpu_torch.cli import common, train_cached
-    from openglue_tpu_torch.data import fixture, io
+    from openglue_tpu_torch.data import device_cache, fixture, io
     from openglue_tpu_torch.data import loader as loader_mod
     from openglue_tpu_torch.models.superglue import SuperGlue
     from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
@@ -2458,14 +2475,16 @@ def trainer_phase(card, repo: Path, store: "MemoryH5", work: Path, device="cuda"
                   (loop, "warm_up_buckets", probe.warm_up(loop.warm_up_buckets)),
                   (loop, "evaluate", probe.evaluate(loop.evaluate)),
                   (loader_mod.DataLoader, "__iter__", probe.loader_iter(loader_mod.DataLoader.__iter__)))
+        cache_record = CacheRecord()
         for counter in counters.values():
             counter.reset()
         start = time.perf_counter()
-        with replaced(*probes):
+        with replaced(*probes, *cache_record.entries(device_cache)):
             state = train_cached.main(argv)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - start
         launches = {k: c.count for k, c in counters.items()}
+        print_cache_run(cache_record, config, card, "trainer")
 
         # ---- the readings of the run
         check(state.step == TRAINER_STEPS, f"trainer: state.step {state.step}, expected {TRAINER_STEPS}")
@@ -2596,13 +2615,403 @@ def trainer_phase(card, repo: Path, store: "MemoryH5", work: Path, device="cuda"
                           eval_batches=probe.eval_batches)
 
 
+def nbytes(batch) -> int:
+    """The bytes of every tensor of a batch (or of a tensor)."""
+    from openglue_tpu_torch.core.types import map_tensors
+
+    total = []
+    map_tensors(batch, lambda t: total.append(t.numel() * t.element_size()) or t)
+    return sum(total)
+
+
+class CacheRecord:
+    """``replaced`` entries (``entries``) under which every
+    ``DeviceDescriptorCache`` that ``cli.train_cached.main`` builds records
+    itself and, for each ``DeviceDescBatch`` it moves, the bytes that went
+    to the card (the light fields, the index tensors and the missed blocks),
+    the hits, the misses and the host time of the call."""
+
+    def __init__(self):
+        self.caches, self.calls = [], []
+
+    def entries(self, device_cache):
+        from openglue_tpu_torch.data.collate import DeviceDescBatch
+
+        record = self
+
+        class Recorded(device_cache.DeviceDescriptorCache):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, **kwargs)
+                record.caches.append(self)
+
+            def to_device(self, item):
+                before = (self.bytes_copied, self.hits, self.misses)
+                start = time.perf_counter()
+                out = super().to_device(item)
+                if isinstance(item, DeviceDescBatch):
+                    record.calls.append(dict(
+                        bytes=nbytes(item.batch) + nbytes(item.index0) + nbytes(item.index1)
+                        + self.bytes_copied - before[0], hits=self.hits - before[1], misses=self.misses - before[2],
+                        ms=(time.perf_counter() - start) * 1e3))
+                return out
+
+        return ((device_cache, "DeviceDescriptorCache", Recorded),)
+
+
+def print_cache_run(record: CacheRecord, config, card, name):
+    """Check that the run kept the config's cache, and print what it did."""
+    slots, cap = int(config.get("data.device_descriptor_cache")), int(config.get("data.device_cache_cap"))
+    check(len(record.caches) == 1 and record.caches[0].slots == slots and record.caches[0].cap == cap,
+          f"{name}: caches {[(c.slots, c.cap) for c in record.caches]}, expected one of {slots} x {cap}")
+    cache = record.caches[0]
+    total = cache.hits + cache.misses
+    sent = [c["bytes"] for c in record.calls]
+    print(f"{name} device descriptor cache: {cache.slots} slots x {cache.cap} x {cache.dim} {str(cache.dtype)[6:]} "
+          f"({cache.cache.numel() * cache.cache.element_size() / 2**20:.0f} MiB on the card), {cache.hits} hits and "
+          f"{cache.misses} misses over {len(record.calls)} batches (hit rate {cache.hits / max(total, 1):.4f}), "
+          f"{len(cache.slot_of)} slots in use, {cache.bytes_copied / 2**20:.1f} MiB of blocks copied; bytes to the "
+          f"card per batch (light fields, indices, missed blocks) mean {statistics.mean(sent):.0f}, median "
+          f"{statistics.median(sent):.0f}; to_device host ms median {statistics.median(c['ms'] for c in record.calls):.3f} "
+          f"[{card}]", flush=True)
+
+
+def seeded_collates(seed: int):
+    """``replaced`` entries under which both collates of data/collate.py draw
+    from one generator seeded with ``seed``: with one loader thread, host
+    mode and the device cache's collate pick the same rows of the same
+    samples."""
+    import numpy as np
+
+    from openglue_tpu_torch.data import collate
+
+    rng = np.random.default_rng(seed)
+    return tuple((collate, name, lambda samples, _real=getattr(collate, name), **kw: _real(samples, rng=rng, **kw))
+                 for name in ("stack_keypoints_batch", "stack_keypoints_batch_device"))
+
+
+# the device-cache twin (cache_twin_phase): the flagship trainer in host mode
+# and with the cache, TWIN_STEPS steps each on the same rows
+TWIN_STEPS = 4
+
+
+def run_trainer_mode(argv, counters, expected, name):
+    """``cli.train_cached.main(argv)`` with seeded collates: per train step the
+    loss and gradient norm, the launches (held to ``expected``), the
+    synchronized step time, the descriptors the step saw, the parameters
+    after it and the bytes of the batch; the train loader's waits; the
+    CacheRecord. Returns (state, steps, waits, cache record)."""
+    from openglue_tpu_torch.cli import train_cached
+    from openglue_tpu_torch.data import device_cache
+    from openglue_tpu_torch.train import step as step_mod
+
+    steps, waits, cache_record = [], [], CacheRecord()
+    real_make, real_build = step_mod.make_train_step, train_cached.build_dataloaders
+
+    def make(loss_config):
+        step = real_make(loss_config)
+
+        def probed(state, batch):
+            torch.cuda.synchronize()
+            before = {k: c.count for k, c in counters.items()}
+            start = time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3
+            delta = {k: c.count - before[k] for k, c in counters.items()}
+            check(delta == expected, f"{name} step {len(steps)}: launches {delta}, expected {expected}")
+            steps.append(dict(loss=metrics["total_loss"].item(), norm=metrics["grad_norm"].item(), ms=ms,
+                              n=batch.side0.keypoints.shape[1], bytes=nbytes(batch),
+                              desc=(batch.side0.descriptors.clone(), batch.side1.descriptors.clone()),
+                              params=torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])))
+            return metrics
+
+        return probed
+
+    def build(*args, **kwargs):
+        train_loader, val_fn = real_build(*args, **kwargs)
+
+        def timed():
+            it = iter(train_loader)
+            while True:
+                start = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                waits.append((time.perf_counter() - start) * 1e3)
+                yield batch
+
+        return timed(), val_fn
+
+    with replaced(*seeded_collates(0), (step_mod, "make_train_step", make), (train_cached, "build_dataloaders", build),
+                  *cache_record.entries(device_cache)):
+        state = train_cached.main(argv)
+    check(len(steps) == TWIN_STEPS, f"{name}: {len(steps)} steps")
+    return state, steps, waits, cache_record
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits, so that +0.0 and -0.0 differ."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+
+
+def cache_twin_phase(card, repo: Path, store: "MemoryH5", work: Path, device="cuda"):
+    """The flagship trainer (configs/config_cached_sp_magicleap.yaml on the
+    trainer phase's fixture) twice from the same seeded weights and on the
+    same rows: in host mode (device_descriptor_cache 0: the descriptors ride
+    every batch) and with the device-resident descriptor cache as the config
+    writes it (512 slots of 2048 rows; a batch carries row indices). One
+    loader thread and one seeded generator for both collates make the rows
+    the same; no warm-up. Checks: the descriptors each step sees, the
+    losses, the gradient norms and the parameters after each of TWIN_STEPS
+    steps bit for bit, the final states (running statistics included), and
+    36 K4 + 36 K5 + 1 K2 + 1 K3 per step in both. Prints each mode's bytes
+    sent to the card per step, loader wait (one thread: reading, collate and
+    pinning) and step time, and the cache's hits and misses. Returns the
+    launches of both runs by kernel."""
+    import yaml
+
+    from openglue_tpu_torch.cli import common
+    from openglue_tpu_torch.data import io
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+
+    start = time.perf_counter()
+    base = repo / "configs" / "config_cached_sp_magicleap.yaml"
+    counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter, "K4": glk.message_counter,
+                "K5": glk.message_bwd_counter, "autograd_sinkhorn": sk.autograd_counter}
+    for counter in counters.values():
+        counter.reset()
+    runs = {}
+    with replaced(*store.entries(io)):
+        for mode in ("host", "device"):
+            override = trainer_override(work / "megadepth", work / f"logs_twin_{mode}", TWIN_STEPS,
+                                        val_pairs_per_scene=1)
+            override["data"]["dataloader_workers"] = 0
+            override["train"]["precompile_buckets"] = False
+            if mode == "host":
+                override["data"]["device_descriptor_cache"] = 0
+            (work / f"twin_{mode}.yaml").write_text(yaml.safe_dump(override))
+            argv = ["--config", str(base), "--config_override", str(work / f"twin_{mode}.yaml"), "--device", device]
+            config = common.load_merged_config(str(base), str(work / f"twin_{mode}.yaml"))
+            layers = 2 * int(config.get("superglue.attention_gnn.num_stages")) * 2
+            expected = {"K1": 0, "K2": 1, "K3": 1, "K4": layers, "K5": layers, "autograd_sinkhorn": 0}
+            runs[mode] = (config, *run_trainer_mode(argv, counters, expected, f"cache twin {mode}"))
+    (_, host_state, host, host_waits, _), (config, dev_state, dev, dev_waits, record) = runs["host"], runs["device"]
+    print_cache_run(record, config, card, "cache twin")
+    for i, (a, b) in enumerate(zip(host, dev)):
+        same = dict(descriptors=all(x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+                                    for x, y in zip(a["desc"], b["desc"])),
+                    loss=a["loss"] == b["loss"], norm=a["norm"] == b["norm"],
+                    parameters=torch.equal(bits(a["params"]), bits(b["params"])))
+        print(f"cache twin step {i} N={a['n']}: host mode loss {a['loss']!r} norm {a['norm']!r}; cache loss "
+              f"{b['loss']!r} norm {b['norm']!r}; bit-equal: {json.dumps(same)}; bytes to the card: host mode "
+              f"{a['bytes']} (descriptors {sum(nbytes(d) for d in a['desc'])}), cache {record.calls[i]['bytes']} "
+              f"({record.calls[i]['misses']} misses, {record.calls[i]['hits']} hits); step ms host mode "
+              f"{a['ms']:.3f}, cache {b['ms']:.3f} [{card}]", flush=True)
+        check(all(same.values()), f"cache twin step {i}: not bit-equal: {same}")
+    final = dev_state.model.state_dict()
+    check(all(torch.equal(bits(v), bits(final[k])) for k, v in host_state.model.state_dict().items()
+              if v.is_floating_point()), "cache twin: the final states differ")
+    print(f"cache twin: {TWIN_STEPS} steps in each mode bit-equal (descriptors, losses, gradient norms, parameters, "
+          f"final state with running statistics); bytes to the card per train step: host mode "
+          f"{statistics.mean(s['bytes'] for s in host):.0f}, cache "
+          f"{statistics.mean(c['bytes'] for c in record.calls[:TWIN_STEPS]):.0f}; loader wait median (one loader "
+          f"thread: reading, collate, pinning) host mode {statistics.median(host_waits):.3f} ms, cache "
+          f"{statistics.median(dev_waits):.3f} ms; step median host mode "
+          f"{statistics.median(s['ms'] for s in host):.3f} ms, cache {statistics.median(s['ms'] for s in dev):.3f} ms; "
+          f"the phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
+    return {k: c.count for k, c in counters.items()}
+
+
+# the checkify phase (checkify_phase): cli.train_cached --checkify in a process
+# of its own under coreutils' timeout
+CHECKIFY_STEPS = 2
+CHECKIFY_TIMEOUT = 300  # seconds
+
+
+def checkify_child(work: str) -> None:
+    """The checkify phase's process: ``cli.train_cached.main`` with
+    ``--checkify`` for CHECKIFY_STEPS steps on the trainer phase's fixture
+    (the h5 store the phase saved), each step's launches counted and the
+    state and batch it started from kept; each step again unchecked from
+    that state on that batch; then the checked step on a batch with a NaN in
+    one valid descriptor row, and on the first batch with a NaN planted in
+    the input of the first K4 launch. Writes ``checkify.json``."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    from openglue_tpu_torch import debugging
+    from openglue_tpu_torch.cli import common, train_cached
+    from openglue_tpu_torch.core.types import KeypointSet, PairBatch
+    from openglue_tpu_torch.data import io
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.train import step as step_mod
+    from openglue_tpu_torch.train.state import clone_train_state
+
+    work = Path(work)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    store = MemoryH5()
+    store.files = torch.load(work / "store.pt", weights_only=False)
+    argv = json.loads((work / "checkify_argv.json").read_text())
+    config = common.load_merged_config(argv[1], argv[3])
+    counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter, "K4": glk.message_counter,
+                "K5": glk.message_bwd_counter, "autograd_sinkhorn": sk.autograd_counter}
+    counts = lambda: {k: c.count for k, c in counters.items()}
+    out = dict(steps=[], replays=[])
+    kept, wrappers = [], []
+    real_make, real_checked = step_mod.make_train_step, debugging.checked
+
+    def checked(fn, *args, **kwargs):
+        wrapper = real_checked(fn, *args, **kwargs)
+        wrappers.append(wrapper)
+        return wrapper
+
+    def make(loss_config):
+        step = real_make(loss_config)
+
+        def probed(state, batch):
+            saved = clone_train_state(state)
+            torch.cuda.synchronize()
+            before, start = counts(), time.perf_counter()
+            metrics = step(state, batch)
+            torch.cuda.synchronize()
+            out["steps"].append(dict(loss=metrics["total_loss"].item(), norm=metrics["grad_norm"].item(),
+                                     launches={k: v - before[k] for k, v in counts().items()},
+                                     ms=(time.perf_counter() - start) * 1e3, n=batch.side0.keypoints.shape[1]))
+            kept.append((saved, batch))
+            return metrics
+
+        return probed
+
+    start = time.perf_counter()
+    with replaced(*store.entries(io), (step_mod, "make_train_step", make), (debugging, "checked", checked)):
+        state = train_cached.main(argv + ["--checkify"])
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - start
+    out["state_step"] = int(state.step)
+    # the checked wrapper main built wraps the probed step: its last call's ops
+    seen = wrappers[0].seen if wrappers else collections.Counter()
+    out["ops"] = sum(seen.values())
+    out["backward_ops"] = sum(v for k, v in seen.items() if k.endswith("_backward"))
+    out["op_kinds"] = len(seen)
+
+    plain = real_make(common.loss_config_from(config))
+    for saved, batch in kept:
+        before, start = counts(), time.perf_counter()
+        metrics = plain(clone_train_state(saved), batch)
+        torch.cuda.synchronize()
+        out["replays"].append(dict(loss=metrics["total_loss"].item(), norm=metrics["grad_norm"].item(),
+                                   launches={k: v - before[k] for k, v in counts().items()},
+                                   ms=(time.perf_counter() - start) * 1e3))
+
+    saved, batch = kept[0]
+    mask = batch.side0.mask[0]
+    row = int(mask.nonzero()[0, 0])
+    desc = batch.side0.descriptors.clone()
+    desc[0, row, 0] = float("nan")
+    s0 = batch.side0
+    bad = PairBatch(KeypointSet(s0.keypoints, desc, s0.side_info, s0.mask, s0.image_size), batch.side1,
+                    batch.transformation)
+    real_forward = glk.message_forward
+
+    def planted(x_q, *args, **kwargs):  # a NaN in the input of every K4 launch, put there unseen by the mode
+        with _disable_current_modes():
+            x_q = x_q.clone()
+            x_q[0, 0, 0] = float("nan")
+        return real_forward(x_q, *args, **kwargs)
+
+    for what, case, entries in (("descriptor", bad, ()), ("k4_input", batch, ((glk, "message_forward", planted),))):
+        start = time.perf_counter()
+        out[what] = None
+        try:
+            with replaced(*entries):
+                real_checked(plain)(clone_train_state(saved), case)
+        except debugging.CheckError as exc:
+            out[what] = str(exc)
+        torch.cuda.synchronize()
+        out[f"{what}_ms"] = (time.perf_counter() - start) * 1e3
+    out["descriptor_row"] = row
+    (work / "checkify.json").write_text(json.dumps(out))
+
+
+def checkify_phase(card, repo: Path, store: "MemoryH5", work: Path, device="cuda"):
+    """``cli.train_cached --checkify`` (``checkify_child``, in a process of
+    its own under coreutils' ``timeout``) on the flagship config with the
+    cache as written, CHECKIFY_STEPS steps and a validation of one pair a
+    scene. Checks: the checked steps' launches are the unchecked step's (36
+    K4 + 36 K5 + 1 K2 + 1 K3), each step's loss and gradient norm equal the
+    unchecked step's from the same state on the same batch, the dispatch
+    mode saw the backward's ops, a NaN in one valid descriptor row raises
+    naming an aten op, and a NaN in K4's input raises naming K4. Returns the
+    launches of the checked steps by kernel."""
+    import yaml
+
+    from openglue_tpu_torch.cli import common
+    from openglue_tpu_torch.data import fixture, io
+
+    start = time.perf_counter()
+    base = repo / "configs" / "config_cached_sp_magicleap.yaml"
+    if not store.files:  # run alone: the trainer phase's fixture
+        with replaced(*store.entries(io)):
+            fixture.generate_megadepth_fixture(work / "megadepth", **TRAINER_FIXTURE)
+    if not (work / "store.pt").exists():
+        torch.save(store.files, work / "store.pt")
+    override = trainer_override(work / "megadepth", work / "logs_checkify", CHECKIFY_STEPS, val_pairs_per_scene=1)
+    (work / "checkify.yaml").write_text(yaml.safe_dump(override))
+    argv = ["--config", str(base), "--config_override", str(work / "checkify.yaml"), "--device", device]
+    (work / "checkify_argv.json").write_text(json.dumps(argv))
+    config = common.load_merged_config(str(base), str(work / "checkify.yaml"))
+    layers = 2 * int(config.get("superglue.attention_gnn.num_stages")) * 2
+    expected = {"K1": 0, "K2": 1, "K3": 1, "K4": layers, "K5": layers, "autograd_sinkhorn": 0}
+    env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "WORLD_SIZE", "RANK")}
+    env["PYTHONPATH"] = str(repo)
+    code = (f"import sys; sys.path.insert(0, {str(repo)!r}); import chip_smoke; "
+            f"chip_smoke.checkify_child({str(work)!r})")
+    done = subprocess.run(["timeout", "-k", "10", str(CHECKIFY_TIMEOUT), sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True)
+    took = time.perf_counter() - start
+    check(done.returncode == 0, f"checkify: exit {done.returncode} after {took:.1f} s:\n{done.stdout[-3000:]}\n"
+                                f"{done.stderr[-6000:]}")
+    out = json.loads((work / "checkify.json").read_text())
+    check(out["state_step"] == CHECKIFY_STEPS and len(out["steps"]) == CHECKIFY_STEPS,
+          f"checkify: {len(out['steps'])} checked steps, state.step {out['state_step']}")
+    for i, (got, plain) in enumerate(zip(out["steps"], out["replays"])):
+        print(f"checkify step {i} N={got['n']}: checked loss {got['loss']!r} norm {got['norm']!r} in "
+              f"{got['ms']:.1f} ms; unchecked from the same state on the same batch loss {plain['loss']!r} norm "
+              f"{plain['norm']!r} in {plain['ms']:.1f} ms; launches checked {json.dumps(got['launches'])}, "
+              f"unchecked {json.dumps(plain['launches'])} [{card}]", flush=True)
+        check(got["launches"] == plain["launches"] == expected,
+              f"checkify step {i}: launches {got['launches']} / {plain['launches']}, expected {expected}")
+        check(got["loss"] == plain["loss"] and got["norm"] == plain["norm"],
+              f"checkify step {i}: the checked step differs from the unchecked one")
+    print(f"checkify: the dispatch mode checked {out['ops']} aten ops of {out['op_kinds']} kinds in the last "
+          f"checked step, {out['backward_ops']} of them backward ops; a NaN in descriptor row {out['descriptor_row']} "
+          f"of pair 0: {out['descriptor']!r} ({out['descriptor_ms']:.1f} ms); a NaN in the first K4 launch's input: "
+          f"{out['k4_input']!r} ({out['k4_input_ms']:.1f} ms); main() with --checkify {out['run_s']:.1f} s, the "
+          f"phase {took:.1f} s under timeout {CHECKIFY_TIMEOUT} s [{card}]", flush=True)
+    check(out["backward_ops"] > 0, "checkify: the dispatch mode saw no backward op")
+    check(bool(out["descriptor"]) and out["descriptor"].startswith("nan generated by aten."),
+          f"checkify: a NaN in a descriptor row gave {out['descriptor']!r}")
+    check(bool(out["k4_input"]) and "K4 message_forward kernel" in out["k4_input"],
+          f"checkify: a NaN in K4's input gave {out['k4_input']!r}")
+    launches = collections.Counter()
+    for got in out["steps"]:
+        launches.update(got["launches"])
+    return dict(launches)
+
+
 # the data-parallel phase (data_parallel_phase): cli.train_cached at world 2,
 # two processes on the one card over gloo (NCCL refuses two ranks on one
-# device), each step held against world 1 in this process. Two runs: the
-# flagship as written (its bf16 chain), then its f32-chain twin
-# (chain_dtype null), as the trainer phase holds its steps
+# device), each step held against world 1 in this process. Three runs: the
+# flagship as written (its bf16 chain, a device descriptor cache on each
+# rank), the same in host mode on the same rows (both with one loader thread
+# and seeded collates), then the f32-chain twin (chain_dtype null) in host
+# mode, as the trainer phase holds its steps
 DP_WORLD, DP_VAL_PAIRS = 2, 6
-DP_RUNS = {"bf16": 4, "f32": 2}  # chain -> steps
+DP_RUNS = {"bf16": 4, "bf16_host": 4, "f32": 2}  # run -> steps
+DP_SEEDED = ("bf16", "bf16_host")  # the runs held against each other bit for bit
 DP_PROFILED = 2  # the flagship run's step (from 0, after the warm-up) under torch.profiler
 DP_BARS = dict(loss_tol=1e-3, norm_tol=0.01, cos_min=0.999, stats_tol=1e-3)  # the B=12 training bars
 DP_TIMEOUT = 300  # seconds for the ranks
@@ -2650,9 +3059,10 @@ def data_parallel_rank(rank: int, port: int, work: str) -> None:
     saved. Every train step (the warm-up's too) and eval batch is checked
     for its launches; after each step of a run the ranks' parameters are
     gathered and held equal bit for bit; the gradient all-reduce is timed on
-    the host; one step of the flagship run runs under torch.profiler. Rank
-    0 writes the state each step starts from and its gradient; each rank
-    writes its readings and its batches."""
+    the host; one step of the flagship run runs under torch.profiler; the
+    DP_SEEDED runs draw their rows from seeded collates. Rank 0 writes the
+    state each step starts from and its gradient; each rank writes its
+    readings and its batches."""
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
@@ -2766,7 +3176,8 @@ def data_parallel_rank(rank: int, port: int, work: str) -> None:
 
         with replaced(*store.entries(io), (step_mod, "make_train_step", make_train_step),
                       (step_mod, "make_eval_step", make_eval_step), (step_mod, "_sum_gradients", sum_gradients),
-                      (loop, "warm_up_buckets", warm_up), (loop, "evaluate", evaluate)):
+                      (loop, "warm_up_buckets", warm_up), (loop, "evaluate", evaluate),
+                      *(seeded_collates(0) if chain in DP_SEEDED else ())):
             state = train_cached.main(argv)
         check(state.step == steps and len(rec["steps"]) == steps,
               f"data_parallel {chain} rank {rank}: {len(rec['steps'])} steps, state.step {state.step}")
@@ -2818,10 +3229,14 @@ def data_parallel_phase(card, repo: Path, store: "MemoryH5", work: Path, device=
     (``data_parallel_rank``) on the one card in a gloo group, each running
     ``cli.train_cached.main`` with the trainer phase's flagship config and
     fixture (global B=12, 6 rows a rank, buckets 256/512/1024 grouped,
-    use_pallas, device_descriptor_cache 0) and a validation sweep, then the
-    same with an f32 chain. Checks each rank's launches per step (36 K4 +
-    36 K5 + 1 K2 + 1 K3) and per eval batch (36 K1 + 1 K2) and the ranks'
-    parameters equal bit for bit after every step; then each step again at
+    use_pallas, a device descriptor cache of 512 slots on each rank) and a
+    validation sweep, the same in host mode (device_descriptor_cache 0) on
+    the same rows, then host mode with an f32 chain. Checks each rank's
+    launches per step (36 K4 + 36 K5 + 1 K2 + 1 K3) and per eval batch (36
+    K1 + 1 K2) and the ranks' parameters equal bit for bit after every step;
+    the cache run's steps bit for bit those of host mode (the descriptors,
+    the losses, the gradient norms, the parameters after each step); then
+    each step of the cache run and of the f32 run again at
     world 1 in this process, from the state the ranks started it from, on
     the global batch: the f32 chain at the B=12 training bars (loss, norm,
     cosine, statistics; the parameters after the step at the statistics'
@@ -2855,6 +3270,10 @@ def data_parallel_phase(card, repo: Path, store: "MemoryH5", work: Path, device=
         override = trainer_override(root, work / f"logs_dp_{chain}", steps, val_pairs_per_scene=DP_VAL_PAIRS)
         if chain == "f32":
             override["superglue"] = {"chain_dtype": None}
+        if chain != "bf16":
+            override["data"]["device_descriptor_cache"] = 0
+        if chain in DP_SEEDED:
+            override["data"]["dataloader_workers"] = 0
         (work / f"dp_{chain}.yaml").write_text(yaml.safe_dump(override))
         argv = ["--config", str(base), "--config_override", str(work / f"dp_{chain}.yaml"), "--device", device]
         (work / f"dp_{chain}_argv.json").write_text(json.dumps(argv))
@@ -2894,6 +3313,25 @@ def data_parallel_phase(card, repo: Path, store: "MemoryH5", work: Path, device=
                   f"and {len(steps)} steps at {layers} K4 + {layers} K5 + 1 K2 + 1 K3 each, {rank['eval_batches']} "
                   f"eval batches at {layers} K1 + 1 K2 each; launches {json.dumps(rank['launches'])}; validation "
                   f"{json.dumps(rank['eval_metrics'])} [{card}]", flush=True)
+
+        if chain == "bf16_host":  # ---- the cache run against host mode, step by step
+            cached = [torch.load(work / "dp_bf16" / f"rank{r}.pt", weights_only=False) for r in range(DP_WORLD)]
+            for i in range(DP_RUNS[chain]):
+                a = torch.load(out / f"{i + 1}.pt", weights_only=False)["model"]
+                b = torch.load(work / "dp_bf16" / f"{i + 1}.pt", weights_only=False)["model"]
+                same = dict(
+                    descriptors=all(torch.equal(bits(getattr(x["batches"][i], s).descriptors),
+                                                bits(getattr(y["batches"][i], s).descriptors))
+                                    for x, y in zip(ranks, cached) for s in ("side0", "side1")),
+                    losses=all(x["steps"][i]["loss"] == y["steps"][i]["loss"] for x, y in zip(ranks, cached)),
+                    norms=all(x["steps"][i]["norm"] == y["steps"][i]["norm"] for x, y in zip(ranks, cached)),
+                    parameters=all(torch.equal(bits(v), bits(b[k])) for k, v in a.items() if v.is_floating_point()))
+                print(f"data_parallel step {i} N={ranks[0]['steps'][i]['n']}, world {DP_WORLD}: the device cache "
+                      f"(one per rank) against host mode on the same rows, bit-equal {json.dumps(same)} [{card}]",
+                      flush=True)
+                if not all(same.values()):
+                    failures.append(f"cache step {i}: {same}")
+            continue
 
         # ---- each step again at world 1, on its global batch, from the state the ranks started it from
         config = common.load_merged_config(str(base), str(work / f"dp_{chain}.yaml"))
@@ -4304,7 +4742,9 @@ def main() -> int:
     store, work = MemoryH5(), Path(tempfile.mkdtemp(prefix="chip-smoke-"))
     try:
         trainer, trained = trainer_phase(card, repo, store, work)
+        twin = cache_twin_phase(card, repo, store, work)
         data_parallel = data_parallel_phase(card, repo, store, work)
+        checkify = checkify_phase(card, repo, store, work)
         serving_cli = serving_cli_phase(card, repo, store, work, trained)
         extractors = device_extractors_phase(card, repo, store, work)
         online = online_trainer_phase(card, repo, store, work)
@@ -4329,11 +4769,12 @@ def main() -> int:
              f32=dict(k1[torch.float32], library_ms=None),
              dh32=dh32(k1_32[torch.bfloat16], k1_32[torch.float32]), sift_launches=wider[sift]["K1"],
              trainer_launches=trainer["K1"], data_parallel_launches=data_parallel["K1"],
-             serving_cli_launches=serving_cli["K1"],
+             cache_twin_launches=twin["K1"], serving_cli_launches=serving_cli["K1"],
              device_extractors_launches=extractors["K1"], online_trainer_launches=online["K1"]),
         dict(name="sinkhorn_scale (f32 K, B=16 N=1024)", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:128", launches=n1024,
              train_launches=train["K2"], trainer_launches=trainer["K2"], data_parallel_launches=data_parallel["K2"],
+             cache_twin_launches=twin["K2"], checkify_launches=checkify["K2"],
              serving_cli_launches=serving_cli.get("K2 torch.float32", 0),
              device_extractors_launches=extractors.get("K2 torch.float32", 0),
              online_trainer_launches=online["K2"],
@@ -4357,7 +4798,8 @@ def main() -> int:
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315", **streaming, library_ms=None),
         dict(name="sinkhorn_adjoint (f32 K, B=12 N=1024 T=20)", route="cuda", source=csrc + "sinkhorn_adjoint.cu",
              replaces=pallas + "sinkhorn_kernel.py:548", launches=train["K3"], trainer_launches=trainer["K3"],
-             data_parallel_launches=data_parallel["K3"],
+             data_parallel_launches=data_parallel["K3"], cache_twin_launches=twin["K3"],
+             checkify_launches=checkify["K3"],
              online_trainer_launches=online["K3"], **k3, library_ms=None),
         dict(name="message_forward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_forward.cu", replaces=pallas + "gnn_layer_kernel.py:557",
@@ -4365,6 +4807,7 @@ def main() -> int:
              f32=dict(k45[torch.float32]["K4"], library_ms=None),
              dh32=dh32(k45_32[torch.bfloat16]["K4"], k45_32[torch.float32]["K4"]), pretrain_launches=pretrain["K4"],
              trainer_launches=trainer["K4"], data_parallel_launches=data_parallel["K4"],
+             cache_twin_launches=twin["K4"], checkify_launches=checkify["K4"],
              online_trainer_launches=online["K4"]),
         dict(name="message_backward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_backward.cu", replaces=pallas + "gnn_layer_kernel.py:627",
@@ -4373,6 +4816,7 @@ def main() -> int:
              dh32=dh32(k45_32[torch.bfloat16]["K5"], k45_32[torch.float32]["K5"]), pretrain_launches=pretrain["K5"],
              bf16_pass_launches=train["attn_bwd_bf16"], pretrain_bf16_pass_launches=pretrain["attn_bwd_bf16"],
              trainer_launches=trainer["K5"], data_parallel_launches=data_parallel["K5"],
+             cache_twin_launches=twin["K5"], checkify_launches=checkify["K5"],
              online_trainer_launches=online["K5"]),
         *[dict(name=f"gnn_layer_features {kind} (bf16, B=16 N=M=1024 D=256 H=4)", route="cuda",
                source=csrc + "gnn_layer_features.cu", replaces=pallas + "gnn_layer_kernel.py:117",

@@ -7,7 +7,7 @@ extract_features.py:103-104).
 
 Usage:
   python -m openglue_tpu_torch.cli.train_cached --config configs/config_cached.yaml \\
-      [--config_override my.yaml] [--checkpoint dir] [--smoke] [--device cuda|cpu]
+      [--config_override my.yaml] [--checkpoint dir] [--smoke] [--device cuda|cpu] [--checkify]
 
 The model trains on ``--device`` (default ``cuda``, which must be present).
 Data-parallel training runs one process per device under a launcher that
@@ -15,9 +15,15 @@ names the job, such as
 ``torchrun --nproc_per_node=N -m openglue_tpu_torch.cli.train_cached ...``
 (NCCL on cards, gloo with ``--device cpu``): ``data.batch_size`` is the
 global batch, each rank loads its rows of it, and every rank takes the step
-one process would take on the whole batch. Not ported yet, and refused:
-``data.device_descriptor_cache > 0`` (ROADMAP.md module 7) and
-``--checkify`` (module 11).
+one process would take on the whole batch.
+
+``data.device_descriptor_cache: S`` (S > 0) keeps each image's descriptors
+in a device-resident cache of S slots of ``data.device_cache_cap`` rows
+(data/device_cache.py), and a batch carries row indices instead of
+descriptors; every process of a data-parallel job keeps its own cache.
+``--checkify`` runs the train step under the NaN, division and index checks
+of ``debugging.checked`` (slower; one process only, and the bucket warm-up
+is skipped).
 """
 
 from __future__ import annotations
@@ -30,16 +36,17 @@ from pathlib import Path
 import torch
 
 from openglue_tpu_torch.cli import common
-from openglue_tpu_torch.parallel import initialize, local_batch_slice
+from openglue_tpu_torch.parallel import data_parallel_world_size, initialize, local_batch_slice
 
 
-def check_ported(config) -> None:
-    """Raise NotImplementedError for a setting this port cannot run yet."""
-    if int(config.get("data.device_descriptor_cache", 0) or 0) > 0:
-        raise NotImplementedError(
-            "data.device_descriptor_cache > 0 (the device-resident descriptor cache) is not "
-            "ported yet: ROADMAP.md module 7; set it to 0"
-        )
+def descriptor_transfer_dtype(config) -> torch.dtype:
+    """The type in which descriptors reach the device: bf16 for a model that
+    computes in bf16 (``superglue.dtype``) unless ``data.transfer_bf16`` is
+    false, f32 otherwise. Host mode casts the batch to it; the device cache
+    stores its blocks in it."""
+    bf16 = (str(config.get("superglue.dtype") or "") in ("bfloat16", "bf16")
+            and bool(config.get("data.transfer_bf16", True)))
+    return torch.bfloat16 if bf16 else torch.float32
 
 
 def build_dataloaders(config, laf_converter, pin_memory: bool = False):
@@ -52,9 +59,13 @@ def build_dataloaders(config, laf_converter, pin_memory: bool = False):
     samples its own stream (seeded by its rank). Validation is this
     process's share of the pairs, in batches of its share of the batch size.
     ``pin_memory``: the workers put each batch in page-locked memory for a
-    non-blocking copy to a CUDA device."""
+    non-blocking copy to a CUDA device. With ``data.device_descriptor_cache``
+    above 0 the datasets carry descriptor blocks and row indices and the
+    collate makes ``DeviceDescBatch``es (data/collate.py)."""
     from openglue_tpu_torch.data.bucketing import BucketGroupedIndexBatches
-    from openglue_tpu_torch.data.collate import cast_for_transfer, stack_keypoints_batch
+    from openglue_tpu_torch.data.collate import (
+        cast_for_transfer, stack_keypoints_batch, stack_keypoints_batch_device,
+    )
     from openglue_tpu_torch.data.loader import DataLoader
     from openglue_tpu_torch.data.megadepth import MegaDepthPairsDatasetFeatures
     from openglue_tpu_torch.data.sampler import BalancedSceneSampler, ShardedSequentialSampler
@@ -83,12 +94,14 @@ def build_dataloaders(config, laf_converter, pin_memory: bool = False):
     batch_size = stop - start
     cache_images = int(data.get("cache_images", 64))
     target_size = tuple(data.get("target_size", (960, 720)))
+    device_desc = int(data.get("device_descriptor_cache", 0) or 0) > 0
     train_ds = MegaDepthPairsDatasetFeatures(
         root, data["features_dir"], read_scene_list(data["train_list_path"]),
         target_size=target_size,
         random_crop=True,
         overlap=tuple(data["train_pairs_overlap"]) if data.get("train_pairs_overlap") else None,
         cache_images=cache_images,
+        device_descriptors=device_desc,
     )
     val_ds = MegaDepthPairsDatasetFeatures(
         root, data["features_dir"], read_scene_list(data["val_list_path"]),
@@ -96,15 +109,17 @@ def build_dataloaders(config, laf_converter, pin_memory: bool = False):
         random_crop=False,
         max_pairs_per_scene=data.get("val_max_pairs_per_scene"),
         cache_images=cache_images,
+        device_descriptors=device_desc,
     )
 
     def collate(random):
-        base = partial(stack_keypoints_batch, target_num_keypoints=num_kpts, random=random,
-                       laf_converter=laf_converter, buckets=buckets)
+        base = partial(stack_keypoints_batch_device if device_desc else stack_keypoints_batch,
+                       target_num_keypoints=num_kpts, random=random, laf_converter=laf_converter,
+                       buckets=buckets)
         # a bf16-compute model casts descriptors to bf16 on arrival: cast
-        # them here and the copy to the device halves (data.transfer_bf16)
-        cast = (str(config.get("superglue.dtype") or "") in ("bfloat16", "bf16")
-                and bool(data.get("transfer_bf16", True)))
+        # them (and side_info) here and the copy to the device halves
+        # (data.transfer_bf16); the device cache stores them in that type
+        cast = descriptor_transfer_dtype(config) == torch.bfloat16
         if not cast and not pin_memory:
             return base
 
@@ -154,14 +169,15 @@ def main(argv=None):
     parser.add_argument("--checkpoint", default=None, help="resume from this checkpoint dir")
     parser.add_argument("--smoke", action="store_true", help="tiny loop for CI")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    parser.add_argument("--checkify", action="store_true", help="not ported yet: ROADMAP.md module 11")
+    parser.add_argument("--checkify", action="store_true",
+                        help="run the train step under NaN, division and index checks (debugging; slower)")
     args = parser.parse_args(argv)
-    if args.checkify:
-        raise NotImplementedError("--checkify (NaN/Inf checks in the step) is not ported yet: "
-                                  "ROADMAP.md module 11")
+    if args.checkify and data_parallel_world_size() > 1:
+        # the JAX package keeps its checkify path to one process (its error
+        # reduction is not mesh-aware), and so does the port
+        raise ValueError(f"--checkify runs in one process; this job has {data_parallel_world_size()}")
 
     config = common.load_merged_config(args.config, args.config_override)
-    check_ported(config)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is available (pass --device cpu to train on the CPU)")
@@ -171,10 +187,10 @@ def main(argv=None):
         config["train"]["epochs"] = 1
 
     # Imported here, at call time, and not at module level: chip_smoke.py's
-    # trainer phase replaces make_train_step, make_eval_step and
-    # warm_up_buckets in their modules (and loop.evaluate and
-    # DataLoader.__iter__, which fit and build_dataloaders look up when they
-    # run) to count each step's launches.
+    # trainer phase replaces make_train_step, make_eval_step,
+    # warm_up_buckets and DeviceDescriptorCache in their modules (and
+    # loop.evaluate and DataLoader.__iter__, which fit and build_dataloaders
+    # look up when they run) to count each step's launches.
     from openglue_tpu_torch.core.config import load_config
     from openglue_tpu_torch.features.lafs import get_laf_to_sideinfo_converter
     from openglue_tpu_torch.models.superglue import SuperGlue
@@ -212,13 +228,27 @@ def main(argv=None):
 
     mesh, _, shard_train_step, _ = common.build_mesh_and_sharding(device.type)
     train_step = shard_train_step(make_train_step(common.loss_config_from(config)), mesh)
+    if args.checkify:
+        from openglue_tpu_torch.debugging import checked
+
+        train_step = checked(train_step)
     eval_step = make_eval_step(float(config.get("inference.match_threshold", 0.2)))
     to_device = partial(batch_to_device, device=device)
+    cache_slots = int(config.get("data.device_descriptor_cache", 0) or 0)
+    if cache_slots > 0:
+        # this process's cache over the rows it loads; its to_device installs
+        # a batch's missing images and gathers its descriptors, for the
+        # training, the warm-up and the validation
+        from openglue_tpu_torch.data.device_cache import DeviceDescriptorCache
+
+        to_device = DeviceDescriptorCache(cache_slots, cap=int(config.get("data.device_cache_cap", 2048)),
+                                          dim=descriptor_dim, dtype=descriptor_transfer_dtype(config),
+                                          device=device).to_device
 
     train_iter = iter(train_loader)
     first = next(train_iter)
     buckets = config.get("data.buckets")
-    if buckets and bool(config.get("train.precompile_buckets", True)):
+    if buckets and bool(config.get("train.precompile_buckets", True)) and not args.checkify:
         num_kpts = int(config.get("data.max_keypoints", 1024))
         warm_up_buckets(train_step, state, first, sorted({min(int(b), num_kpts) for b in buckets}), to_device)
 

@@ -155,6 +155,13 @@ class MegaDepthPairsDatasetFeatures:
     Sample dict: lafs0/1 [N, 2, 3], scores0/1 [N], descriptors0/1 [N, D],
     dense depth0/1 at the feature-extraction resolution (cropped),
     transformation, image sizes.
+
+    ``device_descriptors``: the contract of the device-resident descriptor
+    cache (data/device_cache.py). descriptors0/1 is then the image's
+    unfiltered pre-crop block (the image cache's array itself, not a copy:
+    do not mutate it), and the sample also carries ``desc_key0/1`` =
+    (scene, image) and ``desc_orig_idx0/1`` [N] int32, each surviving
+    keypoint's row in that block. Every other field is as in host mode.
     """
 
     def __init__(
@@ -170,11 +177,6 @@ class MegaDepthPairsDatasetFeatures:
         cache_images: int = 64,
         device_descriptors: bool = False,
     ):
-        if device_descriptors:
-            raise NotImplementedError(
-                "device_descriptors (the device-resident descriptor cache) is not ported yet: "
-                "ROADMAP.md module 7"
-            )
         self.index = MegaDepthPairsIndex(root_path, scenes_list, max_pairs_per_scene, overlap)
         self.root_path = Path(root_path)
         self.features_base_dir = self.root_path / features_dir
@@ -190,6 +192,7 @@ class MegaDepthPairsDatasetFeatures:
         self.cache_images = int(cache_images)
         self._image_cache: "OrderedDict[Tuple[str, str], tuple]" = OrderedDict()
         self._cache_lock = threading.Lock()
+        self.device_descriptors = bool(device_descriptors)
 
     def __len__(self) -> int:
         return len(self.index)
@@ -254,14 +257,18 @@ class MegaDepthPairsDatasetFeatures:
         return entry
 
     def _load_side(self, scene: str, img_name: str, K: np.ndarray):
-        """Returns (lafs, scores, descriptors, depth, K) of one image after
-        the crop."""
+        """Returns (lafs, scores, descriptors, depth, K, orig_idx) of one
+        image after the crop; ``orig_idx`` maps each surviving keypoint to
+        its row in the pre-crop arrays. With ``device_descriptors`` the
+        descriptors are the unfiltered pre-crop block (shared with the image
+        cache)."""
         lafs, scores, descriptors, depth, image_size, orig_size = self._load_image_raw(
             scene, img_name
         )
         K = np.diag(
             [image_size[0] / orig_size[0], image_size[1] / orig_size[1], 1.0]
         ).astype(np.float32) @ K
+        orig_idx = np.arange(lafs.shape[0], dtype=np.int32)
 
         tw, th = self.target_size
         if tw < image_size[0]:  # crop width
@@ -274,7 +281,9 @@ class MegaDepthPairsDatasetFeatures:
             keep = (lafs[:, 0, 2] >= start) & (lafs[:, 0, 2] < start + tw)
             K = K.copy(); K[0, 2] -= start
             lafs = lafs[keep]; lafs[:, 0, 2] -= start  # fresh array from the keep-filter
-            scores, descriptors = scores[keep], descriptors[keep]
+            scores, orig_idx = scores[keep], orig_idx[keep]
+            if not self.device_descriptors:
+                descriptors = descriptors[keep]
         elif th < image_size[1]:  # crop height
             start = (
                 int(self.rng.integers(0, image_size[1] - th))
@@ -285,14 +294,16 @@ class MegaDepthPairsDatasetFeatures:
             keep = (lafs[:, 1, 2] >= start) & (lafs[:, 1, 2] < start + th)
             K = K.copy(); K[1, 2] -= start
             lafs = lafs[keep]; lafs[:, 1, 2] -= start
-            scores, descriptors = scores[keep], descriptors[keep]
-        return lafs, scores, descriptors, depth, K
+            scores, orig_idx = scores[keep], orig_idx[keep]
+            if not self.device_descriptors:
+                descriptors = descriptors[keep]
+        return lafs, scores, descriptors, depth, K, orig_idx
 
     def __getitem__(self, idx: int) -> Dict:
         rec = self.index[idx]
-        lafs0, scores0, desc0, depth0, K0 = self._load_side(rec.scene, rec.img0, rec.K0)
-        lafs1, scores1, desc1, depth1, K1 = self._load_side(rec.scene, rec.img1, rec.K1)
-        return {
+        lafs0, scores0, desc0, depth0, K0, oi0 = self._load_side(rec.scene, rec.img0, rec.K0)
+        lafs1, scores1, desc1, depth1, K1, oi1 = self._load_side(rec.scene, rec.img1, rec.K1)
+        sample = {
             "lafs0": lafs0, "scores0": scores0, "descriptors0": desc0,
             "lafs1": lafs1, "scores1": scores1, "descriptors1": desc1,
             "transformation": {
@@ -303,3 +314,9 @@ class MegaDepthPairsDatasetFeatures:
             "image0_size": self.target_size,
             "image1_size": self.target_size,
         }
+        if self.device_descriptors:
+            sample["desc_key0"] = (rec.scene, rec.img0)
+            sample["desc_key1"] = (rec.scene, rec.img1)
+            sample["desc_orig_idx0"] = oi0
+            sample["desc_orig_idx1"] = oi1
+        return sample

@@ -54,14 +54,25 @@ _lock = threading.Lock()
 build_seconds: Dict[str, float] = {}
 
 
-class LaunchCounter:
-    """The number of times a wrapper launched its kernel."""
+# callables (kernel name, outputs) that ``debugging.checked`` installs while a
+# checked function runs: the dispatch mode that checks every aten op cannot
+# see inside a kernel launched through ctypes, so each wrapper hands its
+# outputs here after the launch
+output_checks: list = []
 
-    def __init__(self):
+
+class LaunchCounter:
+    """The number of times a wrapper launched its kernel. ``add`` takes the
+    launch's outputs for the checks a checked function installs."""
+
+    def __init__(self, name: str = ""):
+        self.name = name
         self.count = 0
 
-    def add(self) -> None:
+    def add(self, *outputs: torch.Tensor) -> None:
         self.count += 1
+        for check_outputs in output_checks:
+            check_outputs(self.name, outputs)
 
     def reset(self) -> None:
         self.count = 0

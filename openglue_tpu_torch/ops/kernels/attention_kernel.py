@@ -56,9 +56,9 @@ from openglue_tpu_torch.ops import kernels
 
 NEG_INF = -1e9
 
-counter = kernels.LaunchCounter()
-backward_counter = kernels.LaunchCounter()
-lse_counter = kernels.LaunchCounter()
+counter = kernels.LaunchCounter("K9 attention")
+backward_counter = kernels.LaunchCounter("K10 attention_backward")
+lse_counter = kernels.LaunchCounter("K11 attention_lse")
 # the launches of the bf16 forward kernel from every entry (K9, K11 and the
 # layer kernels K1, K4, K7, K8), counted by the C code where it launches it
 bf16_counter = kernels.LibraryLaunchCounter("attention.cuh", "og_attention_launches", 0)
@@ -168,7 +168,7 @@ def attention_forward(
     if q.device.type == "cpu":
         return attention_forward_plain(q, k, v, kv_mask, want_lse)
     result = _launch_forward(q, k, v, kv_mask, want_lse)
-    counter.add()
+    counter.add(*result)
     return result
 
 
@@ -181,7 +181,7 @@ def attention_lse_forward(
     if q.device.type == "cpu":
         return attention_forward_plain(q, k, v, kv_mask, True)
     result = _launch_forward(q, k, v, kv_mask, True)
-    lse_counter.add()
+    lse_counter.add(*result)
     return result
 
 
@@ -263,7 +263,7 @@ def attention_backward(
         (ctypes.c_longlong * 21)(*strides), kernels.stream_handle(device),
     )
     kernels.check(status, "og_attention_backward")
-    backward_counter.add()
+    backward_counter.add(dq, dk, dv)
     return dq, dk, dv
 
 

@@ -57,7 +57,7 @@ SITES = 5  # kv, xq, attn, cat, h1
 ATTENTION_SITES = 8  # + k_attn, v_attn, q_attn
 WIDTHS = (128, 256)  # the model widths D the kernel is instantiated for
 
-counter = kernels.LaunchCounter()
+counter = kernels.LaunchCounter("K7 gnn_layer_int8")
 # the kernels and memsets the layer's library launched, counted by its C code
 launch_counter = kernels.LibraryLaunchCounter("gnn_layer_int8.cu", "og_gnn_layer_int8_launches", 0)
 memset_counter = kernels.LibraryLaunchCounter("gnn_layer_int8.cu", "og_gnn_layer_int8_launches", 1)
@@ -479,5 +479,5 @@ def fused_attention_propagation_int8(
         workspace.data_ptr(), out.data_ptr(), kernels.stream_handle(device),
     )
     kernels.check(status, "og_gnn_layer_int8")
-    counter.add()
+    counter.add(out)
     return out

@@ -70,11 +70,11 @@ MAX_CLUSTER_CTAS = 8  # CTAs per (element, head): a portable cluster
 SMEM_CAP = 232448  # the shared memory one block may opt into on the H100
 H100_SMS = 132
 
-counter = kernels.LaunchCounter()
-feature_counter = kernels.LaunchCounter()
-message_counter = kernels.LaunchCounter()
-message_bwd_counter = kernels.LaunchCounter()
-half_counter = kernels.LaunchCounter()
+counter = kernels.LaunchCounter("K1 gnn_layer")
+feature_counter = kernels.LaunchCounter("K6 gnn_layer_features")
+message_counter = kernels.LaunchCounter("K4 message_forward")
+message_bwd_counter = kernels.LaunchCounter("K5 message_backward")
+half_counter = kernels.LaunchCounter("K8 train_half")
 
 
 class PropagationWeights(NamedTuple):
@@ -390,7 +390,7 @@ def fused_attention_propagation(
             workspace.data_ptr(), out.data_ptr(), kernels.stream_handle(device),
         )
         kernels.check(status, "og_gnn_layer")
-        counter.add()
+        counter.add(out)
         return out
     proj = projection.detach().float().contiguous() if favor else None
     shape_args = (is_bf16, batch, n, m, dim, num_heads, num_features)
@@ -409,7 +409,7 @@ def fused_attention_propagation(
         workspace.data_ptr(), out.data_ptr(), kernels.stream_handle(device),
     )
     kernels.check(status, "og_gnn_layer_features")
-    feature_counter.add()
+    feature_counter.add(out)
     return out
 
 
@@ -619,7 +619,7 @@ def message_forward(
         kernels.stream_handle(device),
     )
     kernels.check(status, "og_message_forward")
-    message_counter.add()
+    message_counter.add(msg, attn, lse)
     return msg, attn, lse
 
 
@@ -674,7 +674,7 @@ def message_backward(
         workspace.data_ptr(), kernels.stream_handle(device),
     )
     kernels.check(status, "og_message_backward")
-    message_bwd_counter.add()
+    message_bwd_counter.add(*outputs)
     grads = MessageWeights(dws[0], dbs[0], dws[1], dbs[1], dws[2], dbs[2], dws[3], dbs[3])
     return dxq, dxkv, grads
 
@@ -794,7 +794,7 @@ def train_half_forward(
         kernels.stream_handle(device),
     )
     kernels.check(status, "og_train_half")
-    half_counter.add()
+    half_counter.add(z, attn, lse)
     return z, attn, lse
 
 

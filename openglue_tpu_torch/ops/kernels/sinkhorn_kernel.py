@@ -81,11 +81,11 @@ COL_ALIGN = 8  # column pitch of M_pad and K: 16-byte aligned rows in f32 and bf
 # from about N=1280 up), so that the two packages' numbers agree.
 _VMEM_BUDGET_BYTES = 13 * 1024 * 1024
 
-counter = kernels.LaunchCounter()
-stream_counter = kernels.LaunchCounter()  # K2s, the wide kernel
-legacy_stream_counter = kernels.LaunchCounter()  # the streaming kernel past the wide plan's reach
-adjoint_counter = kernels.LaunchCounter()
-autograd_counter = kernels.LaunchCounter()  # backwards on the autograd route: no kernel
+counter = kernels.LaunchCounter("K2 sinkhorn_scale")
+stream_counter = kernels.LaunchCounter("K2s sinkhorn_scale_wide")  # the wide kernel
+legacy_stream_counter = kernels.LaunchCounter("K2 sinkhorn_scale_streaming")  # past the wide plan's reach
+adjoint_counter = kernels.LaunchCounter("K3 sinkhorn_adjoint")
+autograd_counter = kernels.LaunchCounter("autograd Sinkhorn backward")  # no kernel
 
 # the column limits of the fused forward kernel, by K's storage type; past
 # them ``sinkhorn_scale`` runs the wide kernel (``forward_route``)
@@ -465,7 +465,7 @@ def sinkhorn_scale(
             kernels.stream_handle(M_pad.device),
         )
         kernels.check(status, "og_sinkhorn_scale_wide")
-        stream_counter.add()
+        stream_counter.add(u)
         return u
     if route == "stream":
         K = torch.empty(batch, rows, cols, dtype=k_dtype, device=M_pad.device)
@@ -483,7 +483,7 @@ def sinkhorn_scale(
             kernels.stream_handle(M_pad.device),
         )
         kernels.check(status, "og_sinkhorn_scale_streaming")
-        legacy_stream_counter.add()
+        legacy_stream_counter.add(u)
         return u
     # K stays on chip: the workspace holds only the exchange between clusters
     # (and rows past the card's on-chip room, where the plan spills any)
@@ -498,7 +498,7 @@ def sinkhorn_scale(
         kernels.stream_handle(M_pad.device),
     )
     kernels.check(status, "og_sinkhorn_scale")
-    counter.add()
+    counter.add(u)
     return u
 
 
@@ -636,7 +636,7 @@ def sinkhorn_adjoint(
         kernels.stream_handle(device),
     )
     kernels.check(status, "og_sinkhorn_adjoint")
-    adjoint_counter.add()
+    adjoint_counter.add(P, Q)
     return P, Q
 
 

@@ -33,7 +33,7 @@ from typing import Callable, Dict, Iterable, Optional, Sequence
 import torch
 
 from openglue_tpu_torch.core.types import PairBatch, map_tensors
-from openglue_tpu_torch.data.collate import resize_keypoint_axis
+from openglue_tpu_torch.data.collate import DeviceDescBatch, resize_keypoint_axis
 from openglue_tpu_torch.metrics import CameraPoseAUC, EpipolarDistanceMetric, HomographyPrecisionMetric
 from openglue_tpu_torch.parallel.distributed import barrier, is_main_process
 from openglue_tpu_torch.train.checkpoint import save_train_state
@@ -121,11 +121,18 @@ class MetricsLogger:
             self.wandb_run.finish()
 
 
-def pin_batch(batch: PairBatch) -> PairBatch:
+def pin_batch(batch):
     """The batch in page-locked host memory, so that its copy to a CUDA
     device does not block the host (the loader's workers call this). A view
-    whose elements share memory (an expanded tensor) is made whole first."""
-    return map_tensors(batch, lambda t: t.contiguous().pin_memory())
+    whose elements share memory (an expanded tensor) is made whole first. A
+    ``DeviceDescBatch`` pins its light fields and index tensors; its
+    descriptor blocks stay where they are (the cache copies a block only on
+    a miss)."""
+    pin = lambda t: t.contiguous().pin_memory()
+    if isinstance(batch, DeviceDescBatch):
+        return dataclasses.replace(batch, batch=map_tensors(batch.batch, pin), index0=pin(batch.index0),
+                                   index1=pin(batch.index1))
+    return map_tensors(batch, pin)
 
 
 def batch_to_device(batch: PairBatch, device) -> PairBatch:

@@ -1677,3 +1677,51 @@ def test_dog_affnet_hardnet_on_the_card_matches_its_cpu_run(tmp_path):
     readings = agreement(card.detect_and_compute(image), ref, held=textured(image, ref[0], card.patch_size))
     assert within_bars(readings), readings
     assert readings["n_ref"] >= 200
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_device_cache_on_the_card_equals_the_cpu_cache(dtype):
+    """The descriptor cache on the card gathers what the same cache on the
+    CPU gathers, bit for bit (padding rows +0.0), and a gather queued before
+    a miss that overwrites its slot reads the old block: the slot's copy is
+    queued behind it on the stream."""
+    import numpy as np
+
+    from openglue_tpu_torch.data.device_cache import DeviceDescriptorCache
+
+    dev = _cuda()
+    rng = np.random.default_rng(0)
+    blocks = {("s", f"i{k}"): rng.normal(size=(int(rng.integers(40, 64)), 32)).astype(np.float32) for k in range(6)}
+    keys = list(blocks)
+    idx = torch.from_numpy(rng.integers(0, 40, size=(3, 48)).astype(np.int32))
+    mask = torch.from_numpy(rng.uniform(size=(3, 48)) < 0.8)
+    card, host = (DeviceDescriptorCache(slots=3, cap=64, dim=32, dtype=dtype, device=d) for d in (dev, "cpu"))
+    outs = []
+    for batch in (keys[:3], keys[3:], keys[:3]):  # every batch after the first evicts the whole cache
+        for cache in (card, host):
+            cache.ensure(batch, blocks)
+        got = card.gather(batch, idx.to(dev), mask.to(dev))
+        outs.append((got, host.gather(batch, idx, mask)))
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for got, want in outs:
+        assert got.dtype == dtype and torch.equal(got.cpu().view(bits), want.view(bits))
+    assert card.misses == host.misses == 9 and card.bytes_copied == host.bytes_copied
+
+
+@pytest.mark.cuda
+def test_checked_names_the_kernel_whose_output_holds_a_nan():
+    """Under ``debugging.checked`` a K4 launch on a query row holding a NaN
+    raises under K4's name; on clean inputs it runs and is counted once."""
+    from openglue_tpu_torch.debugging import CheckError, checked
+
+    dev = _cuda()
+    x_q, x_kv, mask, w, _ = _message_case(dev, torch.float32)
+    before = glk.message_counter.count
+    checked(glk.message_forward)(x_q, x_kv, mask, w, 4, torch.float32)
+    assert glk.message_counter.count == before + 1
+    x_q = x_q.clone()
+    x_q[0, 3, 0] = float("nan")
+    with pytest.raises(CheckError, match=r"nan generated by the K4 message_forward kernel \(output 0\)"):
+        checked(glk.message_forward)(x_q, x_kv, mask, w, 4, torch.float32)

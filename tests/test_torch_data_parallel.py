@@ -179,8 +179,11 @@ def _cli_fixtures(root):
     _write_yaml(cached / "override.yaml", override)
     override["logging"]["root_path"] = str(root / "logs1")
     _write_yaml(cached / "world1.yaml", override)
+    override["data"].update(dataloader_workers=0, device_cache_cap=64)
+    override["logging"]["root_path"] = str(root / "logs_seeded")
+    _write_yaml(cached / "seeded_host.yaml", override)
     override["data"]["device_descriptor_cache"] = 512
-    _write_yaml(cached / "device_cache.yaml", override)
+    _write_yaml(cached / "seeded_device.yaml", override)
 
     pretrain = root / "pretrain"
     generate_image_fixture(pretrain / "images", num_images=3, image_size=(160, 128), seed=2)
@@ -409,7 +412,19 @@ def test_pretrain_homography_at_world_2_matches_world_1(dp_run):
 
 
 def test_refusals_that_stay_at_world_2(dp_run):
-    """At world 2 the device-resident descriptor cache (module 7) and
-    --checkify (module 11) are still refused."""
-    for r in dp_run["ranks"]:
-        assert bool(r["device_cache_raised"]) and bool(r["checkify_raised"])
+    """At world 2 the device-resident descriptor cache (one per rank, 512
+    slots) trains as host mode does on the same rows: the batches the steps
+    see, the losses, the gradient norms, the validation and the final
+    parameters bit for bit, and the same on both ranks; --checkify is still
+    refused there (it is a one-process debugging path)."""
+    ranks = dp_run["ranks"]
+    for r in ranks:
+        assert bool(r["checkify_raised"]) and bool(r["seeded_batches_equal"])
+        assert len(r["seeded_device_losses"]) == 2
+        for what in ("losses", "norms", "eval"):
+            np.testing.assert_array_equal(r[f"seeded_device_{what}"], r[f"seeded_host_{what}"], err_msg=what)
+        finals = [k for k in r if k.startswith("seeded_device_final:")]
+        assert finals
+        for key in finals:
+            np.testing.assert_array_equal(r[key], r[key.replace("device", "host", 1)], err_msg=key)
+            np.testing.assert_array_equal(r[key], ranks[0][key], err_msg=key)

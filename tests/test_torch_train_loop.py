@@ -379,18 +379,27 @@ def test_train_cached_module_runs_and_refuses_a_missing_card(tmp_path):
             train_cached.main(args)
 
 
-@pytest.mark.parametrize("extra, argv, match", [
-    ({"data": {"device_descriptor_cache": 512}}, [], "module 7"),
-    ({}, ["--checkify"], "module 11"),
+@pytest.mark.parametrize("extra, argv", [
+    ({"data": {"device_descriptor_cache": 512}}, []),
+    ({}, ["--checkify"]),
 ], ids=["device-cache", "checkify"])
-def test_train_cached_refuses_what_is_not_ported(tmp_path, extra, argv, match):
+def test_train_cached_refuses_what_is_not_ported(tmp_path, monkeypatch, extra, argv):
+    """What was refused before it was ported: the flagship's device cache
+    (512 slots) now trains; --checkify, which trains in one process
+    (tests/test_torch_debugging.py), is refused in a job of two (it stays a
+    one-process debugging path)."""
     args = _cli_fixture(tmp_path)
-    if extra:
-        config = yaml.safe_load((tmp_path / "override.yaml").read_text())
-        config["data"].update(extra["data"])
-        write_yaml(tmp_path / "override.yaml", config)
-    with pytest.raises(NotImplementedError, match=match):
-        train_cached.main(args + argv + ["--device", "cpu"])
+    if argv:
+        monkeypatch.delenv("MASTER_ADDR", raising=False)
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        with pytest.raises(ValueError, match="--checkify runs in one process; this job has 2"):
+            train_cached.main(args + argv + ["--device", "cpu"])
+        return
+    config = yaml.safe_load((tmp_path / "override.yaml").read_text())
+    config["data"].update(extra["data"])
+    write_yaml(tmp_path / "override.yaml", config)
+    state = train_cached.main(args + ["--device", "cpu", "--smoke"])
+    assert state.step == 2 and all(torch.isfinite(p).all() for p in state.model.parameters())
 
 
 def test_train_cached_refuses_data_parallel_worlds(tmp_path, monkeypatch):
@@ -408,9 +417,28 @@ def test_train_cached_refuses_data_parallel_worlds(tmp_path, monkeypatch):
 
 
 def test_dataset_refuses_device_descriptors(tmp_path):
+    """The dataset's device mode (once refused, now the device cache's
+    contract): each side carries the image cache's unfiltered block itself,
+    its key and the surviving rows' indices in the block, which pick host
+    mode's descriptors; every other field is host mode's."""
     make_megadepth_fixture(tmp_path)
-    with pytest.raises(NotImplementedError, match="module 7"):
-        MegaDepthPairsDatasetFeatures(tmp_path, "features_cache", ["scene_a"], device_descriptors=True)
+    kw = dict(target_size=TARGET_CACHED, random_crop=True, seed=5)
+    host = MegaDepthPairsDatasetFeatures(tmp_path, "features_cache", ["scene_a", "scene_b"], **kw)
+    device = MegaDepthPairsDatasetFeatures(tmp_path, "features_cache", ["scene_a", "scene_b"],
+                                           device_descriptors=True, **kw)
+    for i in range(len(host)):
+        h, d = host[i], device[i]
+        assert set(d) - set(h) == {"desc_key0", "desc_key1", "desc_orig_idx0", "desc_orig_idx1"}
+        rec = device.index[i]
+        for side, img in ((0, rec.img0), (1, rec.img1)):
+            key, idx = d[f"desc_key{side}"], d[f"desc_orig_idx{side}"]
+            assert key == (rec.scene, img) and idx.dtype == np.int32
+            assert d[f"descriptors{side}"] is device._image_cache[key][2]
+            np.testing.assert_array_equal(d[f"descriptors{side}"][idx], h[f"descriptors{side}"])
+            for field in ("lafs", "scores"):
+                np.testing.assert_array_equal(d[f"{field}{side}"], h[f"{field}{side}"])
+        for key in ("K0", "K1", "R", "T", "depth0", "depth1"):
+            np.testing.assert_array_equal(d["transformation"][key], h["transformation"][key])
 
 
 # ------------------------------------------------ chip_smoke's trainer phase

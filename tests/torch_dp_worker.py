@@ -149,6 +149,7 @@ def raises(fn, kind, match=""):
 
 def data_mode(rank, world, root, config, out):
     from openglue_tpu_torch.cli import pretrain_homography, train_cached
+    from openglue_tpu_torch.data import collate
     from openglue_tpu_torch.train.checkpoint import restore_train_state, save_train_state
     from openglue_tpu_torch.train.step import redraw_favor_projections
 
@@ -210,14 +211,36 @@ def data_mode(rank, world, root, config, out):
     out["pretrain_losses"] = np.asarray([m["total_loss"] for m in record["metrics"]])
     out["pretrain_norms"] = np.asarray([m["grad_norm"] for m in record["metrics"]])
 
-    # ---- what stays refused
+    # ---- the device-resident descriptor cache against host mode on the same
+    # rows (one loader thread, both collates drawing from one seeded
+    # generator), and what stays refused
+    batches = {}
+    for mode in ("host", "device"):
+        rng = np.random.default_rng(0)
+        real = {name: getattr(collate, name) for name in ("stack_keypoints_batch", "stack_keypoints_batch_device")}
+        for name, fn in real.items():
+            setattr(collate, name, lambda samples, _fn=fn, **kw: _fn(samples, rng=rng, **kw))
+        try:
+            with recorded_cli(record):
+                trained = train_cached.main(["--config", str(root / "cached" / "base.yaml"), "--config_override",
+                                             str(root / "cached" / f"seeded_{mode}.yaml"), "--device", "cpu"])
+        finally:
+            for name, fn in real.items():
+                setattr(collate, name, fn)
+        out[f"seeded_{mode}_losses"] = np.asarray([m["total_loss"] for m in record["metrics"]])
+        out[f"seeded_{mode}_norms"] = np.asarray([m["grad_norm"] for m in record["metrics"]])
+        out[f"seeded_{mode}_eval"] = np.asarray([record["eval"][k] for k in sorted(record["eval"])])
+        for name, p in trained.model.state_dict().items():
+            out[f"seeded_{mode}_final:{name}"] = p.numpy()
+        batches[mode] = record["batches"]
+    out["seeded_batches_equal"] = np.asarray(len(batches["host"]) == len(batches["device"]) and all(
+        torch.equal(getattr(getattr(a, s), f), getattr(getattr(b, s), f))
+        for a, b in zip(batches["host"], batches["device"])
+        for s in ("side0", "side1") for f in ("keypoints", "descriptors", "side_info", "mask")))
     base = ["--config", str(root / "cached" / "base.yaml"), "--device", "cpu"]
     out["checkify_raised"] = np.asarray(raises(
         lambda: train_cached.main(base + ["--config_override", str(root / "cached" / "override.yaml"),
-                                          "--checkify"]), NotImplementedError, "module 11"))
-    out["device_cache_raised"] = np.asarray(raises(
-        lambda: train_cached.main(base + ["--config_override", str(root / "cached" / "device_cache.yaml")]),
-        NotImplementedError, "module 7"))
+                                          "--checkify"]), ValueError, "--checkify runs in one process; this job has 2"))
 
 
 def ring_mode(rank, world, root, config, out):
