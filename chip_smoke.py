@@ -169,7 +169,25 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    K1, K2 per forward), held against the same weights on the composed path
    without ``ring_axis``, and a ring training step held against the same step
    on ``train_route="composed"``, then timed with 36 K11 + 36 K10 per step.
-   The process group is destroyed before the last lines.
+   The process group is destroyed before the last lines;
+11. context and tensor parallelism across two ranks (``context_parallel``):
+   what gloo does with CUDA tensors on two ranks of card 0 (its point-to-point
+   exchange fails, its all-gather and all-reduce work, so the ring's
+   exchange is staged through pinned host buffers), then two processes on
+   card 0 in a gloo group with a model axis of 2, each holding half the
+   keypoints of the flagship's requests (f32 chain, use_pallas): the ring
+   serving B=16 N=1024 (72 K11 per forward per rank, its first two-rank
+   rotations on a card) and stepping B=12 N=1024 (72 K11 + 72 K10), the
+   all-gather route (36 K9; 36 K9 + 36 K10), the linear and FAVOR kinds
+   (their KV aggregates all-reduced; no kernel), the ring with remat (144
+   K11 + 72 K10) and with the metric loss, the tensor-parallel forward (2
+   heads and half the FFN a rank: 36 K9 + 1 K2), and one online step
+   fine-tuning SuperPoint's BatchNorms at data axis 2 (36 K4 + 36 K5 + 1 K2
+   + 1 K3), each run's launches counted from 0 and held, its bytes through
+   each collective and its host time printed, each held against the same
+   model at world 1 on the card (serving at the bars above, steps at the
+   data-parallel phase's f32 bars) and the ranks' parameters equal bit for
+   bit after every step.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 the line before that the JSON ``kernels`` record, and the last line the JSON
@@ -1126,7 +1144,7 @@ def ring_phase(gen, card, base_model, ring_requests, device="cuda"):
         cfg = superglue_config_from({"superglue": section}, DESCRIPTOR_DIM, SIDE_INFO_DIM)
         model = SuperGlue(cfg, device=device, mesh=mesh).eval()
         model.load_state_dict(base_model.state_dict())
-        group = model.ring_group
+        group = model.keypoint_group
         composed = SuperGlue(dataclasses.replace(cfg, ring_axis=None, use_pallas=False), device=device).eval()
         composed.load_state_dict(base_model.state_dict())
         decode = functools.partial(decode_from_output, group=group)
@@ -3033,6 +3051,57 @@ os._exit(0)
 """
 
 
+GLOO_PROBE = """
+import os, sys
+import torch
+import torch.distributed as dist
+op, rank, port = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=rank)
+x = torch.arange(4096, device="cuda", dtype=torch.float32) + 10000.0 * rank
+peer = 1 - rank
+try:
+    if op == "batch_isend_irecv":
+        got = [torch.zeros_like(x)]
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer), dist.P2POp(dist.irecv, got[0], peer)]):
+            req.wait()
+    elif op == "all_gather":
+        got = [torch.zeros_like(x) for _ in range(2)]
+        dist.all_gather(got, x)
+        got = got[peer:peer + 1]
+    else:
+        got = [x.clone()]
+        dist.all_reduce(got[0], op=dist.ReduceOp.MAX)
+    torch.cuda.synchronize()
+    want = torch.arange(4096, device="cuda", dtype=torch.float32) + 10000.0 * (1 if op == "all_reduce_max" else peer)
+    said = "works" if torch.equal(got[0], want) else "returns wrong data"
+except Exception as exc:
+    said = f"raises {type(exc).__name__}: {str(exc).strip().splitlines()[0][:160]}"
+print(f"rank {rank}: {said}", flush=True)
+os._exit(0)
+"""
+GLOO_PROBE_OPS = ("batch_isend_irecv", "all_gather", "all_reduce_max")
+
+
+def gloo_probe(env, logs: Path):
+    """What gloo does with CUDA tensors on two ranks of card 0, each
+    collective in a pair of processes of its own (a failed one can close the
+    group): {op: [rank 0's word, rank 1's]}."""
+    commands, ports = [], {op: free_port() for op in GLOO_PROBE_OPS}
+    for op in GLOO_PROBE_OPS:
+        commands += [(["timeout", "60", sys.executable, "-c", GLOO_PROBE, op, str(r), str(ports[op])], env)
+                     for r in range(2)]
+    said = run_ranks(commands, 75, logs)
+    out = {}
+    for i, op in enumerate(GLOO_PROBE_OPS):
+        out[op] = []
+        for r in range(2):
+            rc, text = said[2 * i + r]
+            lines = [line[len(f"rank {r}: "):] for line in text.splitlines() if line.startswith(f"rank {r}: ")]
+            out[op].append(lines[-1] if lines else f"exit {rc}: " + " | ".join(text.strip().splitlines()[-2:]))
+    return out
+
+
 def free_port() -> int:
     import socket
 
@@ -3394,6 +3463,328 @@ def data_parallel_phase(card, repo: Path, store: "MemoryH5", work: Path, device=
         print(f"data_parallel NCCL with two ranks on card 0, rank {r} (exit {rc}): {' | '.join(lines)}", flush=True)
     print(f"data_parallel phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
     check(not failures, "data_parallel: world 2 against world 1 outside the bars: " + "; ".join(failures))
+    return dict(launches)
+
+
+CP_WORLD = 2  # two ranks on card 0, both on the model axis
+CP_TIMEOUT = 240  # seconds for the ranks
+CP_STEP_BARS = DP_BARS  # the f32-chain runs of the data_parallel phase
+CP_KINDS = ("linear", "favor_relu", "favor_softmax")
+# homography_pretraining.yaml's global pairs and width x height; image 1's shift in px
+CP_ONLINE = dict(batch=12, size=(960, 720), shift=(3, -2))
+
+
+def cp_section(**changes):
+    """The flagship's superglue section with an f32 chain (and ``changes``
+    to its attention_gnn)."""
+    gnn = dict(SUPERGLUE_SECTION["attention_gnn"], **changes)
+    return dict(SUPERGLUE_SECTION, chain_dtype=None, attention_gnn=gnn)
+
+
+def cp_online_batch(gen):
+    """CP_ONLINE's global image pairs on the CPU: smooth random images, image
+    1 the image 0 shifted by whole pixels, the homography that shift."""
+    import torch.nn.functional as F
+
+    from openglue_tpu_torch.core.types import Transformation
+
+    (w, h), (dx, dy) = CP_ONLINE["size"], CP_ONLINE["shift"]
+    noise = torch.rand(CP_ONLINE["batch"], 1, h // 8, w // 8, generator=gen)
+    image0 = F.interpolate(noise, size=(h, w), mode="bilinear", align_corners=False)[:, 0]
+    image1 = torch.zeros_like(image0)
+    image1[:, max(dy, 0):h + min(dy, 0), max(dx, 0):w + min(dx, 0)] = \
+        image0[:, max(-dy, 0):h + min(-dy, 0), max(-dx, 0):w + min(-dx, 0)]
+    H = torch.tensor([[1.0, 0.0, dx], [0.0, 1.0, dy], [0.0, 0.0, 1.0]]).expand(CP_ONLINE["batch"], 3, 3).clone()
+    return {"image0": image0, "image1": image1, "transformation": Transformation(kind="perspective", H=H)}
+
+
+def cp_online_module_config():
+    return {"features": {"name": "SuperPointNetBn", "parameters": {"max_keypoints": MAX_KEYPOINTS,
+                                                                    "descriptor_dim": DESCRIPTOR_DIM}},
+            "laf_to_sideinfo_method": "none", "superglue": cp_section(),
+            "train": {"finetune_features_extractor": True}}
+
+
+def context_parallel_rank(rank: int, port: int, work: str, device: str = "cuda") -> None:
+    """One rank of ``context_parallel_phase``, in a process of its own, on
+    card 0 in a gloo group of CP_WORLD ranks: every way the port shards the
+    matcher over a model axis of CP_WORLD at the flagship's width with an
+    f32 chain: each serving run and the ring's step twice (the first held,
+    the second timed), every other step once, with the launches of each run
+    counted from 0 and held against the expected counts, its bytes through
+    each collective and its host time. Rank 0
+    holds each run against the same model at world 1 on the same card (the
+    first run's outputs, or the step from the same weights on the global
+    batch) and the ranks' parameters after each step are held equal bit for
+    bit. Each rank writes its readings to ``cp{rank}.pt``."""
+    import torch.distributed as dist
+
+    from openglue_tpu_torch import parallel
+    from openglue_tpu_torch.cli.common import loss_config_from, optimizer_from, superglue_config_from
+    from openglue_tpu_torch.core.types import map_tensors
+    from openglue_tpu_torch.models.matching import decode_from_output
+    from openglue_tpu_torch.models.matching_module import MatchingModule, MatchingModuleConfig
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import attention_kernel as ak
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.parallel import distributed, tensor_parallel
+    from openglue_tpu_torch.parallel.mesh import mesh_device
+    from openglue_tpu_torch.parallel.distributed import all_gather
+    from openglue_tpu_torch.train.state import create_train_state, make_online_optimizer
+    from openglue_tpu_torch.train.step import make_online_train_step, make_train_step, superglue_inputs
+
+    work = Path(work)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.initialize(f"tcp://127.0.0.1:{port}", CP_WORLD, rank, device_type=device, backend="gloo")
+    mesh = parallel.make_mesh({parallel.MODEL_AXIS: CP_WORLD}, device_type=device)
+    group = mesh.get_group(parallel.MODEL_AXIS)
+    device = mesh_device(mesh)
+    given = torch.load(work / "cp_inputs.pt", weights_only=False)
+    to_card = lambda batch: map_tensors(batch, lambda t: t.to(device))
+    serve_pairs, train_pairs = to_card(given["serve"]), to_card(given["train"])
+    counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter, "K4": glk.message_counter,
+                "K5": glk.message_bwd_counter, "K6": glk.feature_counter, "K8": glk.half_counter,
+                "K9": ak.counter, "K10": ak.backward_counter, "K11": ak.lse_counter}
+    layers = 2 * SUPERGLUE_SECTION["attention_gnn"]["num_stages"] * 2
+    records = {}
+
+    def counted(name, fn, expected, hold, times=2):
+        """Run ``fn`` ``times`` times, each time with the counters and the
+        traffic from 0 just before it and read just after it; ``hold`` takes
+        the first run's result before the next. The last run's bytes are
+        kept."""
+        expected = dict({k: 0 for k in counters}, **expected)
+        runs = []
+        for i in range(times):
+            torch.cuda.synchronize()
+            dist.barrier()
+            for c in counters.values():
+                c.reset()
+            distributed.traffic.clear()
+            start = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - start) * 1e3
+            launches = {k: c.count for k, c in counters.items()}
+            check(launches == expected, f"context_parallel {name} rank {rank}: launches {launches}, "
+                                        f"expected {expected}")
+            runs.append((ms, dict(distributed.traffic)))
+            if i == 0:
+                records[name] = dict(launches={k: v for k, v in expected.items() if v})
+                hold(name, result)
+        records[name].update(ms=[r[0] for r in runs], bytes=runs[-1][1])
+        print(f"context_parallel {name} rank {rank}: {json.dumps(records[name])}", flush=True)
+
+    def whole(out):
+        """The sharded forward's outputs of every row, on every rank."""
+        return {"scores": parallel.gather_rows(out["scores"], group),
+                "decode_indices0": all_gather(out["decode_indices0"], group),
+                "decode_indices1": out["decode_indices1"], "decode_max0": all_gather(out["decode_max0"], group)}
+
+    def config_of(section):
+        return superglue_config_from({"superglue": section}, DESCRIPTOR_DIM, SIDE_INFO_DIM)
+
+    def matcher(section, weights, sharded=True, **kwargs):
+        """The model of ``section`` with ``weights``: sharded over the model
+        axis, or at world 1 (without ``ring_axis``)."""
+        cfg = config_of(section)
+        if not sharded:
+            cfg = dataclasses.replace(cfg, ring_axis=None)
+        model = SuperGlue(cfg, device=device, mesh=mesh if sharded else None, **kwargs)
+        model.load_state_dict(weights)
+        return model
+
+    def params_equal(model, name):
+        flat = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+        gathered = [torch.empty_like(flat) for _ in range(CP_WORLD)]
+        dist.all_gather(gathered, flat)
+        check(all(torch.equal(g, flat) for g in gathered), f"context_parallel {name}: the ranks' parameters differ")
+
+    def hold_serve(section, weights):
+        """The served outputs against the same model at world 1."""
+        def hold(name, out):
+            if rank == 0:
+                inputs = superglue_inputs(serve_pairs)
+                with torch.inference_mode():
+                    ref = matcher(section, weights, sharded=False).eval()(**inputs)
+                records[name]["vs_world1"] = compare(decode_from_output, out, ref, inputs, f"context_parallel {name}")
+
+        return hold
+
+    def hold_step(state, reference):
+        """The step's gradients, statistics and metrics against the same step
+        at world 1 (``reference()``: its state and metrics, on rank 0), and
+        the ranks' parameters equal."""
+        def hold(name, metrics):
+            params_equal(state.model, name)
+            if rank != 0:
+                return
+            ref_state, ref_metrics = reference()
+            a, b = flat_grads(state.model), flat_grads(ref_state.model)
+            x = dict(loss=abs(metrics["total_loss"].item() - ref_metrics["total_loss"].item()),
+                     norm=abs(metrics["grad_norm"].item() / ref_metrics["grad_norm"].item() - 1),
+                     cos=(a @ b / (a.norm() * b.norm())).item(),
+                     stats=max((u - v).abs().max().item() for (k, u), (_, v) in zip(
+                         state.model.named_buffers(), ref_state.model.named_buffers()) if "running" in k),
+                     loss_value=metrics["total_loss"].item(), metric_loss=metrics["metric_loss"].item())
+            records[name]["vs_world1"] = x
+            check(x["loss"] <= CP_STEP_BARS["loss_tol"] and x["norm"] <= CP_STEP_BARS["norm_tol"]
+                  and x["cos"] >= CP_STEP_BARS["cos_min"] and x["stats"] <= CP_STEP_BARS["stats_tol"],
+                  f"context_parallel {name}: against world 1 outside the bars {CP_STEP_BARS}: {x}")
+
+        return hold
+
+    def serve_run(name, section, weights, expected):
+        model = matcher(section, weights).eval()
+        batch = parallel.shard_pair_batch_cp(serve_pairs, mesh)
+        with torch.inference_mode():
+            counted(name, lambda: whole(model(**superglue_inputs(batch))), expected, hold_serve(section, weights))
+
+    def step_run(name, section, weights, expected, loss=None, times=1):
+        config = {"superglue": section, "train": dict(TRAIN_SECTION, **(loss or {}))}
+        model = matcher(section, weights)
+        state = create_train_state(model, optimizer=optimizer_from(config, model.parameters()))
+        step = parallel.shard_train_step_cp(make_train_step(loss_config_from(config)), mesh)
+
+        def reference():
+            twin = matcher(section, weights, sharded=False, train_route="composed")
+            ref_state = create_train_state(twin, optimizer=optimizer_from(config, twin.parameters()))
+            return ref_state, make_train_step(loss_config_from(config))(ref_state, train_pairs)
+
+        counted(name, lambda: step(state, train_pairs), expected, hold_step(state, reference), times)
+
+    base = given["weights"]["softmax"]
+    ring = cp_section()
+    # ---- the ring rotating between the two ranks
+    serve_run("ring serve B=16 N=1024", dict(ring, ring_axis="model"), base, {"K11": 2 * layers})
+    step_run("ring train B=12 N=1024", dict(ring, ring_axis="model"), base, {"K11": 2 * layers, "K10": 2 * layers},
+             times=2)
+    # ---- the all-gather route (no ring_axis)
+    serve_run("all-gather serve B=16 N=1024", ring, base, {"K9": layers})
+    step_run("all-gather train B=12 N=1024", ring, base, {"K9": layers, "K10": layers})
+    # ---- the O(N) kinds: composed, their KV aggregates all-reduced
+    for kind in CP_KINDS:
+        section = cp_section(attention=kind)
+        serve_run(f"{kind} serve B=16 N=1024", section, given["weights"][kind], {})
+        step_run(f"{kind} train B=12 N=1024", section, given["weights"][kind], {})
+    # ---- the ring with remat, and with the metric loss
+    step_run("ring+remat train B=12 N=1024", dict(ring, ring_axis="model", remat=True), base,
+             {"K11": 4 * layers, "K10": 2 * layers})
+    step_run("ring+margin train B=12 N=1024", dict(ring, ring_axis="model"), base,
+             {"K11": 2 * layers, "K10": 2 * layers}, loss={"margin": 0.5, "metric_weight": 1.0})
+
+    # ---- tensor parallelism: this rank's 2 heads and half the FFN's hidden channels
+    name = "tensor-parallel serve B=16 N=1024"
+    model = tensor_parallel.shard_model_tp(matcher(ring, base, sharded=False).eval(), mesh)
+    with torch.inference_mode():
+        counted(name, lambda: tensor_parallel.tp_forward(model, **superglue_inputs(serve_pairs)),
+                {"K9": layers, "K2": 1}, hold_serve(ring, base))
+    records[name]["model_bytes"] = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    del model
+
+    # ---- the online step fine-tuning SuperPoint's BatchNorms at data axis 2
+    data_mesh = parallel.make_mesh({parallel.DATA_AXIS: CP_WORLD}, device_type=device.type)
+    module_config = MatchingModuleConfig.from_dict(cp_online_module_config())
+    online = to_card(given["online"])
+
+    def module():
+        m = MatchingModule(module_config, device=device)
+        m.load_state_dict(given["online_weights"])
+        return m
+
+    def online_state(m):
+        return create_train_state(m, optimizer=make_online_optimizer(m, learning_rate=1e-4, finetune_extractor=True))
+
+    name = f"online BN fine-tune B={CP_ONLINE['batch']} {CP_ONLINE['size'][0]}x{CP_ONLINE['size'][1]}, data axis 2"
+    raw = make_online_train_step(loss_config_from({"train": TRAIN_SECTION}))
+    step = parallel.shard_train_step(raw, data_mesh)
+    state = online_state(module())
+
+    def reference():
+        ref_state = online_state(module())
+        return ref_state, raw(ref_state, online)
+
+    counted(name, lambda: step(state, parallel.shard_batch(online, data_mesh)),
+            {"K4": layers, "K5": layers, "K2": 1, "K3": 1}, hold_step(state, reference))
+    torch.save(records, work / f"cp{rank}.pt")
+    parallel.barrier()
+    dist.destroy_process_group()
+
+
+def context_parallel_phase(card, repo: Path, work: Path, weights, gen):
+    """Keypoint-axis context parallelism and tensor parallelism across two
+    ranks: CP_WORLD processes (``context_parallel_rank``) on card 0 in a
+    gloo group, the first two-rank rotations of the ring on the card. First
+    what gloo does with CUDA tensors (``gloo_probe``: its point-to-point
+    exchange fails, so the ring's exchange is staged through pinned host
+    buffers); then the ring serving B=16 N=1024 and stepping B=12 N=1024,
+    the all-gather route, the three O(N) kinds, the ring with remat and with
+    the metric loss, the TP forward, and the online step fine-tuning
+    SuperPoint's BatchNorms at data axis 2 (``context_parallel_rank``). Every
+    model is the flagship's width with an f32 chain and ``use_pallas``, each
+    rank holding N/2 keypoints. Prints each run's launches, bytes and host
+    time and its distance from world 1. Returns the launches of both ranks
+    by kernel."""
+    from openglue_tpu_torch.cli.common import superglue_config_from
+    from openglue_tpu_torch.core.types import map_tensors
+    from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
+    from openglue_tpu_torch.models.matching_module import MatchingModule, MatchingModuleConfig
+    from openglue_tpu_torch.models.superglue import SuperGlue
+
+    start = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k not in ("MASTER_ADDR", "WORLD_SIZE", "RANK")}
+    env.update(LOCAL_RANK="0", PYTHONPATH=str(repo))  # both ranks on card 0
+    said = gloo_probe(env, work / "gloo_probe")
+    for op, words in said.items():
+        print(f"context_parallel: gloo {op} on CUDA tensors, two ranks on card 0: rank 0 {words[0]}; rank 1 "
+              f"{words[1]} [{card}]", flush=True)
+    check(all(w == "works" for w in said["all_gather"] + said["all_reduce_max"]),
+          f"context_parallel: gloo's collectives on CUDA tensors: {said}")
+
+    n = MAX_KEYPOINTS
+    counts = lambda b: torch.randint(n // 2, n + 1, (b,), generator=gen, device="cuda").tolist()
+    cpu = lambda batch: map_tensors(batch, lambda t: t.cpu())
+
+    weight_sets = {"softmax": {k: v.cpu() for k, v in weights.items()}}
+    for kind in CP_KINDS:
+        cfg = superglue_config_from({"superglue": cp_section(attention=kind)}, DESCRIPTOR_DIM, SIDE_INFO_DIM)
+        weight_sets[kind] = SuperGlue(cfg, device="cpu", generator=torch.Generator().manual_seed(1)).state_dict()
+    online = MatchingModule(MatchingModuleConfig.from_dict(cp_online_module_config()), device="cpu",
+                            generator=torch.Generator().manual_seed(0),
+                            extractor_generator=torch.Generator().manual_seed(0))
+    torch.save(dict(serve=cpu(make_request(SyntheticHomographyPairs, gen, 16, n, counts(16), counts(16))),
+                    train=cpu(make_request(SyntheticHomographyPairs, gen, BATCH_SIZE, n, counts(BATCH_SIZE),
+                                           counts(BATCH_SIZE))),
+                    weights=weight_sets, online=cp_online_batch(torch.Generator().manual_seed(5)),
+                    online_weights=online.state_dict()), work / "cp_inputs.pt")
+    del online
+    torch.cuda.empty_cache()  # the ranks share card 0 with this process: its cached blocks go back
+    port = free_port()
+    code = (f"import sys; sys.path.insert(0, {str(repo)!r}); import chip_smoke; "
+            f"chip_smoke.context_parallel_rank(int(sys.argv[1]), {port}, {str(work)!r})")
+    results = run_ranks([(["timeout", str(CP_TIMEOUT), sys.executable, "-c", code, str(r)], env)
+                         for r in range(CP_WORLD)], CP_TIMEOUT + 15, work / "cp_logs")
+    for r, (rc, out) in enumerate(results):
+        if rc != 0:  # the runs that passed, then the failure
+            print("\n".join(line for line in out.splitlines() if line.startswith("context_parallel ")), flush=True)
+        check(rc == 0, f"context_parallel rank {r} exited with {rc}:\n{out[-6000:]}")
+    ranks = [torch.load(work / f"cp{r}.pt", weights_only=False) for r in range(CP_WORLD)]
+    launches = collections.Counter()
+    for name, rec in ranks[0].items():
+        for r in ranks:
+            launches.update(r[name]["launches"])
+        order = "(held, timed)" if len(rec["ms"]) == 2 else "(held and timed)"
+        per_rank = "; ".join(f"rank {r}: host ms {', '.join(f'{ms:.3f}' for ms in x[name]['ms'])} {order}, "
+                             f"bytes {json.dumps(x[name]['bytes'])}" for r, x in enumerate(ranks))
+        extra = f", TP shard of the model {rec['model_bytes']} bytes a rank" if "model_bytes" in rec else ""
+        print(f"context_parallel {name} (gloo, {CP_WORLD} ranks on card 0): launches per rank "
+              f"{json.dumps(rec['launches'] or {'none': 0})}{extra}; {per_rank}; against world 1 "
+              f"{json.dumps(rec.get('vs_world1'))} [{card}]", flush=True)
+    print(f"context_parallel: step bars {json.dumps(CP_STEP_BARS)}, serving bars {LOG_P_NATS} nats and "
+          f"{DECODE_AGREEMENT} decode agreement; the ranks' parameters equal bit for bit after every step; the "
+          f"phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)
     return dict(launches)
 
 
@@ -4751,6 +5142,11 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     rings = ring_phase(gen, card, model, ring_requests)
+    work = Path(tempfile.mkdtemp(prefix="chip-smoke-cp-"))
+    try:
+        cp = context_parallel_phase(card, repo, work, model.state_dict(), gen)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     n1024 = sum(d[1] for name, *_, d in results if "N=1024" in name)
     n2048 = sum(d[1] for name, *_, d in results if "N=2048" in name)
@@ -4777,7 +5173,7 @@ def main() -> int:
              cache_twin_launches=twin["K2"], checkify_launches=checkify["K2"],
              serving_cli_launches=serving_cli.get("K2 torch.float32", 0),
              device_extractors_launches=extractors.get("K2 torch.float32", 0),
-             online_trainer_launches=online["K2"],
+             online_trainer_launches=online["K2"], context_parallel_launches=cp.get("K2", 0),
              **{k: v for k, v in k2[(16, 1024)].items() if k != "k_dtype"}, library_ms=None,
              single_pair=dict({k: v for k, v in k2[(1, 1024)].items() if k != "k_dtype"},
                               replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:56")),
@@ -4800,7 +5196,8 @@ def main() -> int:
              replaces=pallas + "sinkhorn_kernel.py:548", launches=train["K3"], trainer_launches=trainer["K3"],
              data_parallel_launches=data_parallel["K3"], cache_twin_launches=twin["K3"],
              checkify_launches=checkify["K3"],
-             online_trainer_launches=online["K3"], **k3, library_ms=None),
+             online_trainer_launches=online["K3"], context_parallel_launches=cp.get("K3", 0), **k3,
+             library_ms=None),
         dict(name="message_forward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_forward.cu", replaces=pallas + "gnn_layer_kernel.py:557",
              launches=train["K4"], **k45[torch.bfloat16]["K4"], library_ms=None,
@@ -4808,7 +5205,7 @@ def main() -> int:
              dh32=dh32(k45_32[torch.bfloat16]["K4"], k45_32[torch.float32]["K4"]), pretrain_launches=pretrain["K4"],
              trainer_launches=trainer["K4"], data_parallel_launches=data_parallel["K4"],
              cache_twin_launches=twin["K4"], checkify_launches=checkify["K4"],
-             online_trainer_launches=online["K4"]),
+             online_trainer_launches=online["K4"], context_parallel_launches=cp.get("K4", 0)),
         dict(name="message_backward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_backward.cu", replaces=pallas + "gnn_layer_kernel.py:627",
              launches=train["K5"], **k45[torch.bfloat16]["K5"], library_ms=None,
@@ -4817,7 +5214,7 @@ def main() -> int:
              bf16_pass_launches=train["attn_bwd_bf16"], pretrain_bf16_pass_launches=pretrain["attn_bwd_bf16"],
              trainer_launches=trainer["K5"], data_parallel_launches=data_parallel["K5"],
              cache_twin_launches=twin["K5"], checkify_launches=checkify["K5"],
-             online_trainer_launches=online["K5"]),
+             online_trainer_launches=online["K5"], context_parallel_launches=cp.get("K5", 0)),
         *[dict(name=f"gnn_layer_features {kind} (bf16, B=16 N=M=1024 D=256 H=4)", route="cuda",
                source=csrc + "gnn_layer_features.cu", replaces=pallas + "gnn_layer_kernel.py:117",
                launches=other[kind], **k6[(kind, torch.bfloat16)], library_ms=None,
@@ -4840,6 +5237,7 @@ def main() -> int:
                **k910[(torch.float32, 1024)][kname], bf16=k910[(torch.bfloat16, 1024)][kname],
                n2048_f32=k910[(torch.float32, 2048)][kname], n2048_bf16=k910[(torch.bfloat16, 2048)][kname],
                dh32=dh32(k910_32[torch.bfloat16][kname], k910_32[torch.float32][kname]),
+               context_parallel_launches=cp.get(kname, 0),
                **({"ring_train_launches": rings["train"]["K10"],
                    "bf16_pass_launches": k910[(torch.bfloat16, 1024)]["K10"]["bf16_pass_launches"]}
                   if kname == "K10" else {}))
@@ -4847,7 +5245,8 @@ def main() -> int:
         # the ring's projections are f32 too
         dict(name="attention_lse (f32, B=12 H=4 N=M=1024 dh=64)", route="cuda", source=csrc + "attention.cu",
              replaces=pallas + "attention_kernel.py:57", launches=rings["B=16 N=1024"] + rings["B=4 N=2048"],
-             ring_train_launches=rings["train"]["K11"], **k11[(torch.float32, 1024)],
+             ring_train_launches=rings["train"]["K11"], context_parallel_launches=cp.get("K11", 0),
+             **k11[(torch.float32, 1024)],
              bf16=k11[(torch.bfloat16, 1024)], n2048_f32=k11[(torch.float32, 2048)],
              n2048_bf16=k11[(torch.bfloat16, 2048)], block_merge=merge,
              dh32=dh32(k11_32[torch.bfloat16], k11_32[torch.float32])),

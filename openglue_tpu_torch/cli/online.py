@@ -7,8 +7,8 @@ device. In a data-parallel job (a launcher such as torchrun names it; the
 CLIs call ``parallel.initialize``) each process loads its rows of each global
 batch and the step is ``parallel.shard_train_step``'s: every rank takes the
 update one process takes on the whole batch, its augmentation drawn for the
-whole batch. A fine-tuned extractor with BatchNorm layers is refused there:
-its statistics would be each rank's alone (ROADMAP.md module 10b).
+whole batch; a fine-tuned extractor's BatchNorms take their statistics over
+the global batch (``models.layers.GroupBatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 
 from openglue_tpu_torch.cli import common
 from openglue_tpu_torch.core.types import Transformation, map_tensors
-from openglue_tpu_torch.parallel import data_parallel_world_size, initialize
+from openglue_tpu_torch.parallel import initialize
 
 
 def collate_image_pairs(samples, pin_memory: bool = False):
@@ -89,16 +89,6 @@ def require_device(device) -> torch.device:
     return device
 
 
-def check_data_parallel_extractor(model) -> None:
-    """Refuse a fine-tuned extractor with BatchNorm layers at a world above
-    one process: torch's BatchNorm takes its statistics over this rank's
-    images alone, where the JAX package's take the global batch's."""
-    finetuned = model.config.finetune and data_parallel_world_size() > 1
-    if finetuned and any(isinstance(m, torch.nn.modules.batchnorm._BatchNorm) for m in model.extractor.modules()):
-        raise NotImplementedError("data-parallel fine-tuning of an extractor with BatchNorm layers is not ported "
-                                  "yet: ROADMAP.md module 10b")
-
-
 def run_online_training(
     config,
     train_loader,
@@ -121,7 +111,6 @@ def run_online_training(
 
     device = require_device(device)
     model = build_matching_module(config, features_config, device)
-    check_data_parallel_extractor(model)
     snapshot = features_config
     if snapshot is None and config.get("features"):
         snapshot = Config(dict(config.get("features")))

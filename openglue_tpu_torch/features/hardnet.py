@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from openglue_tpu_torch.features.patches import extract_laf_patches, normalize_patches
+from openglue_tpu_torch.models.layers import GroupBatchNorm2d
 
 # (out_channels, stride) per 3x3 conv; the head is an 8x8 conv without padding
 _LAYERS = ((32, 1), (32, 1), (64, 2), (64, 1), (128, 2), (128, 1))
@@ -30,7 +31,7 @@ def patch_trunk(layers: Sequence[Tuple[int, int]], dropout: float, head: Sequenc
     modules, cin = [], 1
     for cout, stride in layers:
         modules += [nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False),
-                    nn.BatchNorm2d(cout, affine=False, eps=1e-5, momentum=0.1), nn.ReLU()]
+                    GroupBatchNorm2d(cout, affine=False, eps=1e-5, momentum=0.1), nn.ReLU()]
         cin = cout
     return nn.Sequential(*modules, nn.Dropout(dropout), *head)
 
@@ -43,7 +44,7 @@ class HardNet(nn.Module):
         super().__init__()
         self.features = patch_trunk(_LAYERS, 0.3, (
             nn.Conv2d(_LAYERS[-1][0], descriptor_dim, 8, bias=False),
-            nn.BatchNorm2d(descriptor_dim, affine=False, eps=1e-5, momentum=0.1),
+            GroupBatchNorm2d(descriptor_dim, affine=False, eps=1e-5, momentum=0.1),
         ))
 
     def forward(self, patches: torch.Tensor) -> torch.Tensor:

@@ -25,6 +25,7 @@ from torch import nn
 
 from openglue_tpu_torch.core.types import Features
 from openglue_tpu_torch.features.nets import full_f32, gray_batch, top_k
+from openglue_tpu_torch.models.layers import GroupBatchNorm2d
 
 # (conv{i}a in, out, conv{i}b in, out) per block
 _LAYER_CHANNELS = ((1, 64, 64, 64), (64, 64, 64, 64), (64, 128, 128, 128), (128, 128, 128, 128))
@@ -50,7 +51,7 @@ class SuperPointBackbone(nn.Module):
         for name, (cin, cout, k) in widths.items():
             setattr(self, f"conv{name}", nn.Conv2d(cin, cout, k, padding=k // 2))
             if bn:
-                setattr(self, f"bn{name}", nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1))
+                setattr(self, f"bn{name}", GroupBatchNorm2d(cout, eps=1e-5, momentum=0.1))
 
     def _layer(self, x: torch.Tensor, name: str) -> torch.Tensor:
         x = getattr(self, f"conv{name}")(x)

@@ -9,14 +9,16 @@ size. An element with no keypoint in a category contributes zero.
 
 With ``groups`` (``parallel.MeshGroups``) each rank holds a shard of the
 global batch: its rows of the batch (the ``data`` group), and with
-keypoint-axis context parallelism (``SuperGlue`` with ``ring_axis``, the
-``model`` group) its rows of the scores and of ``gt_matches0``. The loss
-returned is the global one, on every rank; its gradient is this rank's share:
-the terms of its elements over the GLOBAL batch size, within an element the
-terms of its rows over the counts of every ``model`` rank, and the
-replicated dustbin row's terms over the number of ``model`` ranks, so that
-they count once. The shares over the world sum to the one-process loss, and
-so do the parameter gradients summed over the world.
+keypoint-axis context parallelism (``SuperGlue.keypoint_group``, the
+``model`` group) its rows of the scores, of ``gt_matches0`` and of the
+context descriptors. The loss returned is the global one, on every rank; its
+gradient is this rank's share: the terms of its elements over the GLOBAL
+batch size, within an element the terms of its rows over the counts of every
+``model`` rank, and the terms every ``model`` rank computes alike (the
+replicated dustbin row, the metric loss's per-column margins) over the
+number of ``model`` ranks, so that they count once. The shares over the
+world sum to the one-process loss, and so do the parameter gradients summed
+over the world.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ import torch
 import torch.distributed as dist
 
 from openglue_tpu_torch.geometry.transforms import pairwise_cosine_dist
-from openglue_tpu_torch.parallel.distributed import MeshGroups, all_reduce_sum
+from openglue_tpu_torch.parallel.distributed import (
+    MeshGroups, all_gather, all_reduce_min, all_reduce_sum, max_over,
+)
 
 _BIG = 1e9
 
@@ -50,11 +54,11 @@ def _rows_mean(values: torch.Tensor, mask: torch.Tensor, group) -> torch.Tensor:
 
 
 def _global_value(share: torch.Tensor, group) -> torch.Tensor:
-    """The sum of every rank's ``share`` as the value, this rank's
-    ``share`` as the gradient."""
+    """The sum of every rank's ``share`` as the value, the same bits on
+    every rank, and this rank's ``share`` as the gradient."""
     if group is None:
         return share
-    return share + (all_reduce_sum(share.detach(), group) - share.detach())
+    return all_reduce_sum(share.detach(), group) + (share - share.detach())
 
 
 def matching_nll_loss(
@@ -96,9 +100,17 @@ def metric_learning_loss(
     """Triplet + margin losses on the cosine distances of the context
     descriptors [B, N, D] / [B, M, D]; the hardest negatives are mined on the
     detached distance matrix with the positives and invalid pairs at 1e9.
-    With ``groups`` (a ``data`` axis; the ring is not ported), this rank's
-    rows of the global batch."""
+    With ``groups``, this rank's rows of the global batch; with a ``model``
+    group also its shard of both images' keypoints (``gt_matches1`` whole):
+    its rows meet every column (image 1's descriptors and mask gathered),
+    the hardest row of a column is the first over every rank's rows, as
+    argmin breaks ties, and its distance comes from the gathered rows of
+    image 0."""
     groups = groups or MeshGroups()
+    ring = groups.model
+    if ring is not None:
+        gdesc1 = all_gather(gdesc1, ring)
+        mask1 = None if mask1 is None else all_gather(mask1, ring)
     batch, n = gt_matches0.shape
     m = gt_matches1.shape[1]
     device = gdesc0.device
@@ -115,18 +127,35 @@ def metric_learning_loss(
     dist_det = torch.where(pos_mask | ~pair_valid, _BIG, dist.detach())
     nn_col = dist_det.argmin(dim=2)  # [B, N] hardest kpt1 per kpt0
     nn_row = dist_det.argmin(dim=1)  # [B, M] hardest kpt0 per kpt1
+    if ring is not None:
+        col_min = dist_det.amin(dim=1)
+        first = nn_row + torch.distributed.get_rank(ring) * n  # `dist` is the distance matrix here
+        nn_row = all_reduce_min(torch.where(col_min == all_reduce_min(col_min, ring), first,
+                                            torch.iinfo(first.dtype).max), ring)
 
     dist_ap = torch.gather(dist, 2, gt_cols[:, :, None])[..., 0]
     dist_an0 = torch.gather(dist, 2, nn_col[:, :, None])[..., 0]
     i_neg = torch.gather(nn_row, 1, gt_cols)  # dist[b, nn_row[b, gt_j], gt_j]
-    dist_an1 = dist[torch.arange(batch, device=device)[:, None], i_neg, gt_cols]
+    rows = torch.arange(batch, device=device)[:, None]
+    if ring is None:
+        dist_an1 = dist[rows, i_neg, gt_cols]
+    else:
+        anchor, negative = all_gather(gdesc0, ring)[rows, i_neg], gdesc1[rows, gt_cols]  # [B, N, D] each
+        dim = anchor.shape[-1]
+        dist_an1 = pairwise_cosine_dist(anchor.reshape(-1, 1, dim), negative.reshape(-1, 1, dim)).view(batch, n)
     loss0 = torch.clamp(dist_ap - dist_an0 + margin, min=0.0)
     loss1 = torch.clamp(dist_ap - dist_an1 + margin, min=0.0)
-    triplet = _per_image_mean(loss0 + loss1, matched0)
+    row_mean = _per_image_mean if ring is None else lambda v, mask: _rows_mean(v, mask, ring)
+    triplet = row_mean(loss0 + loss1, matched0)
 
     dist_for_min = torch.where(pair_valid, dist, _BIG)
-    margin0 = _per_image_mean(torch.clamp(margin - dist_for_min.amin(dim=2), min=0.0), gt_matches0 == -1)
-    margin1 = _per_image_mean(torch.clamp(margin - dist_for_min.amin(dim=1), min=0.0), gt_matches1 == -1)
+    margin0 = row_mean(torch.clamp(margin - dist_for_min.amin(dim=2), min=0.0), gt_matches0 == -1)
+    col_min = dist_for_min.amin(dim=1)
+    if ring is not None:
+        col_min = -max_over(-col_min, ring)
+    margin1 = _per_image_mean(torch.clamp(margin - col_min, min=0.0), gt_matches1 == -1)
+    if ring is not None:
+        margin1 = margin1 / torch.distributed.get_world_size(ring)
     share = (triplet + margin0 + margin1).sum() / (batch * groups.data_size)
     return _global_value(share, groups.world)
 
@@ -140,8 +169,6 @@ def criterion(
     groups: Optional[MeshGroups] = None,
 ) -> Dict[str, torch.Tensor]:
     """{"loss": NLL, "metric_loss": metric loss or 0 when margin is None}."""
-    if groups is not None and groups.model is not None and margin is not None:
-        raise NotImplementedError("not ported yet: the metric-learning loss with ring_axis")
     nll = matching_nll_loss(y_true["gt_matches0"], y_true["gt_matches1"], y_pred["scores"], groups)
     if margin is None:
         metric = torch.zeros((), dtype=nll.dtype, device=nll.device)

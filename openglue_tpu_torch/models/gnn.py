@@ -32,15 +32,24 @@ here by the constructor argument ``train_route``:
 another attention kind: there a training layer runs the composed modules
 below, under autograd for every kind.
 
-With ``ring_group`` (a process group over which the keypoints of both images
-are sharded; ``SuperGlue`` with ``ring_axis``) every layer, in eval and in
-training, runs the composed modules, as the JAX package skips every fused
-route there: the multi-head attention runs the ring schedule of
+With ``shards`` (a ``KeypointShards``: the process group over which the
+keypoints of both images are sharded, ``SuperGlue`` on a mesh with
+``ring_axis`` or on a mesh whose ``model`` axis holds several ranks, and the
+softmax route) every layer, in eval and in training, runs the composed
+modules, as the JAX package skips every fused route there. Softmax attention
+on the ``"ring"`` route runs the ring schedule of
 ``parallel/ring.py`` (with ``use_pallas`` each key block through the
-LSE-emitting attention kernel). A self layer rotates the same image's K/V
-shards, a cross layer the other image's. ``remat`` runs each layer under
+LSE-emitting attention kernel; a self layer rotates the same image's K/V
+shards, a cross layer the other image's); on the ``"gather"`` route
+of the JAX package's GSPMD path: K/V and their mask are gathered over the
+group in one all-gather and this rank's queries attend to every key (with
+``use_pallas`` through the attention kernels, forward and backward). The
+O(N) kinds reduce their KV aggregate and key sum over the group
+(``ops/attention.py``). ``remat`` runs each layer under
 ``torch.utils.checkpoint`` in training: its activations are rebuilt in the
-backward pass instead of kept, on every route, and the BatchNorm running
+backward pass instead of kept, on every route, the ring's rotations and the
+BatchNorm all-reduces included (every rank rebuilds in the same order, as
+the backward runs the same graph on each), and the BatchNorm running
 statistics still move once per step.
 
 The FAVOR kinds hold their orthogonal random projection ``[F, dh]`` as a
@@ -54,7 +63,7 @@ before a calibration pass has filled it.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -66,10 +75,20 @@ from openglue_tpu_torch.ops.kernels import attention_kernel
 from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
 from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
 from openglue_tpu_torch.parallel import ring
+from openglue_tpu_torch.parallel.distributed import all_gather
 
 ATTENTION_KINDS = ("softmax", "linear", "favor_relu", "favor_softmax")
 TRAIN_ROUTES = ("message", "half", "composed")
 QUANTIZE_MODES = ("int8", "int8_static", "int8_attn", "int8_static_attn")
+SHARD_ROUTES = ("ring", "gather")
+
+
+class KeypointShards(NamedTuple):
+    """The keypoints of both images sharded over the process group
+    ``group``; softmax attention takes ``route``, one of ``SHARD_ROUTES``."""
+
+    group: Any
+    route: str
 
 
 class MultiheadAttention(nn.Module):
@@ -87,7 +106,7 @@ class MultiheadAttention(nn.Module):
         favor_num_features: Optional[int] = None,
         generator: Optional[torch.Generator] = None,
         use_pallas: bool = False,
-        ring_group=None,
+        shards: Optional[KeypointShards] = None,
     ):
         super().__init__()
         if attention not in ATTENTION_KINDS:
@@ -95,50 +114,63 @@ class MultiheadAttention(nn.Module):
                 f"Attention type {attention!r} is not supported; choose from {ATTENTION_KINDS}"
             )
         self.num_heads = num_heads
+        self.head_dim = embed_dim // num_heads
         self.attention = attention
         self.use_pallas = use_pallas
-        self.ring_group = ring_group
+        self.shards = shards
         self.in_proj_q = Conv1x1(embed_dim, embed_dim, dtype)
         self.in_proj_k = Conv1x1(embed_dim, embed_dim, dtype)
         self.in_proj_v = Conv1x1(embed_dim, embed_dim, dtype)
         self.out_proj = Conv1x1(embed_dim, embed_dim, dtype)
         if attention in ("favor_relu", "favor_softmax"):
-            head_dim = embed_dim // num_heads
             self.register_buffer("projection", attn_ops.sample_orthogonal_random_matrix(
-                generator, favor_num_features or 2 * head_dim, head_dim, device="cpu"
+                generator, favor_num_features or 2 * self.head_dim, self.head_dim, device="cpu"
             ))
 
     def forward(
         self, query: torch.Tensor, source: torch.Tensor, kv_mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
-        batch, n, dim = query.shape
+        batch, n, _ = query.shape
         m = source.shape[1]
-        dh = dim // self.num_heads
 
-        def split(x, length):  # [B, L, D] -> [B, H, L, dh]
-            return x.reshape(batch, length, self.num_heads, dh).transpose(1, 2)
+        def split(x, length):  # [B, L, H * dh] -> [B, H, L, dh]
+            return x.reshape(batch, length, -1, self.head_dim).transpose(1, 2)
 
         q = split(self.in_proj_q(query), n)
-        k = split(self.in_proj_k(source), m)
-        v = split(self.in_proj_v(source), m)
-        if self.attention == "softmax" and self.ring_group is not None:
-            out = ring.ring_softmax_attention(q, k, v, kv_mask, self.ring_group, self.use_pallas)
-        elif self.attention == "softmax" and self.use_pallas:
-            out = attention_kernel.masked_softmax_attention(q, k, v, kv_mask)
-        elif self.attention == "softmax":
-            out, _ = attn_ops.softmax_attention(q, k, v, kv_mask)
-        elif self.attention == "linear":
-            out, _ = attn_ops.linear_attention_elu(q, k, v, kv_mask)
+        k_buf, v_buf = self.in_proj_k(source), self.in_proj_v(source)
+        dim, group = k_buf.shape[-1], self.shards.group if self.shards else None
+        if self.attention == "softmax" and group is not None and self.shards.route == "gather":
+            # the all-gather route: one gather of K, V and the mask as 16 bytes
+            # of channels (the attention kernels take 16-byte row strides)
+            pad = 16 // k_buf.element_size()
+            mask = torch.ones_like(k_buf[..., :1]) if kv_mask is None else kv_mask[..., None].to(k_buf.dtype)
+            gathered = all_gather(torch.cat([k_buf, v_buf, mask.expand(*mask.shape[:-1], pad)], dim=-1), group)
+            k_buf, v_buf = gathered[..., :dim], gathered[..., dim:2 * dim]
+            kv_mask, m = gathered[..., 2 * dim] > 0.5, gathered.shape[1]
+            group = None
+        out = self.attend(q, split(k_buf, m), split(v_buf, m), kv_mask, group)
+        return self.out_proj(out.transpose(1, 2).reshape(batch, n, -1))
+
+    def attend(self, q, k, v, kv_mask, group=None) -> torch.Tensor:
+        """[B, H, n, dh] queries, [B, H, m, dh] keys and values -> [B, H, n, dh]
+        by this module's kind; ``group``: the keys are this rank's shard of
+        the group's (the ring, or the O(N) kinds' reductions)."""
+        if self.attention == "softmax" and group is not None:
+            return ring.ring_softmax_attention(q, k, v, kv_mask, group, self.use_pallas)
+        if self.attention == "softmax" and self.use_pallas:
+            return attention_kernel.masked_softmax_attention(q, k, v, kv_mask)
+        if self.attention == "softmax":
+            return attn_ops.softmax_attention(q, k, v, kv_mask)[0]
+        if self.attention == "linear":
+            return attn_ops.linear_attention_elu(q, k, v, kv_mask, group=group)[0]
+        proj = self.projection.to(q.dtype)
+        if self.attention == "favor_relu":
+            q_feat = attn_ops.favor_features_relu(q, proj)
+            k_feat = attn_ops.favor_features_relu(k, proj)
         else:
-            proj = self.projection.to(q.dtype)
-            if self.attention == "favor_relu":
-                q_feat = attn_ops.favor_features_relu(q, proj)
-                k_feat = attn_ops.favor_features_relu(k, proj)
-            else:
-                q_feat = attn_ops.favor_features_softmax(q, proj, is_query=True)
-                k_feat = attn_ops.favor_features_softmax(k, proj, is_query=False, kv_mask=kv_mask)
-            out, _ = attn_ops.linear_attention(q_feat, k_feat, v, kv_mask)
-        return self.out_proj(out.transpose(1, 2).reshape(batch, n, dim))
+            q_feat = attn_ops.favor_features_softmax(q, proj, is_query=True)
+            k_feat = attn_ops.favor_features_softmax(k, proj, is_query=False, kv_mask=kv_mask, group=group)
+        return attn_ops.linear_attention(q_feat, k_feat, v, kv_mask, group)[0]
 
 
 class AttentionalPropagation(nn.Module):
@@ -156,7 +188,7 @@ class AttentionalPropagation(nn.Module):
         quantize: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
         train_route: str = "message",
-        ring_group=None,
+        shards: Optional[KeypointShards] = None,
     ):
         super().__init__()
         if quantize is not None and quantize not in QUANTIZE_MODES:
@@ -169,14 +201,14 @@ class AttentionalPropagation(nn.Module):
         self.dtype = dtype
         self.use_pallas = use_pallas
         self.attention = attention
-        self.fused = ring_group is None  # the ring takes the composed modules only
+        self.fused = shards is None  # sharded keypoints take the composed modules only
         # the int8 layer exists for the fused softmax path only; elsewhere the
         # setting is inert (SuperGlue warns about it)
         self.quantize = quantize if use_pallas and attention == "softmax" and self.fused else None
         self.calibrating = False
         self.mha = MultiheadAttention(
             embed_dim, num_heads, dtype, attention, favor_num_features, generator, use_pallas,
-            ring_group,
+            shards,
         )
         self.fc = FeedForwardNet((2 * embed_dim, 2 * embed_dim, embed_dim), dtype)
         if self.static_quantize:
@@ -336,14 +368,14 @@ class AttentionGNN(nn.Module):
         generator: Optional[torch.Generator] = None,
         remat: bool = False,
         train_route: str = "message",
-        ring_group=None,
+        shards: Optional[KeypointShards] = None,
     ):
         super().__init__()
         self.remat = remat
         self.layers = nn.ModuleList(
             _Layer(AttentionalPropagation(
                 embed_dim, num_heads, use_offset, dtype, use_pallas, attention,
-                favor_num_features, quantize, generator, train_route, ring_group,
+                favor_num_features, quantize, generator, train_route, shards,
             ))
             for _ in range(2 * num_stages)
         )

@@ -49,6 +49,34 @@ class Conv1x1(nn.Module):
         return torch.matmul(x.to(dt), self.weight[:, :, 0].to(dt).t()) + self.bias.to(dt)
 
 
+def group_moments(flat: torch.Tensor, mask: Optional[torch.Tensor], group):
+    """The mean and the biased variance ``[C]`` of the rows of ``flat``
+    ``[R, C]`` that ``mask`` ``[R, 1]`` keeps (None: every row), and their
+    count. With ``group`` they are those of every rank's rows: the sum and the
+    count are all-reduced, then the sum of squared deviations from the global
+    mean, with differentiable all-reduces."""
+    if mask is None:
+        sums = torch.cat([flat.sum(dim=0), flat.new_full((1,), flat.shape[0])])
+    else:
+        sums = torch.cat([(flat * mask).sum(dim=0), mask.sum()[None]])
+    if group is not None:
+        sums = all_reduce_sum(sums, group)
+    count = torch.clamp(sums[-1], min=1.0)
+    mean = sums[:-1] / count
+    squares = (flat - mean) ** 2
+    squares = (squares if mask is None else squares * mask).sum(dim=0)
+    return mean, (squares if group is None else all_reduce_sum(squares, group)) / count, count
+
+
+@torch.no_grad()
+def update_running_statistics(bn: nn.Module, mean: torch.Tensor, var: torch.Tensor, count: torch.Tensor) -> None:
+    """torch's update of a BatchNorm's running statistics by ``momentum``,
+    the variance the unbiased one of ``count`` rows."""
+    unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
+    bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)
+    bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * unbiased)
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over every axis but the last, with torch ``BatchNorm1d``
     semantics (biased batch variance to normalize, unbiased variance into the
@@ -63,8 +91,8 @@ class MaskedBatchNorm(nn.Module):
     keypoints, as GSPMD makes them in the JAX package: the count and the
     masked sum are all-reduced, then the masked sum of squared deviations
     from the global mean, with differentiable all-reduces. A model whose
-    keypoints are sharded (``SuperGlue`` with ``ring_axis``) sets it to the
-    ring's group; a data-parallel step (``parallel.shard_train_step``) to
+    keypoints are sharded (``SuperGlue.keypoint_group``) sets it to that
+    group; a data-parallel step (``parallel.shard_train_step``) to
     the whole data x model world (``set_batch_norm_group``). The running
     statistics then move with the global count, alike on every rank; eval
     needs no collective."""
@@ -91,19 +119,9 @@ class MaskedBatchNorm(nn.Module):
         x32 = x.float()
         if self.training:
             flat = x32.reshape(-1, x32.shape[-1])
-            m = flat.new_ones(flat.shape[0], 1) if mask is None else mask.reshape(-1, 1).float()
-            sums = torch.cat([(flat * m).sum(dim=0), m.sum()[None]])
-            if self.group is not None:
-                sums = all_reduce_sum(sums, self.group)
-            count = torch.clamp(sums[-1], min=1.0)
-            mean = sums[:-1] / count
-            squares = (((flat - mean) ** 2) * m).sum(dim=0)
-            var = (squares if self.group is None else all_reduce_sum(squares, self.group)) / count
+            mean, var, count = group_moments(flat, None if mask is None else mask.reshape(-1, 1).float(), self.group)
             if self.update_running:
-                with torch.no_grad():
-                    unbiased = var * count / torch.clamp(count - 1.0, min=1.0)
-                    self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                    self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+                update_running_statistics(self, mean, var, count)
         else:
             mean, var = self.running_mean, self.running_var
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
@@ -111,11 +129,37 @@ class MaskedBatchNorm(nn.Module):
         return y.to(self.dtype or x.dtype)
 
 
+class GroupBatchNorm2d(nn.BatchNorm2d):
+    """torch's ``BatchNorm2d`` (the extractors' BatchNorms) whose training
+    statistics, with ``group`` set, are those of every rank's images, as
+    GSPMD makes flax's in the JAX package, taken by ``group_moments`` as
+    ``MaskedBatchNorm`` takes them: the biased variance normalizes, and
+    torch's unbiased one with the global count moves the running variance.
+    Without ``group``, or in eval, it is ``BatchNorm2d``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.group = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.group is not None):
+            return super().forward(x)
+        mean, var, count = group_moments(x.movedim(1, -1).reshape(-1, x.shape[1]), None, self.group)
+        self.num_batches_tracked.add_(1)
+        update_running_statistics(self, mean, var, count)
+        shape = (1, x.shape[1], 1, 1)
+        y = (x - mean.view(shape)) * torch.rsqrt(var + self.eps).view(shape)
+        if self.affine:
+            y = y * self.weight.view(shape) + self.bias.view(shape)
+        return y
+
+
 def set_batch_norm_group(module: nn.Module, group) -> None:
-    """Every ``MaskedBatchNorm`` under ``module`` takes its training
-    statistics over ``group`` (None: this process's batch alone)."""
+    """Every ``MaskedBatchNorm`` and ``GroupBatchNorm2d`` under ``module``
+    takes its training statistics over ``group`` (None: this process's batch
+    alone)."""
     for m in module.modules():
-        if isinstance(m, MaskedBatchNorm):
+        if isinstance(m, (MaskedBatchNorm, GroupBatchNorm2d)):
             m.group = group
 
 

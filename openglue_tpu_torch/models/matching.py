@@ -3,7 +3,7 @@
 returned as fixed-size index tensors with -1 for no match.
 
 With ``group`` the log-assignment is row-sharded (``SuperGlue`` with
-``ring_axis``): each rank holds its rows and the replicated dustbin row. Row
+sharded keypoints): each rank holds its rows and the replicated dustbin row. Row
 argmax and max are local; the column max and argmax are reduced across the
 ranks to global row indices, ties to the smallest, as ``jnp.argmax`` breaks
 them, without gathering the [N, M] matrix; the decode then runs on every rank
@@ -106,7 +106,7 @@ def decode_from_output(
 ) -> Dict[str, torch.Tensor]:
     """Decode from a SuperGlue output dict, from the decode stats when the
     model emitted them (``decode_stats``), else from the full matrix. With
-    ``group`` (the model's ``ring_group``) the output and the masks are this
+    ``group`` (the model's ``keypoint_group``) the output and the masks are this
     rank's shards, and the decode of the whole pair comes back on every
     rank."""
     if group is not None:

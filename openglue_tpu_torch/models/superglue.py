@@ -26,20 +26,24 @@ plain versions run instead. In training mode every ``MaskedBatchNorm``
 normalizes with the batch statistics of the valid keypoints and updates its
 running statistics, as the JAX package's ``mutable=["batch_stats"]`` does.
 
-``ring_axis`` names an axis of ``mesh`` (``parallel.make_mesh``) over whose
-process group the keypoints of both images are sharded
-(``parallel.shard_pair_batch_cp``): keypoint-axis context parallelism, each
-rank running this forward on its slice. Every GNN layer then takes the
-composed modules with the ring attention of ``parallel/ring.py`` (with
-``use_pallas`` each key block through the LSE-emitting attention kernel), the
+Keypoint-axis context parallelism: the keypoints of both images are sharded
+over a process group (``parallel.shard_pair_batch_cp``), each rank running
+this forward on its slice. ``ring_axis`` names that axis of ``mesh``
+(``parallel.make_mesh``) and softmax attention then runs the ring schedule of
+``parallel/ring.py``; without ``ring_axis``, a ``mesh`` whose ``model`` axis
+holds several ranks shards the keypoints over that axis and softmax
+attention takes the all-gather route (the counterpart of the JAX package's
+GSPMD path: K/V gathered, queries local). The O(N) kinds reduce their KV
+aggregates over the axis on either. Every GNN layer then takes the composed
+modules (with ``use_pallas`` the attention kernels), ``remat`` included, the
 BatchNorm statistics of training are those of every rank, the score rows of
 this rank meet every column (the other image's projected descriptors are
 all-gathered) and the transport is ``parallel.ring.log_optimal_transport_ring``
 over the marginals of the whole problem. ``scores`` holds this rank's rows and
 then the replicated dustbin row, ``[B, N/P + 1, M + 1]``
 (``parallel.gather_rows`` assembles the whole matrix); the context
-descriptors are this rank's rows. Only softmax attention and no ``remat``
-run on the ring; ``quantize`` warns and serves unquantized, as in JAX.
+descriptors are this rank's rows. ``quantize`` warns and serves unquantized,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence
 import torch
 from torch import nn
 
-from openglue_tpu_torch.models.gnn import AttentionGNN
+from openglue_tpu_torch.models.gnn import AttentionGNN, KeypointShards
 from openglue_tpu_torch.models.layers import Conv1x1, set_batch_norm_group
 from openglue_tpu_torch.models.matching import assignment_stats
 from openglue_tpu_torch.models.positional_encoding import MLPPositionalEncoding
@@ -59,6 +63,7 @@ from openglue_tpu_torch.ops import sinkhorn as sinkhorn_ops
 from openglue_tpu_torch.ops.kernels import sinkhorn_kernel
 from openglue_tpu_torch.parallel import ring
 from openglue_tpu_torch.parallel.distributed import all_gather
+from openglue_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size_rank
 
 
 def as_torch_dtype(value: Any) -> Optional[torch.dtype]:
@@ -154,6 +159,19 @@ class CalibrationState(nn.Module):
         self.calibrated = bool(state["calibrated"])
 
 
+def keypoint_shards(config: SuperGlueConfig, mesh) -> Optional[KeypointShards]:
+    """How a model's keypoints are sharded: over the ``ring_axis`` of
+    ``mesh`` on the ring, else over the ``model`` axis of a mesh on which it
+    holds several ranks on the all-gather route, else not (None)."""
+    if config.ring_axis is not None:
+        if mesh is None:
+            raise ValueError(f"ring_axis={config.ring_axis!r} needs a mesh (SuperGlue(..., mesh=...))")
+        return KeypointShards(mesh.get_group(config.ring_axis), "ring")
+    if mesh is not None and axis_size_rank(mesh, MODEL_AXIS)[0] > 1:
+        return KeypointShards(mesh.get_group(MODEL_AXIS), "gather")
+    return None
+
+
 def normalize_keypoints(kpts: torch.Tensor, image_size: torch.Tensor) -> torch.Tensor:
     """Pixel coordinates [B, N, 2] -> [-1, 1]; image_size [2] or [B, 2] as
     (width, height)."""
@@ -174,15 +192,8 @@ class SuperGlue(nn.Module):
         mesh=None,
     ):
         super().__init__()
-        self.ring_group = None
-        if config.ring_axis is not None:
-            if config.attention != "softmax":
-                raise NotImplementedError(f"not ported yet: ring_axis with attention={config.attention!r}")
-            if config.remat:
-                raise NotImplementedError("not ported yet: ring_axis with remat")
-            if mesh is None:
-                raise ValueError(f"ring_axis={config.ring_axis!r} needs a mesh (SuperGlue(..., mesh=...))")
-            self.ring_group = mesh.get_group(config.ring_axis)
+        shards = keypoint_shards(config, mesh)
+        self.keypoint_group = shards.group if shards else None
         self.config = config
         self.train_route = train_route
         dim = config.descriptor_dim
@@ -195,7 +206,7 @@ class SuperGlue(nn.Module):
         self.attention_gnn = AttentionGNN(
             config.num_stages, dim, config.num_heads, config.use_offset, dtype,
             config.use_pallas, config.attention, config.favor_num_features, config.quantize,
-            generator, bool(config.remat), train_route, self.ring_group,
+            generator, bool(config.remat), train_route, shards,
         )
         if static_int8(config):
             self.int8_calibration = CalibrationState()
@@ -207,7 +218,7 @@ class SuperGlue(nn.Module):
             if isinstance(module, Conv1x1):
                 module.reset_parameters(generator)
         self.positional_encoding.reset_parameters(generator)
-        set_batch_norm_group(self, self.ring_group)
+        set_batch_norm_group(self, self.keypoint_group)
         self.to(device)
 
     def calibrate(self, **inputs) -> Dict[str, torch.Tensor]:
@@ -256,6 +267,8 @@ class SuperGlue(nn.Module):
                 reasons.append(f"attention={cfg.attention!r} (softmax only)")
             if cfg.ring_axis is not None:
                 reasons.append("ring_axis is set")
+            elif self.keypoint_group is not None:
+                reasons.append("the keypoints are sharded over the model axis")
             if reasons:
                 warnings.warn(
                     f"quantize={cfg.quantize!r} requested but the int8 serving path cannot "
@@ -281,8 +294,8 @@ class SuperGlue(nn.Module):
             gdesc0 = alpha * gdesc0 + (1.0 - alpha) * desc0
             gdesc1 = alpha * gdesc1 + (1.0 - alpha) * desc1
 
-        if self.ring_group is not None:
-            return self._ring_head(gdesc0, gdesc1, mask0, mask1)
+        if self.keypoint_group is not None:
+            return self._sharded_head(gdesc0, gdesc1, mask0, mask1)
         S = torch.einsum("bnd,bmd->bnm", gdesc0, gdesc1) * cfg.descriptor_dim**-0.5
         ot = sinkhorn_kernel if cfg.use_pallas else sinkhorn_ops
         log_P = ot.log_optimal_transport(
@@ -301,10 +314,10 @@ class SuperGlue(nn.Module):
             out["decode_max0"] = max0
         return out
 
-    def _ring_head(self, gdesc0, gdesc1, mask0, mask1) -> Dict[str, torch.Tensor]:
+    def _sharded_head(self, gdesc0, gdesc1, mask0, mask1) -> Dict[str, torch.Tensor]:
         """Scores of this rank's rows against every column, and the
         row-sharded transport over the whole problem's marginals."""
-        cfg, group = self.config, self.ring_group
+        cfg, group = self.config, self.keypoint_group
         S = torch.einsum("bnd,bmd->bnm", gdesc0, all_gather(gdesc1, group)) * cfg.descriptor_dim**-0.5
         # the masks are small: gathered once per forward
         mask0_all = None if mask0 is None else all_gather(mask0, group)

@@ -7,6 +7,13 @@ softmax kind sets their logits to -1e9 (finite, so a fully masked key set gives
 the uniform average instead of NaN); the linear kinds zero their feature rows,
 so they leave both the KV aggregate and the normalizer (a fully masked key set
 then divides 0 by 0). FAVOR projections are per head ``[K, Dh]``.
+
+``group`` (the linear kinds and the FAVOR-softmax keys): the keys and values
+are this rank's shard of a key set sharded over the process group, as GSPMD
+partitions these einsums in the JAX package. The ``[B, H, K, Dh]`` KV
+aggregate and the ``[B, H, K]`` key sum go through one differentiable sum
+all-reduce; the FAVOR-softmax key stabilizer is the max over every rank's
+valid keys (``distributed.max_over``); the queries stay local.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from openglue_tpu_torch.parallel.distributed import all_reduce_sum, max_over
 
 NEG_INF = -1e9
 
@@ -64,6 +73,7 @@ def linear_attention(
     key: torch.Tensor,
     value: torch.Tensor,
     kv_mask: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Tuple[torch.Tensor, None]:
     """Linear attention on feature maps that are already positive: O(N) in the
     set size. query [B, H, N, K]; key [B, H, M, K]; value [B, H, M, Dh]."""
@@ -71,6 +81,9 @@ def linear_attention(
         key = key * kv_mask[:, None, :, None].to(key.dtype)
     kv = torch.einsum("bhmk,bhmd->bhkd", key, value)
     key_sum = key.sum(dim=2)
+    if group is not None:
+        both = all_reduce_sum(torch.cat([kv, key_sum[..., None]], dim=-1), group)
+        kv, key_sum = both[..., :-1], both[..., -1]
     out = torch.einsum("bhnk,bhkd->bhnd", query, kv)
     normalizer = torch.einsum("bhnk,bhk->bhn", query, key_sum)
     return out / normalizer[..., None], None
@@ -82,11 +95,12 @@ def linear_attention_elu(
     value: torch.Tensor,
     kv_mask: Optional[torch.Tensor] = None,
     eps: float = 1e-6,
+    group=None,
 ) -> Tuple[torch.Tensor, None]:
     """Linear attention with the ELU(x)+1 feature map."""
     query = torch.nn.functional.elu(query) + 1.0 + eps
     key = torch.nn.functional.elu(key) + 1.0 + eps
-    return linear_attention(query, key, value, kv_mask)
+    return linear_attention(query, key, value, kv_mask, group)
 
 
 def sample_orthogonal_random_matrix(
@@ -133,10 +147,12 @@ def favor_features_softmax(
     is_query: bool,
     kv_mask: Optional[torch.Tensor] = None,
     eps: float = 1e-8,
+    group=None,
 ) -> torch.Tensor:
     """Positive softmax-kernel estimator features (Performer), stabilized by a
     max: queries subtract a per-row max, keys one max over valid keypoints and
-    features per (element, head). Returns [B, H, N, K]."""
+    features per (element, head), over every rank's keys with ``group``.
+    Returns [B, H, N, K]."""
     data_normalizer = x.shape[-1] ** -0.25
     ratio = projection.shape[-2] ** -0.5
     proj = _favor_projection(x * data_normalizer, projection)
@@ -149,4 +165,6 @@ def favor_features_softmax(
         else:
             proj_for_max = proj
         stab = proj_for_max.amax(dim=(-1, -2), keepdim=True)
+        if group is not None:
+            stab = max_over(stab, group)
     return ratio * (torch.exp(proj - diag - stab) + eps)

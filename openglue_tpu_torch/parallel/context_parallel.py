@@ -2,11 +2,13 @@
 ``openglue_tpu/parallel/context_parallel.py``).
 
 In the JAX package a pair batch is placed with its keypoint axis sharded over
-the ``model`` mesh axis and GSPMD partitions the model around the ring's
-``shard_map``s. Here each rank runs its own program on its contiguous slice of
-the keypoints (``shard_pair_batch_cp``); ``SuperGlue`` with ``ring_axis`` and
-a mesh makes the collectives the global program needs, and ``gather_rows`` /
-``gather_pair_batch`` put whole tensors together where a caller needs them.
+the ``model`` mesh axis and GSPMD partitions the model, around the ring's
+``shard_map``s with ``ring_axis``. Here each rank runs its own program on its
+contiguous slice of the keypoints (``shard_pair_batch_cp``); ``SuperGlue`` on
+the mesh (with ``ring_axis``: the ring; without, on a ``model`` axis of
+several ranks: the all-gather route) makes the collectives the global program
+needs, and ``gather_rows`` / ``gather_pair_batch`` put whole tensors together
+where a caller needs them.
 """
 
 from __future__ import annotations
@@ -61,10 +63,11 @@ def shard_train_step_cp(train_step: Callable, mesh: DeviceMesh) -> Callable:
     """A ``(state, batch) -> metrics`` step over a GLOBAL pair batch for each
     rank of a data x model mesh (port of JAX's ``shard_train_step_cp``): the
     rank takes its shard (``shard_pair_batch_cp``) and runs
-    ``mesh.shard_train_step``'s step, so that the ring runs over the
-    ``model`` group while the BatchNorm statistics, the loss's value and the
-    gradients are summed over both axes. The model is a ``SuperGlue`` with
-    ``ring_axis`` on ``mesh``."""
+    ``mesh.shard_train_step``'s step, so that the attention reaches every
+    key over the ``model`` group while the BatchNorm statistics, the loss's
+    value and the gradients are summed over both axes. The model is a
+    ``SuperGlue`` on ``mesh``, with ``ring_axis`` (the ring) or without (the
+    all-gather route)."""
     step = shard_train_step(train_step, mesh)
     return lambda state, batch: step(state, shard_pair_batch_cp(batch, mesh))
 

@@ -16,6 +16,16 @@ that hold other keypoints of the same rows: the ring) and the whole world,
 over which the gradients, the BatchNorm statistics and the loss's value are
 summed.
 
+Several ranks on one card run over gloo (NCCL refuses two ranks on one
+device). Gloo all-reduces, broadcasts and all-gathers CUDA tensors (it copies
+them through the host itself), but its point-to-point send and receive hand
+the device pointer to the socket and fail ("writev: Bad address"). So
+``_exchange``, the ring's transport, stages CUDA tensors through pinned host
+buffers whenever the group's backend is gloo: the one layout that puts two
+ranks of a ``model`` axis on one card. NCCL exchanges device memory directly.
+``traffic`` counts the bytes each collective of this module sends from this
+rank, the staged bytes apart.
+
 The differentiable collectives follow one rule: each rank's loss is its share
 of the global loss (the shares sum to it), and each collective's backward is
 its transpose: a SUM all-reduce all-reduces the cotangents, an all-gather
@@ -26,12 +36,20 @@ global loss's.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 from typing import Any, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+
+traffic = collections.Counter()  # bytes sent by this rank: "all_reduce", "all_gather", "exchange", "staged"
+
+
+def _sent(kind: str, tensors) -> None:
+    traffic[kind] += sum(t.numel() * t.element_size() for t in tensors)
 
 
 def initialize(
@@ -123,6 +141,7 @@ class _AllReduceSum(torch.autograd.Function):
     def forward(ctx, x, group):
         ctx.group = group
         y = x.contiguous().clone()
+        _sent("all_reduce", [y])
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
         return y
 
@@ -141,6 +160,7 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max over the group's ranks, detached (JAX's ``pmax``
     under ``stop_gradient``)."""
     y = x.detach().contiguous().clone()
+    _sent("all_reduce", [y])
     dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
     return y
 
@@ -148,8 +168,32 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
 def all_reduce_min(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise min over the group's ranks, detached."""
     y = x.detach().contiguous().clone()
+    _sent("all_reduce", [y])
     dist.all_reduce(y, op=dist.ReduceOp.MIN, group=group)
     return y
+
+
+class _MaxOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = all_reduce_max(x, group)
+        holds = (x == y).to(x.dtype)
+        ctx.group = group
+        ctx.save_for_backward(holds / all_reduce_sum(holds, group).clamp(min=1.0))
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (share,) = ctx.saved_tensors
+        return _AllReduceSum.apply(g, ctx.group) * share, None
+
+
+def max_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the group's ranks, on every rank;
+    differentiable as the max of the ranks' values concatenated is: the
+    cotangents summed over the ranks go to the rank that holds the maximum
+    (shared evenly where several ranks hold it)."""
+    return _MaxOver.apply(x, group)
 
 
 class _AllGather(torch.autograd.Function):
@@ -159,6 +203,7 @@ class _AllGather(torch.autograd.Function):
         wire = x.contiguous()
         wire = wire.view(torch.uint8) if wire.dtype == torch.bool else wire
         parts = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
+        _sent("all_gather", [wire])
         dist.all_gather(parts, wire, group=group)
         return torch.cat(parts, dim=dim).view(x.dtype)
 
@@ -178,16 +223,28 @@ def all_gather(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
 
 def _exchange(tensors: Sequence[torch.Tensor], group, shift: int):
     """Send each tensor to the rank ``shift`` ahead in the group and receive
-    its counterpart from the rank ``shift`` behind, in one batch."""
+    its counterpart from the rank ``shift`` behind, in one batch. Over gloo
+    CUDA tensors travel through pinned host buffers: one copy out before the
+    exchange and one copy in after it."""
     size, rank = dist.get_world_size(group), dist.get_rank(group)
     dst = dist.get_global_rank(group, (rank + shift) % size)
     src = dist.get_global_rank(group, (rank - shift) % size)
     sent = [t.contiguous() for t in tensors]
-    received = [torch.empty_like(t) for t in sent]
+    staged = sent[0].is_cuda and dist.get_backend(group) == "gloo"
+    if staged:
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in sent]
+        for h, t in zip(host, sent):
+            h.copy_(t)
+        sent = host
+        _sent("staged", sent)
+    _sent("exchange", sent)
+    received = [torch.empty(t.shape, dtype=t.dtype, device=t.device, pin_memory=staged) for t in sent]
     ops = [dist.P2POp(dist.isend, t, dst, group) for t in sent]
     ops += [dist.P2POp(dist.irecv, t, src, group) for t in received]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
+    if staged:
+        received = [r.to(tensors[0].device, non_blocking=True) for r in received]
     return received
 
 

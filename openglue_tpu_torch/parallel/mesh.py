@@ -9,7 +9,9 @@ is the global one, the parameter gradients are summed over every rank after
 backward, the BatchNorm statistics are those of the whole batch, and every
 rank takes the same Adam update. The ``model`` axis carries keypoint-axis
 context parallelism (the ring schedule of ``parallel/ring.py``, chosen by
-``SuperGlueConfig.ring_axis``; ``context_parallel.shard_train_step_cp``).
+``SuperGlueConfig.ring_axis``, or the all-gather route;
+``context_parallel.shard_train_step_cp``) or tensor parallelism
+(``tensor_parallel``).
 """
 
 from __future__ import annotations

@@ -7,8 +7,9 @@ in training mode -> weighted NLL (+ metric) loss -> backward -> clipped Adam
 update. The BatchNorm running statistics update during the forward.
 
 A data-parallel state (``state.groups``, set by ``parallel.shard_train_step``)
-takes this rank's rows of the global batch; a model with a ``ring_group``
-(``SuperGlue`` with ``ring_axis``) this rank's shard of their keypoints
+takes this rank's rows of the global batch; a model with a
+``keypoint_group`` (``SuperGlue`` with ``ring_axis``, or on a mesh whose
+``model`` axis holds several ranks) this rank's shard of their keypoints
 (``parallel.shard_pair_batch_cp``): the GT then comes from the gathered
 keypoints of both images (the mutual check needs them all) and keeps this
 rank's rows of image 0. The loss is the global one with this rank's share as
@@ -50,10 +51,10 @@ class LossConfig:
 
 def step_groups(state: TrainState) -> MeshGroups:
     """The groups a step of ``state`` reduces over: ``state.groups``, else
-    the model's ring group as both the model group and the world."""
+    the model's keypoint group as both the model group and the world."""
     if state.groups is not None:
         return state.groups
-    ring = getattr(state.model, "ring_group", None)
+    ring = getattr(state.model, "keypoint_group", None)
     return MeshGroups(model=ring, world=ring)
 
 
@@ -127,7 +128,7 @@ def make_eval_step(match_threshold: float = 0.2) -> Callable[[TrainState, PairBa
             out = model(**superglue_inputs(batch))
             matches = decode_from_output(
                 out, match_threshold=match_threshold, mask0=batch.side0.mask, mask1=batch.side1.mask,
-                group=getattr(model, "ring_group", None),
+                group=getattr(model, "keypoint_group", None),
             )
         matches["scores"] = out["scores"]
         return matches

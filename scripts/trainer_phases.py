@@ -1,16 +1,20 @@
 """Run ``chip_smoke.py``'s cached-trainer phases alone on a CUDA card.
 
-    python3 scripts/trainer_phases.py --repo DIR [trainer] [twin] [dp] [checkify]
+    python3 scripts/trainer_phases.py --repo DIR [trainer] [twin] [dp] [checkify] [cp]
 
 Imports ``openglue_tpu_torch`` and ``chip_smoke.py`` from the checkout DIR,
-builds the kernels, and runs the named phases in order (all four when none
+builds the kernels, and runs the named phases in order (all five when none
 is named): ``trainer_phase`` (the flagship config as written, its device
 descriptor cache included), ``cache_twin_phase`` (host mode against the
 cache on the same rows), ``data_parallel_phase`` (world 2 over gloo on the
-one card) and ``checkify_phase`` (``--checkify`` in a child process). They
-share one in-memory h5 store and one temporary directory; a phase that
-fails prints its traceback and the next one runs. The last line lists the
-phases that failed.
+one card), ``checkify_phase`` (``--checkify`` in a child process) and
+``context_parallel_phase`` (two ranks over gloo on the one card with a
+model axis of 2: the ring, the all-gather route, the O(N) kinds, remat, the
+metric loss, tensor parallelism and the BatchNorm extractor at data axis 2;
+the flagship's weights drawn as ``chip_smoke.py`` draws them). They share
+one in-memory h5 store and one temporary directory; a phase that fails
+prints its traceback and the next one runs. The last line lists the phases
+that failed.
 """
 
 from __future__ import annotations
@@ -25,13 +29,22 @@ from pathlib import Path
 
 import torch
 
-PHASES = ("trainer", "twin", "dp", "checkify")
+PHASES = ("trainer", "twin", "dp", "checkify", "cp")
+
+
+def flagship_weights(cs):
+    """The flagship matcher's weights as ``chip_smoke.main`` draws them."""
+    from openglue_tpu_torch.cli.common import superglue_config_from
+    from openglue_tpu_torch.models.superglue import SuperGlue
+
+    cfg = superglue_config_from({"superglue": cs.SUPERGLUE_SECTION}, cs.DESCRIPTOR_DIM, cs.SIDE_INFO_DIM)
+    return SuperGlue(cfg, device="cuda", generator=torch.Generator().manual_seed(0)).state_dict()
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--repo", default=str(Path(__file__).resolve().parents[1]))
-    parser.add_argument("phases", nargs="*", choices=PHASES, help="default: all four")
+    parser.add_argument("phases", nargs="*", choices=PHASES, help="default: all five")
     args = parser.parse_args()
     phases = args.phases or list(PHASES)
     repo = Path(args.repo).resolve()
@@ -51,7 +64,9 @@ def main() -> int:
     run = {"trainer": lambda: cs.trainer_phase(card, repo, store, work),
            "twin": lambda: cs.cache_twin_phase(card, repo, store, work),
            "dp": lambda: cs.data_parallel_phase(card, repo, store, work),
-           "checkify": lambda: cs.checkify_phase(card, repo, store, work)}
+           "checkify": lambda: cs.checkify_phase(card, repo, store, work),
+           "cp": lambda: cs.context_parallel_phase(card, repo, work, flagship_weights(cs),
+                                                   torch.Generator(device="cuda").manual_seed(0))}
     failed = []
     try:
         for name in phases:

@@ -14,7 +14,16 @@ rank bit for bit.
 The CLIs at world 2 are held against the same CLI at world 1 fed the global
 batches that the two ranks drew: the cached trainer's random crop and the
 homography pairs come from per-process streams (seeded by rank, as in the
-JAX package), so the world-1 CLI's own loader would draw other pairs."""
+JAX package), so the world-1 CLI's own loader would draw other pairs.
+
+The data ranks also take one online step fine-tuning SuperPoint with
+BatchNorms (tests/test_torch_online.py's images, 1 of the 2 pairs a rank):
+its BatchNorm statistics cover the global batch, as the JAX package's do.
+It is held against JAX's one-device step (the losses, the gradient norm, the
+matcher's gradients, the running means and variances), against the port's
+world-1 step (every gradient) and, for the extractor's gradients, against
+the world-1 step in f64, where the port's and JAX's agree (``_f64_steps``):
+JAX's f32 step rounds those gradients up to 1.7e-3 away from both."""
 
 import json
 import os
@@ -45,6 +54,7 @@ from openglue_tpu.train import make_train_step as jax_make_train_step
 from openglue_tpu_torch.cli import pretrain_homography, train_cached
 from openglue_tpu_torch.compat.jax_weights import (
     jax_variables_from_state_dict, superglue_grads_from_jax, superglue_state_dict_from_jax,
+    superpoint_state_dict_from_jax,
 )
 from openglue_tpu_torch.core.types import map_tensors
 from openglue_tpu_torch.data.fixture import generate_image_fixture
@@ -52,10 +62,12 @@ from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
 from openglue_tpu_torch.models.superglue import SuperGlue, SuperGlueConfig
 from openglue_tpu_torch.train import state as port_state
 from openglue_tpu_torch.train.checkpoint import restore_train_state, save_train_state
-from openglue_tpu_torch.train.step import LossConfig, make_eval_step, make_train_step
+from openglue_tpu_torch.train.state import make_online_optimizer
+from openglue_tpu_torch.train.step import LossConfig, make_eval_step, make_online_train_step, make_train_step
 from tests.test_cli import SMALL_SUPERGLUE
 from tests.test_data import TARGET_CACHED, make_megadepth_fixture
 from tests.torch_dp_worker import matcher, model_batch, recorded_cli
+from tests import test_torch_online as online_refs
 
 REPO = Path(__file__).resolve().parents[1]
 B, KPTS = 4, 32
@@ -152,6 +164,97 @@ def _jax_references(data, variables):
         state, metrics = step(state, batch)
         one.append(_jax_step_record(state, metrics, i == 0))
     return dp, one
+
+
+BN_SIZES = {"1": 64 * 80, "2": 32 * 40, "3": 16 * 20, "4": 8 * 10, "P": 8 * 10, "D": 8 * 10}  # a BatchNorm's map
+
+
+def _bn_inputs(root):
+    """SuperPoint with BatchNorms, fine-tuned, in the online test's
+    MatchingModule with JAX's initialization: the port's weights, config
+    and images for the ranks. Returns (JAX module, its variables, the port
+    module, the images)."""
+    jmodel, variables, port, images = online_refs.modules("SuperPointNetBn", finetune=True)
+    torch.save(port.state_dict(), root / "bn_weights.pt")
+    (root / "bn_config.json").write_text(json.dumps({
+        "module": online_refs.config_dict("SuperPointNetBn", True), "loss": online_refs.LOSS, "lr": online_refs.LR}))
+    np.savez(root / "bn_images.npz", image0=images[0], image1=images[1], H=images[2])
+    return jmodel, variables, port, images
+
+
+def _jax_bn_reference(jmodel, variables, port, images):
+    """JAX's one-device online step on the global batch: metrics, the
+    gradients after the clip (Adam's first moment over 1 - b1), the running
+    statistics before the step, after the extractor's call on image 0 and
+    after the step."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(online_refs.jax_native, "nms_keypoints_native", lambda *args, **kwargs: None)
+        new_state, metrics = online_refs._jax_step(jmodel, variables, online_refs.jax_batch(*images), True, False)
+        _, first = jmodel.apply(variables, jax.numpy.asarray(images[0]), train=True, method=jmodel.extract,
+                                mutable=["batch_stats"])
+    mu = _adam_gradients(new_state)
+    grads = {f"superglue.{k}": v.numpy() for k, v in superglue_grads_from_jax(
+        mu["superglue"], port.config.superglue).items()}
+    stats = [jax.tree_util.tree_map(np.asarray, tree["batch_stats"]["extractor"]["backbone"])
+             for tree in (variables, first, new_state.model_state)]
+    return dict(metrics={k: float(v) for k, v in metrics.items()}, grads=grads, stats=stats)
+
+
+def _adam_gradients(new_state):
+    """The gradients of a JAX online step below the clip: Adam's first
+    moment after one update is (1 - b1) * grad."""
+    adam = [s for s in jax.tree_util.tree_leaves(
+        new_state.opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)][0]
+    return jax.tree_util.tree_map(lambda m: np.asarray(m) / 0.1, dict(adam.mu))
+
+
+def _f64_steps(jmodel, variables, images):
+    """The extractor's gradients of the BN fine-tuning's world-1 online step
+    in f64, of the port (the module and images in f64) and of JAX (x64), as
+    numpy. Two changes make the f64 steps the f32 steps' function: the
+    ground truth is computed in f32 on both sides (the test's homography
+    shifts by whole pixels onto the 3 px positive threshold, where f64
+    rounds other pairs in), and JAX's Sinkhorn takes its marginals in the
+    scores' type (it builds them in f32)."""
+    from openglue_tpu.ops import sinkhorn as jax_sinkhorn
+    from openglue_tpu.train import step as jax_step_module
+    from openglue_tpu_torch.features import superpoint as port_superpoint
+    from openglue_tpu_torch.train import step as port_step_module
+
+    def jax_f32(t):
+        return t.astype(np.float32) if hasattr(t, "dtype") and np.issubdtype(t.dtype, np.floating) else t
+
+    def port_f32(t):
+        return t.float() if torch.is_tensor(t) and t.is_floating_point() else t
+
+    log_sinkhorn, jax_gt, port_gt = (jax_sinkhorn.log_sinkhorn, jax_step_module.generate_gt_matches,
+                                     port_step_module.generate_gt_matches)
+    images64 = [np.asarray(x, np.float64) for x in images]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(online_refs.jax_native, "nms_keypoints_native", lambda *args, **kwargs: None)
+        mp.setattr(jax_sinkhorn, "log_sinkhorn", lambda log_a, log_b, M, *args, **kwargs: log_sinkhorn(
+            log_a.astype(M.dtype), log_b.astype(M.dtype), M, *args, **kwargs))
+        mp.setattr(jax_step_module, "generate_gt_matches", lambda *args, **kwargs: jax_gt(
+            *jax.tree_util.tree_map(jax_f32, args), **jax.tree_util.tree_map(jax_f32, kwargs)))
+        mp.setattr(port_step_module, "generate_gt_matches", lambda *args, **kwargs: port_gt(
+            *[map_tensors(a, port_f32) for a in args], **{k: port_f32(v) for k, v in kwargs.items()}))
+        mp.setattr(port_superpoint, "gray_batch", lambda image: (image[:, 0] if image.dim() == 4 else image).double())
+        _, _, port, _ = online_refs.modules("SuperPointNetBn", finetune=True)
+        port = port.double()
+        state = port_state.create_train_state(port, optimizer=make_online_optimizer(
+            port, learning_rate=online_refs.LR, finetune_extractor=True))
+        make_online_train_step(LossConfig(**online_refs.LOSS), augmentation="none")(
+            state, online_refs.port_batch(*images64))
+        with jax.enable_x64(True):
+            as64 = lambda t: jax.numpy.asarray(t, jax.numpy.float64 if np.issubdtype(t.dtype, np.floating) else t.dtype)
+            new_state, _ = online_refs._jax_step(jmodel, jax.tree_util.tree_map(as64, variables),
+                                                 online_refs.jax_batch(*images64), True, False)
+            mu = _adam_gradients(new_state)
+    extractor = superpoint_state_dict_from_jax({"params": mu["extractor"],
+                                                "batch_stats": variables["batch_stats"]["extractor"]})
+    jax_grads = {f"extractor.{k}": v.numpy() for k, v in extractor.items() if "running" not in k}
+    return {n: p.grad.numpy() for n, p in port.named_parameters() if n.startswith("extractor.")}, jax_grads
 
 
 def _spawn(mode, world, root):
@@ -251,6 +354,7 @@ def dp_run(tmp_path_factory):
     torch.save(weights, root / "weights.pt")
     (root / "model.json").write_text(json.dumps(MODEL))
     _cli_fixtures(root)
+    bn = _bn_inputs(root)
 
     # a world-1 state one step in, its checkpoint, and the two steps after it
     whole = model_batch(data)
@@ -264,6 +368,8 @@ def dp_run(tmp_path_factory):
     procs = _spawn("data", 2, root) + _spawn("ring", 4, root)
     try:
         jax_dp, jax_one = _jax_references(data, variables)
+        jax_bn = _jax_bn_reference(*bn)
+        bn_f64 = _f64_steps(bn[0], bn[1], bn[3])
         logs = [p.communicate(timeout=300)[0].decode(errors="replace") for p in procs]
     finally:
         for p in procs:  # a rank that failed leaves the others waiting in a collective
@@ -273,8 +379,14 @@ def dp_run(tmp_path_factory):
         assert p.returncode == 0, f"process {r}:\n{log[-4000:]}"
     ranks = [dict(np.load(root / f"data{r}.npz")) for r in range(2)]
     ring = [dict(np.load(root / f"ring{r}.npz")) for r in range(4)]
+    port_bn = bn[2]
+    bn_state = port_state.create_train_state(port_bn, optimizer=make_online_optimizer(
+        port_bn, learning_rate=online_refs.LR, finetune_extractor=True))
+    bn_world1 = make_online_train_step(LossConfig(**online_refs.LOSS), augmentation="none")(
+        bn_state, online_refs.port_batch(*bn[3]))
     return dict(root=root, data=data, weights=weights, jax_dp=jax_dp, jax_one=jax_one, ranks=ranks, ring=ring,
-                world1=world1, world1_next=world1_next, cli=_world1_cli_runs(root))
+                world1=world1, world1_next=world1_next, cli=_world1_cli_runs(root), jax_bn=jax_bn,
+                bn_world1=(bn_world1, port_bn), bn_f64=bn_f64)
 
 
 def _stats(record, cfg):
@@ -329,6 +441,62 @@ def test_data_model_ring_step_matches_jax_single_device_step(dp_run):
     their 32 keypoints; one ring step through shard_train_step_cp against
     JAX's one-device step on the global batch."""
     _hold_step(dp_run["ring"], "ring", dp_run["jax_one"][0], SuperGlueConfig(**MODEL))
+
+
+def test_data_model_gather_step_matches_jax_single_device_step(dp_run):
+    """The same step on the all-gather route (no ``ring_axis``: K/V
+    gathered over the model axis) through shard_train_step_cp."""
+    _hold_step(dp_run["ring"], "gather", dp_run["jax_one"][0], SuperGlueConfig(**MODEL))
+
+
+def test_bn_extractor_fine_tuned_at_world_2(dp_run):
+    """One online step fine-tuning SuperPoint with BatchNorms at world 2, one
+    image pair a rank: the losses (1e-5) and the gradient norm (1e-4
+    relative) of JAX's one-device step on both pairs; the matcher's
+    gradients at the f32 step bar against JAX's, and every gradient at that
+    bar against the port's world-1 step; the extractor's gradients at that
+    bar against the world-1 step in f64, whose port and JAX versions agree
+    within 1e-6 and which the port's f32 world-1 step meets within 1e-5
+    (JAX's f32 step is up to 1.7e-3 off there); the running means against JAX's
+    (1e-5) and the running variances against the value JAX's statistics
+    give under the port's formula (torch's unbiased variance, with the
+    global count of each call: n / (n - 1) times flax's biased one, two
+    extractor calls a step) within 1e-5; every rank the same."""
+    ranks, ref = dp_run["ranks"], dp_run["jax_bn"]
+    world1, port = dp_run["bn_world1"]
+    for r in ranks:
+        for key in ("total_loss", "nll_loss"):
+            np.testing.assert_allclose(r[f"bn_{key}"], ref["metrics"][key], rtol=1e-5, err_msg=key)
+        np.testing.assert_allclose(r["bn_grad_norm"], ref["metrics"]["grad_norm"], rtol=1e-4)
+        np.testing.assert_allclose(r["bn_grad_norm"], world1["grad_norm"].item(), rtol=1e-4)
+    grads = {k.split(":", 1)[1]: v for k, v in ranks[0].items() if k.startswith("bn_grad:")}
+    assert len([k for k in grads if k.startswith("extractor.bn")]) == 24
+    bar = lambda got, want, name: np.testing.assert_allclose(
+        got, want, atol=3e-4 + 1e-5 * np.abs(want).max(), rtol=1e-4, err_msg=name)
+    for name, p in port.named_parameters():
+        bar(grads[name], p.grad.numpy(), name)
+        if name in ref["grads"]:
+            bar(grads[name], ref["grads"][name], name)
+    port64, jax64 = dp_run["bn_f64"]
+    assert set(port64) == set(jax64) == {k for k in grads if k.startswith("extractor.")}
+    world1_grads = dict(port.named_parameters())
+    for name, want in port64.items():
+        np.testing.assert_allclose(want, jax64[name], rtol=0, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(world1_grads[name].grad.numpy(), want, rtol=0, atol=1e-5, err_msg=name)
+        bar(grads[name], want, name)
+    before, first, after = ref["stats"]
+    for layer, stats in before.items():
+        n = 2 * BN_SIZES[layer[2]]  # the images of one side's call, at world 1 and over both ranks
+        r0, r1, r2 = (np.float64(s[layer]["var"]) for s in (before, first, after))
+        unbiased = n / (n - 1)
+        want = 0.9 * (0.9 * r0 + 0.1 * unbiased * (r1 - 0.9 * r0) / 0.1) + 0.1 * unbiased * (r2 - 0.9 * r1) / 0.1
+        np.testing.assert_allclose(ranks[0][f"bn_stat:extractor.{layer}.running_var"], want, rtol=0, atol=1e-5,
+                                   err_msg=layer)
+        np.testing.assert_allclose(ranks[0][f"bn_stat:extractor.{layer}.running_mean"], after[layer]["mean"],
+                                   rtol=0, atol=1e-5, err_msg=layer)
+    for key, value in ranks[0].items():
+        if key.startswith("bn_"):
+            np.testing.assert_array_equal(ranks[1][key], value, err_msg=key)
 
 
 def test_batch_slice_and_evaluation_of_a_tail(dp_run):

@@ -12,7 +12,17 @@ row-sharded Sinkhorn and its gradient, the ring forward and its sharded
 decode, and one ring train step (loss, every gradient, the BatchNorm running
 statistics), the latter also against the port's single-process ``composed``
 step. Tolerances: the JAX package's own ring bars (attention 2e-5, Sinkhorn
-1e-5), scores 2e-4, the loss 1e-5 relative."""
+1e-5), scores 2e-4, the loss 1e-5 relative.
+
+The same workers then run the other ways of sharding the keypoints over the
+``model`` axis (D=32, 2 stages, 64 keypoints, 16 a rank), each held against
+JAX's single-device model, which GSPMD equals by construction: the
+all-gather route (softmax without ``ring_axis``), the three O(N) kinds with
+and without ``ring_axis``, each forward and one ``shard_train_step_cp`` step
+with the metric-learning loss at margin 0.5 (loss 1e-5 and gradient norm
+1e-4 relative, as tests/test_context_parallel.py holds GSPMD's step), the
+ring with and without ``remat``, and the metric loss alone on planted
+descriptors whose hardest negatives tie across ranks."""
 
 import os
 import socket
@@ -31,6 +41,7 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from openglue_tpu.core.types import KeypointSet as JaxKeypointSet
+from openglue_tpu.losses import metric_learning_loss as jax_metric_learning_loss
 from openglue_tpu.core.types import PairBatch as JaxPairBatch
 from openglue_tpu.core.types import Transformation as JaxTransformation
 from openglue_tpu.data.synthetic import SyntheticHomographyPairs as JaxPairs
@@ -47,7 +58,9 @@ from openglue_tpu.train import LossConfig as JaxLossConfig
 from openglue_tpu.train import create_train_state as jax_create_train_state
 from openglue_tpu.train import make_train_step as jax_make_train_step
 from openglue_tpu.train.step import superglue_inputs as jax_superglue_inputs
-from openglue_tpu_torch.compat.jax_weights import superglue_grads_from_jax, superglue_state_dict_from_jax
+from openglue_tpu_torch.compat.jax_weights import (
+    jax_variables_from_state_dict, superglue_grads_from_jax, superglue_state_dict_from_jax,
+)
 from openglue_tpu_torch.core.types import KeypointSet, PairBatch, Transformation
 from openglue_tpu_torch.models.superglue import SuperGlue, SuperGlueConfig
 from openglue_tpu_torch.ops.kernels import attention_kernel
@@ -63,6 +76,17 @@ MODEL = dict(
 )
 KPTS = 32  # keypoints per image of the model's batch: 8 per rank
 SINKHORN_ITERS = 15
+CP_MODEL = dict(descriptor_dim=32, pe_hidden_layers_sizes=(16,), num_stages=2, num_heads=4, otp_num_iters=8,
+                residual=True)
+CP_KPTS = 64  # 16 per rank
+CP_LOSS = dict(positive_threshold=3.0, negative_threshold=5.0, margin=0.5, metric_weight=1.0)
+CP_KINDS = ("softmax", "linear", "favor_relu", "favor_softmax")
+# (tag, attention, config changes, whether a step runs too)
+CP_CASES = [("cp_gather", "softmax", {"use_pallas": True}, True),
+            ("cp_ring", "softmax", {"use_pallas": True, "ring_axis": "model"}, True),
+            ("cp_remat", "softmax", {"use_pallas": True, "ring_axis": "model", "remat": True}, True)]
+CP_CASES += [case for kind in CP_KINDS[1:] for case in (
+    (f"cp_{kind}", kind, {}, True), (f"cp_{kind}_ring", kind, {"ring_axis": "model"}, False))]
 
 _WORKER = textwrap.dedent(
     """
@@ -180,6 +204,39 @@ _WORKER = textwrap.dedent(
     except ValueError:
         out["indivisible_raised"] = np.asarray(True)
 
+    # ---- the other ways to shard the keypoints over the model axis
+    from openglue_tpu_torch.losses import metric_learning_loss
+
+    cp = PairBatch(*[KeypointSet(*[data[f"c{i}_{f}"] for f in (
+        "keypoints", "descriptors", "side_info", "mask", "image_size")]) for i in (0, 1)],
+        Transformation("perspective", H=data["cH"]))
+    cp_batch = parallel.shard_pair_batch_cp(cp, mesh)
+    for tag, kind, changes, stepped in CP_CASES:
+        model = SuperGlue(SuperGlueConfig(**dict(CP_CONFIG, attention=kind, **changes)), device="cpu", mesh=mesh)
+        model.load_state_dict(torch.load(root / f"cp_{kind}.pt"))
+        with torch.no_grad():
+            res = model.eval()(**superglue_inputs(cp_batch))
+        out[f"{tag}_scores"] = parallel.gather_rows(res["scores"], group).numpy()
+        if stepped:
+            state = port_state.create_train_state(model, learning_rate=1e-3)
+            metrics = parallel.shard_train_step_cp(make_train_step(LossConfig(**CP_LOSS)), mesh)(state, cp)
+            for key, value in metrics.items():
+                out[f"{tag}_{key}"] = value.numpy()
+            for name, p in model.named_parameters():
+                out[f"{tag}_grad:{name}"] = p.grad.numpy()
+            for name, b in model.named_buffers():
+                if "running" in name:
+                    out[f"{tag}_stat:{name}"] = b.numpy()
+
+    # ---- the metric loss on planted descriptors; this rank's share
+    g0 = mine(data["ml_g0"], 1).requires_grad_()
+    g1 = mine(data["ml_g1"], 1).requires_grad_()
+    value = metric_learning_loss(mine(data["ml_gt0"], 1), data["ml_gt1"], g0, g1, CP_LOSS["margin"],
+                                 mine(data["ml_mask0"], 1), mine(data["ml_mask1"], 1),
+                                 parallel.MeshGroups(model=group, world=group))
+    value.backward()
+    out["ml_value"], out["ml_dg0"], out["ml_dg1"] = value.detach().numpy(), g0.grad.numpy(), g1.grad.numpy()
+
     np.savez(root / f"out{rank}.npz", **out)
     dist.barrier()
     dist.destroy_process_group()
@@ -255,10 +312,50 @@ def _model_batch():
     return out
 
 
-def _jax_batch(data):
-    sides = [JaxKeypointSet(*[jnp.asarray(data[f"s{i}_{f}"]) for f in (
+def _cp_batch():
+    """The 64-keypoint batch of the module-10b cases (``c0_*``, ``c1_*``,
+    ``cH``), ragged as ``_model_batch``'s."""
+    batch = JaxPairs(num_keypoints=CP_KPTS, descriptor_dim=CP_MODEL["descriptor_dim"], jitter=0.3).sample(
+        jax.random.key(2), B)
+    masks = (np.arange(CP_KPTS)[None] < np.asarray([CP_KPTS, 45])[:, None],
+             np.arange(CP_KPTS)[None] < np.asarray([52, CP_KPTS])[:, None])
+    out = {"cH": np.array(batch.transformation.H)}
+    for i, (side, mask) in enumerate(zip((batch.side0, batch.side1), masks)):
+        for f in ("keypoints", "descriptors", "side_info"):
+            out[f"c{i}_{f}"] = np.array(getattr(side, f)) * mask[..., None]
+        out[f"c{i}_mask"] = mask
+        out[f"c{i}_image_size"] = np.array(side.image_size)
+    return out
+
+
+def _metric_inputs():
+    """Context descriptors [B, 64, 32] whose hardest negatives tie across
+    ranks: rows 3 (rank 0) and 40 (rank 2) are both e_0, as is column 5, so
+    column 5's nearest rows tie at a distance of exactly 0 and row 20 (rank
+    1), matched to column 5, takes row 3 as its negative; rows 41 and 55
+    (ranks 2 and 3) tie the same way on e_1 and column 9 for row 2 (rank 0).
+    Both columns are unmatched on image 1's side, so their margin terms
+    split the tie's gradient."""
+    rng = np.random.default_rng(7)
+    n = CP_KPTS
+    g0 = rng.standard_normal((B, n, 32)).astype(np.float32)
+    g1 = rng.standard_normal((B, n, 32)).astype(np.float32)
+    gt0 = np.where(rng.random((B, n)) < 0.5, rng.integers(0, n, (B, n)), -1)
+    gt1 = np.where(rng.random((B, n)) < 0.5, rng.integers(0, n, (B, n)), -1)
+    for row_a, row_b, col, anchor, axis in ((3, 40, 5, 20, 0), (41, 55, 9, 2, 1)):
+        g0[:, row_a] = g0[:, row_b] = g1[:, col] = np.eye(32, dtype=np.float32)[axis]
+        gt0[:, anchor], gt1[:, col] = col, -1
+        gt0[:, row_a] = np.where(gt0[:, row_a] == col, -1, gt0[:, row_a])
+        gt0[:, row_b] = np.where(gt0[:, row_b] == col, -1, gt0[:, row_b])
+    mask0 = np.arange(n)[None] < np.asarray([n, 60])[:, None]
+    mask1 = np.arange(n)[None] < np.asarray([58, n])[:, None]
+    return dict(ml_g0=g0, ml_g1=g1, ml_gt0=gt0, ml_gt1=gt1, ml_mask0=mask0, ml_mask1=mask1)
+
+
+def _jax_batch(data, prefix="s", homography="H"):
+    sides = [JaxKeypointSet(*[jnp.asarray(data[f"{prefix}{i}_{f}"]) for f in (
         "keypoints", "descriptors", "side_info", "mask", "image_size")]) for i in (0, 1)]
-    return JaxPairBatch(*sides, JaxTransformation(kind="perspective", H=jnp.asarray(data["H"])))
+    return JaxPairBatch(*sides, JaxTransformation(kind="perspective", H=jnp.asarray(data[homography])))
 
 
 def _port_batch(data):
@@ -335,20 +432,64 @@ def _jax_references(mesh, data, variables):
     return refs
 
 
+def _jax_step(model, variables, batch, loss):
+    """One jitted JAX train step: its metrics, gradients (below the clip,
+    Adam's first moment after one update is (1 - b1) * grad) and updated
+    variables."""
+    state = jax_create_train_state(model.apply, variables, learning_rate=1e-3)
+    new_state, metrics = jax.jit(jax_make_train_step(JaxLossConfig(**loss)))(state, batch)
+    adam = [s for s in jax.tree_util.tree_leaves(
+        new_state.opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)][0]
+    assert float(metrics["grad_norm"]) < 10.0
+    return dict(metrics={k: float(v) for k, v in metrics.items()},
+                grads=jax.tree_util.tree_map(lambda mu: np.asarray(mu) / np.float32(0.1), adam.mu),
+                new=jax.tree_util.tree_map(np.asarray, {
+                    "params": new_state.params, "batch_stats": new_state.model_state["batch_stats"]}))
+
+
+def _jax_cp_references(data, cp_variables):
+    """JAX's single-device forward and step of each attention kind on the
+    64-keypoint batch, and its metric loss and gradient on the planted
+    descriptors."""
+    refs = {}
+    batch = _jax_batch(data, "c", "cH")
+    for kind in CP_KINDS:
+        model = JaxSuperGlue(JaxConfig(**CP_MODEL, attention=kind))
+        variables = cp_variables[kind]
+        refs[f"{kind}_scores"] = np.asarray(
+            jax.jit(lambda v, b: model.apply(v, **jax_superglue_inputs(b))["scores"])(variables, batch))
+        refs[kind] = _jax_step(model, variables, batch, CP_LOSS)
+    gt0, gt1, mask0, mask1 = (jnp.asarray(data[k]) for k in ("ml_gt0", "ml_gt1", "ml_mask0", "ml_mask1"))
+    value, grads = jax.value_and_grad(
+        lambda g0, g1: jax_metric_learning_loss(gt0, gt1, g0, g1, CP_LOSS["margin"], mask0, mask1),
+        argnums=(0, 1))(jnp.asarray(data["ml_g0"]), jnp.asarray(data["ml_g1"]))
+    refs.update(ml_value=float(value), ml_dg0=np.asarray(grads[0]), ml_dg1=np.asarray(grads[1]))
+    return refs
+
+
 @pytest.fixture(scope="module")
 def ring_run(tmp_path_factory):
     """(inputs, JAX references, the 4 ranks' results, the weights)."""
     root = tmp_path_factory.mktemp("ring")
     rng = np.random.default_rng(0)
-    data = {**_attention_inputs(rng), **_ot_inputs(rng), **_tie_inputs(), **_model_batch()}
+    data = {**_attention_inputs(rng), **_ot_inputs(rng), **_tie_inputs(), **_model_batch(), **_cp_batch(),
+            **_metric_inputs()}
     jbatch = _jax_batch(data)
     variables = JaxSuperGlue(JaxConfig(**MODEL)).init(jax.random.key(1), **jax_superglue_inputs(jbatch))
     variables = jax.tree_util.tree_map(np.asarray, dict(variables))
     np.savez(root / "inputs.npz", **data)
     cfg = SuperGlueConfig(**MODEL)
     torch.save(superglue_state_dict_from_jax(variables, cfg), root / "weights.pt")
+    cp_variables = {}
+    for kind in CP_KINDS:
+        cp_cfg = SuperGlueConfig(**CP_MODEL, attention=kind)
+        weights = SuperGlue(cp_cfg, device="cpu", generator=torch.Generator().manual_seed(1)).state_dict()
+        torch.save(weights, root / f"cp_{kind}.pt")
+        cp_variables[kind] = jax_variables_from_state_dict(weights, cp_cfg)
 
-    code = f"SINKHORN_ITERS = {SINKHORN_ITERS}\nCONFIG = {MODEL!r}\n" + _WORKER
+    code = (f"SINKHORN_ITERS = {SINKHORN_ITERS}\nCONFIG = {MODEL!r}\nCP_CONFIG = {CP_MODEL!r}\n"
+            f"CP_CASES = {CP_CASES!r}\nCP_LOSS = {CP_LOSS!r}\n" + _WORKER)
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     port = _free_port()
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(WORLD), str(port), str(root)],
@@ -356,6 +497,7 @@ def ring_run(tmp_path_factory):
              for r in range(WORLD)]
     try:
         refs = _jax_references(jax_make_mesh({"model": WORLD}, devices=jax.devices()[:WORLD]), data, variables)
+        refs["cp"] = _jax_cp_references(data, cp_variables)
         logs = [p.communicate(timeout=300)[0].decode(errors="replace") for p in procs]
     finally:
         for p in procs:  # a rank that failed leaves the others waiting in a collective
@@ -523,3 +665,83 @@ def test_ring_train_step_matches_the_single_process_composed_step(ring_run):
     for name, b in model.named_buffers():
         if "running" in name:
             np.testing.assert_allclose(ranks[0][f"stat:{name}"], b.numpy(), rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def _cp_kind(tag):
+    return next(kind for t, kind, _, _ in CP_CASES if t == tag)
+
+
+@pytest.mark.parametrize("tag", [case[0] for case in CP_CASES])
+def test_sharded_keypoints_forward_matches_jax(ring_run, tag):
+    """Each way to shard the keypoints over a model axis of 4 (the
+    all-gather route, the ring, the O(N) kinds with and without
+    ``ring_axis``): the eval forward's log-assignment against JAX's
+    single-device model (2e-4 on the entries a loss reads, the ring model's
+    bar), the same on every rank."""
+    data, refs, ranks, _ = ring_run
+    want = refs["cp"][f"{_cp_kind(tag)}_scores"]
+    valid = _ot_valid(data["c0_mask"], data["c1_mask"])
+    got = ranks[0][f"{tag}_scores"]
+    np.testing.assert_allclose(got[valid], want[valid], atol=2e-4)
+    assert np.all(got[~valid] < -1e8)
+    for r in ranks[1:]:
+        np.testing.assert_array_equal(r[f"{tag}_scores"], got)
+
+
+@pytest.mark.parametrize("tag", [case[0] for case in CP_CASES if case[3]])
+def test_sharded_keypoints_step_matches_jax(ring_run, tag):
+    """One ``shard_train_step_cp`` step with the metric loss (margin 0.5) on
+    each sharded route against JAX's single-device step on the global
+    batch: the losses 1e-5 and the gradient norm 1e-4 relative (the bars of
+    JAX's GSPMD test), every gradient at the train-step bar, the running
+    statistics 1e-5; every rank the same."""
+    _, refs, ranks, _ = ring_run
+    ref = refs["cp"][_cp_kind(tag)]
+    for r in ranks:
+        for key in ("total_loss", "nll_loss", "metric_loss"):
+            np.testing.assert_allclose(r[f"{tag}_{key}"], ref["metrics"][key], rtol=1e-5, err_msg=key)
+        np.testing.assert_allclose(r[f"{tag}_grad_norm"], ref["metrics"]["grad_norm"], rtol=1e-4)
+    assert ref["metrics"]["metric_loss"] > 0.1
+    cfg = SuperGlueConfig(**CP_MODEL, attention=_cp_kind(tag))
+    want = superglue_grads_from_jax(ref["grads"], cfg)
+    grads = {k.split(":", 1)[1]: v for k, v in ranks[0].items() if k.startswith(f"{tag}_grad:")}
+    assert set(grads) == set(want)
+    for name, value in grads.items():
+        scale = np.abs(want[name].numpy()).max()
+        np.testing.assert_allclose(value, want[name].numpy(), atol=3e-4 + 1e-5 * scale, rtol=1e-4, err_msg=name)
+    new_sd = superglue_state_dict_from_jax(ref["new"], cfg)
+    stats = {k.split(":", 1)[1]: v for k, v in ranks[0].items() if k.startswith(f"{tag}_stat:")}
+    assert len(stats) == 2 * (len(CP_MODEL["pe_hidden_layers_sizes"]) + 2 * CP_MODEL["num_stages"])
+    for name, value in stats.items():
+        np.testing.assert_allclose(value, new_sd[name].numpy(), rtol=1e-5, atol=1e-5, err_msg=name)
+    for key, value in ranks[0].items():
+        if key.startswith(f"{tag}_"):
+            for r in ranks[1:]:
+                np.testing.assert_array_equal(r[key], value, err_msg=key)
+
+
+def test_ring_remat_step_equals_the_ring_step(ring_run):
+    """The ring with ``remat`` rebuilds each layer in the backward pass, its
+    rotations and BatchNorm all-reduces included, in the same order on every
+    rank: its step's metrics, gradients and running statistics are those of
+    the ring without it."""
+    _, _, ranks, _ = ring_run
+    keys = [k[len("cp_ring_"):] for k in ranks[0] if k.startswith("cp_ring_") and not k.endswith("scores")]
+    assert any(k.startswith("grad:") for k in keys) and any(k.startswith("stat:") for k in keys)
+    for r in ranks:
+        for key in keys:
+            np.testing.assert_allclose(r[f"cp_remat_{key}"], r[f"cp_ring_{key}"], rtol=1e-6, atol=1e-7, err_msg=key)
+
+
+def test_metric_loss_breaks_cross_rank_ties_like_jax(ring_run):
+    """The metric loss on descriptors sharded over 4 ranks whose hardest
+    negatives tie across ranks: the value once (not once per rank) and the
+    gradients of both images' descriptors, put together from the ranks'
+    shards, against JAX's loss on the whole (1e-5)."""
+    data, refs, ranks, _ = ring_run
+    for r in ranks:
+        np.testing.assert_allclose(r["ml_value"], refs["cp"]["ml_value"], rtol=1e-5)
+    for name in ("ml_dg0", "ml_dg1"):
+        np.testing.assert_allclose(_cat(ranks, name, 1), refs["cp"][name], atol=1e-5, err_msg=name)
+    dg0 = refs["cp"]["ml_dg0"]
+    assert all(np.abs(dg0[:, row]).max() > 0 for row in (3, 40, 41, 55))  # the tied rows carry gradient

@@ -173,8 +173,9 @@ def test_siren_encoder_forward_matches_jax(inputs):
 ])
 def test_unported_switches_are_refused(field, value):
     """``ring_axis`` needs a mesh (``tests/test_torch_ring.py`` runs it on
-    one); with another attention kind or with ``remat`` it is not ported.
-    ``remat`` alone is ported."""
+    one); with another attention kind or with ``remat`` the model builds on
+    a one-rank mesh (a gloo group of this process, destroyed after). ``remat``
+    alone is ported."""
     if field == "remat":
         assert SuperGlue(SuperGlueConfig(**SMALL, remat=True), device="cpu").attention_gnn.remat
         return
@@ -182,9 +183,24 @@ def test_unported_switches_are_refused(field, value):
         with pytest.raises(ValueError, match="needs a mesh"):
             SuperGlue(SuperGlueConfig(**SMALL, ring_axis=value), device="cpu")
         return
+    import socket
+
+    import torch.distributed as dist
+
+    from openglue_tpu_torch import parallel
+
     other = field.split("+")[1]
-    with pytest.raises(NotImplementedError, match=f"ring_axis with {other}"):
-        SuperGlue(SuperGlueConfig(**SMALL, ring_axis="kp", **{other: value}), device="cpu")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert parallel.initialize(f"tcp://127.0.0.1:{port}", 1, 0, device_type="cpu")
+    try:
+        mesh = parallel.make_mesh({"kp": 1}, device_type="cpu")
+        model = SuperGlue(SuperGlueConfig(**SMALL, ring_axis="kp", **{other: value}), device="cpu", mesh=mesh)
+        assert model.keypoint_group is not None and getattr(model.config, other) == value
+    finally:
+        dist.destroy_process_group()
+    assert not dist.is_initialized()
 
 
 def test_weights_round_trip_exactly(variables):

@@ -8,8 +8,10 @@ MODE ``data`` (world 2, mesh {"data": 2}): the data-parallel step for one
 and three steps, ``local_batch_slice`` and ``shard_eval_step``, a resume
 from a world-1 checkpoint and a world-2 checkpoint, ``cli.train_cached`` and
 ``cli.pretrain_homography`` at world 2 with their batches recorded, the
-refusals that stay, and a FAVOR redraw. MODE ``ring`` (world 4, mesh
-{"data": 2, "model": 2}): one step of the ring model through
+refusals that stay, a FAVOR redraw, and one online step fine-tuning
+SuperPoint with BatchNorms (``bn_*`` inputs). MODE ``ring`` (world 4, mesh
+{"data": 2, "model": 2}): one step of the ring model and one of the
+all-gather route (the same model without ``ring_axis``) through
 ``shard_train_step_cp``. Inputs come from ROOT (``inputs.npz``,
 ``weights.pt``, the configs the test writes); each rank writes
 ``<mode><rank>.npz`` and, for the CLIs, its batches as ``*.pt``.
@@ -191,6 +193,22 @@ def data_mode(rank, world, root, config, out):
         if name.endswith("mha.projection"):
             out[f"favor:{name}"] = b.numpy()
 
+    # ---- fine-tuning an extractor with BatchNorms: their statistics over the data axis
+    from openglue_tpu_torch.models.matching_module import MatchingModule, MatchingModuleConfig
+    from openglue_tpu_torch.train.state import make_online_optimizer
+    from openglue_tpu_torch.train.step import make_online_train_step
+
+    bn = json.loads((root / "bn_config.json").read_text())
+    module = MatchingModule(MatchingModuleConfig.from_dict(bn["module"]), device="cpu")
+    module.load_state_dict(torch.load(root / "bn_weights.pt"))
+    images = np.load(root / "bn_images.npz")
+    online = {"image0": torch.from_numpy(images["image0"]), "image1": torch.from_numpy(images["image1"]),
+              "transformation": Transformation("perspective", H=torch.from_numpy(images["H"]))}
+    state = port_state.create_train_state(module, optimizer=make_online_optimizer(
+        module, learning_rate=bn["lr"], finetune_extractor=True))
+    step = parallel.shard_train_step(make_online_train_step(LossConfig(**bn["loss"]), augmentation="none"), mesh)
+    record_step(out, "bn", state, step(state, parallel.shard_batch(online, mesh)), grads=True)
+
     # ---- the cached-feature trainer, then the homography pretraining
     record = {}
     with recorded_cli(record):
@@ -250,6 +268,9 @@ def ring_mode(rank, world, root, config, out):
     state = port_state.create_train_state(model, learning_rate=1e-3)
     step = parallel.shard_train_step_cp(make_train_step(LossConfig()), mesh)
     record_step(out, "ring", state, step(state, model_batch(data)), grads=True)
+    model = matcher(config, torch.load(root / "weights.pt"), use_pallas=True, mesh=mesh)
+    state = port_state.create_train_state(model, learning_rate=1e-3)
+    record_step(out, "gather", state, step(state, model_batch(data)), grads=True)
 
 
 def main():
