@@ -187,9 +187,24 @@ Phases, each of which raises on a mismatch (the script then exits non-zero):
    each collective and its host time printed, each held against the same
    model at world 1 on the card (serving at the bars above, steps at the
    data-parallel phase's f32 bars) and the ranks' parameters equal bit for
-   bit after every step.
+   bit after every step;
+12. the examples (``examples_phase``, after the online trainer):
+   examples/match_synthetic_torch.py and
+   examples/pretrain_and_match_images_torch.py at their defaults (no kernel
+   launch), and examples/train_pose_auc_synthetic_torch.py at the flagship
+   flags (D=256, 9 stages, N=1024, B=8, bf16 compute and chain, warm-up 500)
+   for 20 steps with ``--eval-int8``: 36 K4 + 36 K5 + 1 K2 + 1 K3 per step,
+   36 K1 + 1 K2 per held-out batch, 36 K7 + 1 K2 per int8 batch; at the
+   trained weights each K1 and K7 launch of a held-out batch against its
+   plain version on the same inputs (in bf16 ulps) and each held-out
+   forward against the plain path, within twice the plain path's own
+   distance when its descriptors move by 1e-6; a step's time, device busy
+   time and host synchronizations, and an eval forward timed by
+   ``profiling.device_timeit``.
 
-The line before the last is the card's ``nvidia-smi`` name and power limit,
+Every device time is taken by ``openglue_tpu_torch/profiling.py``
+(``device_ms``, ``device_profile``), which this script re-exports for
+scripts/*.py. The line before the last is the card's ``nvidia-smi`` name and power limit,
 the line before that the JSON ``kernels`` record, and the last line the JSON
 device record. f32 matmuls run in full f32 (TF32 off) on every plain path.
 """
@@ -212,6 +227,9 @@ import time
 from pathlib import Path
 
 import torch
+
+# the timing helpers live in the port; scripts/*.py read them here (``cs.device_ms``)
+from openglue_tpu_torch.profiling import device_ms, device_profile, host_profile, kernel_rows  # noqa: F401
 
 # the superglue: section of configs/config_cached_sp_magicleap.yaml (a CPU
 # test holds this copy to the YAML)
@@ -273,26 +291,6 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def device_ms(fn, calls: int = 20) -> float:
-    """Device time of ``calls`` back-to-back calls of ``fn``, in ms per call,
-    by CUDA events recorded after the card has been held busy
-    (``torch.cuda._sleep``, about 20 ms) while the host queues every call. A
-    short kernel takes the card less time than its launch takes the host, so
-    events around calls that start at once would time the host: every kernel
-    and library time of this script is taken so."""
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(40_000_000)
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / calls
 
 
 def bound_ms(flops: float, flop_rate: float, nbytes: float):
@@ -1516,52 +1514,6 @@ def other_configs_phase(gen, card, base_model, mods, requests):
                    f"vs int8 plain path {json.dumps(vs_plain)}, vs bf16 kernel path {json.dumps(vs_bf16)} "
                    f"(bars {LOG_P_NATS} nats, decode {DECODE_AGREEMENT}, row argmax {INT8_ROW_ARGMAX})")
     return launches
-
-
-def device_profile(fn, top: int = 5):
-    """Device time of the kernels ``fn`` runs (torch.profiler), in ms, and the
-    ``top`` kernels by device time as (ms, name, calls); (None, []) when the
-    profiler sees no kernel. Only kernel rows count: a user annotation (such
-    as ``Optimizer.step#Adam.step``) carries the device time of the kernels
-    inside it again, and copies and memsets are not kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return kernel_rows(prof, top)
-
-
-def kernel_rows(prof, top: int = 5):
-    """(device ms of the kernels, the ``top`` kernels as (ms, name, calls))
-    of a finished torch.profiler run, as ``device_profile`` reads them."""
-    rows = []
-    for event in prof.key_averages():
-        ms = getattr(event, "self_device_time_total", 0.0) / 1e3
-        if not str(getattr(event, "device_type", "")).endswith("CUDA") or ms <= 0:
-            continue
-        annotation = getattr(event, "is_user_annotation", False) or "#" in event.key  # "Optimizer.step#Adam.step"
-        if annotation or event.key.startswith(("Memcpy", "Memset")):
-            continue
-        name = event.key.replace("void ", "").replace("(anonymous namespace)::", "")
-        rows.append((ms, name.split("(")[0], event.count))
-    rows.sort(reverse=True)
-    total = sum(row[0] for row in rows)
-    return (total if total > 0 else None), rows[:top]
-
-
-def host_profile(fn, top: int = 6):
-    """The ``top`` operators by host (CPU) time that ``fn`` spends outside its
-    children, as (ms, name, calls) from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = [(e.self_cpu_time_total / 1e3, e.key, e.count) for e in prof.key_averages()]
-    return sorted(rows, reverse=True)[:top]
 
 
 def train_phase(gen, card, device="cuda"):
@@ -4969,6 +4921,282 @@ def online_trainer_phase(card, repo: Path, store: MemoryH5, work: Path, device="
     return dict(total)
 
 
+# the flagship flags of examples/train_pose_auc_synthetic_torch.py (as the
+# JAX package's quality run of its example sets them) and the phase's steps
+EXAMPLE_FLAGSHIP = ["--stages", "9", "--dim", "256", "--kpts", "1024", "--bf16", "--chain-bf16", "--pallas",
+                    "--warmup", "500"]
+EXAMPLE_STEPS = 20
+
+
+def load_example(repo: Path, name: str):
+    """``examples/<name>.py`` of the checkout as a module, loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"example_{name}", repo / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+class ExampleProbe:
+    """What the examples phase reads from inside the pose-AUC example's
+    ``main``, through wrappers of the step builders it looks up when it
+    runs: each train step's launches (checked against ``train_expected``),
+    the last step's batch, and each eval batch's launches (checked against
+    ``eval_expected`` by the model's ``quantize``). Nothing here
+    synchronizes the card."""
+
+    def __init__(self, counters, train_expected, eval_expected):
+        self.counters, self.train_expected, self.eval_expected = counters, train_expected, eval_expected
+        self.train_steps, self.eval_batches, self.last_batch = 0, collections.Counter(), None
+
+    def _checked(self, fn, expected, what):
+        before = {k: c.count for k, c in self.counters.items()}
+        out = fn()
+        delta = {k: c.count - before[k] for k, c in self.counters.items()}
+        check(delta == expected, f"pose-AUC example {what}: launches {delta}, expected {expected}")
+        return out
+
+    def entries(self, example):
+        real_train, real_eval = example.make_train_step, example.make_eval_step
+
+        def make_train_step(*args, **kwargs):
+            step = real_train(*args, **kwargs)
+
+            def probed(state, batch):
+                self.train_steps += 1
+                self.last_batch = batch
+                return self._checked(lambda: step(state, batch), self.train_expected, f"step {self.train_steps}")
+
+            return probed
+
+        def make_eval_step(*args, **kwargs):
+            step = real_eval(*args, **kwargs)
+
+            def probed(state, batch):
+                mode = state.model.config.quantize or "bf16"
+                self.eval_batches[mode] += 1
+                return self._checked(lambda: step(state, batch), self.eval_expected[mode],
+                                     f"{mode} eval batch {self.eval_batches[mode]}")
+
+            return probed
+
+        return ((example, "make_train_step", make_train_step), (example, "make_eval_step", make_eval_step))
+
+
+def with_decode_stats(out, inputs):
+    """``out`` with the decode statistics ``compare`` reads (the example's
+    config leaves ``decode_stats`` off)."""
+    from openglue_tpu_torch.models.matching import assignment_stats
+
+    out = dict(out)
+    out["decode_indices0"], out["decode_indices1"], out["decode_max0"] = assignment_stats(
+        out["scores"], mask0=inputs["mask0"], mask1=inputs["mask1"])
+    return out
+
+
+EXAMPLE_LAYER_ULPS = 2  # a layer launch against its plain version on the same inputs
+EXAMPLE_WITNESS_RATIO = 2.0  # the kernel path's distance from the plain path, as a multiple of the plain path's own
+EXAMPLE_WITNESS_SLACK = 1e-3  # added to each of those bars (nats, and shares of rows)
+
+
+def launch_ulps(model, inputs, module, name, plain):
+    """Each launch of ``module.name`` in one forward of ``model`` against
+    ``plain`` on the same inputs: max |kernel - plain| in bf16 ulps of the
+    plain output's largest magnitude (2^-7 of it), one value a launch."""
+    real, ulps = getattr(module, name), []
+
+    def held(*args, **kwargs):
+        out, ref = real(*args, **kwargs), plain(*args, **kwargs)
+        out, ref = (out[0], ref[0]) if isinstance(out, tuple) else (out, ref)
+        ulps.append(((out.float() - ref.float()).abs().max() / (ref.float().abs().max() * 2.0**-7)).item())
+        return out
+
+    with replaced((module, name, held)):
+        model(**inputs)
+    return ulps
+
+
+def perturbed(inputs, seed=5):
+    """The inputs with each descriptor entry times 1 + 1e-6 u."""
+    gen = torch.Generator(device=inputs["desc0"].device).manual_seed(seed)
+    moved = dict(inputs)
+    for key in ("desc0", "desc1"):
+        moved[key] = inputs[key] * (1 + 1e-6 * torch.rand(inputs[key].shape, generator=gen, device=gen.device))
+    return moved
+
+
+def held_by_witness(name, got, own):
+    """``got`` (decode_readings of the kernel path against the plain path)
+    within EXAMPLE_WITNESS_RATIO of ``own`` (the plain path against itself
+    on moved inputs), plus EXAMPLE_WITNESS_SLACK, in log_P nats and in the
+    shares of rows whose decode at threshold 0 and row argmax differ."""
+    r, slack = EXAMPLE_WITNESS_RATIO, EXAMPLE_WITNESS_SLACK
+    fine = (got["nats_max"] <= r * own["nats_max"] + slack
+            and 1 - got["matches@0"] <= r * (1 - own["matches@0"]) + slack
+            and 1 - got["row_argmax"] <= r * (1 - own["row_argmax"]) + slack)
+    check(fine, f"{name}: kernels vs plain {got} past {r}x the plain path's own distance {own} + {slack}")
+
+
+def examples_phase(card, repo: Path, work: Path, device="cuda"):
+    """The port's three examples on the card. examples/match_synthetic_torch.py
+    and examples/pretrain_and_match_images_torch.py at their defaults (no
+    use_pallas: no kernel launch); examples/train_pose_auc_synthetic_torch.py
+    at the flagship flags (D=256, 9 stages, N=1024, B=8, bf16 compute and
+    chain, the kernels, warm-up 500) for EXAMPLE_STEPS steps and one
+    evaluation, with ``--eval-int8``: 36 K4 + 36 K5 + 1 K2 + 1 K3 per step,
+    36 K1 + 1 K2 per held-out batch and 36 K7 + 1 K2 per int8 batch; then
+    its held-out batches at the trained weights, bf16 (K1) and int8 (K7):
+    each layer launch of the first against its plain version on the same
+    inputs (EXAMPLE_LAYER_ULPS), and each forward against the plain path
+    within EXAMPLE_WITNESS_RATIO of the plain path's own distance when the
+    descriptors move by 1e-6 (``held_by_witness``); both ``evaluate`` rows;
+    on a copy of the state a synchronized step's time, its device busy time
+    and its host synchronizations (none may occur); an eval forward's busy
+    time and its time by ``device_timeit``. Returns the launches by
+    kernel."""
+    from openglue_tpu_torch.models.matching import decode_from_output
+    from openglue_tpu_torch.models.superglue import SuperGlue
+    from openglue_tpu_torch.ops.kernels import gnn_layer_int8 as gli8
+    from openglue_tpu_torch.ops.kernels import gnn_layer_kernel as glk
+    from openglue_tpu_torch.ops.kernels import sinkhorn_kernel as sk
+    from openglue_tpu_torch.profiling import device_timeit
+    from openglue_tpu_torch.train.state import clone_train_state
+    from openglue_tpu_torch.train.step import superglue_inputs
+
+    phase_start = time.perf_counter()
+    counters = {"K1": glk.counter, "K2": sk.counter, "K3": sk.adjoint_counter, "K4": glk.message_counter,
+                "K5": glk.message_bwd_counter, "K7": gli8.counter, "autograd_sinkhorn": sk.autograd_counter}
+    none = {k: 0 for k in counters}
+    total = collections.Counter()
+
+    # ---- the two examples without kernels, at their defaults
+    for name, argv in (("match_synthetic_torch", ["--device", device]),
+                       ("pretrain_and_match_images_torch", ["--workdir", str(work / "demo"), "--device", device])):
+        example = load_example(repo, name)
+        for c in counters.values():
+            c.reset()
+        start = time.perf_counter()
+        result = example.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        state = result[0] if isinstance(result, tuple) else result
+        launches = {k: c.count for k, c in counters.items()}
+        check(launches == none, f"{name}: launches {launches}, expected none")
+        check(all(torch.isfinite(p).all() for p in state.model.parameters()), f"{name}: non-finite parameters")
+        print(f"example {name} (its defaults): {state.step} steps, {seconds:.1f} s (main() whole), no kernel "
+              f"launch [{card}]", flush=True)
+    check((work / "demo" / "matches.png").stat().st_size > 0, "pretrain_and_match_images_torch: no matches.png")
+
+    # ---- the pose-AUC example at the flagship flags, counted
+    example = load_example(repo, "train_pose_auc_synthetic_torch")
+    argv = [*EXAMPLE_FLAGSHIP, "--epochs", "1", "--steps-per-epoch", str(EXAMPLE_STEPS), "--eval-int8",
+            "--device", device]
+    args = example.parse_args(argv)
+    layers = 2 * args.stages * 2
+    train_expected = dict(none, K2=1, K3=1, K4=layers, K5=layers)
+    eval_expected = {"bf16": dict(none, K1=layers, K2=1), "int8": dict(none, K7=layers, K2=1)}
+    probe = ExampleProbe(counters, train_expected, eval_expected)
+    for c in counters.values():
+        c.reset()
+    start = time.perf_counter()
+    with replaced(*probe.entries(example)):
+        state, rows = example.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - start
+    launches = {k: c.count for k, c in counters.items()}
+    total.update(launches)
+    held = example.held_out_batches(example.pair_generator(args), args.batch, device)
+    n = args.kpts
+    total[f"K2 {sk.k_storage_dtype(n + 1, n + 1)}"] += launches["K2"]
+    check(state.step == EXAMPLE_STEPS == probe.train_steps,
+          f"pose-AUC example: state.step {state.step}, probed steps {probe.train_steps}: main no longer looks up "
+          f"make_train_step in its module when it runs")
+    check(probe.eval_batches == {"bf16": len(held), "int8": len(held)}, f"eval batches {dict(probe.eval_batches)}")
+    check(len(rows) == 2 and all(math.isfinite(v) for row in rows for v in row.values()), f"rows {rows}")
+
+    # the held-out batches at the trained weights: kernels against plain.
+    # After the phase's steps the model amplifies rounding: the plain path
+    # moves as far under a 1e-6 change of its inputs as the kernel path is
+    # from it (int8: 0.088 nats, row argmax 0.94; compare's random-weight
+    # bars do not fit), so each launch is held against its plain version on
+    # the same inputs, and the forward by the plain path's own distance
+    model = state.model.eval()
+    int8 = SuperGlue(dataclasses.replace(model.config, quantize="int8", use_pallas=True), device=device).eval()
+    int8.load_state_dict(model.state_dict())
+    paths = (("bf16", model, (glk, "fused_attention_propagation", glk.layer_plain), (glk, sk)),
+             ("int8", int8, (gli8, "fused_attention_propagation_int8", gli8.layer_int8_plain), (glk, sk, gli8)))
+    readings = collections.defaultdict(list)
+    with torch.no_grad():
+        for i, batch in enumerate(held):
+            inputs = superglue_inputs(batch)
+            for mode, m, launch, plain_mods in paths:
+                if i == 0:
+                    ulps = launch_ulps(m, inputs, *launch)
+                    check(max(ulps) <= EXAMPLE_LAYER_ULPS, f"pose-AUC {mode} held-out batch 0: a layer launch is "
+                          f"{max(ulps):.2f} bf16 ulps from its plain version (bar {EXAMPLE_LAYER_ULPS})")
+                    readings[f"{mode} launch ulps"] = ulps
+                out = with_decode_stats(m(**inputs), inputs)
+                with plain_versions(*plain_mods):
+                    ref = with_decode_stats(m(**inputs), inputs)
+                    moved = perturbed(inputs)
+                    witness = with_decode_stats(m(**moved), moved)
+                got = decode_readings(decode_from_output, out, ref, inputs)
+                own = decode_readings(decode_from_output, witness, ref, inputs)
+                held_by_witness(f"pose-AUC {mode} held-out batch {i}", got, own)
+                matches = int((decode_from_output(out, MATCH_THRESHOLD, inputs["mask0"], inputs["mask1"])["matches0"]
+                               >= 0).sum())
+                readings[mode].append(dict(vs_plain=got, plain_moved=own, matches=matches))
+    eval_step = example.make_eval_step(0.2)
+    kernel_row = example.evaluate(state, held, eval_step)
+    with plain_versions(glk, sk):
+        plain_row = example.evaluate(state, held, eval_step)
+
+    # a step's time, busy time and host synchronizations, on copies of the state
+    copy_ = clone_train_state(state)
+    step = example.make_train_step(example.LossConfig(positive_threshold=3.0, negative_threshold=7.0))
+    batch = probe.last_batch
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        step(copy_, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - start) * 1e3)
+    busy, kernels_by_time = device_profile(lambda: step(copy_, batch), top=6)
+    sites = sync_sites(lambda: step(copy_, batch))
+    check(not sites, f"pose-AUC step: host synchronizations {dict(sites)}")
+    idle = "not measured" if busy is None else f"{1 - busy / statistics.median(step_ms):.3f}"
+    inputs = superglue_inputs(held[0])
+    with torch.no_grad():
+        eval_s = device_timeit(lambda kw: model(**kw), inputs)
+        eval_busy = device_profile(lambda: model(**inputs))[0]
+    del copy_, int8
+    print(f"example train_pose_auc_synthetic_torch ({' '.join(argv)}): main() {main_s:.1f} s whole ({EXAMPLE_STEPS} "
+          f"steps, {len(held)} bf16 and {len(held)} int8 eval batches, the held-out pairs' RANSAC); launches per step "
+          f"{json.dumps(train_expected)}, per eval batch {json.dumps(eval_expected)}, in all {json.dumps(launches)}; "
+          f"rows {json.dumps(rows)} [{card}]", flush=True)
+    print(f"  pose-AUC step B={args.batch} N={n}: {statistics.median(step_ms):.3f} ms (median of 3 synchronized, "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)}), device busy {busy} ms, idle share {idle}; "
+          f"no host synchronization a step; eval forward B={args.batch}: device busy {eval_busy} ms, "
+          f"{eval_s * 1e3:.3f} ms a call back to back (device_timeit) [{card}]", flush=True)
+    print("  device time by kernel, pose-AUC step: "
+          + "; ".join(f"{kname} {ms:.3f} ms ({calls} calls)" for ms, kname, calls in kernels_by_time), flush=True)
+    for mode in ("bf16", "int8"):
+        ulps = readings[f"{mode} launch ulps"]
+        print(f"  {mode} layer launches of held-out batch 0 against their plain versions on the same inputs: at most "
+              f"{max(ulps):.2f} bf16 ulps of the output's largest magnitude ({len(ulps)} launches) [{card}]", flush=True)
+        for i, r in enumerate(readings[mode]):
+            print(f"  {mode} held-out batch {i} at the trained weights: kernels vs plain {json.dumps(r['vs_plain'])}; "
+                  f"plain vs plain on descriptors moved by 1e-6 {json.dumps(r['plain_moved'])}; {r['matches']} "
+                  f"matches at {MATCH_THRESHOLD} [{card}]", flush=True)
+    print(f"  evaluate on the kernels {json.dumps(kernel_row)}, on the plain versions {json.dumps(plain_row)} "
+          f"[{card}]", flush=True)
+    print(f"examples phase: {time.perf_counter() - phase_start:.1f} s [{card}]", flush=True)
+    return dict(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is available", file=sys.stderr)
@@ -5139,6 +5367,7 @@ def main() -> int:
         serving_cli = serving_cli_phase(card, repo, store, work, trained)
         extractors = device_extractors_phase(card, repo, store, work)
         online = online_trainer_phase(card, repo, store, work)
+        examples = examples_phase(card, repo, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     rings = ring_phase(gen, card, model, ring_requests)
@@ -5166,7 +5395,8 @@ def main() -> int:
              dh32=dh32(k1_32[torch.bfloat16], k1_32[torch.float32]), sift_launches=wider[sift]["K1"],
              trainer_launches=trainer["K1"], data_parallel_launches=data_parallel["K1"],
              cache_twin_launches=twin["K1"], serving_cli_launches=serving_cli["K1"],
-             device_extractors_launches=extractors["K1"], online_trainer_launches=online["K1"]),
+             device_extractors_launches=extractors["K1"], online_trainer_launches=online["K1"],
+             examples_launches=examples["K1"]),
         dict(name="sinkhorn_scale (f32 K, B=16 N=1024)", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:128", launches=n1024,
              train_launches=train["K2"], trainer_launches=trainer["K2"], data_parallel_launches=data_parallel["K2"],
@@ -5174,6 +5404,7 @@ def main() -> int:
              serving_cli_launches=serving_cli.get("K2 torch.float32", 0),
              device_extractors_launches=extractors.get("K2 torch.float32", 0),
              online_trainer_launches=online["K2"], context_parallel_launches=cp.get("K2", 0),
+             examples_launches=examples.get("K2 torch.float32", 0),
              **{k: v for k, v in k2[(16, 1024)].items() if k != "k_dtype"}, library_ms=None,
              single_pair=dict({k: v for k, v in k2[(1, 1024)].items() if k != "k_dtype"},
                               replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:56")),
@@ -5181,7 +5412,8 @@ def main() -> int:
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315", launches=n2048,
              **{k: v for k, v in k2[(4, 2048)].items() if k != "k_dtype"}, library_ms=None,
              pretrain_launches=pretrain["K2"], serving_cli_launches=serving_cli.get("K2 torch.bfloat16", 0),
-             device_extractors_launches=extractors.get("K2 torch.bfloat16", 0)),
+             device_extractors_launches=extractors.get("K2 torch.bfloat16", 0),
+             examples_launches=examples.get("K2 torch.bfloat16", 0)),
         dict(name=f"sinkhorn_scale wide (bf16 K, B=1 N={WIDE_KEYPOINTS})", route="cuda", source=sinkhorn,
              replaces="openglue_tpu/ops/pallas/sinkhorn_kernel.py:315",
              launches=sum(d["K2s"] for d in wider.values()), **k2s[(1, WIDE_KEYPOINTS, "bfloat16")],
@@ -5196,7 +5428,8 @@ def main() -> int:
              replaces=pallas + "sinkhorn_kernel.py:548", launches=train["K3"], trainer_launches=trainer["K3"],
              data_parallel_launches=data_parallel["K3"], cache_twin_launches=twin["K3"],
              checkify_launches=checkify["K3"],
-             online_trainer_launches=online["K3"], context_parallel_launches=cp.get("K3", 0), **k3,
+             online_trainer_launches=online["K3"], context_parallel_launches=cp.get("K3", 0),
+             examples_launches=examples["K3"], **k3,
              library_ms=None),
         dict(name="message_forward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_forward.cu", replaces=pallas + "gnn_layer_kernel.py:557",
@@ -5205,7 +5438,8 @@ def main() -> int:
              dh32=dh32(k45_32[torch.bfloat16]["K4"], k45_32[torch.float32]["K4"]), pretrain_launches=pretrain["K4"],
              trainer_launches=trainer["K4"], data_parallel_launches=data_parallel["K4"],
              cache_twin_launches=twin["K4"], checkify_launches=checkify["K4"],
-             online_trainer_launches=online["K4"], context_parallel_launches=cp.get("K4", 0)),
+             online_trainer_launches=online["K4"], context_parallel_launches=cp.get("K4", 0),
+             examples_launches=examples["K4"]),
         dict(name="message_backward (bf16, B=12 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "message_backward.cu", replaces=pallas + "gnn_layer_kernel.py:627",
              launches=train["K5"], **k45[torch.bfloat16]["K5"], library_ms=None,
@@ -5214,7 +5448,8 @@ def main() -> int:
              bf16_pass_launches=train["attn_bwd_bf16"], pretrain_bf16_pass_launches=pretrain["attn_bwd_bf16"],
              trainer_launches=trainer["K5"], data_parallel_launches=data_parallel["K5"],
              cache_twin_launches=twin["K5"], checkify_launches=checkify["K5"],
-             online_trainer_launches=online["K5"], context_parallel_launches=cp.get("K5", 0)),
+             online_trainer_launches=online["K5"], context_parallel_launches=cp.get("K5", 0),
+             examples_launches=examples["K5"]),
         *[dict(name=f"gnn_layer_features {kind} (bf16, B=16 N=M=1024 D=256 H=4)", route="cuda",
                source=csrc + "gnn_layer_features.cu", replaces=pallas + "gnn_layer_kernel.py:117",
                launches=other[kind], **k6[(kind, torch.bfloat16)], library_ms=None,
@@ -5223,7 +5458,8 @@ def main() -> int:
         dict(name="gnn_layer_int8 int8 (bf16 x, B=16 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "gnn_layer_int8.cu", replaces=pallas + "gnn_layer_int8.py:129",
              launches=other["int8"], **k7["int8"], int8_static=k7["int8_static"], int8_attn=k7["int8_attn"],
-             dh32=dh32(k7_32["int8"]), int8_static_serving_cli_launches=serving_cli["K7"]),
+             dh32=dh32(k7_32["int8"]), int8_static_serving_cli_launches=serving_cli["K7"],
+             examples_launches=examples["K7"]),
         dict(name="gnn_layer_int8 int8_static_attn (bf16 x, B=16 N=M=1024 D=256 H=4)", route="cuda",
              source=csrc + "gnn_layer_int8.cu", replaces=pallas + "gnn_layer_int8.py:129",
              launches=other["int8_static_attn"], **k7["int8_static_attn"], dh32=dh32(k7_32["int8_static_attn"])),

@@ -61,7 +61,7 @@ class Transformation:
     def inverse(self) -> "Transformation":
         """The relation from image1 to image0."""
         if self.kind == "perspective":
-            return Transformation(kind="perspective", H=torch.linalg.inv(self.H))
+            return Transformation(kind="perspective", H=torch.linalg.inv_ex(self.H).inverse)  # no check: no host read
         if self.kind == "3d_reprojection":
             R_t = self.R.transpose(-1, -2)
             return Transformation(

@@ -5,9 +5,12 @@ homography, the warped keypoints in image1 (with jitter) plus distractors,
 and descriptors that are noisy copies across the pair.
 ``SyntheticReprojectionPairs``: two views of random 3D points with depth and
 a random relative pose (the cached-MegaDepth batch shape), for the 3D GT
-path. Tensors are made on the generator's device from a ``torch.Generator``;
-the numbers differ from the JAX generators' for the same seed, and the two
-agree only in distribution.
+path. Tensors are made on the generator's device from a ``torch.Generator``,
+with no host round trip on a card (constants are filled there, not copied
+from the host; the solves skip their error checks, which would read the
+card's result back); the numbers differ from the JAX generators' for the
+same seed, and the two agree only in distribution. ``random_pair_batch`` is
+the one-call homography batch.
 """
 
 from __future__ import annotations
@@ -18,6 +21,12 @@ from typing import Tuple
 import torch
 
 from openglue_tpu_torch.core.types import KeypointSet, PairBatch, Transformation
+
+
+def _constant(device, *values: float) -> torch.Tensor:
+    """A 1-D f32 tensor of ``values`` filled on ``device``: a copy from
+    pageable host memory would wait for the card's queue to drain."""
+    return torch.stack([torch.full((), float(v), device=device) for v in values])
 
 
 def _uniform(gen: torch.Generator, shape, low, high) -> torch.Tensor:
@@ -34,7 +43,7 @@ def solve_homography(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     rows_v = torch.stack([zeros, zeros, zeros, x, y, ones, -v * x, -v * y], dim=-1)
     A = torch.cat([rows_u, rows_v], dim=1)
     b = torch.cat([u, v], dim=1)[..., None]
-    h = torch.linalg.solve(A, b)[..., 0]
+    h = torch.linalg.solve_ex(A, b).result[..., 0]
     return torch.cat([h, torch.ones_like(h[:, :1])], dim=1).reshape(-1, 3, 3)
 
 
@@ -44,7 +53,7 @@ def random_homography(
 ) -> torch.Tensor:
     """[B, 3, 3] homographies from random offsets of the four image corners."""
     w, h = image_size
-    src = torch.tensor([[0.0, 0.0], [w, 0.0], [w, h], [0.0, h]], device=gen.device)
+    src = _constant(gen.device, 0.0, 0.0, w, 0.0, w, h, 0.0, h).reshape(4, 2)
     offsets = _uniform(gen, (batch, 4, 2), -max_corner_offset, max_corner_offset)
     return solve_homography(src.expand(batch, 4, 2), src[None] + offsets)
 
@@ -67,7 +76,7 @@ class SyntheticHomographyPairs:
         n, d = self.num_keypoints, self.descriptor_dim
         device = gen.device
         H = random_homography(gen, batch, self.image_size, self.max_corner_offset)
-        hi = torch.tensor([w - 1.0, h - 1.0], device=device)
+        hi = _constant(device, w - 1.0, h - 1.0)
 
         kpts0 = _uniform(gen, (batch, n, 2), 0.0, 1.0) * hi
         ones = torch.ones(batch, n, 1, device=device)
@@ -97,7 +106,7 @@ class SyntheticHomographyPairs:
             return torch.cat([resp, torch.zeros(batch, n, self.side_info_dim - 1, device=device)], -1)
 
         mask = torch.ones(batch, n, dtype=torch.bool, device=device)
-        image_size = torch.tensor([float(w), float(h)], device=device).expand(batch, 2)
+        image_size = _constant(device, w, h).expand(batch, 2)
         return PairBatch(
             side0=KeypointSet(kpts0, desc0, side_info(), mask, image_size),
             side1=KeypointSet(kpts1, desc1, side_info(), mask.clone(), image_size),
@@ -143,9 +152,7 @@ class SyntheticReprojectionPairs:
 
     def intrinsics(self, device) -> torch.Tensor:
         w, h = self.image_size
-        return torch.tensor(
-            [[self.focal, 0.0, w / 2], [0.0, self.focal, h / 2], [0.0, 0.0, 1.0]], device=device
-        )
+        return _constant(device, self.focal, 0.0, w / 2, 0.0, self.focal, h / 2, 0.0, 0.0, 1.0).reshape(3, 3)
 
     def sample(self, gen: torch.Generator, batch: int) -> PairBatch:
         w, h = self.image_size
@@ -154,9 +161,9 @@ class SyntheticReprojectionPairs:
         K = self.intrinsics(device)
         zmin, zmax = self.depth_range
         depth = _uniform(gen, (batch, n, 1), zmin, zmax)
-        uv = _uniform(gen, (batch, n, 2), 0.0, 1.0) * torch.tensor([w - 1.0, h - 1.0], device=device)
+        uv = _uniform(gen, (batch, n, 2), 0.0, 1.0) * _constant(device, w - 1.0, h - 1.0)
         ones = torch.ones(batch, n, 1, device=device)
-        rays = torch.einsum("ij,bnj->bni", torch.linalg.inv(K), torch.cat([uv, ones], -1))
+        rays = torch.einsum("ij,bnj->bni", torch.linalg.inv_ex(K).inverse, torch.cat([uv, ones], -1))
         points = rays * depth  # camera-0 coordinates
 
         R = _rotation(_uniform(gen, (batch, 3), -self.max_rotation, self.max_rotation))
@@ -192,7 +199,7 @@ class SyntheticReprojectionPairs:
             return torch.cat([resp, torch.zeros(batch, n, self.side_info_dim - 1, device=device)], -1)
 
         mask = torch.ones(batch, n, dtype=torch.bool, device=device)
-        image_size = torch.tensor([float(w), float(h)], device=device).expand(batch, 2)
+        image_size = _constant(device, w, h).expand(batch, 2)
         K_b = K.expand(batch, 3, 3)
         return PairBatch(
             side0=KeypointSet(uv, desc0, side_info(), mask, image_size),
@@ -202,3 +209,22 @@ class SyntheticReprojectionPairs:
                 depth0=depth[..., 0], depth1=depth1,
             ),
         )
+
+
+def random_pair_batch(
+    gen: torch.Generator,
+    batch: int = 2,
+    num_keypoints: int = 512,
+    descriptor_dim: int = 256,
+    side_info_dim: int = 1,
+    image_size: Tuple[int, int] = (960, 720),
+) -> PairBatch:
+    """One homography pair batch in one call (``SyntheticHomographyPairs``
+    with these sizes, sampled from ``gen``)."""
+    pairs = SyntheticHomographyPairs(
+        num_keypoints=num_keypoints,
+        descriptor_dim=descriptor_dim,
+        side_info_dim=side_info_dim,
+        image_size=image_size,
+    )
+    return pairs.sample(gen, batch)

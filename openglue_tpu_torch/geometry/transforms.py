@@ -75,7 +75,7 @@ def reproject_3d(
     [B, H, W]. Returns (projected [B, N, 2], depth-valid [B, N])."""
     depth = depth0 if depth0.dim() == 2 else gather_depth_at_keypoints(depth0, kpts)
     valid = ~torch.isclose(depth, torch.zeros_like(depth))
-    rays = _apply(_homogeneous(kpts), torch.linalg.inv(K0))
+    rays = _apply(_homogeneous(kpts), torch.linalg.inv_ex(K0).inverse)  # no error check: it would read the card
     points = _apply(rays * depth[..., None], R) + T[:, None, :]
     projected = _apply(points, K1)
     return projected[..., :2] / (projected[..., 2:3] + eps), valid

@@ -50,6 +50,7 @@ alone, and no serving or host readings.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import re
 import shutil
@@ -71,6 +72,17 @@ PTXAS_SOURCES = ("gnn_layer", "gnn_layer_features", "gnn_layer_int8", "message_f
 PTXAS_KERNELS = ("feature_attention", "key_features_kernel", "aggregate_kernel", "query_kernel", "attention_bf16",
                  "attn_bwd_dq_bf16", "attn_bwd_dkdv_bf16", "gemm_f32", "tn_gemm_f32", "gemm_bf16", "gemm_s8",
                  "attention_s8", "quant_", "sinkhorn_")
+
+
+def own_profiling():
+    """``openglue_tpu_torch/profiling.py`` of the checkout this script lies
+    in, loaded by its path (it imports only torch), so that every ``--repo``
+    tree is timed by one method, also a tree from before that module."""
+    path = Path(__file__).resolve().parents[1] / "openglue_tpu_torch" / "profiling.py"
+    spec = importlib.util.spec_from_file_location("kernel_times_profiling", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def card_line() -> str:
@@ -434,28 +446,6 @@ def gemm_cases(gen):
     }
 
 
-def device_rounds_ms(fn, rounds: int, calls: int = 20):
-    """Every round's device time of ``calls`` back-to-back calls of ``fn``,
-    in ms per call, by CUDA events recorded after the card has been held busy
-    (``torch.cuda._sleep``, about 20 ms) while the host queues every call: a
-    GEMM alone takes the card less time than its launch takes the host, so
-    events around calls that start at once would time the host."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(rounds):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(40_000_000)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return times
-
-
 def kernel_profile(fn, calls: int = 10):
     """{kernel: {ms_per_call, launches_per_call}} of ``fn``'s device work,
     from torch.profiler over ``calls`` calls."""
@@ -578,6 +568,7 @@ def main() -> int:
     keep = (lambda name: True) if args.only is None else (lambda name: any(o in name for o in args.only))
     with torch.no_grad():
         cases = {**kernel_cases(gen), **gemm_cases(gen)}
+        device_rounds_ms = own_profiling().device_rounds_ms
         times = {name: device_rounds_ms(fn, args.rounds) for name, fn in cases.items() if keep(name)}
         profile = {name: rows for name, rows in profiles(gen).items() if keep(name)}
         host = host_cases(gen) if args.only is None else {}

@@ -1,9 +1,9 @@
 """Run ``chip_smoke.py``'s cached-trainer phases alone on a CUDA card.
 
-    python3 scripts/trainer_phases.py --repo DIR [trainer] [twin] [dp] [checkify] [cp]
+    python3 scripts/trainer_phases.py --repo DIR [trainer] [twin] [dp] [checkify] [cp] [examples]
 
 Imports ``openglue_tpu_torch`` and ``chip_smoke.py`` from the checkout DIR,
-builds the kernels, and runs the named phases in order (all five when none
+builds the kernels, and runs the named phases in order (all six when none
 is named): ``trainer_phase`` (the flagship config as written, its device
 descriptor cache included), ``cache_twin_phase`` (host mode against the
 cache on the same rows), ``data_parallel_phase`` (world 2 over gloo on the
@@ -11,7 +11,9 @@ one card), ``checkify_phase`` (``--checkify`` in a child process) and
 ``context_parallel_phase`` (two ranks over gloo on the one card with a
 model axis of 2: the ring, the all-gather route, the O(N) kinds, remat, the
 metric loss, tensor parallelism and the BatchNorm extractor at data axis 2;
-the flagship's weights drawn as ``chip_smoke.py`` draws them). They share
+the flagship's weights drawn as ``chip_smoke.py`` draws them) and
+``examples_phase`` (the three examples; the pose-AUC one at the flagship
+flags with its launches counted). They share
 one in-memory h5 store and one temporary directory; a phase that fails
 prints its traceback and the next one runs. The last line lists the phases
 that failed.
@@ -29,7 +31,7 @@ from pathlib import Path
 
 import torch
 
-PHASES = ("trainer", "twin", "dp", "checkify", "cp")
+PHASES = ("trainer", "twin", "dp", "checkify", "cp", "examples")
 
 
 def flagship_weights(cs):
@@ -44,7 +46,7 @@ def flagship_weights(cs):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--repo", default=str(Path(__file__).resolve().parents[1]))
-    parser.add_argument("phases", nargs="*", choices=PHASES, help="default: all five")
+    parser.add_argument("phases", nargs="*", choices=PHASES, help="default: all six")
     args = parser.parse_args()
     phases = args.phases or list(PHASES)
     repo = Path(args.repo).resolve()
@@ -66,7 +68,8 @@ def main() -> int:
            "dp": lambda: cs.data_parallel_phase(card, repo, store, work),
            "checkify": lambda: cs.checkify_phase(card, repo, store, work),
            "cp": lambda: cs.context_parallel_phase(card, repo, work, flagship_weights(cs),
-                                                   torch.Generator(device="cuda").manual_seed(0))}
+                                                   torch.Generator(device="cuda").manual_seed(0)),
+           "examples": lambda: cs.examples_phase(card, repo, work)}
     failed = []
     try:
         for name in phases:

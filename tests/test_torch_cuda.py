@@ -1725,3 +1725,22 @@ def test_checked_names_the_kernel_whose_output_holds_a_nan():
     x_q[0, 3, 0] = float("nan")
     with pytest.raises(CheckError, match=r"nan generated by the K4 message_forward kernel \(output 0\)"):
         checked(glk.message_forward)(x_q, x_kv, mask, w, 4, torch.float32)
+
+
+@pytest.mark.cuda
+def test_profiling_times_the_card_by_events():
+    """``profiling.device_timeit`` on CUDA inputs (events around calls queued
+    behind the card's sleep) grows with the work, and ``device_ms`` agrees
+    with it on the larger product within a factor of 2 (the anchor and the
+    perturbation add a few small kernels a call)."""
+    from openglue_tpu_torch.profiling import device_ms, device_timeit
+
+    dev = _cuda()
+    small = torch.randn(256, 256, device=dev)
+    big = torch.randn(4096, 4096, device=dev)
+    t_small = device_timeit(lambda a: a @ a, small)
+    t_big = device_timeit(lambda a: a @ a, big)
+    assert 0 < t_small < t_big
+    assert t_big / 2 <= device_ms(lambda: big @ big) / 1e3 <= 2 * t_big
+    with pytest.raises(ValueError, match="no numeric outputs"):
+        device_timeit(lambda a: (), small)

@@ -298,8 +298,10 @@ def _imports(path):
 
 
 def test_port_sources_import_no_jax():
-    files = list((REPO / "openglue_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = (list((REPO / "openglue_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + list((REPO / "examples").glob("*_torch.py")) + list((REPO / "scripts").glob("*.py")))
     assert REPO / "openglue_tpu_torch" / "parallel" / "ring.py" in files
+    assert REPO / "examples" / "train_pose_auc_synthetic_torch.py" in files
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
