@@ -1372,6 +1372,88 @@ def compare_steps(kernel, plain, m_kernel, m_plain, name, loss_tol, norm_tol, co
     return dict(loss_abs_diff=loss, grad_norm_rel_diff=norm, grad_cosine=cos, bn_stats_max_diff=stats)
 
 
+@contextlib.contextmanager
+def recorded_keypoints(module, record, key):
+    """Record under ``record[key]`` the keypoints a ``MatchingModule``'s
+    forward passes give its matcher: [side 0, side 1] of its last call."""
+    def hook(_, args, out):
+        record[key] = [out[1].side0.keypoints.detach(), out[1].side1.keypoints.detach()]
+
+    handle = module.register_forward_hook(hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+@contextlib.contextmanager
+def f32_ground_truth():
+    """The online step's ground truth computed in f32 whatever its inputs'
+    type, as tests/test_torch_data_parallel.py's f64 step computes it: the
+    homography shifts by whole pixels onto the positive threshold, where f64
+    rounds other pairs in than f32 does."""
+    from openglue_tpu_torch.core.types import map_tensors
+    from openglue_tpu_torch.train import step as step_module
+
+    real = step_module.generate_gt_matches
+    f32 = lambda t: t.to(torch.float32) if torch.is_tensor(t) and t.is_floating_point() else t
+    step_module.generate_gt_matches = lambda *args, **kwargs: real(
+        *[map_tensors(a, f32) for a in args], **{k: f32(v) for k, v in kwargs.items()})
+    try:
+        yield
+    finally:
+        step_module.generate_gt_matches = real
+
+
+@contextlib.contextmanager
+def given_keypoints(keypoints):
+    """SuperPoint selects ``keypoints`` ([image 0's, image 1's], in call
+    order) in place of its own top-k, with their scores from its heatmap as
+    its own selection reads them (zero within the border)."""
+    from openglue_tpu_torch.features import superpoint
+
+    real, calls = superpoint.select_keypoints, iter(keypoints)
+
+    def select(scores, max_keypoints, threshold=0.0, border=4):
+        kpts = next(calls).to(scores.device)
+        b, h, w = scores.shape
+        masked = torch.where(superpoint.remove_borders_mask(h, w, border, scores.device)[None], scores, 0.0)
+        top = torch.gather(masked.reshape(b, h * w), 1, (kpts[..., 1] * w + kpts[..., 0]).long())
+        return kpts.float(), top, top > threshold
+
+    superpoint.select_keypoints = select
+    try:
+        yield
+    finally:
+        superpoint.select_keypoints = real
+
+
+def distance_from_exact(model, metrics, exact, metrics_exact):
+    """An f32 step's gradients against an f64 step's from the same state and
+    batch: the gradient norm's relative distance, the cosine, the whole
+    gradient's relative L2 distance, and the tensor farthest from its f64
+    gradient by relative L2 distance (tensors whose f64 gradient is below
+    1e-6 of the whole's norm, zero in exact arithmetic, are left out of that
+    one) and by largest element."""
+    a, b = flat_grads(model), flat_grads(exact)
+    whole = b.norm().item()
+    per_tensor, per_element = {}, {}
+    for (name, p), (_, q) in zip(model.named_parameters(), exact.named_parameters()):
+        if p.grad is None:
+            continue
+        diff = p.grad.double() - q.grad
+        if q.grad.norm().item() >= 1e-6 * whole:
+            per_tensor[name] = (diff.norm() / q.grad.norm()).item()
+        per_element[name] = diff.abs().max().item()
+    far = max(per_tensor, key=per_tensor.get)
+    far_element = max(per_element, key=per_element.get)
+    return dict(norm=abs(metrics["grad_norm"].item() / metrics_exact["grad_norm"].item() - 1),
+                cos=(a @ b / (a.norm() * b.norm())).item(), rel_l2=((a - b).norm() / whole).item(),
+                loss=abs(metrics["total_loss"].item() - metrics_exact["total_loss"].item()),
+                farthest_tensor=far, farthest_tensor_rel_l2=per_tensor[far],
+                largest_element_tensor=far_element, largest_element_diff=per_element[far_element])
+
+
 def make_request(SyntheticHomographyPairs, gen, batch, n, counts0, counts1, descriptor_dim=DESCRIPTOR_DIM):
     """Synthetic pairs padded as a bucketed server pads them: keypoints beyond
     each image's valid count are zeros with mask False."""
@@ -3457,7 +3539,7 @@ def cp_online_module_config():
             "train": {"finetune_features_extractor": True}}
 
 
-def context_parallel_rank(rank: int, port: int, work: str, device: str = "cuda") -> None:
+def context_parallel_rank(rank: int, port: int, work: str, device: str = "cuda", f64_witness: bool = False) -> None:
     """One rank of ``context_parallel_phase``, in a process of its own, on
     card 0 in a gloo group of CP_WORLD ranks: every way the port shards the
     matcher over a model axis of CP_WORLD at the flagship's width with an
@@ -3468,7 +3550,9 @@ def context_parallel_rank(rank: int, port: int, work: str, device: str = "cuda")
     holds each run against the same model at world 1 on the same card (the
     first run's outputs, or the step from the same weights on the global
     batch) and the ranks' parameters after each step are held equal bit for
-    bit. Each rank writes its readings to ``cp{rank}.pt``."""
+    bit. With ``f64_witness`` rank 0 also holds both BatchNorm fine-tuning
+    steps, world 2's and world 1's, against the world-1 step in f64
+    (``exact`` below). Each rank writes its readings to ``cp{rank}.pt``."""
     import torch.distributed as dist
 
     from openglue_tpu_torch import parallel
@@ -3565,15 +3649,21 @@ def context_parallel_rank(rank: int, port: int, work: str, device: str = "cuda")
 
         return hold
 
-    def hold_step(state, reference):
+    def hold_step(state, reference, exact=None):
         """The step's gradients, statistics and metrics against the same step
         at world 1 (``reference()``: its state and metrics, on rank 0), and
-        the ranks' parameters equal."""
+        the ranks' parameters equal. ``exact(metrics, ref_state,
+        ref_metrics)`` reads both steps' distances from an f64 step."""
         def hold(name, metrics):
             params_equal(state.model, name)
             if rank != 0:
+                if exact is not None:  # rank 0's f64 step needs the card's memory
+                    torch.cuda.empty_cache()
                 return
             ref_state, ref_metrics = reference()
+            if exact is not None:
+                torch.cuda.empty_cache()
+                records[name]["vs_f64"] = exact(metrics, ref_state, ref_metrics)
             a, b = flat_grads(state.model), flat_grads(ref_state.model)
             x = dict(loss=abs(metrics["total_loss"].item() - ref_metrics["total_loss"].item()),
                      norm=abs(metrics["grad_norm"].item() / ref_metrics["grad_norm"].item() - 1),
@@ -3654,18 +3744,105 @@ def context_parallel_rank(rank: int, port: int, work: str, device: str = "cuda")
     step = parallel.shard_train_step(raw, data_mesh)
     state = online_state(module())
 
+    seen = {}  # each step's keypoints, extractor maps (rank 0's rows) and matcher's ReLU gates
+
+    @contextlib.contextmanager
+    def recorded(model, key, force=None):
+        """Record the step's keypoints, maps and ReLU gates under ``key``;
+        ``force``: (keypoints, gates) of another step for this one to take."""
+        if not f64_witness:
+            yield
+            return
+        maps, seen[key + " maps"] = model.extractor.maps, []
+
+        def recorded_maps(image):
+            out = maps(image)
+            seen[key + " maps"].append([t.detach() for t in out])
+            return out
+
+        model.extractor.maps = recorded_maps
+        try:
+            with (given_keypoints(force[0]) if force else contextlib.nullcontext()), \
+                    recorded_keypoints(model, seen, key), \
+                    relu_gates(model.superglue, glk, force=force[1] if force else None) as gates:
+                yield
+        finally:
+            model.extractor.maps = maps
+        seen[key + " gates"] = gates
+
+    def world2_step():
+        with recorded(state.model, "world2"):
+            metrics = step(state, parallel.shard_batch(online, data_mesh))
+        if f64_witness and "world2 global" not in seen:  # every rank's rows, for rank 0's f64 step on them
+            data_group = data_mesh.get_group(parallel.DATA_AXIS)
+            seen["world2 global"] = [[all_gather(t, data_group, dim=0) for t in seen["world2" + part]]
+                                     for part in ("", " gates")]
+        return metrics
+
     def reference():
         ref_state = online_state(module())
-        return ref_state, raw(ref_state, online)
+        with recorded(ref_state.model, "world1"):
+            return ref_state, raw(ref_state, online)
 
-    counted(name, lambda: step(state, parallel.shard_batch(online, data_mesh)),
-            {"K4": layers, "K5": layers, "K2": 1, "K3": 1}, hold_step(state, reference))
+    def f64_step(force=None):
+        """The world-1 step in f64: the matcher on its plain path, the ground
+        truth in f32 as in the f32 step, on its own keypoints and ReLU gates
+        or on ``force``'s (another step's)."""
+        m64 = MatchingModule(dataclasses.replace(module_config, superglue=dataclasses.replace(
+            module_config.superglue, use_pallas=False)), device=device)
+        m64.load_state_dict(given["online_weights"])
+        state64 = online_state(m64.double())
+        # the backbone's f64 activations take about 24 GB an image batch at
+        # B=12 960x720: keep none, recompute them in the backward (the
+        # gradients are the same; the BatchNorms' running statistics move twice)
+        maps = m64.extractor.maps
+        m64.extractor.maps = lambda image: torch.utils.checkpoint.checkpoint(maps, image, use_reentrant=False)
+        with recorded(m64, "f64", force), f32_ground_truth(), f64_floats():
+            return m64, raw(state64, {k: to_f64(v) for k, v in online.items()})
+
+    def exact(metrics, ref_state, ref_metrics):
+        """Both f32 steps (world 2's, ``state``, and world 1's) against the
+        world-1 step in f64, free and on each f32 step's own keypoints and
+        ReLU gates: the rounding moves keypoints across near ties of the
+        selection (often only their order) and gates within rounding of 0,
+        and a moved gate moves the gradient by more than rounding. Also the
+        extractor's maps of rank 0's rows against the free f64 step's
+        (relative L2, descriptors and scores)."""
+        rows = slice(0, online["image0"].shape[0] // CP_WORLD)  # rank 0's rows of the global batch
+        steps = {"world1": (ref_state.model, ref_metrics, [seen["world1"], seen["world1 gates"]], rows),
+                 "world2": (state.model, metrics, seen["world2 global"], slice(None))}
+        m64, metrics64 = f64_step()
+        out = {"grad_norm_f64": metrics64["grad_norm"].item(), "free": {}, "on its own keypoints and gates": {}}
+        for world, (model, m, force, part) in steps.items():
+            out["free"][world] = dict(
+                distance_from_exact(model, m, m64, metrics64),
+                maps_rel_l2_rows_of_rank_0=[max(((ours[i][part].double() - ref[i][rows]).norm()
+                                                 / ref[i][rows].norm()).item()
+                                                for ours, ref in zip(seen[world + " maps"], seen["f64 maps"]))
+                                            for i in range(2)],
+                keypoints_in_other_places=sum(int((a != b).any(-1).sum()) for a, b in zip(force[0], seen["f64"])),
+                gates_other=sum(int((a != b).sum()) for a, b in zip(force[1], seen["f64 gates"])))
+        del m64
+        for world, (model, m, force, _) in steps.items():
+            torch.cuda.empty_cache()
+            m64, metrics64 = f64_step(force)
+            out["on its own keypoints and gates"][world] = dict(
+                distance_from_exact(model, m, m64, metrics64),
+                gates_f64_would_take_otherwise=sum(int((a != b).sum()) for a, b in zip(force[1], seen["f64 gates"])))
+            del m64
+        torch.cuda.empty_cache()
+        print(f"context_parallel {name}: both f32 steps against the world-1 step in f64: {json.dumps(out)}",
+              flush=True)
+        return out
+
+    counted(name, world2_step, {"K4": layers, "K5": layers, "K2": 1, "K3": 1},
+            hold_step(state, reference, exact if f64_witness else None))
     torch.save(records, work / f"cp{rank}.pt")
     parallel.barrier()
     dist.destroy_process_group()
 
 
-def context_parallel_phase(card, repo: Path, work: Path, weights, gen):
+def context_parallel_phase(card, repo: Path, work: Path, weights, gen, f64_witness: bool = False):
     """Keypoint-axis context parallelism and tensor parallelism across two
     ranks: CP_WORLD processes (``context_parallel_rank``) on card 0 in a
     gloo group, the first two-rank rotations of the ring on the card. First
@@ -3715,7 +3892,8 @@ def context_parallel_phase(card, repo: Path, work: Path, weights, gen):
     torch.cuda.empty_cache()  # the ranks share card 0 with this process: its cached blocks go back
     port = free_port()
     code = (f"import sys; sys.path.insert(0, {str(repo)!r}); import chip_smoke; "
-            f"chip_smoke.context_parallel_rank(int(sys.argv[1]), {port}, {str(work)!r})")
+            f"chip_smoke.context_parallel_rank(int(sys.argv[1]), {port}, {str(work)!r}, "
+            f"f64_witness={f64_witness})")
     results = run_ranks([(["timeout", str(CP_TIMEOUT), sys.executable, "-c", code, str(r)], env)
                          for r in range(CP_WORLD)], CP_TIMEOUT + 15, work / "cp_logs")
     for r, (rc, out) in enumerate(results):
@@ -3731,9 +3909,10 @@ def context_parallel_phase(card, repo: Path, work: Path, weights, gen):
         per_rank = "; ".join(f"rank {r}: host ms {', '.join(f'{ms:.3f}' for ms in x[name]['ms'])} {order}, "
                              f"bytes {json.dumps(x[name]['bytes'])}" for r, x in enumerate(ranks))
         extra = f", TP shard of the model {rec['model_bytes']} bytes a rank" if "model_bytes" in rec else ""
+        exact = f"; both steps against world 1's in f64 {json.dumps(rec['vs_f64'])}" if "vs_f64" in rec else ""
         print(f"context_parallel {name} (gloo, {CP_WORLD} ranks on card 0): launches per rank "
               f"{json.dumps(rec['launches'] or {'none': 0})}{extra}; {per_rank}; against world 1 "
-              f"{json.dumps(rec.get('vs_world1'))} [{card}]", flush=True)
+              f"{json.dumps(rec.get('vs_world1'))}{exact} [{card}]", flush=True)
     print(f"context_parallel: step bars {json.dumps(CP_STEP_BARS)}, serving bars {LOG_P_NATS} nats and "
           f"{DECODE_AGREEMENT} decode agreement; the ranks' parameters equal bit for bit after every step; the "
           f"phase {time.perf_counter() - start:.1f} s [{card}]", flush=True)

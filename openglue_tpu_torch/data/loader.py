@@ -7,14 +7,24 @@ lock) and run the collate, so that they share the dataset's image cache;
 batches come out in sampler order, and a bounded admission window keeps at
 most ``prefetch + num_workers`` batches ahead of the consumer. Exceptions
 raised by a worker or by the sampler are raised in the consumer.
+
+A dataset draws its random crops and warps from its generator ``rng``.
+Without workers the batches draw from it in turn. Worker threads would
+draw from it in whatever order they run, so each batch draws from a
+generator of its own instead, seeded by one draw of the dataset's at the
+start of the pass and by the batch's place in the sampler's order: the
+batches are the same however the threads are scheduled.
 """
 
 from __future__ import annotations
 
+import copy
 import itertools
 import queue
 import threading
 from typing import Callable, Iterable, Iterator, Optional
+
+import numpy as np
 
 _SENTINEL = object()
 
@@ -98,6 +108,8 @@ class DataLoader:
         # every slot while the next-needed seq's worker blocks).
         window = self.prefetch + self.num_workers
         consumed = [0]
+        # the seed of the batches' generators (module docstring)
+        draws_seed = int(self.dataset.rng.integers(1 << 63)) if hasattr(self.dataset, "rng") else None
 
         # Order-preserving: one dispatcher assigns sequence numbers; a single
         # reorder buffer emits in order.
@@ -135,6 +147,7 @@ class DataLoader:
                     put_checking_stop(_SENTINEL)
 
         def worker():
+            dataset = copy.copy(self.dataset)  # this thread's view: its own rng, the caches shared
             while not stop.is_set():
                 try:
                     item = idx_q.get(timeout=0.1)
@@ -151,8 +164,10 @@ class DataLoader:
                         results_cv.wait(timeout=0.1)
                 if stop.is_set():
                     return
+                if draws_seed is not None:
+                    dataset.rng = np.random.default_rng([draws_seed, seq])
                 try:
-                    batch = self.collate_fn([self.dataset[i] for i in idx_batch], **kwargs)
+                    batch = self.collate_fn([dataset[i] for i in idx_batch], **kwargs)
                 except Exception as exc:  # propagate to consumer
                     batch = exc
                 with results_cv:

@@ -1,6 +1,6 @@
 """Run ``chip_smoke.py``'s cached-trainer phases alone on a CUDA card.
 
-    python3 scripts/trainer_phases.py --repo DIR [trainer] [twin] [dp] [checkify] [cp] [examples]
+    python3 scripts/trainer_phases.py --repo DIR [trainer] [twin] [dp] [checkify] [cp] [examples] [cp_f64]
 
 Imports ``openglue_tpu_torch`` and ``chip_smoke.py`` from the checkout DIR,
 builds the kernels, and runs the named phases in order (all six when none
@@ -13,7 +13,10 @@ model axis of 2: the ring, the all-gather route, the O(N) kinds, remat, the
 metric loss, tensor parallelism and the BatchNorm extractor at data axis 2;
 the flagship's weights drawn as ``chip_smoke.py`` draws them) and
 ``examples_phase`` (the three examples; the pose-AUC one at the flagship
-flags with its launches counted). They share
+flags with its launches counted). ``cp_f64``, run only when named, is
+``cp`` with the BatchNorm step's f64 witness: rank 0 holds the world-2 and
+world-1 steps against the world-1 step in f64, free and on each step's own
+keypoints and ReLU gates (about 40 s more). They share
 one in-memory h5 store and one temporary directory; a phase that fails
 prints its traceback and the next one runs. The last line lists the phases
 that failed.
@@ -46,7 +49,7 @@ def flagship_weights(cs):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--repo", default=str(Path(__file__).resolve().parents[1]))
-    parser.add_argument("phases", nargs="*", choices=PHASES, help="default: all six")
+    parser.add_argument("phases", nargs="*", choices=PHASES + ("cp_f64",), help="default: all six")
     args = parser.parse_args()
     phases = args.phases or list(PHASES)
     repo = Path(args.repo).resolve()
@@ -69,6 +72,9 @@ def main() -> int:
            "checkify": lambda: cs.checkify_phase(card, repo, store, work),
            "cp": lambda: cs.context_parallel_phase(card, repo, work, flagship_weights(cs),
                                                    torch.Generator(device="cuda").manual_seed(0)),
+           "cp_f64": lambda: cs.context_parallel_phase(card, repo, work, flagship_weights(cs),
+                                                       torch.Generator(device="cuda").manual_seed(0),
+                                                       f64_witness=True),
            "examples": lambda: cs.examples_phase(card, repo, work)}
     failed = []
     try:

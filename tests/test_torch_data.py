@@ -4,6 +4,7 @@ CPU: the same fixture files and seeds give equal arrays, bit for bit."""
 
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import ml_dtypes
@@ -326,6 +327,48 @@ def test_loader_raises_in_the_consumer_like_jax(workers, source):
         with pytest.raises(RuntimeError, match=match):
             next(it)
         assert len(got) == before
+
+
+class _RacingDraws:
+    """Each sample one draw from the dataset's generator ``rng``; sample
+    ``late`` holds its draw until the other of the first two has drawn (or
+    half a second has passed), so that two loader threads meet here in the
+    order ``late`` sets."""
+
+    def __init__(self, late):
+        self.rng = np.random.default_rng(0)
+        self.late, self.other_drew = late, threading.Event()
+
+    def __len__(self):
+        return 4
+
+    def __getitem__(self, idx):
+        if idx == self.late:
+            self.other_drew.wait(timeout=0.5)
+        draw = int(self.rng.integers(1 << 30))
+        if idx == 1 - self.late:
+            self.other_drew.set()
+        return draw
+
+
+@pytest.mark.parametrize("dataset", ["racing draws", "cached features, random crop"])
+def test_loader_threads_draw_the_same_batches_whatever_their_order(root, dataset):
+    """With worker threads each batch draws from a generator of its own
+    (seeded from the dataset's and its place in the sampler's order), so the
+    batches do not depend on which thread draws first (a world-2 trainer's
+    batches once did, and with them its distance from world 1)."""
+    def batches(late):
+        if dataset == "racing draws":
+            return list(loader.DataLoader(_RacingDraws(late), batch_size=1, collate_fn=list, num_workers=2))
+        ds = megadepth.MegaDepthPairsDatasetFeatures(root, "features_cache", SCENES, target_size=TARGET_CACHED,
+                                                     random_crop=True, seed=1)
+        # a crop moves the principal point by its offset and drops keypoints
+        col = lambda s: [(*x["transformation"]["K0"][:2, 2].tolist(), *x["transformation"]["K1"][:2, 2].tolist(),
+                          len(x["lafs0"]), len(x["lafs1"])) for x in s]
+        return list(loader.DataLoader(ds, batch_size=2, collate_fn=col, sampler=range(len(ds)), num_workers=3,
+                                      drop_last=False))
+
+    assert batches(0) == batches(1)
 
 
 def test_loader_with_the_cached_dataset_matches_jax(root):

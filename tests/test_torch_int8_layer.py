@@ -13,12 +13,13 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from openglue_tpu.models import superglue as jax_superglue
 from openglue_tpu.models.superglue import SuperGlue as JaxSuperGlue
 from openglue_tpu.models.superglue import SuperGlueConfig as JaxConfig
 from openglue_tpu.ops.pallas import force_fused_dispatch
 from openglue_tpu.ops.pallas import gnn_layer_int8 as jax_gli8
 from openglue_tpu.ops.pallas import gnn_layer_kernel as jax_glk
-from openglue_tpu_torch.compat.jax_weights import superglue_state_dict_from_jax
+from openglue_tpu_torch.compat.jax_weights import jax_variables_from_state_dict, superglue_state_dict_from_jax
 from openglue_tpu_torch.data.synthetic import SyntheticHomographyPairs
 from openglue_tpu_torch.models import matching
 from openglue_tpu_torch.models.gnn import AttentionalPropagation
@@ -308,6 +309,48 @@ def test_static_serving_matches_jax_with_its_calibration_carried_across():
     diff = np.abs(out["scores"].numpy() - np.asarray(ref["scores"]))[valid]
     assert diff.max() <= 0.05
     agree = (out["decode_indices0"].numpy() == np.asarray(ref["decode_indices0"]))[inputs["mask0"].numpy()]
+    assert agree.mean() >= 0.97
+
+
+def test_static_calibration_over_several_passes_matches_jax(monkeypatch):
+    """Three calibration passes on three batches: JAX applies the model three
+    times with ``mutable=["int8_calib"]`` (the running max carried from pass
+    to pass), the port calls ``calibrate`` three times. Every layer's
+    act_absmax agrees (1e-5 relative: the passes serve through the dynamic
+    path, whose roundings feed the next layer's sites), and so does the
+    static forward that follows, within the bars of the test above. JAX's
+    Sinkhorn runs its plain reference here (the int8 layers run its Pallas
+    kernels in interpret mode), which halves the test's compile time."""
+    monkeypatch.setattr(jax_superglue, "_pallas_ot_shape", lambda S: False)
+    cfg_kwargs = dict(MODEL, num_stages=1, quantize="int8_static", decode_stats=True)
+    cfg = SuperGlueConfig(**cfg_kwargs)
+    batches = [superglue_inputs(SyntheticHomographyPairs(num_keypoints=32, descriptor_dim=64).sample(
+        torch.Generator().manual_seed(seed), 2)) for seed in (5, 6, 7)]
+    model = SuperGlue(cfg, device="cpu", generator=torch.Generator().manual_seed(1)).eval()
+    variables = jax.tree_util.tree_map(jnp.asarray, jax_variables_from_state_dict(model.state_dict(), cfg))
+    jmodel = JaxSuperGlue(JaxConfig(**cfg_kwargs))
+    calibrate = jax.jit(lambda v, x: jmodel.apply(v, **x, mutable=["int8_calib"])[1])
+    force_fused_dispatch(True)
+    try:
+        for inputs in batches:
+            jinputs = {k: jnp.asarray(v.numpy()) for k, v in inputs.items()}
+            variables = {**variables, **dict(calibrate(variables, jinputs))}
+            model.calibrate(**inputs)
+        ref = jax.jit(jmodel.apply)(variables, **jinputs)
+    finally:
+        force_fused_dispatch(False)
+    names = [f"{kind}_{i}" for i in range(cfg.num_stages) for kind in ("self", "cross")]
+    for name, layer in zip(names, model.attention_gnn.layers):
+        want = np.asarray(variables["int8_calib"]["attention_gnn"][name]["act_absmax"])
+        assert (want > 0).all()
+        np.testing.assert_allclose(layer.module.act_absmax.numpy(), want, rtol=1e-5, err_msg=name)
+    with torch.no_grad():
+        out = model(**inputs)
+    mask0, mask1 = inputs["mask0"], inputs["mask1"]
+    valid = (torch.cat([mask0, torch.ones(2, 1, dtype=torch.bool)], 1)[:, :, None]
+             & torch.cat([mask1, torch.ones(2, 1, dtype=torch.bool)], 1)[:, None, :]).numpy()
+    assert np.abs(out["scores"].numpy() - np.asarray(ref["scores"]))[valid].max() <= 0.05
+    agree = (out["decode_indices0"].numpy() == np.asarray(ref["decode_indices0"]))[mask0.numpy()]
     assert agree.mean() >= 0.97
 
 
